@@ -1,0 +1,24 @@
+"""IM-PIR on PyTorch + CUDA: the port of ``repro`` to an NVIDIA H100.
+
+The package mirrors ``repro``'s module names so each counterpart is easy
+to find (``repro_torch/core/dpf.py`` <-> ``repro/core/dpf.py``), but it
+imports neither JAX nor anything of ``repro``: only the tests import both.
+
+Slice ported so far: the paper's two-server XOR scheme (``xor-dpf-2``)
+served end to end on one device, with the two TPU kernels on its path
+rewritten as hand-written CUDA C++ for Hopper (``csrc/``):
+
+  kernels/dpxor.py       select-XOR scan            (csrc/dpxor.cu)
+  kernels/fused_scan.py  fused GGM-expand + scan    (csrc/fused_scan_xor.cu)
+
+Entry points (``runtime.serve_loop.TwoServerPIR``, ``core.server.PIRServer``,
+``kernels.ops``) run on the card unless the caller passes ``device="cpu"``;
+without a card they raise instead of falling back. Run the quickstart twin
+with ``python -m repro_torch.quickstart``.
+
+Integer words: torch has no CPU arithmetic for ``uint32``, so every u32
+quantity of the reference (DB words, seeds, bits) is carried as ``int32``
+with the same bit pattern. Add, xor, and and left shift wrap identically;
+right shifts are masked (``crypto/chacha.py``). ``convert`` moves numpy
+``uint32`` arrays in and out.
+"""

@@ -1,0 +1,36 @@
+"""Carry state from the reference into the port.
+
+Tests feed identical inputs to both packages: the reference's keys and
+database leave JAX as numpy ``uint32`` arrays, and these functions turn
+them into the port's int32 tensors with the same bits. Nothing here
+imports the reference.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.dpf import DPFKey
+from repro_torch.crypto.packing import words_to_tensor
+
+
+def keys_from_reference(*, party: int, log_n: int, root_seed: np.ndarray,
+                        cw_seed: np.ndarray, cw_t: np.ndarray,
+                        cw_final: Optional[np.ndarray] = None,
+                        rounds: int = 12) -> DPFKey:
+    """A port key (on the CPU) from numpy copies of a reference
+    ``DPFKey``'s fields (batched or not: leading axes are kept)."""
+    conv = lambda a: words_to_tensor(np.asarray(a, np.uint32))
+    return DPFKey(party=int(party), log_n=int(log_n),
+                  root_seed=conv(root_seed), cw_seed=conv(cw_seed),
+                  cw_t=conv(cw_t),
+                  cw_final=None if cw_final is None else conv(cw_final),
+                  rounds=int(rounds))
+
+
+def database_from_reference(db_words: np.ndarray) -> torch.Tensor:
+    """The reference's ``[N, W]`` uint32 database as the port's int32
+    words tensor (on the CPU)."""
+    return words_to_tensor(np.asarray(db_words, np.uint32))

@@ -1,0 +1,167 @@
+"""PIR server of one party on one device (port of ``repro/core/server.py``).
+
+The reference shards the DB over a TPU mesh and compiles one ``shard_map``
+serve step per batch bucket. This slice runs on one device: the whole DB
+is one shard (``start_block = 0``), there is no collective, and PyTorch
+runs eagerly, so a bucket's "step" is its resolved plan applied through
+the protocol's ``answer_local``. Ragged batches still pad up to the
+smallest covering bucket, and batches past the largest bucket are
+chunked, exactly as upstream.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.config import PIRConfig
+from repro_torch.core import dpf
+from repro_torch.core import protocol as protocol_mod
+from repro_torch.core.protocol import ExecutionPlan, PIRProtocol
+from repro_torch.db import Database
+from repro_torch.engine.backend import Device, backend_of
+
+
+def bucket_for(buckets: Sequence[int], n: int) -> int:
+    """The padding rule: smallest bucket >= n, else the largest (the
+    caller then chunks). ``buckets`` must be sorted ascending."""
+    for b in buckets:
+        if b >= n:
+            return b
+    return buckets[-1]
+
+
+def default_buckets(n_clusters: int = 1, max_bucket: int = 32
+                    ) -> Tuple[int, ...]:
+    """Power-of-two batch buckets from ``n_clusters`` up to ``max_bucket``."""
+    n_clusters = max(n_clusters, 1)
+    b, out = n_clusters, []
+    while b <= max(max_bucket, n_clusters):
+        out.append(b)
+        b *= 2
+    return tuple(out)
+
+
+class BucketedServeFns:
+    """Per-bucket plans of one party, and the padded answer dispatch.
+
+    ``path=None`` resolves each bucket's plan through ``plan_for`` for the
+    database's backend, so small and large buckets may take different
+    kernel paths; plans are resolved once per bucket and cached.
+    """
+
+    def __init__(self, cfg: PIRConfig, *, buckets: Sequence[int],
+                 backend: str, path: Optional[str] = None,
+                 protocol: Optional[PIRProtocol] = None, chunk_log: int = 12):
+        if not buckets:
+            raise ValueError("need at least one bucket")
+        self.cfg = cfg
+        self.backend = backend
+        self.path = path
+        self.chunk_log = chunk_log
+        self.protocol = (protocol if protocol is not None
+                         else protocol_mod.for_config(cfg))
+        self.buckets = tuple(sorted(set(buckets)))
+        self.log_local = cfg.log_n
+        self._plans: Dict[int, ExecutionPlan] = {}
+
+    def bucket_for(self, n: int) -> int:
+        return bucket_for(self.buckets, n)
+
+    def plan_for_bucket(self, bucket: int) -> ExecutionPlan:
+        if bucket not in self._plans:
+            self._plans[bucket] = protocol_mod.resolve_plan(
+                self.path, self.cfg, bucket, backend=self.backend,
+                chunk_log=self.chunk_log)
+        return self._plans[bucket]
+
+    def stage(self, keys: dpf.DPFKey, device: torch.device) -> dpf.DPFKey:
+        """Copy a batch to ``device`` ahead of dispatch (``answer`` pads)."""
+        if device.type == "cuda":
+            pinned = dpf.map_keys(keys, lambda x: x.contiguous().pin_memory())
+            return pinned.to(device, non_blocking=True)
+        return keys.to(device)
+
+    def answer(self, db: Union[torch.Tensor, Database], keys: dpf.DPFKey
+               ) -> torch.Tensor:
+        """Answer a batch of any size: exactly ``[Q, W]`` shares (async on
+        the card)."""
+        if isinstance(db, Database):
+            db = db.view(self.protocol.db_view)
+        keys = keys.to(db.device)               # no copy once staged
+        q = self.protocol.n_queries(keys)
+        max_b = self.buckets[-1]
+        if q <= max_b:
+            return self._answer_one(db, keys)
+        parts = [self._answer_one(
+                     db, dpf.map_keys(keys, lambda x: x[lo:lo + max_b]))
+                 for lo in range(0, q, max_b)]
+        return torch.cat(parts, dim=0)
+
+    def _answer_one(self, db: torch.Tensor, keys: dpf.DPFKey) -> torch.Tensor:
+        q = self.protocol.n_queries(keys)
+        bucket = self.bucket_for(q)
+        keys = self.protocol.pad(keys, bucket)
+        return self.protocol.answer_local(
+            db, keys, 0, self.log_local, self.plan_for_bucket(bucket))[:q]
+
+
+class PIRServer:
+    """One logical PIR server (one of the non-colluding parties).
+
+    References a :class:`Database` (shared across parties: its contents
+    are public) and owns that party's per-bucket plans. ``db_words`` (a
+    host array, placed into a private ``Database`` on ``device``) is the
+    legacy construction path; new code passes ``database=``.
+    """
+
+    def __init__(self, party: int, db_words: Optional[np.ndarray] = None,
+                 cfg: Optional[PIRConfig] = None, *,
+                 database: Optional[Database] = None, device: Device = None,
+                 n_queries: int = 32, path: Optional[str] = None,
+                 buckets: Optional[Sequence[int]] = None,
+                 protocol: Optional[PIRProtocol] = None):
+        if (db_words is None) == (database is None):
+            raise ValueError("pass exactly one of db_words= (host array) or "
+                             "database= (Database)")
+        if cfg is None:
+            raise ValueError("cfg= is required")
+        if database is None:
+            database = Database(db_words, cfg, device)
+        elif device is not None and torch.device(device) != database.device:
+            raise ValueError(f"database lives on {database.device}, not "
+                             f"{device}")
+        if database.spec.n_items != cfg.n_items or \
+                database.spec.item_bytes != cfg.item_bytes:
+            raise ValueError(f"database spec {database.spec} does not match "
+                             f"the config")
+        self.party = party
+        self.cfg = cfg
+        self.db = database
+        self.device = database.device
+        if buckets is None:
+            buckets = default_buckets(max_bucket=max(n_queries, 1))
+        if n_queries not in buckets:
+            buckets = tuple(sorted(set(buckets) | {n_queries}))
+        self.bucketed = BucketedServeFns(
+            cfg, buckets=buckets, backend=backend_of(self.device), path=path,
+            protocol=protocol)
+        self.protocol = self.bucketed.protocol
+
+    @property
+    def buckets(self) -> Tuple[int, ...]:
+        return self.bucketed.buckets
+
+    def plan_report(self) -> Dict[int, str]:
+        """``{bucket: plan name}`` for every bucket."""
+        return {b: self.bucketed.plan_for_bucket(b).name
+                for b in self.buckets}
+
+    def stage_keys(self, keys: dpf.DPFKey) -> dpf.DPFKey:
+        """Pad a key batch and upload it ahead of dispatch (pipelining)."""
+        return self.bucketed.stage(keys, self.device)
+
+    def answer(self, keys: dpf.DPFKey) -> torch.Tensor:
+        """Answer a batch of queries: exactly ``[Q, W]`` answer shares."""
+        return self.bucketed.answer(self.db, keys)

@@ -1,0 +1,57 @@
+"""``DatabaseSpec``: shape math for one PIR database (``repro/db/spec.py``).
+
+This slice serves the ``words`` view only (u32 words, the XOR scan's
+operand) and has no checksum column; the byte views and verified
+reconstruction come with the slices that need them.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+
+from repro_torch.config import PIRConfig
+
+VIEWS = ("words",)
+
+
+@dataclass(frozen=True)
+class DatabaseSpec:
+    """Shape math for one PIR database (N records x L bytes)."""
+
+    n_items: int
+    item_bytes: int = 32
+
+    def __post_init__(self):
+        if self.n_items <= 0 or self.n_items & (self.n_items - 1):
+            raise ValueError(
+                f"n_items must be a power of two (GGM tree domain), "
+                f"got {self.n_items}")
+        if self.item_bytes % 4:
+            raise ValueError(
+                f"item_bytes must be a multiple of 4 (u32 words), "
+                f"got {self.item_bytes}")
+
+    @classmethod
+    def from_config(cls, cfg: PIRConfig) -> "DatabaseSpec":
+        if cfg.checksum:
+            raise ValueError("checksummed databases are not ported yet")
+        return cls(n_items=cfg.n_items, item_bytes=cfg.item_bytes)
+
+    @property
+    def item_words(self) -> int:
+        return self.item_bytes // 4
+
+    def view_shape(self, view: str) -> Tuple[int, int]:
+        if view not in VIEWS:
+            raise KeyError(f"unknown db view {view!r}; known: {list(VIEWS)}")
+        return (self.n_items, self.item_words)
+
+    def validate_words(self, db_words: np.ndarray) -> np.ndarray:
+        arr = np.asarray(db_words)
+        if arr.shape != self.view_shape("words") or arr.dtype != np.uint32:
+            raise ValueError(
+                f"db_words must be {self.view_shape('words')} uint32, got "
+                f"{arr.shape} {arr.dtype}")
+        return arr

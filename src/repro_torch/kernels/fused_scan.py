@@ -1,0 +1,146 @@
+"""Fused GGM-expand + select-XOR scan: the CUDA kernel, its op, and its
+plain version.
+
+Port of the XOR half of ``repro/kernels/fused_scan.py``
+(``_fused_xor_kernel`` with ``_expand_tile``, ``_interleave`` and
+``ggm_expand.py _chacha_rows``). Inputs are per-chunk GGM subtree roots
+(``dpf.eval_roots_batch``) and the last ``clog`` levels of correction
+words; the kernel expands each chunk's ``2^clog`` leaf bits and folds the
+selected DB rows at once, so the selection vector never reaches memory.
+
+The Pallas kernel streams ``[W, tile_r]`` DB tiles through rotating VMEM
+buffers and expands each tile breadth-first. On the GPU one thread owns
+one (query, chunk root) and walks its subtree depth-first with ChaCha's
+state in registers — see ``csrc/fused_scan_xor.cu`` for the design and
+its bound. There is no DMA tile, so the reference's ``tile_r``/``depth``
+do not reach the kernel; ``ops.fused_tile`` still legalizes ``chunk_log``
+against ``tile_r`` exactly as the reference does.
+
+``fused_scan_xor`` dispatches on the tensors' device: CUDA launches the
+kernel (or raises), CPU takes ``fused_scan_xor_plain``; ``count`` tallies.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.crypto.chacha import chacha_block
+from repro_torch.kernels import build
+from repro_torch.kernels.dpxor import xor_fold
+
+count = build.KernelCount()
+
+#: leaves per step of the plain version (bounds its expansion temporaries)
+_PLAIN_LEAVES = 1 << 24
+
+
+def _interleave(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """``[Q, m, ...]`` x2 -> ``[Q, 2m, ...]``, children in leaf order."""
+    q, m = left.shape[:2]
+    return torch.stack([left, right], dim=2).reshape(
+        (q, 2 * m) + tuple(left.shape[2:]))
+
+
+def _expand(seeds, t, cw_seed_lv, cw_t_lv, rounds):
+    """Breadth-expand ``clog`` corrected levels: ``[Q, m, 4]`` roots ->
+    leaf bits ``[Q, m << clog]`` (``_expand_tile`` semantics: corrections
+    masked by ``0 - t``)."""
+    for lvl in range(cw_seed_lv.shape[1]):
+        out = chacha_block(seeds, counter=0, rounds=rounds)          # [Q, m, 16]
+        cw = -t[..., None] & cw_seed_lv[:, lvl][:, None, :]          # [Q, m, 4]
+        t_l = (out[..., 8] & 1) ^ (t & cw_t_lv[:, lvl, 0:1])
+        t_r = (out[..., 9] & 1) ^ (t & cw_t_lv[:, lvl, 1:2])
+        seeds = _interleave(out[..., 0:4] ^ cw, out[..., 4:8] ^ cw)
+        t = _interleave(t_l, t_r)
+    return t
+
+
+def fused_scan_xor_plain(db_words, roots, t_roots, cw_seed_lv, cw_t_lv, *,
+                         rounds: int = 12) -> torch.Tensor:
+    """Plain PyTorch expand + mask + fold, the kernel's exact function.
+
+    ``db_words [R, W]``, ``roots [Q, C, 4]``, ``t_roots [Q, C]``,
+    ``cw_seed_lv [Q, clog, 4]``, ``cw_t_lv [Q, clog, 2]`` -> ``[Q, W]``.
+    Chunks are processed in blocks so the temporaries stay bounded.
+    """
+    r, w = db_words.shape
+    q, c = t_roots.shape
+    clog = cw_seed_lv.shape[1]
+    if c << clog != r:
+        raise ValueError(f"{c} chunk roots x 2^{clog} leaves != rows {r}")
+    out = torch.zeros((q, w), dtype=torch.int32, device=db_words.device)
+    step = max(1, _PLAIN_LEAVES // (max(q, 1) << clog))
+    for lo in range(0, c, step):
+        bits = _expand(roots[:, lo:lo + step], t_roots[:, lo:lo + step],
+                       cw_seed_lv, cw_t_lv, rounds)
+        rows = db_words[lo << clog:(lo + bits.shape[1] // (1 << clog)) << clog]
+        out ^= xor_fold(-bits[:, :, None] & rows[None], 1)
+    return out
+
+
+@torch.library.custom_op("repro_torch::fused_scan_xor", mutates_args=(),
+                         device_types="cuda")
+def _fused_scan_xor_op(db_words: torch.Tensor, roots: torch.Tensor,
+                       t_roots: torch.Tensor, cw_seed_lv: torch.Tensor,
+                       cw_t_lv: torch.Tensor, rounds: int) -> torch.Tensor:
+    build.require_cuda_words("db_words", db_words, 2)
+    build.require_cuda_words("roots", roots, 3)
+    build.require_cuda_words("t_roots", t_roots, 2)
+    build.require_cuda_words("cw_seed_lv", cw_seed_lv, 3)
+    build.require_cuda_words("cw_t_lv", cw_t_lv, 3)
+    r, w = db_words.shape
+    q, c = t_roots.shape
+    clog = cw_seed_lv.shape[1]
+    if (tuple(roots.shape) != (q, c, 4)
+            or tuple(cw_seed_lv.shape) != (q, clog, 4)
+            or tuple(cw_t_lv.shape) != (q, clog, 2)):
+        raise ValueError(
+            f"operand shapes disagree: roots {tuple(roots.shape)}, t_roots "
+            f"{tuple(t_roots.shape)}, cw_seed_lv {tuple(cw_seed_lv.shape)}, "
+            f"cw_t_lv {tuple(cw_t_lv.shape)}")
+    if c << clog != r:
+        raise ValueError(f"{c} chunk roots x 2^{clog} leaves != rows {r}")
+    if len({t.device for t in (db_words, roots, t_roots, cw_seed_lv,
+                               cw_t_lv)}) != 1:
+        raise ValueError("fused_scan_xor operands are on different devices")
+    if w not in (1, 2, 4, 8, 16):
+        raise ValueError(f"fused_scan_xor kernel takes 1, 2, 4, 8 or 16 "
+                         f"words per record, got {w}")
+    if clog > 24:
+        raise ValueError(f"chunk_log {clog} exceeds the kernel's stack (24)")
+    if rounds <= 0 or rounds % 2:
+        raise ValueError(f"rounds must be positive and even, got {rounds}")
+    out = torch.zeros((q, w), dtype=torch.int32, device=db_words.device)
+    if q == 0 or r == 0:
+        return out
+    lib = build.library("fused_scan_xor")
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    err = lib.repro_fused_scan_xor(
+        p(db_words), p(roots), p(t_roots), p(cw_seed_lv), p(cw_t_lv), p(out),
+        r, w, q, c, clog, rounds, ctypes.c_void_p(build.stream_of(db_words)))
+    build.check(lib, err, "fused_scan_xor")
+    count.launches += 1
+    return out
+
+
+def fused_scan_xor(db_words, roots, t_roots, cw_seed_lv, cw_t_lv, *,
+                   rounds: int = 12) -> torch.Tensor:
+    """Fused expand + XOR scan, row-major DB.
+
+    Args:
+      db_words:   ``[R, W]`` row-major DB shard.
+      roots:      ``[Q, C, 4]`` chunk-root seeds (``dpf.eval_roots_batch``).
+      t_roots:    ``[Q, C]`` chunk-root control bits.
+      cw_seed_lv: ``[Q, clog, 4]`` the last clog levels of ``cw_seed``.
+      cw_t_lv:    ``[Q, clog, 2]`` the same levels of ``cw_t``.
+    Returns ``[Q, W]``, equal to the materialized bits + dpXOR path. CUDA
+    tensors launch the kernel, CPU tensors take the plain version.
+    """
+    if db_words.device.type == "cpu":
+        count.plain_calls += 1
+        return fused_scan_xor_plain(db_words, roots, t_roots, cw_seed_lv,
+                                    cw_t_lv, rounds=rounds)
+    return torch.ops.repro_torch.fused_scan_xor(
+        db_words, roots.contiguous(), t_roots.contiguous(),
+        cw_seed_lv.contiguous(), cw_t_lv.contiguous(), rounds)

@@ -1,0 +1,49 @@
+"""Public entry points for the port's kernels (``repro/kernels/ops.py``).
+
+Row-major DB everywhere: the kernels read ``[R, W]`` as stored, so there is
+no per-batch transpose (the reference transposes to ``[W, R]`` at
+``ops.py:64``). Each entry point launches its CUDA kernel for CUDA tensors
+and takes the plain version for CPU tensors; ``counts()`` reads the
+per-kernel launch and plain-call counters and ``reset_counts()`` zeroes
+them.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.engine.backend import legal_tile
+from repro_torch.kernels import build, dpxor as _dpxor, fused_scan as _fused
+from repro_torch.kernels.dpxor import dpxor
+from repro_torch.kernels.fused_scan import fused_scan_xor
+
+__all__ = ["COUNTS", "counts", "dpxor", "fused_scan_xor", "fused_tile",
+           "reset_counts"]
+
+#: kernel name -> its counter (``build.KernelCount``)
+COUNTS: Dict[str, build.KernelCount] = {
+    "dpxor": _dpxor.count,
+    "fused_scan_xor": _fused.count,
+}
+
+
+def counts() -> Dict[str, Dict[str, int]]:
+    """``{kernel: {"launches": n, "plain_calls": n}}``."""
+    return {k: {"launches": c.launches, "plain_calls": c.plain_calls}
+            for k, c in COUNTS.items()}
+
+
+def reset_counts():
+    for c in COUNTS.values():
+        c.reset()
+
+
+def fused_tile(rows: int, tile_r: int, clog: int) -> tuple[int, int]:
+    """Legalize a (tile_r, chunk_log) request for a shard of ``rows`` rows.
+
+    The reference rule (``ops.py:81-90``): tile_r becomes the largest power
+    of two dividing ``rows`` (capped at the request) and chunk_log clamps so
+    a tile holds whole chunks. The CUDA kernel has no tile, but the clamp
+    fixes how many levels it expands, so it is kept for parity.
+    """
+    tile = legal_tile(rows, tile_r, pow2=True)
+    return tile, min(clog, tile.bit_length() - 1)

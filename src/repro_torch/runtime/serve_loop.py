@@ -1,0 +1,423 @@
+"""PIR serving runtime of the port (``repro/runtime/serve_loop.py``).
+
+Pipeline (paper Figure 8, §3.4):
+  ① client keys arrive per query                        -> pending queue
+  ② the scheduler coalesces them into padded batches of a few bucket sizes
+  ③ a depth-2 dispatch loop stages batch k+1's keys (pad, pinned upload)
+     and launches its answer step while batch k still runs on the card
+  ④ answers return through per-query futures; all parties' shares are
+     reconciled (``PIRProtocol.reconstruct``) when a batch completes
+
+This slice keeps ``AnswerFuture``, ``QueryScheduler``, ``MultiServerPIR``
+and ``TwoServerPIR`` on one device and one dispatch lane. Chaos seams,
+straggler shedding, hints, online updates and replica hooks are not
+ported yet.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.config import PIRConfig
+from repro_torch.core import dpf
+from repro_torch.core import protocol as protocol_mod
+from repro_torch.core.protocol import PIRProtocol
+from repro_torch.core.server import PIRServer, bucket_for
+from repro_torch.crypto.packing import tensor_to_words
+from repro_torch.db import Database
+from repro_torch.engine.backend import Device
+
+#: dispatch depth: one batch running on the card, one being staged
+PIPELINE_DEPTH = 2
+
+#: how long a lone query may wait for companions before an under-full
+#: (padded) batch is cut
+DEFAULT_MAX_WAIT_S = 0.005
+
+
+@dataclass
+class ServeStats:
+    answered: int = 0
+    batches: int = 0
+    padded: int = 0              # pad slots computed and discarded
+
+
+class AnswerFuture:
+    """Per-query result handle; completion is first-wins and thread-safe.
+
+    ``epoch`` is the database epoch the answer was computed at.
+    """
+
+    def __init__(self):
+        self._ev = threading.Event()
+        self._lock = threading.Lock()
+        self._value: Any = None
+        self._exc: Optional[BaseException] = None
+        self.epoch: Optional[int] = None
+
+    def _resolve(self, value: Any, exc: Optional[BaseException]) -> bool:
+        with self._lock:
+            if self._ev.is_set():
+                return False
+            self._value, self._exc = value, exc
+            self._ev.set()
+        return True
+
+    def set_result(self, value: Any) -> bool:
+        return self._resolve(value, None)
+
+    def set_exception(self, exc: BaseException) -> bool:
+        return self._resolve(None, exc)
+
+    def done(self) -> bool:
+        return self._ev.is_set()
+
+    def exception(self) -> Optional[BaseException]:
+        return self._exc
+
+    def result(self, timeout: Optional[float] = None) -> Any:
+        if not self._ev.wait(timeout):
+            raise TimeoutError(f"answer not ready after {timeout} s")
+        if self._exc is not None:
+            raise self._exc
+        return self._value
+
+
+@dataclass
+class _Batch:
+    items: List[Any]
+    futures: List[AnswerFuture]
+    bucket: int = 0
+    epoch: Optional[int] = None
+
+
+class QueryScheduler:
+    """Dynamic batcher + depth-2 dispatcher.
+
+    Parameterized by four callables:
+
+      collate(items)    stack per-query payloads into a batch
+      stage(payload)    pad to the bucket and upload (overlaps compute)
+      dispatch(staged)  launch the answer step (asynchronous on the card)
+      finalize(raw, n)  wait and convert the first n real answers
+
+    ``epoch_of(raw)`` reads the database epoch a batch was answered at from
+    its own dispatch result. Batches are cut when a full largest bucket is
+    pending or when the oldest query has waited ``max_wait_s``. Drive it
+    with :meth:`pump` or as a background session (:meth:`start` /
+    :meth:`stop`).
+    """
+
+    def __init__(self, *, collate: Callable[[List[Any]], Any],
+                 stage: Callable[[Any], Any], dispatch: Callable[[Any], Any],
+                 finalize: Callable[[Any, int], Sequence[Any]],
+                 buckets: Sequence[int],
+                 max_wait_s: float = DEFAULT_MAX_WAIT_S,
+                 epoch_of: Optional[Callable[[Any], Optional[int]]] = None):
+        self._collate = collate
+        self._stage = stage
+        self._dispatch = dispatch
+        self._finalize = finalize
+        self._epoch_of = epoch_of
+        self.buckets = tuple(sorted(set(buckets)))
+        self.max_wait_s = max_wait_s
+        self.stats = ServeStats()
+        self._cv = threading.Condition()
+        self._pending: deque = deque()        # (item, future, t_submit)
+        self._queue: deque = deque()          # cut batches, FIFO
+        self._thread: Optional[threading.Thread] = None
+        self._stopping = False
+        self._closed = False
+
+    # -- intake ----------------------------------------------------------
+
+    def submit(self, item: Any) -> AnswerFuture:
+        """Enqueue one query payload; returns its future. Raises
+        ``RuntimeError`` once a session was stopped or died."""
+        fut = AnswerFuture()
+        with self._cv:
+            if self._closed:
+                raise RuntimeError(
+                    "QueryScheduler is stopped; submit() after stop() would "
+                    "never be answered")
+            self._pending.append((item, fut, time.monotonic()))
+            if len(self._pending) >= self.buckets[-1]:
+                self._cut_locked(self.buckets[-1])
+            self._cv.notify()
+        return fut
+
+    def bucket_for(self, n: int) -> int:
+        return bucket_for(self.buckets, n)
+
+    def flush(self):
+        """Cut every pending query into batches now."""
+        with self._cv:
+            while self._pending:
+                self._cut_locked(min(len(self._pending), self.buckets[-1]))
+            self._cv.notify()
+
+    def _cut_locked(self, n: int):
+        taken = [self._pending.popleft() for _ in range(n)]
+        self._queue.append(_Batch(items=[t[0] for t in taken],
+                                  futures=[t[1] for t in taken],
+                                  bucket=self.bucket_for(n)))
+
+    def _cut_ripe_locked(self):
+        while self._pending and \
+                time.monotonic() - self._pending[0][2] >= self.max_wait_s:
+            self._cut_locked(min(len(self._pending), self.buckets[-1]))
+
+    def _pop_locked(self) -> Optional[_Batch]:
+        return self._queue.popleft() if self._queue else None
+
+    # -- dispatch engine -------------------------------------------------
+
+    def _launch(self, batch: _Batch) -> Tuple[_Batch, Any]:
+        """Collate + stage + dispatch one batch; the card runs it async."""
+        try:
+            raw = self._dispatch(self._stage(self._collate(batch.items)))
+            if self._epoch_of is not None:
+                batch.epoch = self._epoch_of(raw)
+        except BaseException as e:
+            for fut in batch.futures:
+                fut.set_exception(e)
+            raise
+        return batch, raw
+
+    def _complete(self, batch: _Batch, raw: Any):
+        try:
+            answers = self._finalize(raw, len(batch.items))
+            for fut, ans in zip(batch.futures, answers):
+                fut.epoch = batch.epoch
+                fut.set_result(ans)
+        except BaseException as e:
+            for fut in batch.futures:
+                fut.set_exception(e)
+            raise
+        self.stats.batches += 1
+        self.stats.answered += len(batch.items)
+        self.stats.padded += batch.bucket - len(batch.items)
+
+    def pump(self) -> int:
+        """Synchronously answer everything pending, depth-2 pipelined:
+        batch k+1 is staged and launched before batch k is waited on.
+        Returns the number of queries answered."""
+        self.flush()
+        answered0 = self.stats.answered
+        inflight: deque = deque()
+        while True:
+            with self._cv:
+                batch = self._pop_locked()
+            if batch is None and not inflight:
+                break
+            if batch is not None:
+                inflight.append(self._launch(batch))
+            while inflight and (len(inflight) >= PIPELINE_DEPTH
+                                or batch is None):
+                self._complete(*inflight.popleft())
+        return self.stats.answered - answered0
+
+    # -- background session ----------------------------------------------
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def start(self):
+        """Run the dispatch loop on a background thread (reopens a stopped
+        session)."""
+        if self.running:
+            return
+        with self._cv:
+            self._closed = False
+            self._stopping = False
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="pir-scheduler")
+        self._thread.start()
+
+    def stop(self):
+        """Flush, answer everything in flight, then join the thread."""
+        with self._cv:
+            thread = self._thread
+            if thread is None or not thread.is_alive():
+                return
+            self._closed = True
+            self._stopping = True
+            self._cv.notify()
+        thread.join()
+        with self._cv:
+            if self._thread is thread:
+                self._thread = None
+
+    def _run(self):
+        inflight: deque = deque()
+        try:
+            while True:
+                batch = None
+                with self._cv:
+                    self._cut_ripe_locked()
+                    if self._stopping:
+                        while self._pending:
+                            self._cut_locked(
+                                min(len(self._pending), self.buckets[-1]))
+                    if len(inflight) < PIPELINE_DEPTH:
+                        batch = self._pop_locked()
+                    if batch is None and not inflight:
+                        if self._stopping:
+                            return
+                        wait = None
+                        if self._pending:
+                            age = time.monotonic() - self._pending[0][2]
+                            wait = max(self.max_wait_s - age, 0.0)
+                        self._cv.wait(timeout=wait)
+                        continue
+                if batch is not None:
+                    inflight.append(self._launch(batch))
+                    continue          # keep the pipeline full before waiting
+                self._complete(*inflight.popleft())
+        except BaseException as e:
+            self._fail_outstanding(inflight, e)
+
+    def _fail_outstanding(self, inflight, exc: BaseException):
+        """A dead session resolves every outstanding future with ``exc``."""
+        victims: List[AnswerFuture] = []
+        for batch, _ in inflight:
+            victims.extend(batch.futures)
+        with self._cv:
+            self._closed = True
+            for batch in self._queue:
+                victims.extend(batch.futures)
+            self._queue.clear()
+            while self._pending:
+                victims.append(self._pending.popleft()[1])
+        for fut in victims:
+            fut.set_exception(exc)
+
+
+class MultiServerPIR:
+    """End-to-end k-party deployment: client + k non-colluding servers.
+
+    One shared :class:`Database` on ``device`` (``None`` means CUDA; no
+    card raises), one :class:`PIRServer` per party, and one
+    :class:`QueryScheduler` that fans every batch out to all parties and
+    reconstructs the records. ``path=None`` lets ``plan_for`` pick each
+    bucket's kernel path (the reference defaults to ``"fused"``, its
+    jnp-chunked path, which runs no kernel).
+
+      query(indices)  synchronous retrieval (keys for the whole call are
+                      generated in one batch; pumps the scheduler unless a
+                      session is running)
+      submit(index)   streaming form: returns an :class:`AnswerFuture`
+    """
+
+    def __init__(self, db_words, cfg: PIRConfig, *, device: Device = None,
+                 path: Optional[str] = None, n_queries: int = 4,
+                 buckets: Optional[Sequence[int]] = None,
+                 max_wait_s: float = DEFAULT_MAX_WAIT_S,
+                 protocol: Optional[PIRProtocol] = None,
+                 client_rng: Optional[np.random.Generator] = None):
+        if cfg.batch_m:
+            raise ValueError("batch PIR (batch_m > 0) is not ported yet")
+        self.cfg = cfg
+        self.protocol = (protocol if protocol is not None
+                         else protocol_mod.for_config(cfg))
+        self.n_parties = self.protocol.n_parties(cfg)
+        self.db = (db_words if isinstance(db_words, Database)
+                   else Database(db_words, cfg, device))
+        self.servers = [
+            PIRServer(party=b, database=self.db, cfg=cfg,
+                      n_queries=n_queries, path=path, buckets=buckets,
+                      protocol=self.protocol)
+            for b in range(self.n_parties)]
+        # key material must not be replayable: OS entropy unless a seeded
+        # generator is injected (tests, benchmarks)
+        self.rng = (client_rng if client_rng is not None
+                    else np.random.default_rng())
+        self._lock = threading.Lock()
+        self.scheduler = self._make_scheduler(max_wait_s)
+
+    def _make_scheduler(self, max_wait_s: float) -> QueryScheduler:
+        servers, proto, db = self.servers, self.protocol, self.db
+        parties = range(self.n_parties)
+
+        def collate(items):
+            return tuple(dpf.stack_keys([it[p] for it in items])
+                         for p in parties)
+
+        def stage(payload):
+            return tuple(servers[p].stage_keys(payload[p]) for p in parties)
+
+        def dispatch(staged):
+            epoch, views = db.snapshot((proto.db_view,))
+            view = views[proto.db_view]
+            return tuple(servers[p].bucketed.answer(view, staged[p])
+                         for p in parties), epoch
+
+        def finalize(raw, n):
+            answers, _ = raw
+            return list(tensor_to_words(
+                proto.reconstruct([a[:n] for a in answers])))
+
+        return QueryScheduler(
+            collate=collate, stage=stage, dispatch=dispatch,
+            finalize=finalize, buckets=servers[0].buckets,
+            max_wait_s=max_wait_s, epoch_of=lambda raw: raw[1])
+
+    # -- streaming session API ------------------------------------------
+
+    def start(self):
+        self.scheduler.start()
+
+    def close(self):
+        self.scheduler.stop()
+
+    def __enter__(self):
+        self.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def submit(self, index: int) -> AnswerFuture:
+        """Private retrieval of ``db[index]``; resolves to one record
+        (``[W]`` uint32 words)."""
+        with self._lock:         # client-side keygen shares one rng
+            keys = self.protocol.query_gen(self.rng, index, self.cfg)
+        return self.scheduler.submit(keys)
+
+    # -- synchronous batch API ------------------------------------------
+
+    def query(self, indices: Sequence[int]) -> np.ndarray:
+        """Private retrieval of ``db[indices]``: ``[Q, W]`` uint32 records."""
+        indices = list(indices)
+        if not indices:
+            tail, dtype = self.protocol.record_struct(self.cfg)
+            return np.empty((0,) + tail, dtype)
+        with self._lock:
+            batch = self.protocol.query_gen_batch(self.rng, indices, self.cfg)
+        futs = [self.scheduler.submit(tuple(dpf.key_at(k, i) for k in batch))
+                for i in range(len(indices))]
+        if not self.scheduler.running:
+            self.scheduler.pump()
+        return np.stack([f.result() for f in futs])
+
+
+class TwoServerPIR(MultiServerPIR):
+    """The two-party deployment (a ``MultiServerPIR`` whose protocol has
+    exactly two parties; ``xor-dpf-2`` by default)."""
+
+    def __init__(self, db_words, cfg: PIRConfig, *,
+                 protocol: Optional[PIRProtocol] = None, **kwargs):
+        proto = (protocol if protocol is not None
+                 else protocol_mod.for_config(cfg))
+        k = proto.n_parties(cfg)
+        if k != 2:
+            raise ValueError(
+                f"TwoServerPIR requires a 2-party protocol; {proto.name!r} "
+                f"has {k} parties — use MultiServerPIR")
+        super().__init__(db_words, cfg, protocol=proto, **kwargs)
