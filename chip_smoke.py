@@ -1,4 +1,4 @@
-"""Drive the PyTorch + CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch + CUDA port's main paths on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -7,18 +7,26 @@ Phases, one JSON line each:
   build       nvcc for every kernel source (in parallel), with ptxas's
               register / shared-memory / spill report
   database    PIR_1G (2^25 records x 32 B = 1 GiB) made from a seed and
-              placed on the card once
+              placed on the card once; PIR_1G_ADD and PIR_1G_K3 serve the
+              same records from it (the int8 byte view aliases the words)
   check       each kernel against its plain PyTorch version on the same
-              inputs at main-path shapes; integer-exact, tolerance 0
+              inputs at main-path shapes (xor-dpf-k's 96 and 64 flattened
+              pseudo-queries included); integer-exact, tolerance 0
   quickstart  the quickstart twin at PIR_SMOKE
-  serve       TwoServerPIR at PIR_1G on its default plans: batches of 32,
-              5 (padded to 8) and 1 through query(), then a session;
-              every record is checked against the database, and the
-              kernel counters (zeroed just before) must show both kernels
-              launched and no plain call
-  timing      kernels with CUDA events beside their bounds; end-to-end
-              latency and records/s for batches of 1 and 32 with keygen,
-              root descent and kernel time apart; peak device memory
+  serve       TwoServerPIR at PIR_1G (xor-dpf-2) on its default plans:
+              batches of 32, 5 (padded to 8) and 1 through query(), then a
+              session; every record is checked against the database, and
+              the kernel counters (zeroed just before) must show the path's
+              kernels launched and no plain call
+  serve_add   the same at PIR_1G_ADD (additive-dpf-2): int8 GEMM and fused
+              expand + select-add kernels; records are the DB's bytes
+  serve_k3    MultiServerPIR at PIR_1G_K3 (xor-dpf-k, three servers) on the
+              XOR kernels: batches of 32 and 1
+  timing      kernels with CUDA events beside their bounds (and a PyTorch
+              library call where one computes the same function);
+              end-to-end latency and records/s for batches of 1 and 32 with
+              keygen, root descent and kernel time apart; peak device memory
+  timing_add  the same for the additive scheme, and k = 3 end to end
 Then the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
 line. Without a CUDA card the script exits 1 at once.
@@ -66,6 +74,25 @@ def fused_bound_ms(rows: int, queries: int, clog: int, rounds: int) -> float:
     forward adds and the leaf mask/XOR are left out (a lower bound)."""
     chunks = rows >> clog
     ops = queries * (rows - chunks) * (rounds // 2) * ARX_OPS_PER_DOUBLE_ROUND
+    return ops / INT32_OPS_PER_S * 1e3
+
+
+def gemm_bound_ms(rows: int, cols: int, queries: int) -> float:
+    """Bytes bound of the int8 GEMM: DB bytes and shares read once, int32
+    answers written once."""
+    nbytes = rows * cols + queries * rows + queries * cols * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def fused_add_bound_ms(rows: int, queries: int, clog: int,
+                       rounds: int) -> float:
+    """Operations bound of the fused select-add: one ChaCha permutation per
+    internal node (rows - chunks per query) and one per leaf for its
+    conversion word (rows per query); the select-add's multiply-adds and
+    the corrections are left out (a lower bound)."""
+    chunks = rows >> clog
+    blocks = queries * (2 * rows - chunks)
+    ops = blocks * (rounds // 2) * ARX_OPS_PER_DOUBLE_ROUND
     return ops / INT32_OPS_PER_S * 1e3
 
 
@@ -135,11 +162,12 @@ def phase_build() -> None:
                       "ptxas": r.ptxas} for r in records.values()]})
 
 
-def phase_check(db, cfg, device) -> dict:
-    """Each kernel against its plain version; returns each kernel's
-    largest error."""
+def phase_check(db, cfg, cfg_k3, device) -> dict:
+    """Each kernel against its plain version, at the shapes of xor-dpf-2
+    and of xor-dpf-k (``cfg_k3``); returns each kernel's largest error."""
     from repro_torch.core import dpf
-    from repro_torch.kernels import dpxor as kd, fused_scan as kf
+    from repro_torch.core.protocol import _flatten_components, get, plan_for
+    from repro_torch.kernels import dpxor as kd, fused_scan as kf, ops
     rng = np.random.default_rng(SEED + 1)
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     rows, words = db.shape
@@ -162,47 +190,141 @@ def phase_check(db, cfg, device) -> dict:
         record("dpxor", got, kd.dpxor_plain(db, bits), q=q, rows=rows,
                words=words)
 
-    log_n = cfg.log_n
-    sub = min(20, log_n - 3)          # a shard of 2^20 rows at PIR_1G
-    cases = [  # (queries, clog, log_local, start_block)
-        (1, 11, log_n, 0), (8, 11, log_n, 0), (32, 11, log_n, 0),
-        (8, 0, sub, 5), (8, 11, sub, 5)]
-    for q, clog, log_local, start_block in cases:
-        keys = dpf.gen_keys_batch(
-            rng, rng.integers(0, cfg.n_items, size=q), log_n)[q % 2]
-        keys = keys.to(device)
+    def check_fused(keys, clog, log_local, start_block, **extra):
         shard = db[start_block << log_local:(start_block + 1) << log_local]
         inputs = fused_inputs(keys, start_block, log_local, clog)
         got = kf.fused_scan_xor(shard, *inputs, rounds=keys.rounds)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
         want = kf.fused_scan_xor_plain(shard, *inputs, rounds=keys.rounds)
-        record("fused_scan_xor", got, want, q=q, rows=shard.shape[0],
-               words=words, clog=clog, start_block=start_block)
+        torch.cuda.synchronize()
+        record("fused_scan_xor", got, want, q=dpf.n_queries_of(keys),
+               rows=shard.shape[0], words=words, clog=clog,
+               start_block=start_block, plain_s=time.perf_counter() - t0,
+               **extra)
+
+    log_n = cfg.log_n
+    plan = plan_for(cfg, 32, backend="cuda")
+    _, clog = ops.fused_tile(rows, plan.tile_r, min(plan.chunk_log, log_n))
+    sub = min(20, log_n - 3)          # a shard of 2^20 rows at PIR_1G
+    cases = [  # (queries, clog, log_local, start_block)
+        (1, clog, log_n, 0), (8, clog, log_n, 0), (32, clog, log_n, 0),
+        (8, 0, sub, 5), (8, min(clog, sub), sub, 5)]
+    for q, cl, log_local, start_block in cases:
+        keys = dpf.gen_keys_batch(
+            rng, rng.integers(0, cfg.n_items, size=q), log_n)[q % 2]
+        check_fused(keys.to(device), cl, log_local, start_block)
+
+    # xor-dpf-k at its largest bucket: the path flattens 32 queries x C
+    # components into 96 pseudo-queries for parties 0 and 1 and 64 for
+    # party 2, so the launch spans 3 or 2 query groups (grid.y)
+    proto_k = get(cfg_k3.protocol)
+    keys_k = proto_k.query_gen_batch(
+        rng, rng.integers(0, cfg_k3.n_items, size=32), cfg_k3)
+    for party in (0, 2):
+        check_fused(_flatten_components(keys_k[party]).to(device), clog,
+                    log_n, 0, scheme=cfg_k3.protocol, party=party)
     return worst
 
 
-def check_records(got: np.ndarray, host_db: np.ndarray, idx) -> bool:
-    return bool(np.array_equal(got, host_db[np.asarray(idx)]))
+def phase_check_add(db_bytes, cfg, device) -> tuple:
+    """The additive scheme's kernels against their plain versions at
+    PIR_1G_ADD shapes. Returns each kernel's largest error and what the
+    timing phase reuses: the fused kernel's Q = 32 inputs, its plain
+    output and the plain version's time."""
+    from repro_torch.core import dpf
+    from repro_torch.core.protocol import GEMM_TILE_R_DEFAULT, PAYLOAD_ONE
+    from repro_torch.kernels import fused_scan as kf, ops, pir_matmul as km
+    rng = np.random.default_rng(SEED + 11)
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    rows, cols = db_bytes.shape
+    worst = {"pir_gemm": 0, "fused_scan_add": 0}
+    kept = {}
+
+    def record(kernel, got, want, **shape):
+        err = max_abs_err(got, want)
+        worst[kernel] = max(worst[kernel], err)
+        emit({"phase": "check", "kernel": kernel, **shape,
+              "equal": bool(torch.equal(got, want)), "max_abs_err": err})
+        if err:
+            raise AssertionError(f"{kernel} differs from its plain version "
+                                 f"at {shape}: max_abs_err {err}")
+
+    for q in (1, 4, 32):
+        shares = torch.randint(-128, 128, (q, rows), generator=gen,
+                               device=device, dtype=torch.int8)
+        got = km.pir_gemm(shares, db_bytes)
+        torch.cuda.synchronize()
+        record("pir_gemm", got, km.pir_gemm_plain(shares, db_bytes), q=q,
+               rows=rows, cols=cols)
+
+    log_n = cfg.log_n
+    _, clog = ops.fused_tile(rows, GEMM_TILE_R_DEFAULT, log_n)
+    sub = min(20, log_n - 3)          # a shard of 2^20 rows at PIR_1G_ADD
+    cases = [  # (queries, clog, log_local, start_block, party)
+        (1, clog, log_n, 0, 0), (8, clog, log_n, 0, 0),
+        (32, clog, log_n, 0, 0), (1, clog, log_n, 0, 1),
+        (8, clog, log_n, 0, 1), (32, clog, log_n, 0, 1),
+        (8, 0, sub, 5, 1), (8, min(clog, sub), sub, 5, 0)]
+    for q, cl, log_local, start_block, party in cases:
+        keys = dpf.gen_keys_batch(
+            rng, rng.integers(0, cfg.n_items, size=q), log_n,
+            payload=PAYLOAD_ONE)[party].to(device)
+        shard = db_bytes[start_block << log_local:
+                         (start_block + 1) << log_local]
+        inputs = fused_inputs(keys, start_block, log_local, cl) + (
+            keys.cw_final[:, 0].contiguous(),)
+        got = kf.fused_scan_add(shard, *inputs, party=party,
+                                rounds=keys.rounds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = kf.fused_scan_add_plain(shard, *inputs, party=party,
+                                       rounds=keys.rounds)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        record("fused_scan_add", got, want, q=q, rows=shard.shape[0],
+               cols=cols, clog=cl, start_block=start_block, party=party,
+               plain_s=plain_s)
+        if (q, start_block, party) == (32, 0, 0):
+            kept = {"inputs": inputs, "want": want, "clog": cl,
+                    "rounds": keys.rounds, "plain_ms": plain_s * 1e3}
+    return worst, kept
 
 
-def phase_serve(host_db, cfg, database, device):
+def check_records(got: np.ndarray, want: np.ndarray) -> bool:
+    return bool(got.dtype == want.dtype and np.array_equal(got, want))
+
+
+def expected_records(system, host_db: np.ndarray, idx) -> np.ndarray:
+    """What the deployment must return: the DB's words, or its bytes for
+    a scheme whose records are bytes."""
+    from repro_torch.crypto.packing import np_words_to_bytes
+    rows = host_db[np.asarray(idx)]
+    _, dtype = system.protocol.record_struct(system.cfg)
+    return np_words_to_bytes(rows) if dtype == np.uint8 else rows
+
+
+def serve_phase(phase: str, config: str, system, host_db, *, sizes, kernels,
+                rng) -> dict:
+    """Serve batches of ``sizes`` through ``query()`` and then a 3-query
+    session; every record must equal the database's, and the counters,
+    zeroed just before, must show each of ``kernels`` launched and no plain
+    call. Returns the launches of this run."""
     from repro_torch.kernels import ops
-    from repro_torch.runtime.serve_loop import TwoServerPIR
-    rng = np.random.default_rng(SEED + 3)
-    system = TwoServerPIR(database, cfg, device=device, n_queries=32,
-                          client_rng=np.random.default_rng(SEED + 4))
+    cfg = system.cfg
     plans = system.servers[0].plan_report()
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
     ops.reset_counts()
     batches = []
-    for n in (32, 5, 1):
+    for n in sizes:
         idx = rng.integers(0, cfg.n_items, size=n)
         t0 = time.perf_counter()
         recs = system.query(idx)
         batches.append({"n": n, "bucket": system.scheduler.bucket_for(n),
                         "seconds": time.perf_counter() - t0,
-                        "exact": check_records(recs, host_db, idx)})
+                        "exact": check_records(
+                            recs, expected_records(system, host_db, idx))})
     idx = rng.integers(0, cfg.n_items, size=3)
     t0 = time.perf_counter()
     with system:
@@ -210,22 +332,53 @@ def phase_serve(host_db, cfg, database, device):
         recs = np.stack([f.result(timeout=600) for f in futs])
     batches.append({"n": len(idx), "session": True,
                     "seconds": time.perf_counter() - t0,
-                    "exact": check_records(recs, host_db, idx)})
+                    "exact": check_records(
+                        recs, expected_records(system, host_db, idx))})
     counts = ops.counts()
     launches = {k: v["launches"] for k, v in counts.items()}
     plain = {k: v["plain_calls"] for k, v in counts.items()}
-    info = {"phase": "serve", "config": "pir-1g", "plans": plans,
-            "batches": batches, "launches": launches, "plain_calls": plain,
-            "db_resident_bytes": database.resident_bytes,
+    info = {"phase": phase, "config": config, "protocol": cfg.protocol,
+            "parties": system.n_parties, "plans": plans, "batches": batches,
+            "launches": launches, "plain_calls": plain,
+            "db_resident_bytes": system.db.resident_bytes,
             "peak_device_bytes": torch.cuda.max_memory_allocated(),
             "seconds": time.perf_counter() - t_phase}
     emit(info)
     if not all(b["exact"] for b in batches):
-        raise AssertionError("a served record differs from the database")
-    if min(launches.values()) < 1 or any(plain.values()):
-        raise AssertionError(f"main path did not run on the kernels: "
-                             f"launches {launches}, plain calls {plain}")
+        raise AssertionError(f"{phase}: a served record differs from the "
+                             f"database")
+    if min(launches[k] for k in kernels) < 1 or any(plain.values()):
+        raise AssertionError(f"{phase}: main path did not run on the "
+                             f"kernels {kernels}: launches {launches}, "
+                             f"plain calls {plain}")
     return launches
+
+
+def phase_serve(host_db, cfg, database, device):
+    from repro_torch.runtime.serve_loop import TwoServerPIR
+    system = TwoServerPIR(database, cfg, device=device, n_queries=32,
+                          client_rng=np.random.default_rng(SEED + 4))
+    return serve_phase("serve", "pir-1g", system, host_db, sizes=(32, 5, 1),
+                       kernels=("dpxor", "fused_scan_xor"),
+                       rng=np.random.default_rng(SEED + 3))
+
+
+def phase_serve_add(host_db, cfg, database, device):
+    from repro_torch.runtime.serve_loop import TwoServerPIR
+    system = TwoServerPIR(database, cfg, device=device, n_queries=32,
+                          client_rng=np.random.default_rng(SEED + 14))
+    return serve_phase("serve_add", "pir-1g-add", system, host_db, sizes=(32, 5, 1),
+                       kernels=("pir_gemm", "fused_scan_add"),
+                       rng=np.random.default_rng(SEED + 13))
+
+
+def phase_serve_k3(host_db, cfg, database, device):
+    from repro_torch.runtime.serve_loop import MultiServerPIR
+    system = MultiServerPIR(database, cfg, device=device, n_queries=32,
+                            client_rng=np.random.default_rng(SEED + 16))
+    return serve_phase("serve_k3", "pir-1g-k3", system, host_db, sizes=(32, 1),
+                       kernels=("dpxor", "fused_scan_xor"),
+                       rng=np.random.default_rng(SEED + 15))
 
 
 def phase_timing(database, cfg, card, device):
@@ -294,14 +447,7 @@ def phase_timing(database, cfg, card, device):
             "plan": plan_for(cfg, q, backend="cuda").name}
 
     # end to end through TwoServerPIR.query (host clock, result on host)
-    for q, reps in ((1, 5), (32, 3)):
-        lat = []
-        for _ in range(reps):
-            idx = rng.integers(0, cfg.n_items, size=q)
-            lat.append(host_time_s(lambda: system.query(idx), sync=False)[0])
-        med = float(np.median(lat))
-        out[f"e2e_{q}"] = {"latency_s": lat, "median_s": med,
-                           "records_per_s": q / med}
+    out.update(e2e(system, cfg, rng, ((1, 5), (32, 3))))
 
     # one party's answer step at a batch of 1, under each CUDA plan
     out["answer_1_ms_by_plan"] = {
@@ -309,6 +455,132 @@ def phase_timing(database, cfg, card, device):
             lambda: proto.answer_local(db, k1, 0, log_n, PATH_PLANS[path]),
             reps=3)
         for path in ("cuda", "fused-cuda")}
+    out["peak_device_bytes_run"] = torch.cuda.max_memory_allocated()
+    emit(out)
+    return out
+
+
+def e2e(system, cfg, rng, reps_by_q) -> dict:
+    """Median host-clock latency of ``query()`` (records on the host)."""
+    out = {}
+    for q, reps in reps_by_q:
+        lat = []
+        for _ in range(reps):
+            idx = rng.integers(0, cfg.n_items, size=q)
+            lat.append(host_time_s(lambda: system.query(idx), sync=False)[0])
+        med = float(np.median(lat))
+        out[f"e2e_{q}"] = {"latency_s": lat, "median_s": med,
+                           "records_per_s": q / med}
+    return out
+
+
+def phase_timing_add(database, cfg, cfg_k3, card, device, kept):
+    from repro_torch.core import dpf
+    from repro_torch.core.protocol import plan_for, resolve_plan
+    from repro_torch.kernels import fused_scan as kf, pir_matmul as km
+    from repro_torch.runtime.serve_loop import MultiServerPIR, TwoServerPIR
+    rng = np.random.default_rng(SEED + 17)
+    system = TwoServerPIR(database, cfg, device=device, n_queries=32,
+                          client_rng=np.random.default_rng(SEED + 18))
+    db = database.view("bytes")
+    rows, cols = db.shape
+    log_n = cfg.log_n
+    proto = system.protocol
+    out = {"phase": "timing_add", "card": card, "config": "pir-1g-add"}
+
+    # int8 GEMM at the main path's shape: one query's shares
+    k1 = proto.query_gen_batch(rng, [int(rng.integers(cfg.n_items))], cfg)[0]
+    k1 = k1.to(device)
+    shares = dpf.eval_bytes_batch(k1, 0, log_n).view(torch.int8)
+    g_ms = cuda_time_ms(lambda: km.pir_gemm(shares, db), reps=20)
+    g_plain = cuda_time_ms(lambda: km.pir_gemm_plain(shares, db), reps=2)
+    # library yardstick: torch._int_mm refuses a first operand of <= 16
+    # rows, so it runs with the query padded to 32 rows (zero shares): a
+    # 32 x 32 output over K = R, a degenerate GEMM shape. It is timed with
+    # the DB as stored (both operands row-major, "NN" to cuBLAS) and with a
+    # column-major copy of the DB (both operands K-contiguous, "TN", the
+    # int8 tensor-core layout); library_ms is the faster form that agrees
+    # with the kernel. The stored form at R/16 rows shows how its time
+    # grows with K.
+    want = km.pir_gemm(shares, db)
+    padded = torch.zeros((32, rows), dtype=torch.int8, device=device)
+    padded[:1] = shares
+    db_kmajor = db.t().contiguous().t()               # [R, L], strides (1, R)
+    part = rows // 16
+    padded_part = padded[:, :part].contiguous()
+    forms = {"nn": lambda: torch._int_mm(padded, db),
+             "tn": lambda: torch._int_mm(padded, db_kmajor)}
+    library = {}
+    for form, fn in forms.items():
+        library[form] = {"ms": cuda_time_ms(fn, reps=3),
+                         "equal": bool(torch.equal(fn()[:1], want))}
+    library["nn_rows_div_16"] = {
+        "rows": part, "ms": cuda_time_ms(
+            lambda: torch._int_mm(padded_part, db[:part]), reps=3)}
+    del db_kmajor, padded_part
+    agree = [library[f]["ms"] for f in forms if library[f]["equal"]]
+    out["pir_gemm"] = {
+        "q": 1, "rows": rows, "ms": g_ms, "plain_ms": g_plain,
+        "bound_ms": gemm_bound_ms(rows, cols, 1), "bound_by": "bytes",
+        "library_ms": min(agree) if agree else None,
+        "library_call": "torch._int_mm, Q padded to 32", "library": library}
+
+    # fused select-add at the main path's largest bucket, on the check
+    # phase's inputs (its plain output and time are reused, not rerun)
+    inputs, clog = kept["inputs"], kept["clog"]
+    f_ms = cuda_time_ms(lambda: kf.fused_scan_add(
+        db, *inputs, party=0, rounds=kept["rounds"]), reps=3)
+    again = kf.fused_scan_add(db, *inputs, party=0, rounds=kept["rounds"])
+    if not torch.equal(again, kept["want"]):
+        raise AssertionError("fused_scan_add differs from its plain version "
+                             "in the timing run")
+    out["fused_scan_add"] = {
+        "q": 32, "rows": rows, "clog": clog, "ms": f_ms,
+        "plain_ms": kept["plain_ms"],
+        "bound_ms": fused_add_bound_ms(rows, 32, clog, kept["rounds"]),
+        "bound_by": "operations", "library_ms": None}
+    for name in ("pir_gemm", "fused_scan_add"):
+        r = out[name]
+        r["beats_bound"] = r["ms"] < r["bound_ms"]
+        if r["beats_bound"]:
+            print(f"NOTE: {name} ran in {r['ms']:.4f} ms, under its bound "
+                  f"{r['bound_ms']:.4f} ms", flush=True)
+
+    # pieces of one batch: client keygen, leaf shares / root descent
+    for q in (1, 32):
+        idx = rng.integers(0, cfg.n_items, size=q)
+        kg_s, keys = host_time_s(
+            lambda: proto.query_gen_batch(rng, idx, cfg), sync=False)
+        keys = keys[0].to(device)
+        if q == 1:
+            desc_ms = cuda_time_ms(
+                lambda: dpf.eval_bytes_batch(keys, 0, log_n), reps=3)
+            kernel_ms = g_ms
+        else:
+            desc_ms = cuda_time_ms(
+                lambda: fused_inputs(keys, 0, log_n, clog), reps=3)
+            kernel_ms = f_ms
+        out[f"batch_{q}_parts"] = {
+            "keygen_s": kg_s, "descent_ms_per_party": desc_ms,
+            "kernel_ms_per_party": kernel_ms,
+            "plan": plan_for(cfg, q, backend="cuda").name}
+
+    out.update(e2e(system, cfg, rng, ((1, 5), (32, 3))))
+
+    # one party's answer step at a batch of 1, under each CUDA plan
+    out["answer_1_ms_by_plan"] = {
+        resolve_plan(path, cfg, 1, backend="cuda").name: cuda_time_ms(
+            lambda: proto.answer_local(
+                db, k1, 0, log_n, resolve_plan(path, cfg, 1,
+                                               backend="cuda")), reps=3)
+        for path in ("cuda", "fused-cuda")}
+
+    # xor-dpf-k (k = 3) end to end on the XOR kernels
+    k3 = MultiServerPIR(database, cfg_k3, device=device, n_queries=32,
+                        client_rng=np.random.default_rng(SEED + 19))
+    out["k3"] = {"config": "pir-1g-k3", "parties": k3.n_parties,
+                 "plans": k3.servers[0].plan_report(),
+                 **e2e(k3, cfg_k3, rng, ((1, 3), (32, 3)))}
     out["peak_device_bytes_run"] = torch.cuda.max_memory_allocated()
     emit(out)
     return out
@@ -322,7 +594,7 @@ def main() -> int:
     # the port must import before anything is printed: a copy of this
     # script without the repo fails here, with no result
     from repro_torch import quickstart
-    from repro_torch.configs.pir import PIR_1G
+    from repro_torch.configs.pir import PIR_1G, PIR_1G_ADD, PIR_1G_K3
     from repro_torch.core import pir
     from repro_torch.db import Database
     from repro_torch.kernels import build  # noqa: F401
@@ -343,27 +615,40 @@ def main() -> int:
           "bytes": database.resident_bytes,
           "seconds": time.perf_counter() - t0})
 
-    worst = phase_check(db, cfg, device)
+    worst = phase_check(db, cfg, PIR_1G_K3, device)
+    worst_add, kept = phase_check_add(database.view("bytes"), PIR_1G_ADD,
+                                      device)
+    worst.update(worst_add)
     qs = quickstart.run(device="cuda", verbose=False)
     emit({"phase": "quickstart", "config": "pir-smoke", **qs})
     if not all(qs["exact"]):
         raise AssertionError("quickstart returned a wrong record")
 
     launches = phase_serve(host_db, cfg, database, device)
+    launches_add = phase_serve_add(host_db, PIR_1G_ADD, database, device)
+    phase_serve_k3(host_db, PIR_1G_K3, database, device)
     timing = phase_timing(database, cfg, info["card"], device)
+    timing_add = phase_timing_add(database, PIR_1G_ADD, PIR_1G_K3,
+                                  info["card"], device, kept)
 
     rows = []
-    for name, source, replaces in (
+    for name, source, replaces, path_launches, times in (
             ("dpxor", "src/repro_torch/csrc/dpxor.cu",
-             "src/repro/kernels/dpxor.py:56"),
+             "src/repro/kernels/dpxor.py:56", launches, timing),
             ("fused_scan_xor", "src/repro_torch/csrc/fused_scan_xor.cu",
-             "src/repro/kernels/fused_scan.py:94")):
-        t = timing[name]
+             "src/repro/kernels/fused_scan.py:94", launches, timing),
+            ("pir_gemm", "src/repro_torch/csrc/pir_gemm.cu",
+             "src/repro/kernels/pir_matmul.py:35", launches_add, timing_add),
+            ("fused_scan_add", "src/repro_torch/csrc/fused_scan_add.cu",
+             "src/repro/kernels/fused_scan.py:131", launches_add,
+             timing_add)):
+        t = times[name]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": path_launches[name],
                      "max_abs_err": worst[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"], "library_ms": None})
+                     "bound_by": t["bound_by"],
+                     "library_ms": t.get("library_ms")})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(info["card"], flush=True)
     emit({"kernels": rows})

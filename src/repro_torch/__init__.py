@@ -4,12 +4,16 @@ The package mirrors ``repro``'s module names so each counterpart is easy
 to find (``repro_torch/core/dpf.py`` <-> ``repro/core/dpf.py``), but it
 imports neither JAX nor anything of ``repro``: only the tests import both.
 
-Slice ported so far: the paper's two-server XOR scheme (``xor-dpf-2``)
-served end to end on one device, with the two TPU kernels on its path
-rewritten as hand-written CUDA C++ for Hopper (``csrc/``):
+Ported so far: the multi-server schemes, served end to end on one
+device — the paper's two-server XOR scheme (``xor-dpf-2``), two-server
+additive Z_256 shares (``additive-dpf-2``) and k-server XOR
+(``xor-dpf-k``) — with the TPU kernels on their paths rewritten as
+hand-written CUDA C++ for Hopper (``csrc/``):
 
-  kernels/dpxor.py       select-XOR scan            (csrc/dpxor.cu)
-  kernels/fused_scan.py  fused GGM-expand + scan    (csrc/fused_scan_xor.cu)
+  kernels/dpxor.py       select-XOR scan             (csrc/dpxor.cu)
+  kernels/fused_scan.py  fused GGM-expand + XOR scan (csrc/fused_scan_xor.cu)
+                         fused GGM-expand + add scan (csrc/fused_scan_add.cu)
+  kernels/pir_matmul.py  int8 GEMM                   (csrc/pir_gemm.cu)
 
 Entry points (``runtime.serve_loop.TwoServerPIR``, ``core.server.PIRServer``,
 ``kernels.ops``) run on the card unless the caller passes ``device="cpu"``;

@@ -1,9 +1,10 @@
 """Carry state from the reference into the port.
 
-Tests feed identical inputs to both packages: the reference's keys and
-database leave JAX as numpy ``uint32`` arrays, and these functions turn
-them into the port's int32 tensors with the same bits. Nothing here
-imports the reference.
+Tests feed identical inputs to both packages: the reference's keys
+(``cw_final`` included, for the additive scheme) and database leave JAX
+as numpy ``uint32`` arrays, and its byte view as ``int8``; these functions
+turn them into the port's tensors with the same bits. Nothing here imports
+the reference.
 """
 from __future__ import annotations
 
@@ -34,3 +35,12 @@ def database_from_reference(db_words: np.ndarray) -> torch.Tensor:
     """The reference's ``[N, W]`` uint32 database as the port's int32
     words tensor (on the CPU)."""
     return words_to_tensor(np.asarray(db_words, np.uint32))
+
+
+def bytes_from_reference(db_bytes: np.ndarray) -> torch.Tensor:
+    """The reference's int8 byte view (``words_to_bytes_i8``, ``[N, L]``)
+    or uint8 shares as the port's tensor of the same dtype (on the CPU)."""
+    arr = np.ascontiguousarray(db_bytes)
+    if arr.dtype not in (np.int8, np.uint8):
+        raise TypeError(f"expected int8 or uint8 bytes, got {arr.dtype}")
+    return torch.from_numpy(arr.copy())

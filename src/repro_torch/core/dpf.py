@@ -6,8 +6,15 @@ reference ``vmap``s one-key functions over a query batch; here the batch is
 an explicit leading ``Q`` axis on every key tensor, so the server-side
 evaluators take *batched* keys (``stack_keys``).
 
-Output mode of this slice: ``bits``, the leaf control bits t(j) with
-t0(j) XOR t1(j) = 1{j == alpha}, which select the rows of the dpXOR scan.
+Output modes ported:
+
+bits   leaf control bits t(j), t0(j) XOR t1(j) = 1{j == alpha}: the
+       selection vector of the dpXOR scan (``xor-dpf-2``, ``xor-dpf-k``).
+bytes  additive shares over Z_256, y0(j) + y1(j) = 1{j == alpha} mod 256:
+       the int8 GEMM's operand (``additive-dpf-2``; keys made with
+       ``payload=[1]``). Shares are ``uint8``; the GEMM reads them as int8
+       through ``.view(torch.int8)``, never by value conversion.
+
 All words are int32 tensors holding u32 bits (package docstring).
 """
 from __future__ import annotations
@@ -18,7 +25,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.crypto.chacha import ggm_double
+from repro_torch.crypto.chacha import ggm_double, prg_bits
 
 
 @dataclass
@@ -31,7 +38,7 @@ class DPFKey:
       root_seed: ``[..., 4]`` 128-bit root seed.
       cw_seed:   ``[..., log_n, 4]`` per-level seed correction words.
       cw_t:      ``[..., log_n, 2]`` per-level (tL, tR) control corrections.
-      cw_final:  payload correction (None in bit mode, the only mode here).
+      cw_final:  ``[..., W]`` payload correction (None in bit mode).
       rounds:    PRG rounds.
     """
     party: int
@@ -59,26 +66,56 @@ def map_keys(keys: DPFKey, fn) -> DPFKey:
 # Key generation (client side; paper Algorithm 1, GENERATEANDSENDKEYS)
 # ---------------------------------------------------------------------------
 
+def draw_roots(rng: np.random.Generator) -> np.ndarray:
+    """One index's two 4-word root seeds, ``[2, 4]`` uint32, drawn as the
+    reference's ``gen_keys`` draws them (``dpf.py:92-95``)."""
+    return np.stack([rng.integers(0, 1 << 32, size=4, dtype=np.uint32)
+                     for _ in range(2)])
+
+
 def gen_keys_batch(rng: np.random.Generator, alphas: Sequence[int],
-                   log_n: int, *, rounds: int = 12
+                   log_n: int, *, payload=None, rounds: int = 12
                    ) -> Tuple[DPFKey, DPFKey]:
     """Key pairs for many indices at once: batched ``(k0, k1)``.
 
     Draws from ``rng`` exactly as the reference's ``gen_keys`` does, one
-    index after another (two 4-word root seeds each, ``dpf.py:92-95``), so
-    the keys equal ``stack_keys`` of per-index ``gen_keys`` calls on the
-    same generator. The level loop then runs once for the whole batch.
+    index after another (two 4-word root seeds each), so the keys equal
+    ``stack_keys`` of per-index ``gen_keys`` calls on the same generator.
+    The level loop then runs once for the whole batch (``keys_from_roots``).
+    ``payload`` (``[W]`` u32, the same for every index) adds ``cw_final``.
     """
     alphas = [int(a) for a in alphas]
+    check_alphas(alphas, log_n)
+    roots = np.empty((len(alphas), 2, 4), np.uint32)
+    for i in range(len(alphas)):
+        roots[i] = draw_roots(rng)
+    return keys_from_roots(roots, alphas, log_n, payload=payload,
+                           rounds=rounds)
+
+
+def check_alphas(alphas: Sequence[int], log_n: int):
     for a in alphas:
         if not (0 <= a < (1 << log_n)):
             raise ValueError(f"alpha={a} out of domain 2^{log_n}")
+
+
+def keys_from_roots(roots: np.ndarray, alphas: Sequence[int], log_n: int, *,
+                    payload=None, rounds: int = 12
+                    ) -> Tuple[DPFKey, DPFKey]:
+    """Gen for a batch whose root seeds are already drawn: ``roots [Q, 2,
+    4]`` uint32 (parties 0 and 1 per index) -> batched ``(k0, k1)``.
+
+    The level loop of the reference's ``gen_keys`` (``dpf.py:96-120``) on a
+    leading Q axis. With ``payload`` (``[W]`` u32, the reference's ``beta``)
+    it adds ``cw_final`` as ``dpf.py:122-131`` does, from ``prg_bits`` of
+    each party's final seed, in u32 wraparound and negated where party 1's
+    final t is 1. That draws nothing more from any generator.
+    """
+    alphas = [int(a) for a in alphas]
+    check_alphas(alphas, log_n)
     q = len(alphas)
-    roots = np.empty((q, 2, 4), np.uint32)
-    for i in range(q):
-        roots[i, 0] = rng.integers(0, 1 << 32, size=4, dtype=np.uint32)
-        roots[i, 1] = rng.integers(0, 1 << 32, size=4, dtype=np.uint32)
-    s = torch.from_numpy(roots.view(np.int32))               # [Q, 2, 4]
+    s = torch.from_numpy(np.ascontiguousarray(roots, np.uint32)
+                         .reshape(q, 2, 4).view(np.int32))     # [Q, 2, 4]
     root = s.clone()
     t = torch.tensor([[0, 1]] * q, dtype=torch.int32).reshape(q, 2)
     alpha_t = torch.tensor(alphas, dtype=torch.int64)
@@ -102,16 +139,25 @@ def gen_keys_batch(rng: np.random.Generator, alphas: Sequence[int],
                else torch.zeros((q, 0, 4), dtype=torch.int32))
     cw_t = (torch.stack(cw_ts, dim=1) if log_n
             else torch.zeros((q, 0, 2), dtype=torch.int32))
+    cw_final = None
+    if payload is not None:
+        beta = np.asarray(payload, dtype=np.uint32)
+        beta = torch.from_numpy(np.ascontiguousarray(beta).view(np.int32))
+        conv = prg_bits(s, int(beta.shape[-1]), rounds=rounds)  # [Q, 2, W]
+        diff = beta - conv[:, 0] + conv[:, 1]                    # u32 wrap
+        cw_final = torch.where(t[:, 1:2] == 1, -diff, diff)
     return tuple(DPFKey(party=b, log_n=log_n, root_seed=root[:, b].clone(),
-                        cw_seed=cw_seed, cw_t=cw_t, rounds=rounds)
+                        cw_seed=cw_seed, cw_t=cw_t, cw_final=cw_final,
+                        rounds=rounds)
                  for b in (0, 1))
 
 
 def gen_keys(rng: np.random.Generator, alpha: int, log_n: int, *,
-             rounds: int = 12) -> Tuple[DPFKey, DPFKey]:
-    """Gen(1^λ, α) -> (k0, k1) for one index (unbatched keys)."""
+             payload=None, rounds: int = 12) -> Tuple[DPFKey, DPFKey]:
+    """Gen(1^λ, α, β) -> (k0, k1) for one index (unbatched keys)."""
     return tuple(key_at(k, 0) for k in
-                 gen_keys_batch(rng, [alpha], log_n, rounds=rounds))
+                 gen_keys_batch(rng, [alpha], log_n, payload=payload,
+                                rounds=rounds))
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +232,32 @@ def eval_bits_batch(keys: DPFKey, start_block: int, log_range: int
                     ) -> torch.Tensor:
     """Selection bits of a leaf range: ``[Q, 2^log_range]`` int32."""
     return eval_range(keys, start_block, log_range)[1]
+
+
+def leaf_bytes(keys: DPFKey, seeds: torch.Tensor, t_bits: torch.Tensor
+               ) -> torch.Tensor:
+    """Additive Z_256 shares of a batch's leaves (``dpf.py:293-307``
+    upstream): ``seeds [Q, n, 4]``, ``t_bits [Q, n]`` -> ``[Q, n]`` uint8.
+
+    Word 0 of each leaf seed's conversion block (ChaCha counter 1), masked
+    to a byte, plus ``t * (cw_final[0] & 0xFF)``, mod 256; party 1 negates
+    mod 256. Keys must carry ``cw_final`` (``payload=[1]``).
+    """
+    if keys.cw_final is None:
+        raise ValueError("key was generated without a payload")
+    conv = prg_bits(seeds, 1, rounds=keys.rounds)[..., 0] & 0xFF
+    share = (conv + t_bits * (keys.cw_final[..., 0:1] & 0xFF)) & 0xFF
+    if keys.party == 1:
+        share = (256 - share) & 0xFF
+    return share.to(torch.uint8)
+
+
+def eval_bytes_batch(keys: DPFKey, start_block: int, log_range: int
+                     ) -> torch.Tensor:
+    """Z_256 additive shares of a leaf range: ``[Q, 2^log_range]`` uint8
+    (``dpf.py:356-363`` upstream)."""
+    seeds, t = eval_range(keys, start_block, log_range)
+    return leaf_bytes(keys, seeds, t)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,12 @@
 """Client + reference-server PIR primitives (port of ``repro/core/pir.py``).
 
-Client:  ``query_gen`` (key generation through the protocol registry) and
-         ``reconstruct_xor`` (r1 XOR r2, Algorithm 1 ⑦).
-Server:  ``dpxor`` — the plain select-XOR scan the ``torch`` plans use;
-         the served form runs through ``core/protocol.py`` and the kernels.
+Client:  ``query_gen`` (key generation through the protocol registry),
+         ``reconstruct_xor`` (r1 XOR r2, Algorithm 1 ⑦) and
+         ``reconstruct_additive`` ((r1 + r2) mod 256).
+Server:  ``dpxor`` — the plain select-XOR scan — and
+         ``answer_additive_matmul`` — the plain int8 GEMM — that the
+         ``torch`` plans use; the served form runs through
+         ``core/protocol.py`` and the kernels.
 """
 from __future__ import annotations
 
@@ -15,9 +18,12 @@ import torch
 
 from repro_torch.config import PIRConfig
 from repro_torch.core import dpf
+from repro_torch.crypto.packing import np_words_to_bytes
 from repro_torch.kernels.dpxor import dpxor_plain, xor_fold
+from repro_torch.kernels.pir_matmul import pir_gemm_plain
 
-__all__ = ["Query", "dpxor", "make_database", "query_gen",
+__all__ = ["Query", "answer_additive_matmul", "db_as_bytes", "dpxor",
+           "make_database", "query_gen", "reconstruct_additive",
            "reconstruct_xor", "xor_fold"]
 
 
@@ -30,6 +36,13 @@ def make_database(rng: np.random.Generator, n_items: int,
         raise ValueError("item_bytes must be a multiple of 4")
     return rng.integers(0, 1 << 32, size=(n_items, item_bytes // 4),
                         dtype=np.uint32)
+
+
+def db_as_bytes(db_words: np.ndarray) -> np.ndarray:
+    """``[N, W]`` uint32 -> ``[N, 4W]`` uint8 on the host (little-endian),
+    as ``pir.py:64-73`` upstream. A parity helper for the tests' oracles:
+    served code reads the device-resident ``Database.view("bytes")``."""
+    return np_words_to_bytes(np.asarray(db_words))
 
 
 @dataclass
@@ -49,6 +62,23 @@ def query_gen(rng: np.random.Generator, index: int, cfg: PIRConfig) -> Query:
 def reconstruct_xor(r0: torch.Tensor, r1: torch.Tensor) -> torch.Tensor:
     """D[i] = r1 XOR r2 (Algorithm 1, client ⑦)."""
     return r0 ^ r1
+
+
+def reconstruct_additive(r0: torch.Tensor, r1: torch.Tensor) -> torch.Tensor:
+    """D[i] bytes = (r0 + r1) mod 256 of the int32 partial sums, uint8."""
+    return ((r0.to(torch.int32) + r1.to(torch.int32)) % 256).to(torch.uint8)
+
+
+def answer_additive_matmul(db_bytes_i8: torch.Tensor,
+                           shares_u8: torch.Tensor) -> torch.Tensor:
+    """Batched additive answers as one int8 GEMM (``pir.py:157-169``).
+
+    ``shares_u8 [Q, N]`` Z_256 shares, ``db_bytes_i8 [N, L]`` the int8 byte
+    view -> ``[Q, L]`` int32 partial results, wrapping as XLA's int32 dot
+    does; only their value mod 256 matters. The pir_gemm kernel's plain
+    version (``kernels/pir_matmul.pir_gemm_plain``).
+    """
+    return pir_gemm_plain(shares_u8, db_bytes_i8)
 
 
 def dpxor(db_words: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:

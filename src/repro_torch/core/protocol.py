@@ -1,20 +1,24 @@
 """The protocol plane of the port: PIR schemes + execution plans.
 
-Port of the main-path part of ``repro/core/protocol.py``:
+Port of the multi-server part of ``repro/core/protocol.py``:
 
 ``PIRProtocol``   what the parties compute — key generation, the per-shard
                   answer, and client reconstruction; a registry maps names
-                  to instances. Registered so far: ``xor-dpf-2``.
+                  to instances. Registered: ``xor-dpf-2`` (the paper's
+                  scheme), ``additive-dpf-2`` (Z_256 shares, one int8 GEMM
+                  per batch) and ``xor-dpf-k`` (k servers, XOR shares).
 ``ExecutionPlan`` how one answer step runs — which expansion (materialized
-                  selection bits, chunked expand+scan, or the fused CUDA
-                  kernel) and which scan (plain PyTorch or the CUDA dpXOR).
+                  selection bits or shares, chunked expand+scan, or a
+                  fused CUDA kernel) and which scan (plain PyTorch or a
+                  CUDA kernel: dpXOR for XOR schemes, the int8 GEMM for
+                  the additive one).
 
 Plan names map to the reference's: ``scan="jnp"`` -> ``"torch"``,
 ``scan="pallas"`` -> ``"cuda"``, ``expand="fused-pallas"`` ->
 ``"fused-cuda"``. The reference's collective and GEMM/DMA tile fields are
-left out: this slice runs on one device and has no GEMM, and the CUDA
-kernels take no DMA tile (``tile_r`` stays, because it legalizes the fused
-kernel's ``chunk_log`` as in the reference).
+left out: the port runs on one device and its kernels take no tiles
+(``tile_r`` stays, because it legalizes the fused kernels' ``chunk_log``
+as in the reference).
 """
 from __future__ import annotations
 
@@ -27,6 +31,11 @@ import torch
 from repro_torch.config import PIRConfig
 from repro_torch.core import dpf, pir
 from repro_torch.crypto.chacha import PRG_ROUNDS
+from repro_torch.kernels.dpxor import xor_fold
+
+#: the reference's GEMM reduction tile default (``engine/kernels.py:153``),
+#: pinned on additive plans; it legalizes chunk_log to 10 at 2^25 rows
+GEMM_TILE_R_DEFAULT = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -37,14 +46,17 @@ from repro_torch.crypto.chacha import PRG_ROUNDS
 class ExecutionPlan:
     """How one answer step executes.
 
-    expand     "materialize": selection bits are written out, then scanned.
+    expand     "materialize": selection bits (or shares) are written out,
+               then scanned.
                "fused": chunked expand+scan in plain PyTorch; bits exist
-               one chunk at a time.
-               "fused-cuda": the fused kernel (``kernels/fused_scan.py``)
+               one chunk at a time (XOR schemes; the additive scheme
+               materializes, as upstream).
+               "fused-cuda": a fused kernel (``kernels/fused_scan.py``)
                expands each chunk's leaves from precomputed chunk roots and
                folds the DB rows in one launch.
-    scan       "torch": the plain select-XOR of ``core/pir.py``.
-               "cuda": the dpXOR kernel (``kernels/dpxor.py``).
+    scan       "torch": the plain select-XOR / int8 GEMM of ``core/pir.py``.
+               "cuda": the dpXOR kernel (``kernels/dpxor.py``) or the int8
+               GEMM kernel (``kernels/pir_matmul.py``).
     chunk_log  log2 leaves per chunk (fused expansions).
     tile_r     the reference's row tile; legalizes ``chunk_log`` for the
                fused kernel (``ops.fused_tile``).
@@ -76,42 +88,57 @@ def plan_for(cfg: PIRConfig, n_queries: int, *, backend: str,
     """Pick the kernel path per (db size, batch bucket, backend).
 
     Counterpart of ``repro/engine/tuner.py heuristic_plan`` (lines 50-86),
-    with one stated deviation on the card. The reference heuristic picks
-    the fused jnp-chunked expand for XOR batches past one query on a large
-    DB, and that path runs no kernel; only its measured tuner picks the
-    ``fused-pallas`` megakernel. The port has no tuner yet, so on
-    ``backend="cuda"`` it picks the kernels directly:
+    with two stated deviations on the card. The reference heuristic picks
+    the jnp-chunked ``fused`` expand for XOR batches past one query on a
+    large DB, and that path runs no kernel; only its measured tuner picks
+    the ``fused-pallas`` megakernel. For the additive scheme it picks
+    ``materialize`` at every batch, which at 2^25 rows and 32 queries would
+    hold 16 GiB of leaf seeds per party before the ChaCha temporaries. The
+    port has no tuner yet, so on ``backend="cuda"`` it picks the kernels
+    directly, for every scheme:
 
-      * ``materialize`` + the dpXOR kernel when ``n_queries <= 1`` or the
-        DB has at most ``2^chunk_log`` rows;
+      * ``materialize`` + the scan kernel (dpXOR, or the int8 GEMM) when
+        ``n_queries <= 1`` or the DB has at most ``2^chunk_log`` rows;
       * ``fused-cuda`` (the fused expand+scan kernel) otherwise.
 
     On ``backend="cpu"`` it keeps the reference rule with plain PyTorch in
-    the role of jnp: ``materialize/torch`` for those same cases, else
-    ``fused/torch``.
+    the role of jnp: ``materialize/torch`` for the additive scheme and for
+    those same cases, else ``fused/torch``. Additive plans pin ``tile_r``
+    to ``GEMM_TILE_R_DEFAULT`` as the reference does.
     """
-    get(cfg.protocol)                       # only registered schemes
+    additive = get(cfg.protocol).share_kind == "additive"
     small_or_single = cfg.n_items <= (1 << chunk_log) or n_queries <= 1
     if backend == "cuda":
         expand = "materialize" if small_or_single else "fused-cuda"
-        return ExecutionPlan(expand=expand, scan="cuda", chunk_log=chunk_log)
-    if backend == "cpu":
-        expand = "materialize" if small_or_single else "fused"
-        return ExecutionPlan(expand=expand, scan="torch", chunk_log=chunk_log)
-    raise ValueError(f"unknown backend {backend!r}; expected 'cuda' or 'cpu'")
+        plan = ExecutionPlan(expand=expand, scan="cuda", chunk_log=chunk_log)
+    elif backend == "cpu":
+        expand = "materialize" if small_or_single or additive else "fused"
+        plan = ExecutionPlan(expand=expand, scan="torch", chunk_log=chunk_log)
+    else:
+        raise ValueError(
+            f"unknown backend {backend!r}; expected 'cuda' or 'cpu'")
+    return _pin_tile(plan, cfg)
 
 
 def resolve_plan(path: Optional[str], cfg: PIRConfig, n_queries: int, *,
                  backend: str, chunk_log: int = 12) -> ExecutionPlan:
     """A plan from a ``path`` string, or ``plan_for`` when path is
-    None/"auto"."""
+    None/"auto". Additive schemes pin the GEMM tile on forced plans too."""
     if path is None or path == "auto":
         return plan_for(cfg, n_queries, backend=backend, chunk_log=chunk_log)
     if path not in PATH_PLANS:
         raise ValueError(f"unknown path {path!r}; "
                          f"expected one of {sorted(PATH_PLANS)} or 'auto'")
-    return replace(PATH_PLANS[path], chunk_log=chunk_log,
-                   provenance="forced")
+    return _pin_tile(replace(PATH_PLANS[path], chunk_log=chunk_log,
+                             provenance="forced"), cfg)
+
+
+def _pin_tile(plan: ExecutionPlan, cfg: PIRConfig) -> ExecutionPlan:
+    """Additive schemes run on the reference's GEMM tile
+    (``protocol.py:164-166`` upstream), heuristic or forced."""
+    if get(cfg.protocol).share_kind == "additive":
+        return replace(plan, tile_r=GEMM_TILE_R_DEFAULT)
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -146,15 +173,18 @@ class PIRProtocol:
         raise NotImplementedError
 
     def record_struct(self, cfg: PIRConfig) -> Tuple[Tuple[int, ...], type]:
-        """(shape tail, dtype) of one reconstructed record."""
+        """(shape tail, dtype) of one reconstructed record: XOR schemes
+        return u32 words, additive schemes Z_256 bytes."""
+        if self.share_kind == "additive":
+            return (cfg.item_bytes,), np.uint8
         return (cfg.item_bytes // 4,), np.uint32
 
     # -- server side ----------------------------------------------------
     def answer_local(self, db_local: torch.Tensor, keys_local,
                      start_block: int, log_local: int,
                      plan: ExecutionPlan) -> torch.Tensor:
-        """One shard's answers ``[Q, W]`` for a batch of keys; the shard
-        holds leaves ``[start_block * 2^log_local, ...)``."""
+        """One shard's answer shares ``[Q, cols]`` for a batch of keys; the
+        shard holds leaves ``[start_block * 2^log_local, ...)``."""
         raise NotImplementedError
 
     # -- batching -------------------------------------------------------
@@ -240,9 +270,11 @@ class XorDpf2(_XorProtocol):
         raise ValueError(f"unknown expand {plan.expand!r}")
 
 
-def _fused_xor_answer(db_local, keys_local, start_block, log_local, plan):
+def _fused_xor_answer(db_local, keys_local, start_block, log_local, plan,
+                      bits_fn=dpf.eval_bits_batch):
     """Chunked expand+scan: per chunk, descend to its subtree and fold its
-    rows at once, so selection bits exist one chunk at a time."""
+    rows at once, so selection bits exist one chunk at a time. ``bits_fn``
+    maps (keys, block, log_range) to ``[Q, 2^log_range]`` bits."""
     rows_local, words = db_local.shape
     n_chunks = max(1, rows_local >> plan.chunk_log)
     clog = min(plan.chunk_log, log_local)
@@ -250,8 +282,7 @@ def _fused_xor_answer(db_local, keys_local, start_block, log_local, plan):
     acc = torch.zeros((dpf.n_queries_of(keys_local), words),
                       dtype=torch.int32, device=db_local.device)
     for c in range(n_chunks):
-        bits = dpf.eval_bits_batch(keys_local, start_block * n_chunks + c,
-                                   clog)
+        bits = bits_fn(keys_local, start_block * n_chunks + c, clog)
         acc ^= pir.dpxor(db_c[c], bits)
     return acc
 
@@ -286,3 +317,184 @@ def _fused_cuda_xor_answer(db_local, keys_local, start_block, log_local,
 
 
 register(XorDpf2())
+
+
+# ---------------------------------------------------------------------------
+# additive-dpf-2: Z_256 shares -> one int8 GEMM per batch (beyond-paper)
+# ---------------------------------------------------------------------------
+
+#: the additive scheme's DPF payload: beta = 1, so shares sum to e_alpha
+PAYLOAD_ONE = np.array([1], np.uint32)
+
+
+class AdditiveDpf2(PIRProtocol):
+    """Two-server additive PIR: Z_256 byte shares, batched-query GEMM.
+
+    A batch of Q queries against one DB shard is one int8 product
+    ``shares[Q, R] x db[R, L]``: the DB is read once per batch. Answers are
+    int32 byte columns; only their value mod 256 matters, and int32
+    wraparound keeps it. The int8 byte view comes from the database plane
+    (``db_view = "bytes"``, an alias of the resident words).
+    """
+
+    name = "additive-dpf-2"
+    share_kind = "additive"
+    db_view = "bytes"
+
+    def n_parties(self, cfg: PIRConfig) -> int:
+        return 2
+
+    def query_gen(self, rng, index, cfg):
+        return dpf.gen_keys(rng, index, cfg.log_n, payload=PAYLOAD_ONE,
+                            rounds=PRG_ROUNDS[cfg.prf])
+
+    def query_gen_batch(self, rng, indices, cfg):
+        return dpf.gen_keys_batch(rng, indices, cfg.log_n,
+                                  payload=PAYLOAD_ONE,
+                                  rounds=PRG_ROUNDS[cfg.prf])
+
+    def answer_local(self, db_local, keys_local, start_block, log_local,
+                     plan):
+        # db_local is the int8 byte view [rows_local, item_bytes]
+        if plan.expand == "fused-cuda":
+            return _fused_cuda_add_answer(db_local, keys_local, start_block,
+                                          log_local, plan)
+        if plan.expand not in ("materialize", "fused"):
+            raise ValueError(f"unknown expand {plan.expand!r}")
+        shares = dpf.eval_bytes_batch(keys_local, start_block, log_local)
+        if plan.scan == "cuda":
+            from repro_torch.kernels import ops
+            return ops.pir_gemm(shares.view(torch.int8), db_local)
+        return pir.answer_additive_matmul(db_local, shares)
+
+    def reconstruct(self, answers):
+        return pir.reconstruct_additive(*answers)
+
+
+def _fused_cuda_add_answer(db_local, keys_local, start_block, log_local,
+                           plan):
+    """Fused-kernel additive answer: in-kernel share conversion +
+    select-add, equal to the materialized int8 GEMM bit for bit."""
+    from repro_torch.kernels import ops
+    roots, t_roots, cw_s, cw_t = _fused_cuda_inputs(
+        keys_local, start_block, log_local, db_local.shape[0], plan)
+    return ops.fused_scan_bytes(db_local, roots, t_roots, cw_s, cw_t,
+                                keys_local.cw_final[:, 0],
+                                party=keys_local.party,
+                                rounds=keys_local.rounds)
+
+
+register(AdditiveDpf2())
+
+
+# ---------------------------------------------------------------------------
+# xor-dpf-k: k >= 2 servers, k-of-k XOR shares (beyond-paper)
+# ---------------------------------------------------------------------------
+
+class XorDpfK(_XorProtocol):
+    """k-server XOR PIR: one DPF pair blinded by a ring of shared masks.
+
+    For each query: draw mask seeds s_0..s_{k-1}; party i holds plain
+    (correction-free) GGM trees for s_i and s_{(i+1) mod k}, and parties 0
+    and 1 also hold the real DPF pair (d_0, d_1). Each seed is held by
+    exactly two parties, so the XOR of all k selection vectors is
+    Eval(d_0) ^ Eval(d_1) = e_alpha, while each party alone sees a DPF key
+    and fresh random seeds. k = 2 degenerates to the two-server scheme.
+
+    A party's key is a ``DPFKey`` with a component axis after the query
+    axis (``[Q, C, ...]``; C = 3 for parties 0 and 1, 2 for the rest, all
+    components carrying the party's id); each component is evaluated and
+    the selection bits are XOR-folded over C.
+    """
+
+    name = "xor-dpf-k"
+
+    def n_parties(self, cfg: PIRConfig) -> int:
+        if cfg.n_servers < 2:
+            raise ValueError(f"xor-dpf-k needs n_servers >= 2, "
+                             f"got {cfg.n_servers}")
+        return cfg.n_servers
+
+    def query_gen(self, rng, index, cfg):
+        return tuple(dpf.key_at(k, 0)
+                     for k in self.query_gen_batch(rng, [index], cfg))
+
+    def query_gen_batch(self, rng, indices, cfg):
+        """Per index, the DPF pair's two roots and then k mask seeds are
+        drawn, in that order (``protocol.py:655-657`` upstream)."""
+        k = self.n_parties(cfg)
+        alphas = [int(a) for a in indices]
+        dpf.check_alphas(alphas, cfg.log_n)
+        q = len(alphas)
+        roots = np.empty((q, 2, 4), np.uint32)
+        seeds = np.empty((q, k, 4), np.uint32)
+        for i in range(q):
+            roots[i] = dpf.draw_roots(rng)
+            for j in range(k):
+                seeds[i, j] = rng.integers(0, 1 << 32, size=4,
+                                           dtype=np.uint32)
+        pair = dpf.keys_from_roots(roots, alphas, cfg.log_n,
+                                   rounds=PRG_ROUNDS[cfg.prf])
+        seeds_t = torch.from_numpy(seeds.view(np.int32))
+        keys = []
+        for i in range(k):
+            masks = seeds_t[:, [i, (i + 1) % k]]                 # [Q, 2, 4]
+            zero = torch.zeros((q, 2) + tuple(pair[0].cw_seed.shape[1:]),
+                               dtype=torch.int32)
+            zero_t = torch.zeros((q, 2) + tuple(pair[0].cw_t.shape[1:]),
+                                 dtype=torch.int32)
+            root, cw_s, cw_t = masks, zero, zero_t
+            if i < 2:
+                d = pair[i]
+                root = torch.cat([d.root_seed[:, None], masks], dim=1)
+                cw_s = torch.cat([d.cw_seed[:, None], zero], dim=1)
+                cw_t = torch.cat([d.cw_t[:, None], zero_t], dim=1)
+            keys.append(dpf.DPFKey(party=i, log_n=cfg.log_n,
+                                   root_seed=root.contiguous(),
+                                   cw_seed=cw_s.contiguous(),
+                                   cw_t=cw_t.contiguous(),
+                                   rounds=PRG_ROUNDS[cfg.prf]))
+        return tuple(keys)
+
+    def answer_local(self, db_local, keys_local, start_block, log_local,
+                     plan):
+        if plan.expand == "materialize":
+            bits = _component_bits_batch(keys_local, start_block, log_local)
+            return _xor_scan(db_local, bits, plan)
+        if plan.expand == "fused":
+            return _fused_xor_answer(db_local, keys_local, start_block,
+                                     log_local, plan, _component_bits_batch)
+        if plan.expand == "fused-cuda":
+            return _fused_cuda_xor_k_answer(db_local, keys_local,
+                                            start_block, log_local, plan)
+        raise ValueError(f"unknown expand {plan.expand!r}")
+
+
+def _flatten_components(keys: dpf.DPFKey) -> dpf.DPFKey:
+    """``[Q, C, ...]`` component keys -> ``[Q*C, ...]`` pseudo-queries."""
+    return dpf.map_keys(keys, lambda x: x.reshape((-1,) + x.shape[2:]))
+
+
+def _component_bits_batch(keys: dpf.DPFKey, start_block: int,
+                          log_range: int) -> torch.Tensor:
+    """``[Q, C, ...]`` component keys -> ``[Q, 2^log_range]`` selection
+    bits, XOR-folded over the components (``protocol.py:712-726``; the
+    reference's one-query ``_component_bits`` is this at Q = 1)."""
+    q, c = keys.root_seed.shape[:2]
+    bits = dpf.eval_bits_batch(_flatten_components(keys), start_block,
+                               log_range)
+    return xor_fold(bits.reshape(q, c, -1), 1)
+
+
+def _fused_cuda_xor_k_answer(db_local, keys_local, start_block, log_local,
+                             plan):
+    """Fused-kernel answer for component keys: AND distributes over XOR,
+    so the kernel runs on the Q*C flattened pseudo-queries and the answers
+    XOR-fold over the component axis."""
+    q, c = keys_local.root_seed.shape[:2]
+    ans = _fused_cuda_xor_answer(db_local, _flatten_components(keys_local),
+                                 start_block, log_local, plan)
+    return xor_fold(ans.reshape(q, c, -1), 1)
+
+
+register(XorDpfK())

@@ -1,7 +1,7 @@
 """PIR server of one party on one device (port of ``repro/core/server.py``).
 
 The reference shards the DB over a TPU mesh and compiles one ``shard_map``
-serve step per batch bucket. This slice runs on one device: the whole DB
+serve step per batch bucket. The port runs on one device: the whole DB
 is one shard (``start_block = 0``), there is no collective, and PyTorch
 runs eagerly, so a bucket's "step" is its resolved plan applied through
 the protocol's ``answer_local``. Ragged batches still pad up to the
@@ -85,8 +85,8 @@ class BucketedServeFns:
 
     def answer(self, db: Union[torch.Tensor, Database], keys: dpf.DPFKey
                ) -> torch.Tensor:
-        """Answer a batch of any size: exactly ``[Q, W]`` shares (async on
-        the card)."""
+        """Answer a batch of any size: exactly ``[Q, cols]`` shares (async
+        on the card)."""
         if isinstance(db, Database):
             db = db.view(self.protocol.db_view)
         keys = keys.to(db.device)               # no copy once staged
@@ -163,5 +163,5 @@ class PIRServer:
         return self.bucketed.stage(keys, self.device)
 
     def answer(self, keys: dpf.DPFKey) -> torch.Tensor:
-        """Answer a batch of queries: exactly ``[Q, W]`` answer shares."""
+        """Answer a batch of queries: exactly ``[Q, cols]`` answer shares."""
         return self.bucketed.answer(self.db, keys)

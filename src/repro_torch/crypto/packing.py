@@ -1,8 +1,9 @@
-"""u32 word packing between numpy and the port's int32 tensors.
+"""u32 word and byte packing between numpy and the port's tensors.
 
 The reference stores records as ``uint32`` words; the port keeps the same
-bits in ``int32`` tensors (see the package docstring). These are the only
-conversions the database spec needs.
+bits in ``int32`` tensors (see the package docstring). Byte forms are
+little-endian, as upstream (``crypto/packing.py``): byte ``4w + k`` of a
+record is bits ``8k .. 8k+7`` of its word ``w``.
 """
 from __future__ import annotations
 
@@ -27,3 +28,30 @@ def np_words_to_bytes(w: np.ndarray) -> np.ndarray:
     """``[..., W] uint32 -> [..., 4W] uint8``, little-endian on any host."""
     le = np.ascontiguousarray(w, dtype="<u4")
     return le.view(np.uint8).reshape(w.shape[:-1] + (w.shape[-1] * 4,))
+
+
+def words_to_bytes(w: torch.Tensor) -> torch.Tensor:
+    """``[..., k]`` int32 words -> ``[..., 4k]`` uint8 (little-endian).
+
+    A parity helper: served code reads ``Database.view("bytes")``, an alias
+    of the resident words, and never copies bytes out this way."""
+    sh = torch.arange(0, 32, 8, dtype=torch.int32, device=w.device)
+    b = (w.to(torch.int32)[..., None] >> sh) & 0xFF
+    return b.to(torch.uint8).reshape(w.shape[:-1] + (w.shape[-1] * 4,))
+
+
+def words_to_bytes_i8(w: torch.Tensor) -> torch.Tensor:
+    """``[..., k]`` words -> ``[..., 4k]`` int8: the same bytes read as int8
+    (the additive GEMM's operand), by reinterpretation. A parity helper,
+    as :func:`words_to_bytes`."""
+    return words_to_bytes(w).view(torch.int8)
+
+
+def np_bytes_to_words(b: np.ndarray) -> np.ndarray:
+    """``[..., 4k] uint8 -> [..., k] uint32`` on the host, little-endian.
+    A parity helper; no served path packs bytes back into words."""
+    b = np.asarray(b, np.uint8)
+    if b.shape[-1] % 4:
+        raise ValueError(f"byte length {b.shape[-1]} not a multiple of 4")
+    le = np.ascontiguousarray(b).view("<u4")
+    return le.astype(np.uint32).reshape(b.shape[:-1] + (b.shape[-1] // 4,))

@@ -1,8 +1,9 @@
 """``DatabaseSpec``: shape math for one PIR database (``repro/db/spec.py``).
 
-This slice serves the ``words`` view only (u32 words, the XOR scan's
-operand) and has no checksum column; the byte views and verified
-reconstruction come with the slices that need them.
+Two views are served: ``words`` (u32 words, the XOR scans' operand) and
+``bytes`` (int8 bytes, little-endian, the additive GEMM's operand). A view
+name is protocol metadata (``PIRProtocol.db_view``). Not ported yet: the
+LWE ``bytes32`` view and the checksum column of verified reconstruction.
 """
 from __future__ import annotations
 
@@ -13,7 +14,11 @@ import numpy as np
 
 from repro_torch.config import PIRConfig
 
-VIEWS = ("words",)
+#: registered database views: name -> dtype of its ``[N, cols]`` tensor
+VIEWS = {
+    "words": np.dtype(np.uint32),   # [N, item_words] — XOR schemes
+    "bytes": np.dtype(np.int8),     # [N, item_bytes] — additive GEMM
+}
 
 
 @dataclass(frozen=True)
@@ -43,10 +48,15 @@ class DatabaseSpec:
     def item_words(self) -> int:
         return self.item_bytes // 4
 
-    def view_shape(self, view: str) -> Tuple[int, int]:
+    def view_dtype(self, view: str) -> np.dtype:
         if view not in VIEWS:
-            raise KeyError(f"unknown db view {view!r}; known: {list(VIEWS)}")
-        return (self.n_items, self.item_words)
+            raise KeyError(f"unknown db view {view!r}; known: {sorted(VIEWS)}")
+        return VIEWS[view]
+
+    def view_shape(self, view: str) -> Tuple[int, int]:
+        self.view_dtype(view)
+        cols = self.item_words if view == "words" else self.item_bytes
+        return (self.n_items, cols)
 
     def validate_words(self, db_words: np.ndarray) -> np.ndarray:
         arr = np.asarray(db_words)

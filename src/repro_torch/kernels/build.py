@@ -5,8 +5,9 @@ into ``build/repro_torch/`` at the root of the checkout, under a file name
 hashed over every source in ``csrc/`` and the flags, so an edited source
 rebuilds and an unchanged one loads from disk. The sources export a plain
 C interface (no PyTorch headers), which keeps a build to seconds; the
-wrappers in ``dpxor.py`` / ``fused_scan.py`` register each kernel as a
-``torch.library`` op that launches on PyTorch's current stream.
+wrappers in ``dpxor.py``, ``fused_scan.py`` and ``pir_matmul.py`` register
+each kernel as a ``torch.library`` op that launches on PyTorch's current
+stream.
 
 A failed build raises :class:`BuildError` with nvcc's output. ``build``
 compiles several libraries at once, one nvcc process per source.
@@ -38,6 +39,11 @@ LIBRARIES = {
     "fused_scan_xor": ("fused_scan_xor.cu", {
         "repro_fused_scan_xor": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I,
                                  _I, _P]}),
+    "pir_gemm": ("pir_gemm.cu", {
+        "repro_pir_gemm": [_P, _P, _P, _L, _I, _I, _I, _P]}),
+    "fused_scan_add": ("fused_scan_add.cu", {
+        "repro_fused_scan_add": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L,
+                                 _I, _I, _I, _P]}),
 }
 
 
@@ -173,15 +179,32 @@ def n_sms(t: torch.Tensor) -> int:
     return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
-def require_cuda_words(name: str, t: torch.Tensor, ndim: int):
-    """Check a kernel operand: a contiguous, 16-byte aligned int32 tensor
-    of rank ``ndim`` on a CUDA device."""
+def require_cuda_words(name: str, t: torch.Tensor, ndim: int,
+                       align: int = 16):
+    """Check a kernel operand: a contiguous, ``align``-byte aligned int32
+    tensor of rank ``ndim`` on a CUDA device (16 for operands the kernel
+    reads in vector loads, 4 for word-by-word reads)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be on a CUDA device, got {t.device}")
     if t.dtype != torch.int32:
         raise TypeError(f"{name} must be int32 (u32 words), got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.numel() and t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+def require_cuda_bytes(name: str, t: torch.Tensor):
+    """Check a byte operand: a contiguous, 16-byte aligned int8 matrix on
+    a CUDA device."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be on a CUDA device, got {t.device}")
+    if t.dtype != torch.int8:
+        raise TypeError(f"{name} must be int8, got {t.dtype}")
+    if t.dim() != 2:
+        raise ValueError(f"{name} must have 2 dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.numel() and t.data_ptr() % 16:

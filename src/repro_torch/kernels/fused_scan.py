@@ -1,23 +1,25 @@
-"""Fused GGM-expand + select-XOR scan: the CUDA kernel, its op, and its
-plain version.
+"""Fused GGM-expand + scan: the CUDA kernels, their ops, and their plain
+versions.
 
-Port of the XOR half of ``repro/kernels/fused_scan.py``
-(``_fused_xor_kernel`` with ``_expand_tile``, ``_interleave`` and
-``ggm_expand.py _chacha_rows``). Inputs are per-chunk GGM subtree roots
+Port of ``repro/kernels/fused_scan.py``: ``_fused_xor_kernel`` (select-XOR
+over the words view) and ``_fused_add_kernel`` (select-add of Z_256 shares
+over the int8 byte view), with ``_expand_tile``, ``_interleave`` and
+``ggm_expand.py _chacha_rows``. Inputs are per-chunk GGM subtree roots
 (``dpf.eval_roots_batch``) and the last ``clog`` levels of correction
-words; the kernel expands each chunk's ``2^clog`` leaf bits and folds the
-selected DB rows at once, so the selection vector never reaches memory.
+words; a kernel expands each chunk's ``2^clog`` leaves and folds the DB
+rows at once, so neither selection bits nor shares reach memory.
 
 The Pallas kernel streams ``[W, tile_r]`` DB tiles through rotating VMEM
 buffers and expands each tile breadth-first. On the GPU one thread owns
 one (query, chunk root) and walks its subtree depth-first with ChaCha's
-state in registers — see ``csrc/fused_scan_xor.cu`` for the design and
-its bound. There is no DMA tile, so the reference's ``tile_r``/``depth``
+state in registers — see ``csrc/fused_scan_xor.cu`` and
+``csrc/fused_scan_add.cu`` for the designs and their bounds. There is no DMA tile, so the reference's ``tile_r``/``depth``
 do not reach the kernel; ``ops.fused_tile`` still legalizes ``chunk_log``
 against ``tile_r`` exactly as the reference does.
 
-``fused_scan_xor`` dispatches on the tensors' device: CUDA launches the
-kernel (or raises), CPU takes ``fused_scan_xor_plain``; ``count`` tallies.
+``fused_scan_xor`` and ``fused_scan_add`` dispatch on the tensors' device:
+CUDA launches the kernel (or raises), CPU takes the plain version;
+``count`` and ``count_add`` tally.
 """
 from __future__ import annotations
 
@@ -25,11 +27,14 @@ import ctypes
 
 import torch
 
-from repro_torch.crypto.chacha import chacha_block
+from repro_torch.crypto.chacha import chacha_block, prg_bits
 from repro_torch.kernels import build
 from repro_torch.kernels.dpxor import xor_fold
+from repro_torch.kernels.pir_matmul import KERNEL_WIDTHS, pir_gemm_plain, \
+    wrap_int32
 
 count = build.KernelCount()
+count_add = build.KernelCount()
 
 #: leaves per step of the plain version (bounds its expansion temporaries)
 _PLAIN_LEAVES = 1 << 24
@@ -44,8 +49,8 @@ def _interleave(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
 
 def _expand(seeds, t, cw_seed_lv, cw_t_lv, rounds):
     """Breadth-expand ``clog`` corrected levels: ``[Q, m, 4]`` roots ->
-    leaf bits ``[Q, m << clog]`` (``_expand_tile`` semantics: corrections
-    masked by ``0 - t``)."""
+    leaf seeds ``[Q, m << clog, 4]`` and bits ``[Q, m << clog]``
+    (``_expand_tile`` semantics: corrections masked by ``0 - t``)."""
     for lvl in range(cw_seed_lv.shape[1]):
         out = chacha_block(seeds, counter=0, rounds=rounds)          # [Q, m, 16]
         cw = -t[..., None] & cw_seed_lv[:, lvl][:, None, :]          # [Q, m, 4]
@@ -53,7 +58,7 @@ def _expand(seeds, t, cw_seed_lv, cw_t_lv, rounds):
         t_r = (out[..., 9] & 1) ^ (t & cw_t_lv[:, lvl, 1:2])
         seeds = _interleave(out[..., 0:4] ^ cw, out[..., 4:8] ^ cw)
         t = _interleave(t_l, t_r)
-    return t
+    return seeds, t
 
 
 def fused_scan_xor_plain(db_words, roots, t_roots, cw_seed_lv, cw_t_lv, *,
@@ -72,11 +77,25 @@ def fused_scan_xor_plain(db_words, roots, t_roots, cw_seed_lv, cw_t_lv, *,
     out = torch.zeros((q, w), dtype=torch.int32, device=db_words.device)
     step = max(1, _PLAIN_LEAVES // (max(q, 1) << clog))
     for lo in range(0, c, step):
-        bits = _expand(roots[:, lo:lo + step], t_roots[:, lo:lo + step],
-                       cw_seed_lv, cw_t_lv, rounds)
+        _, bits = _expand(roots[:, lo:lo + step], t_roots[:, lo:lo + step],
+                          cw_seed_lv, cw_t_lv, rounds)
         rows = db_words[lo << clog:(lo + bits.shape[1] // (1 << clog)) << clog]
         out ^= xor_fold(-bits[:, :, None] & rows[None], 1)
     return out
+
+
+def _check_chunking(rows: int, roots, t_roots, cw_seed_lv, cw_t_lv):
+    q, c = t_roots.shape
+    clog = cw_seed_lv.shape[1]
+    if (tuple(roots.shape) != (q, c, 4)
+            or tuple(cw_seed_lv.shape) != (q, clog, 4)
+            or tuple(cw_t_lv.shape) != (q, clog, 2)):
+        raise ValueError(
+            f"operand shapes disagree: roots {tuple(roots.shape)}, t_roots "
+            f"{tuple(t_roots.shape)}, cw_seed_lv {tuple(cw_seed_lv.shape)}, "
+            f"cw_t_lv {tuple(cw_t_lv.shape)}")
+    if c << clog != rows:
+        raise ValueError(f"{c} chunk roots x 2^{clog} leaves != rows {rows}")
 
 
 @torch.library.custom_op("repro_torch::fused_scan_xor", mutates_args=(),
@@ -92,15 +111,7 @@ def _fused_scan_xor_op(db_words: torch.Tensor, roots: torch.Tensor,
     r, w = db_words.shape
     q, c = t_roots.shape
     clog = cw_seed_lv.shape[1]
-    if (tuple(roots.shape) != (q, c, 4)
-            or tuple(cw_seed_lv.shape) != (q, clog, 4)
-            or tuple(cw_t_lv.shape) != (q, clog, 2)):
-        raise ValueError(
-            f"operand shapes disagree: roots {tuple(roots.shape)}, t_roots "
-            f"{tuple(t_roots.shape)}, cw_seed_lv {tuple(cw_seed_lv.shape)}, "
-            f"cw_t_lv {tuple(cw_t_lv.shape)}")
-    if c << clog != r:
-        raise ValueError(f"{c} chunk roots x 2^{clog} leaves != rows {r}")
+    _check_chunking(r, roots, t_roots, cw_seed_lv, cw_t_lv)
     if len({t.device for t in (db_words, roots, t_roots, cw_seed_lv,
                                cw_t_lv)}) != 1:
         raise ValueError("fused_scan_xor operands are on different devices")
@@ -144,3 +155,106 @@ def fused_scan_xor(db_words, roots, t_roots, cw_seed_lv, cw_t_lv, *,
     return torch.ops.repro_torch.fused_scan_xor(
         db_words, roots.contiguous(), t_roots.contiguous(),
         cw_seed_lv.contiguous(), cw_t_lv.contiguous(), rounds)
+
+
+def fused_scan_add_plain(db_bytes, roots, t_roots, cw_seed_lv, cw_t_lv,
+                         cw_final, *, party: int, rounds: int = 12
+                         ) -> torch.Tensor:
+    """Plain PyTorch expand + share conversion + select-add, the kernel's
+    exact function (``_fused_add_kernel``).
+
+    ``db_bytes [R, L]`` int8, ``cw_final [Q]`` (payload correction words),
+    other operands as :func:`fused_scan_xor_plain` -> ``[Q, L]`` int32.
+    Per leaf: word 0 of the leaf seed's ChaCha block at counter 1, the
+    Z_256 share ``((conv & 0xFF) + t * (cwf & 0xFF)) & 0xFF`` (negated mod
+    256 for party 1), read as int8 and multiplied into the row. Chunks run
+    in blocks; partial sums accumulate in int64 and wrap to int32 at the
+    end, which equals the int32 GEMM bit for bit.
+    """
+    r, l = db_bytes.shape
+    q, c = t_roots.shape
+    clog = cw_seed_lv.shape[1]
+    _check_chunking(r, roots, t_roots, cw_seed_lv, cw_t_lv)
+    if party not in (0, 1):
+        raise ValueError(f"party must be 0 or 1, got {party}")
+    cwf = cw_final.reshape(q, 1) & 0xFF
+    acc = torch.zeros((q, l), dtype=torch.int64, device=db_bytes.device)
+    step = max(1, _PLAIN_LEAVES // (max(q, 1) << clog))
+    for lo in range(0, c, step):
+        seeds, t = _expand(roots[:, lo:lo + step], t_roots[:, lo:lo + step],
+                           cw_seed_lv, cw_t_lv, rounds)
+        conv = prg_bits(seeds, 1, rounds=rounds)[..., 0] & 0xFF
+        share = (conv + t * cwf) & 0xFF
+        if party == 1:
+            share = (256 - share) & 0xFF
+        rows = db_bytes[lo << clog:(lo << clog) + share.shape[1]]
+        acc += pir_gemm_plain(share.to(torch.uint8), rows).to(torch.int64)
+    return wrap_int32(acc)
+
+
+@torch.library.custom_op("repro_torch::fused_scan_add", mutates_args=(),
+                         device_types="cuda")
+def _fused_scan_add_op(db_bytes: torch.Tensor, roots: torch.Tensor,
+                       t_roots: torch.Tensor, cw_seed_lv: torch.Tensor,
+                       cw_t_lv: torch.Tensor, cw_final: torch.Tensor,
+                       party: int, rounds: int) -> torch.Tensor:
+    build.require_cuda_bytes("db_bytes", db_bytes)
+    build.require_cuda_words("roots", roots, 3)           # uint4 loads
+    build.require_cuda_words("t_roots", t_roots, 2, align=4)
+    build.require_cuda_words("cw_seed_lv", cw_seed_lv, 3, align=4)
+    build.require_cuda_words("cw_t_lv", cw_t_lv, 3, align=4)
+    build.require_cuda_words("cw_final", cw_final, 1, align=4)
+    r, l = db_bytes.shape
+    q, c = t_roots.shape
+    clog = cw_seed_lv.shape[1]
+    _check_chunking(r, roots, t_roots, cw_seed_lv, cw_t_lv)
+    if tuple(cw_final.shape) != (q,):
+        raise ValueError(f"cw_final {tuple(cw_final.shape)} is not [{q}]")
+    if len({t.device for t in (db_bytes, roots, t_roots, cw_seed_lv,
+                               cw_t_lv, cw_final)}) != 1:
+        raise ValueError("fused_scan_add operands are on different devices")
+    if l not in KERNEL_WIDTHS:
+        raise ValueError(f"fused_scan_add kernel takes records of "
+                         f"{KERNEL_WIDTHS} bytes, got {l}")
+    if clog > 24:
+        raise ValueError(f"chunk_log {clog} exceeds the kernel's stack (24)")
+    if rounds <= 0 or rounds % 2:
+        raise ValueError(f"rounds must be positive and even, got {rounds}")
+    if party not in (0, 1):
+        raise ValueError(f"party must be 0 or 1, got {party}")
+    out = torch.zeros((q, l), dtype=torch.int32, device=db_bytes.device)
+    if q == 0 or r == 0:
+        return out
+    lib = build.library("fused_scan_add")
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    err = lib.repro_fused_scan_add(
+        p(db_bytes), p(roots), p(t_roots), p(cw_seed_lv), p(cw_t_lv),
+        p(cw_final), p(out), r, l, q, c, clog, rounds, party,
+        ctypes.c_void_p(build.stream_of(db_bytes)))
+    build.check(lib, err, "fused_scan_add")
+    count_add.launches += 1
+    return out
+
+
+def fused_scan_add(db_bytes, roots, t_roots, cw_seed_lv, cw_t_lv, cw_final,
+                   *, party: int, rounds: int = 12) -> torch.Tensor:
+    """Fused expand + select-add over the int8 byte view, row-major DB.
+
+    Args:
+      db_bytes:   ``[R, L]`` int8 DB shard (``Database.view("bytes")``).
+      roots, t_roots, cw_seed_lv, cw_t_lv: as :func:`fused_scan_xor`.
+      cw_final:   ``[Q]`` payload correction words (word 0 of each key's).
+      party:      0 or 1 (party 1 negates its shares mod 256).
+    Returns ``[Q, L]`` int32, equal to ``eval_bytes_batch`` + the int8
+    GEMM. CUDA tensors launch the kernel, CPU tensors take the plain
+    version.
+    """
+    if db_bytes.device.type == "cpu":
+        count_add.plain_calls += 1
+        return fused_scan_add_plain(db_bytes, roots, t_roots, cw_seed_lv,
+                                    cw_t_lv, cw_final, party=party,
+                                    rounds=rounds)
+    return torch.ops.repro_torch.fused_scan_add(
+        db_bytes, roots.contiguous(), t_roots.contiguous(),
+        cw_seed_lv.contiguous(), cw_t_lv.contiguous(), cw_final.contiguous(),
+        party, rounds)

@@ -8,8 +8,9 @@ Pipeline (paper Figure 8, §3.4):
   ④ answers return through per-query futures; all parties' shares are
      reconciled (``PIRProtocol.reconstruct``) when a batch completes
 
-This slice keeps ``AnswerFuture``, ``QueryScheduler``, ``MultiServerPIR``
-and ``TwoServerPIR`` on one device and one dispatch lane. Chaos seams,
+The port keeps ``AnswerFuture``, ``QueryScheduler``, ``MultiServerPIR``
+(k parties, e.g. ``xor-dpf-k``) and ``TwoServerPIR`` (``xor-dpf-2``,
+``additive-dpf-2``) on one device and one dispatch lane. Chaos seams,
 straggler shedding, hints, online updates and replica hooks are not
 ported yet.
 """
@@ -358,10 +359,14 @@ class MultiServerPIR:
             return tuple(servers[p].bucketed.answer(view, staged[p])
                          for p in parties), epoch
 
+        _, record_dtype = proto.record_struct(self.cfg)
+
         def finalize(raw, n):
             answers, _ = raw
-            return list(tensor_to_words(
-                proto.reconstruct([a[:n] for a in answers])))
+            rec = proto.reconstruct([a[:n] for a in answers])
+            if record_dtype == np.uint32:
+                return list(tensor_to_words(rec))
+            return list(rec.cpu().numpy())
 
         return QueryScheduler(
             collate=collate, stage=stage, dispatch=dispatch,
@@ -385,7 +390,8 @@ class MultiServerPIR:
 
     def submit(self, index: int) -> AnswerFuture:
         """Private retrieval of ``db[index]``; resolves to one record
-        (``[W]`` uint32 words)."""
+        (``PIRProtocol.record_struct``: ``[W]`` uint32 words for XOR
+        schemes, ``[L]`` uint8 bytes for the additive one)."""
         with self._lock:         # client-side keygen shares one rng
             keys = self.protocol.query_gen(self.rng, index, self.cfg)
         return self.scheduler.submit(keys)
@@ -393,7 +399,8 @@ class MultiServerPIR:
     # -- synchronous batch API ------------------------------------------
 
     def query(self, indices: Sequence[int]) -> np.ndarray:
-        """Private retrieval of ``db[indices]``: ``[Q, W]`` uint32 records."""
+        """Private retrieval of ``db[indices]``: ``[Q, W]`` uint32 records,
+        or ``[Q, L]`` uint8 for the additive scheme."""
         indices = list(indices)
         if not indices:
             tail, dtype = self.protocol.record_struct(self.cfg)
@@ -409,7 +416,7 @@ class MultiServerPIR:
 
 class TwoServerPIR(MultiServerPIR):
     """The two-party deployment (a ``MultiServerPIR`` whose protocol has
-    exactly two parties; ``xor-dpf-2`` by default)."""
+    exactly two parties: ``xor-dpf-2`` or ``additive-dpf-2``)."""
 
     def __init__(self, db_words, cfg: PIRConfig, *,
                  protocol: Optional[PIRProtocol] = None, **kwargs):

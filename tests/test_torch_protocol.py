@@ -101,7 +101,9 @@ def test_cuda_plans_route_through_the_kernel_wrappers(setup):
                            0, LOG_N, protocol.ExecutionPlan(expand, "cuda"))
     assert ops.counts() == {
         "dpxor": {"launches": 0, "plain_calls": 1},
-        "fused_scan_xor": {"launches": 0, "plain_calls": 1}}
+        "fused_scan_xor": {"launches": 0, "plain_calls": 1},
+        "pir_gemm": {"launches": 0, "plain_calls": 0},
+        "fused_scan_add": {"launches": 0, "plain_calls": 0}}
 
 
 def test_reconstruct_is_xor(setup):
@@ -143,7 +145,7 @@ def test_plan_for_rejects_unknown_backend_and_protocol():
     with pytest.raises(ValueError):
         protocol.plan_for(configs.PIR_SMOKE, 4, backend="tpu")
     with pytest.raises(KeyError):
-        protocol.plan_for(PIRConfig(n_items=64, protocol="additive-dpf-2"),
+        protocol.plan_for(PIRConfig(n_items=64, protocol="lwe-simple-1"),
                           4, backend="cuda")
 
 
@@ -179,7 +181,7 @@ def test_config_points_match_reference(name):
     ref_cfg = ref_configs.PIR_CONFIGS[name]
     port_cfg = PIRConfig(**ref_cfg.to_dict())
     assert port_cfg.log_n == ref_cfg.log_n
-    assert port_cfg.share_kind == ref_cfg.share_kind == "xor"
+    assert port_cfg.share_kind == ref_cfg.share_kind
 
 
 def test_config_rejects_deprecated_mode():

@@ -153,8 +153,10 @@ def test_database_views_and_validation(db):
     assert database.resident_bytes == db.nbytes
     epoch, views = database.snapshot()
     assert epoch == 0 and views["words"] is database.view()
+    assert database.view("bytes").shape == (CFG.n_items, CFG.item_bytes)
+    assert database.resident_bytes == db.nbytes     # bytes alias the words
     with pytest.raises(KeyError):
-        database.view("bytes")
+        database.view("nonsense")
     with pytest.raises(ValueError):
         Database(db[:5], CFG, "cpu")
     with pytest.raises(ValueError, match="not ported"):
