@@ -27,12 +27,27 @@ Phases, one JSON line each:
               end-to-end latency and records/s for batches of 1 and 32 with
               keygen, root descent and kernel time apart; peak device memory
   timing_add  the same for the additive scheme, and k = 3 end to end
+The XOR/additive database is then freed, and the single-server LWE scheme
+runs at PIR_128M_LWE (2^22 records x 32 B; A is 2^22 x 1024 int32 = 16 GiB):
+  database_lwe  its own records from a seed, the int32 byte view, and A
+              drawn on the host threads and placed on the card (timed)
+  check_lwe   the int32 GEMM kernel against its plain version with full-
+              range int32 operands (every sum wraps): the answer at 1, 8 and
+              32 queries, the hint and the client's A.S at 1 and 32 queries
+  serve_lwe   SingleServerPIR: batches of 32, 5 and 1, then a session;
+              records exact, the GEMM kernel launched, no plain call, and
+              one hint fetch
+  timing_lwe  the kernel at 1 and 32 queries beside its bound and the plain
+              version, the hint build, and batches of 1 and 32 end to end
+              with host keygen, A.S on the card, the answer and host decode
+              apart; peak device memory
 Then the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
 line. Without a CUDA card the script exits 1 at once.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -53,6 +68,9 @@ SEED = 20251016
 # (ALU pipe for IADD3/LOP3/SHF plus the FMA pipe for IMAD-form adds).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 128 * 1.98e9
+# 32-bit integer multiply-add: 64 per clock per SM (the CUDA programming
+# guide's arithmetic-throughput table, compute capability 9.0).
+IMAD_PER_S = 132 * 64 * 1.98e9
 # ChaCha ARX per block: rounds/2 double rounds x 8 quarter rounds x 12 ops
 # (4 add, 4 xor, 4 rotate = one SHF funnel shift each).
 ARX_OPS_PER_DOUBLE_ROUND = 8 * 12
@@ -94,6 +112,16 @@ def fused_add_bound_ms(rows: int, queries: int, clog: int,
     blocks = queries * (2 * rows - chunks)
     ops = blocks * (rounds // 2) * ARX_OPS_PER_DOUBLE_ROUND
     return ops / INT32_OPS_PER_S * 1e3
+
+
+def lwe_gemm_bound(m: int, k: int, p: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of the wrapping int32 GEMM
+    [m, k] x [k, p]: both operands read once and the output written once
+    over HBM, or its m*k*p IMADs at the card's IMAD rate, the larger."""
+    bytes_ms = (m * k + k * p + m * p) * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = m * k * p / IMAD_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -586,6 +614,170 @@ def phase_timing_add(database, cfg, cfg_k3, card, device, kept):
     return out
 
 
+def phase_database_lwe(cfg, device):
+    """The LWE deployment's records (its own seed), the int32 byte view,
+    and A on the card; returns (host words, Database, A)."""
+    from repro_torch.core import lwe, pir
+    from repro_torch.db import Database
+    t0 = time.perf_counter()
+    host_db = pir.make_database(np.random.default_rng(SEED + 20),
+                                cfg.n_items, cfg.item_bytes)
+    database = Database(host_db, cfg, device)
+    database.view("bytes32")
+    torch.cuda.synchronize()
+    db_s = time.perf_counter() - t0
+    params = lwe.params_for(cfg.n_items)
+    t0 = time.perf_counter()
+    a = lwe.matrix_a_device(params, cfg.n_items, device)
+    torch.cuda.synchronize()
+    emit({"phase": "database_lwe", "config": "pir-128m-lwe",
+          "rows": cfg.n_items, "item_bytes": cfg.item_bytes, "n": params.n,
+          "sigma": params.sigma, "db_seconds": db_s,
+          "db_resident_bytes": database.resident_bytes,
+          "a_bytes": a.numel() * a.element_size(),
+          "a_seconds": time.perf_counter() - t0,
+          "host_cores": os.cpu_count()})
+    return host_db, database, a
+
+
+def phase_check_lwe(database, a, device) -> tuple:
+    """The int32 GEMM kernel against its plain version at the path's three
+    shapes, full size, with full-range int32 operands so that every sum
+    wraps. Returns the largest error and the plain answer's time by batch."""
+    from repro_torch.kernels import lwe_matmul as kl
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    db32 = database.view("bytes32")
+    rows, cols = db32.shape
+    worst = {"lwe_gemm": 0}
+    plain_ms = {}
+
+    def full_range(shape):
+        return torch.randint(-(1 << 31), (1 << 31) - 1, shape, generator=gen,
+                             device=device, dtype=torch.int32)
+
+    def check(case, x, y, **shape):
+        got = kl.lwe_gemm(x, y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = kl.lwe_gemm_plain(x, y)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = max_abs_err(got, want)
+        worst["lwe_gemm"] = max(worst["lwe_gemm"], err)
+        emit({"phase": "check", "kernel": "lwe_gemm", "case": case,
+              "m": x.shape[0], "k": x.shape[1], "p": y.shape[1], **shape,
+              "equal": bool(torch.equal(got, want)), "max_abs_err": err,
+              "plain_s": plain_s})
+        if err:
+            raise AssertionError(f"lwe_gemm differs from its plain version "
+                                 f"({case}, {tuple(x.shape)} x "
+                                 f"{tuple(y.shape)}): max_abs_err {err}")
+        return plain_s
+
+    for q in (1, 8, 32):           # the answer: ct [Q, N] x bytes32 [N, L]
+        plain_ms[q] = check("answer", full_range((q, rows)), db32, q=q) * 1e3
+    d_t = db32.t().contiguous()    # the hint as (D^T.A)^T
+    check("hint", d_t, a)
+    del d_t
+    for q in (1, 32):              # the client's A.S^T
+        check("client", a, full_range((a.shape[1], q)), q=q)
+    return worst, plain_ms
+
+
+def phase_serve_lwe(host_db, cfg, database, device):
+    from repro_torch.runtime.serve_loop import SingleServerPIR
+    system = SingleServerPIR(database, cfg, device=device, n_queries=32,
+                             client_rng=np.random.default_rng(SEED + 23))
+    launches = serve_phase("serve_lwe", "pir-128m-lwe", system, host_db,
+                           sizes=(32, 5, 1), kernels=("lwe_gemm",),
+                           rng=np.random.default_rng(SEED + 22))
+    emit({"phase": "serve_lwe_hint", "hint_fetches": system.hint_fetches,
+          "hint_builds": database.n_hint_builds})
+    if system.hint_fetches != 1:
+        raise AssertionError(f"serve_lwe fetched the hint "
+                             f"{system.hint_fetches} times, not once")
+    return launches
+
+
+def phase_timing_lwe(host_db, database, a, cfg, card, device, plain_ms):
+    from repro_torch.core import lwe
+    from repro_torch.crypto.packing import np_words_to_bytes
+    from repro_torch.kernels import lwe_matmul as kl
+    from repro_torch.runtime.serve_loop import SingleServerPIR
+    rng = np.random.default_rng(SEED + 24)
+    system = SingleServerPIR(database, cfg, device=device, n_queries=32,
+                             client_rng=np.random.default_rng(SEED + 25))
+    proto = system.protocol
+    params = lwe.params_for(cfg.n_items)
+    db32 = database.view("bytes32")
+    rows, cols = db32.shape
+    out = {"phase": "timing_lwe", "card": card, "config": "pir-128m-lwe"}
+    torch.cuda.reset_peak_memory_stats()
+    hint = database.hint(proto.name).cpu().numpy()
+
+    # per batch: host keygen, A.S on the card, the answer kernel (beside its
+    # bound and the plain version), decode on the host
+    for q in (1, 32):
+        idx = rng.integers(0, cfg.n_items, size=q)
+        kg_s, (s, e) = host_time_s(
+            lambda: lwe.sample_batch(rng, idx, cfg.n_items, params),
+            sync=False)
+        enc_s, ct = host_time_s(
+            lambda: lwe.encrypt_with(s, e, idx, cfg.n_items, params, device),
+            sync=True)
+        s_t = torch.from_numpy(np.ascontiguousarray(
+            s.T.astype(np.uint32)).view(np.int32)).to(device)
+        client_ms = cuda_time_ms(lambda: kl.lwe_gemm(a, s_t), reps=3)
+        ans_ms = cuda_time_ms(lambda: kl.lwe_gemm(ct.ct, db32), reps=20)
+        plain = cuda_time_ms(lambda: kl.lwe_gemm_plain(ct.ct, db32), reps=1,
+                             warmup=0)
+        ans = kl.lwe_gemm(ct.ct, db32)
+        states = [lwe.LWEClientState(s=s[i], index=int(j))
+                  for i, j in enumerate(idx)]
+        dec_s, rec = host_time_s(lambda: proto.reconstruct_with(
+            [ans], states, cfg=cfg, hint=hint), sync=False)
+        if not check_records(rec, np_words_to_bytes(host_db[idx])):
+            raise AssertionError(f"timing_lwe: a record of the batch of {q} "
+                                 f"differs from the database")
+        bound, by = lwe_gemm_bound(q, rows, cols)
+        c_bound, c_by = lwe_gemm_bound(rows, params.n, q)
+        out[f"lwe_gemm_q{q}"] = {
+            "q": q, "rows": rows, "cols": cols, "ms": ans_ms,
+            "plain_ms": plain, "plain_ms_check": plain_ms[q],
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+        out[f"batch_{q}_parts"] = {
+            "keygen_s": kg_s, "encrypt_s": enc_s,
+            "client_gemm_ms": client_ms, "client_gemm_bound_ms": c_bound,
+            "client_gemm_bound_by": c_by, "answer_ms": ans_ms,
+            "decode_s": dec_s, "plan": system.servers[0].plan_report()[q]}
+    out["library_note"] = ("no PyTorch call computes a wrapping int32 "
+                           "product on CUDA: torch.matmul has no int32 CUDA "
+                           "kernel and torch._int_mm takes int8 operands")
+
+    # the hint: the whole build from the words, and its GEMM alone
+    d_t = db32.t().contiguous()
+    h_bound, h_by = lwe_gemm_bound(cols, rows, params.n)
+    out["hint"] = {
+        "build_ms": cuda_time_ms(
+            lambda: proto.hint_builder(cfg)(database.view("words")), reps=3),
+        "gemm_ms": cuda_time_ms(lambda: kl.lwe_gemm(d_t, a), reps=3),
+        "bound_ms": h_bound, "bound_by": h_by}
+    del d_t
+    for q in (1, 32):
+        r = out[f"lwe_gemm_q{q}"]
+        r["beats_bound"] = r["ms"] < r["bound_ms"]
+        if r["beats_bound"]:
+            print(f"NOTE: lwe_gemm at Q={q} ran in {r['ms']:.4f} ms, under "
+                  f"its bound {r['bound_ms']:.4f} ms", flush=True)
+
+    # end to end through SingleServerPIR.query (host clock, records on host)
+    out.update(e2e(system, cfg, rng, ((1, 3), (32, 2))))
+    out["hint_fetches"] = system.hint_fetches
+    out["peak_device_bytes_run"] = torch.cuda.max_memory_allocated()
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -594,7 +786,9 @@ def main() -> int:
     # the port must import before anything is printed: a copy of this
     # script without the repo fails here, with no result
     from repro_torch import quickstart
-    from repro_torch.configs.pir import PIR_1G, PIR_1G_ADD, PIR_1G_K3
+    from repro_torch.configs.pir import (PIR_1G, PIR_1G_ADD, PIR_1G_K3,
+                                         PIR_128M_LWE)
+    from repro_torch.core import lwe
     from repro_torch.core import pir
     from repro_torch.db import Database
     from repro_torch.kernels import build  # noqa: F401
@@ -631,6 +825,22 @@ def main() -> int:
     timing_add = phase_timing_add(database, PIR_1G_ADD, PIR_1G_K3,
                                   info["card"], device, kept)
 
+    # the single-server LWE scheme on its own database: the 1 GiB one and
+    # the multi-server phases' temporaries go first, A takes 16 GiB
+    del database, db, host_db, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_lwe, database_lwe, a = phase_database_lwe(PIR_128M_LWE, device)
+    worst_lwe, plain_lwe = phase_check_lwe(database_lwe, a, device)
+    worst.update(worst_lwe)
+    launches_lwe = phase_serve_lwe(host_lwe, PIR_128M_LWE, database_lwe,
+                                   device)
+    timing_lwe = phase_timing_lwe(host_lwe, database_lwe, a, PIR_128M_LWE,
+                                  info["card"], device, plain_lwe)
+    del database_lwe, a
+    lwe.clear_matrix_cache()
+    timing_lwe["lwe_gemm"] = timing_lwe["lwe_gemm_q32"]
+
     rows = []
     for name, source, replaces, path_launches, times in (
             ("dpxor", "src/repro_torch/csrc/dpxor.cu",
@@ -641,7 +851,10 @@ def main() -> int:
              "src/repro/kernels/pir_matmul.py:35", launches_add, timing_add),
             ("fused_scan_add", "src/repro_torch/csrc/fused_scan_add.cu",
              "src/repro/kernels/fused_scan.py:131", launches_add,
-             timing_add)):
+             timing_add),
+            ("lwe_gemm", "src/repro_torch/csrc/lwe_gemm.cu",
+             "src/repro/kernels/pir_matmul.py:35", launches_lwe,
+             timing_lwe)):
         t = times[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": path_launches[name],

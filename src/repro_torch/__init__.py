@@ -4,19 +4,22 @@ The package mirrors ``repro``'s module names so each counterpart is easy
 to find (``repro_torch/core/dpf.py`` <-> ``repro/core/dpf.py``), but it
 imports neither JAX nor anything of ``repro``: only the tests import both.
 
-Ported so far: the multi-server schemes, served end to end on one
-device — the paper's two-server XOR scheme (``xor-dpf-2``), two-server
+Ported so far, served end to end on one device: the multi-server
+schemes — the paper's two-server XOR scheme (``xor-dpf-2``), two-server
 additive Z_256 shares (``additive-dpf-2``) and k-server XOR
-(``xor-dpf-k``) — with the TPU kernels on their paths rewritten as
-hand-written CUDA C++ for Hopper (``csrc/``):
+(``xor-dpf-k``) — and the single-server LWE scheme (``lwe-simple-1``),
+with the TPU kernels on their paths rewritten as hand-written CUDA C++ for
+Hopper (``csrc/``):
 
   kernels/dpxor.py       select-XOR scan             (csrc/dpxor.cu)
   kernels/fused_scan.py  fused GGM-expand + XOR scan (csrc/fused_scan_xor.cu)
                          fused GGM-expand + add scan (csrc/fused_scan_add.cu)
   kernels/pir_matmul.py  int8 GEMM                   (csrc/pir_gemm.cu)
+  kernels/lwe_matmul.py  wrapping int32 GEMM         (csrc/lwe_gemm.cu)
 
-Entry points (``runtime.serve_loop.TwoServerPIR``, ``core.server.PIRServer``,
-``kernels.ops``) run on the card unless the caller passes ``device="cpu"``;
+Entry points (``runtime.serve_loop.TwoServerPIR``, ``MultiServerPIR``,
+``SingleServerPIR``, ``core.server.PIRServer``, ``kernels.ops``) run on
+the card unless the caller passes ``device="cpu"``;
 without a card they raise instead of falling back. Run the quickstart twin
 with ``python -m repro_torch.quickstart``.
 

@@ -1,4 +1,4 @@
-"""PIR database configurations of the port's multi-server schemes.
+"""PIR database configurations of the port.
 
 The same points as ``repro/configs/pir.py``: records are 32-byte hashes
 and DB sizes follow the paper's 0.5–8 GB sweep (§5.2, Figure 9), so
@@ -6,6 +6,15 @@ and DB sizes follow the paper's 0.5–8 GB sweep (§5.2, Figure 9), so
 ``PIR_1G`` and its ``additive-dpf-2`` and ``xor-dpf-k`` twins
 (``PIR_1G_ADD``, ``PIR_1G_K3``: the same records) are the points the port
 is measured at on one H100.
+
+The single-server LWE scheme is measured at ``PIR_128M_LWE`` (2^22
+records, 128 MiB), not at the reference's ``PIR_1G_LWE``, which is not a
+port config: its public matrix A (N x n int32 with n = 1024 from the
+parameter table) would be 128 GiB at 2^25 rows, more than one card's
+80 GB, and both the client (A.s per query) and the hint (A^T.D) need A
+resident. At 2^22 rows A is 16 GiB; the record width, the parameter row
+(n = 1024, sigma = 0.5) and the scheme are the 1 GiB point's own, and
+only N is cut.
 """
 from repro_torch.config import PIRConfig
 
@@ -24,12 +33,20 @@ PIR_1G_ADD = PIRConfig(n_items=1 << 25, item_bytes=32,
 PIR_1G_K3 = PIRConfig(n_items=1 << 25, item_bytes=32,
                       protocol="xor-dpf-k", n_servers=3)
 
+# single-server LWE (beyond-paper; no non-collusion assumption), cut from
+# the reference's 1 GiB point to 2^22 rows so that A fits on one card
+PIR_128M_LWE = PIRConfig(n_items=1 << 22, item_bytes=32,
+                         protocol="lwe-simple-1", n_servers=1)
+
 # small scale for tests and the quickstart
 PIR_SMOKE = PIRConfig(n_items=1 << 14, item_bytes=32, batch_queries=4)
 PIR_SMOKE_ADD = PIRConfig(n_items=1 << 14, item_bytes=32,
                           protocol="additive-dpf-2", batch_queries=4)
 PIR_SMOKE_K3 = PIRConfig(n_items=1 << 12, item_bytes=32,
                          protocol="xor-dpf-k", n_servers=3, batch_queries=4)
+PIR_SMOKE_LWE = PIRConfig(n_items=1 << 14, item_bytes=32,
+                          protocol="lwe-simple-1", n_servers=1,
+                          batch_queries=4)
 
 PIR_CONFIGS = {
     "pir-512m": PIR_512M,
@@ -39,7 +56,9 @@ PIR_CONFIGS = {
     "pir-8g": PIR_8G,
     "pir-1g-add": PIR_1G_ADD,
     "pir-1g-k3": PIR_1G_K3,
+    "pir-128m-lwe": PIR_128M_LWE,
     "pir-smoke": PIR_SMOKE,
     "pir-smoke-add": PIR_SMOKE_ADD,
     "pir-smoke-k3": PIR_SMOKE_K3,
+    "pir-smoke-lwe": PIR_SMOKE_LWE,
 }

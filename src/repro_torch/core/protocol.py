@@ -1,17 +1,19 @@
 """The protocol plane of the port: PIR schemes + execution plans.
 
-Port of the multi-server part of ``repro/core/protocol.py``:
+Port of ``repro/core/protocol.py``:
 
 ``PIRProtocol``   what the parties compute — key generation, the per-shard
                   answer, and client reconstruction; a registry maps names
                   to instances. Registered: ``xor-dpf-2`` (the paper's
                   scheme), ``additive-dpf-2`` (Z_256 shares, one int8 GEMM
-                  per batch) and ``xor-dpf-k`` (k servers, XOR shares).
+                  per batch), ``xor-dpf-k`` (k servers, XOR shares) and
+                  ``lwe-simple-1`` (one server, LWE ciphertexts, one int32
+                  GEMM per batch and a per-epoch hint).
 ``ExecutionPlan`` how one answer step runs — which expansion (materialized
                   selection bits or shares, chunked expand+scan, or a
                   fused CUDA kernel) and which scan (plain PyTorch or a
                   CUDA kernel: dpXOR for XOR schemes, the int8 GEMM for
-                  the additive one).
+                  the additive one, the int32 GEMM for LWE).
 
 Plan names map to the reference's: ``scan="jnp"`` -> ``"torch"``,
 ``scan="pallas"`` -> ``"cuda"``, ``expand="fused-pallas"`` ->
@@ -29,13 +31,19 @@ import numpy as np
 import torch
 
 from repro_torch.config import PIRConfig
-from repro_torch.core import dpf, pir
+from repro_torch.core import dpf, lwe, pir
 from repro_torch.crypto.chacha import PRG_ROUNDS
+from repro_torch.db.spec import IntegrityError
 from repro_torch.kernels.dpxor import xor_fold
 
 #: the reference's GEMM reduction tile default (``engine/kernels.py:153``),
-#: pinned on additive plans; it legalizes chunk_log to 10 at 2^25 rows
+#: pinned on additive and LWE plans; it legalizes chunk_log to 10 at 2^25
+#: rows
 GEMM_TILE_R_DEFAULT = 1024
+
+#: share kinds whose answer is a GEMM (int8, int32): pinned tile, and the
+#: LWE one materializes at every bucket
+_GEMM_KINDS = ("additive", "lwe")
 
 
 # ---------------------------------------------------------------------------
@@ -103,16 +111,20 @@ def plan_for(cfg: PIRConfig, n_queries: int, *, backend: str,
 
     On ``backend="cpu"`` it keeps the reference rule with plain PyTorch in
     the role of jnp: ``materialize/torch`` for the additive scheme and for
-    those same cases, else ``fused/torch``. Additive plans pin ``tile_r``
-    to ``GEMM_TILE_R_DEFAULT`` as the reference does.
+    those same cases, else ``fused/torch``. ``lwe-simple-1`` has no
+    expansion, so it takes ``materialize`` at every bucket on both
+    backends, as the reference does (``tuner.py:77-81``). Additive and LWE
+    plans pin ``tile_r`` to ``GEMM_TILE_R_DEFAULT`` as the reference does.
     """
-    additive = get(cfg.protocol).share_kind == "additive"
+    kind = get(cfg.protocol).share_kind
     small_or_single = cfg.n_items <= (1 << chunk_log) or n_queries <= 1
     if backend == "cuda":
-        expand = "materialize" if small_or_single else "fused-cuda"
+        expand = ("materialize" if small_or_single or kind == "lwe"
+                  else "fused-cuda")
         plan = ExecutionPlan(expand=expand, scan="cuda", chunk_log=chunk_log)
     elif backend == "cpu":
-        expand = "materialize" if small_or_single or additive else "fused"
+        expand = ("materialize" if small_or_single or kind in _GEMM_KINDS
+                  else "fused")
         plan = ExecutionPlan(expand=expand, scan="torch", chunk_log=chunk_log)
     else:
         raise ValueError(
@@ -123,7 +135,7 @@ def plan_for(cfg: PIRConfig, n_queries: int, *, backend: str,
 def resolve_plan(path: Optional[str], cfg: PIRConfig, n_queries: int, *,
                  backend: str, chunk_log: int = 12) -> ExecutionPlan:
     """A plan from a ``path`` string, or ``plan_for`` when path is
-    None/"auto". Additive schemes pin the GEMM tile on forced plans too."""
+    None/"auto". GEMM schemes pin the GEMM tile on forced plans too."""
     if path is None or path == "auto":
         return plan_for(cfg, n_queries, backend=backend, chunk_log=chunk_log)
     if path not in PATH_PLANS:
@@ -134,9 +146,9 @@ def resolve_plan(path: Optional[str], cfg: PIRConfig, n_queries: int, *,
 
 
 def _pin_tile(plan: ExecutionPlan, cfg: PIRConfig) -> ExecutionPlan:
-    """Additive schemes run on the reference's GEMM tile
+    """Additive and LWE schemes run on the reference's GEMM tile
     (``protocol.py:164-166`` upstream), heuristic or forced."""
-    if get(cfg.protocol).share_kind == "additive":
+    if get(cfg.protocol).share_kind in _GEMM_KINDS:
         return replace(plan, tile_r=GEMM_TILE_R_DEFAULT)
     return plan
 
@@ -151,6 +163,7 @@ class PIRProtocol:
     name: str = ""
     share_kind: str = "xor"            # xor | additive | lwe
     db_view: str = "words"             # the database view it scans
+    needs_hint: bool = False           # per-query client state + epoch hint
 
     # -- client side ----------------------------------------------------
     def n_parties(self, cfg: PIRConfig) -> int:
@@ -174,8 +187,8 @@ class PIRProtocol:
 
     def record_struct(self, cfg: PIRConfig) -> Tuple[Tuple[int, ...], type]:
         """(shape tail, dtype) of one reconstructed record: XOR schemes
-        return u32 words, additive schemes Z_256 bytes."""
-        if self.share_kind == "additive":
+        return u32 words, additive and LWE schemes bytes."""
+        if self.share_kind in _GEMM_KINDS:
             return (cfg.item_bytes,), np.uint8
         return (cfg.item_bytes // 4,), np.uint32
 
@@ -498,3 +511,130 @@ def _fused_cuda_xor_k_answer(db_local, keys_local, start_block, log_local,
 
 
 register(XorDpfK())
+
+
+# ---------------------------------------------------------------------------
+# lwe-simple-1: single-server SimplePIR-style LWE PIR (beyond-paper)
+# ---------------------------------------------------------------------------
+
+class LweSimple1(PIRProtocol):
+    """Single-server LWE PIR: encrypted one-hot query, int32 GEMM answer.
+
+    The scheme with no non-collusion assumption: privacy rests on LWE
+    hardness. The price is a preprocessed hint ``H = A^T.DB`` that the
+    client needs to reconstruct, built per epoch by the database
+    (``Database.register_hint``). The server's answer is
+    ``ct[Q, N] x bytes32[N, L] -> int32 [Q, L]``, wrapping mod 2^32 = mod q,
+    through the int32 GEMM kernel on the card (``ops.lwe_gemm``).
+
+    Keys are ``lwe.LWECiphertext``; the client computes ``A.s`` on a device
+    (``device=None`` means CUDA), so the query generators take ``device=``.
+    """
+
+    name = "lwe-simple-1"
+    share_kind = "lwe"
+    db_view = "bytes32"
+    needs_hint = True
+
+    def _params(self, cfg: PIRConfig) -> lwe.LWEParams:
+        return lwe.params_for(cfg.n_items)
+
+    # -- client side ----------------------------------------------------
+    def n_parties(self, cfg: PIRConfig) -> int:
+        return 1
+
+    def query_gen_batch_full(self, rng, indices, cfg, *, device=None):
+        """``((ct [Q, N],), states)``: the rng drawn as a loop of
+        :meth:`query_gen_full` would draw it."""
+        ct, states = lwe.encrypt_batch(rng, list(indices), cfg.n_items,
+                                       self._params(cfg), device)
+        return (ct,), states
+
+    def query_gen_full(self, rng, index, cfg, *, device=None):
+        """``((ct [N],), state)`` for one index."""
+        (ct,), states = self.query_gen_batch_full(rng, [index], cfg,
+                                                  device=device)
+        return (ct.map(lambda x: x[0]),), states[0]
+
+    def query_gen(self, rng, index, cfg, *, device=None):
+        """Keys without the secret; reconstruction needs
+        :meth:`query_gen_full`."""
+        return self.query_gen_full(rng, index, cfg, device=device)[0]
+
+    def query_gen_batch(self, rng, indices, cfg, *, device=None):
+        return self.query_gen_batch_full(rng, indices, cfg,
+                                         device=device)[0]
+
+    def reconstruct(self, answers):
+        raise NotImplementedError(
+            "lwe-simple-1 reconstruction needs per-query client state and "
+            "the epoch hint: use reconstruct_with(answers, states, cfg=..., "
+            "hint=...) — sessions route this via SingleServerPIR")
+
+    def reconstruct_with(self, answers, states, *, cfg=None, hint=None):
+        """Records ``[Q, L]`` uint8 from the answers, the client states and
+        the epoch's hint (``[n, L]`` int32 bits), decoded on the host.
+
+        Raises ``IntegrityError`` when the recovered noise reaches the
+        analytic tail bound ``validate`` enforces: honest noise sits ~TAIL
+        sigmas inside it, while a wrong hint or epoch makes the residual
+        near-uniform in the Delta window (``protocol.py:808-823``
+        upstream). The checksum column (A16) is not ported yet.
+        """
+        if cfg is None or hint is None or any(s is None for s in states):
+            raise ValueError("lwe-simple-1 reconstruct_with needs cfg=, "
+                             "hint= and one client state per query")
+        params = self._params(cfg)
+        ans = answers[0]
+        if isinstance(ans, torch.Tensor):
+            ans = ans.cpu().numpy()
+        secrets = np.stack([s.s for s in states])
+        hint_u64 = np.asarray(hint, np.int32).view(np.uint32).astype(
+            np.uint64)
+        records, err = lwe.decode(np.asarray(ans, np.int32), secrets,
+                                  hint_u64, params)
+        max_err = int(np.abs(err).max()) if err.size else 0
+        bound = params.noise_bound(cfg.n_items)
+        if max_err >= bound:
+            raise IntegrityError(
+                f"LWE noise overflow: recovered |e^T.D| = {max_err} >= "
+                f"tail bound {bound:.4g} (budget q/(2p) = "
+                f"{params.noise_budget}); the answers do not match this "
+                f"hint/epoch — reconstruction is not trustworthy")
+        return records
+
+    # -- server side ----------------------------------------------------
+    def answer_local(self, db_local, keys_local, start_block, log_local,
+                     plan):
+        """``[Q, rows]`` ciphertext slice of this shard x the int32 byte
+        view ``[rows, L]``; ``plan.scan`` picks the kernel or the plain
+        version (there is no expansion, so ``plan.expand`` is not read)."""
+        rows_local = db_local.shape[0]
+        start = start_block * rows_local
+        ct_local = keys_local.ct[:, start:start + rows_local]
+        if plan.scan == "cuda":
+            from repro_torch.kernels import ops
+            return ops.lwe_gemm(ct_local, db_local)
+        from repro_torch.kernels.lwe_matmul import lwe_gemm_plain
+        return lwe_gemm_plain(ct_local, db_local)
+
+    # -- hint lifecycle -------------------------------------------------
+    def hint_builder(self, cfg: PIRConfig):
+        return lwe.hint_build_fn(self._params(cfg), cfg.n_items)
+
+    # -- batching: LWECiphertext is not a DPFKey ------------------------
+    def pad(self, keys, n_total: int):
+        """Pad to ``n_total`` queries by repeating the last ciphertext."""
+        q = self.n_queries(keys)
+        if n_total < q:
+            raise ValueError(f"cannot pad {q} queries down to {n_total}")
+        if n_total == q:
+            return keys
+        return keys.map(lambda x: torch.cat(
+            [x, x[-1:].expand(n_total - q, *x.shape[1:])], dim=0))
+
+    def n_queries(self, keys) -> int:
+        return int(keys.ct.shape[0])
+
+
+register(LweSimple1())

@@ -18,9 +18,21 @@ import torch
 from repro_torch.config import PIRConfig
 from repro_torch.core import dpf
 from repro_torch.core import protocol as protocol_mod
+from repro_torch.core.lwe import LWECiphertext
 from repro_torch.core.protocol import ExecutionPlan, PIRProtocol
 from repro_torch.db import Database
 from repro_torch.engine.backend import Device, backend_of
+
+
+Keys = Union[dpf.DPFKey, LWECiphertext]
+
+
+def map_keys(keys: Keys, fn) -> Keys:
+    """Apply ``fn`` to every tensor of a key batch (DPF keys or LWE
+    ciphertexts)."""
+    if isinstance(keys, LWECiphertext):
+        return keys.map(fn)
+    return dpf.map_keys(keys, fn)
 
 
 def bucket_for(buckets: Sequence[int], n: int) -> int:
@@ -76,14 +88,17 @@ class BucketedServeFns:
                 chunk_log=self.chunk_log)
         return self._plans[bucket]
 
-    def stage(self, keys: dpf.DPFKey, device: torch.device) -> dpf.DPFKey:
-        """Copy a batch to ``device`` ahead of dispatch (``answer`` pads)."""
+    def stage(self, keys: Keys, device: torch.device) -> Keys:
+        """Copy a batch to ``device`` ahead of dispatch (``answer`` pads);
+        host keys go through pinned memory, keys already on the card (LWE
+        ciphertexts, encrypted there) stay where they are."""
         if device.type == "cuda":
-            pinned = dpf.map_keys(keys, lambda x: x.contiguous().pin_memory())
+            pinned = map_keys(keys, lambda x: x if x.is_cuda
+                              else x.contiguous().pin_memory())
             return pinned.to(device, non_blocking=True)
         return keys.to(device)
 
-    def answer(self, db: Union[torch.Tensor, Database], keys: dpf.DPFKey
+    def answer(self, db: Union[torch.Tensor, Database], keys: Keys
                ) -> torch.Tensor:
         """Answer a batch of any size: exactly ``[Q, cols]`` shares (async
         on the card)."""
@@ -95,11 +110,11 @@ class BucketedServeFns:
         if q <= max_b:
             return self._answer_one(db, keys)
         parts = [self._answer_one(
-                     db, dpf.map_keys(keys, lambda x: x[lo:lo + max_b]))
+                     db, map_keys(keys, lambda x: x[lo:lo + max_b]))
                  for lo in range(0, q, max_b)]
         return torch.cat(parts, dim=0)
 
-    def _answer_one(self, db: torch.Tensor, keys: dpf.DPFKey) -> torch.Tensor:
+    def _answer_one(self, db: torch.Tensor, keys: Keys) -> torch.Tensor:
         q = self.protocol.n_queries(keys)
         bucket = self.bucket_for(q)
         keys = self.protocol.pad(keys, bucket)
@@ -158,10 +173,10 @@ class PIRServer:
         return {b: self.bucketed.plan_for_bucket(b).name
                 for b in self.buckets}
 
-    def stage_keys(self, keys: dpf.DPFKey) -> dpf.DPFKey:
-        """Pad a key batch and upload it ahead of dispatch (pipelining)."""
+    def stage_keys(self, keys: Keys) -> Keys:
+        """Upload a key batch ahead of dispatch (pipelining)."""
         return self.bucketed.stage(keys, self.device)
 
-    def answer(self, keys: dpf.DPFKey) -> torch.Tensor:
+    def answer(self, keys: Keys) -> torch.Tensor:
         """Answer a batch of queries: exactly ``[Q, cols]`` answer shares."""
         return self.bucketed.answer(self.db, keys)

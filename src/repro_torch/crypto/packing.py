@@ -47,6 +47,14 @@ def words_to_bytes_i8(w: torch.Tensor) -> torch.Tensor:
     return words_to_bytes(w).view(torch.int8)
 
 
+def words_to_bytes_i32(w: torch.Tensor) -> torch.Tensor:
+    """``[..., k]`` words -> ``[..., 4k]`` int32 byte values 0..255, widened
+    (not reinterpreted): the LWE GEMM's operand (``Database.view("bytes32")``).
+    The mod-2^32 contraction needs the true byte magnitudes; the int8
+    view's negatives for bytes >= 128 would offset it by 256 per byte."""
+    return words_to_bytes(w).to(torch.int32)
+
+
 def np_bytes_to_words(b: np.ndarray) -> np.ndarray:
     """``[..., 4k] uint8 -> [..., k] uint32`` on the host, little-endian.
     A parity helper; no served path packs bytes back into words."""

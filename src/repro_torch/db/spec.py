@@ -1,9 +1,12 @@
 """``DatabaseSpec``: shape math for one PIR database (``repro/db/spec.py``).
 
-Two views are served: ``words`` (u32 words, the XOR scans' operand) and
-``bytes`` (int8 bytes, little-endian, the additive GEMM's operand). A view
-name is protocol metadata (``PIRProtocol.db_view``). Not ported yet: the
-LWE ``bytes32`` view and the checksum column of verified reconstruction.
+Three views are served: ``words`` (u32 words, the XOR scans' operand),
+``bytes`` (int8 bytes, little-endian, the additive GEMM's operand) and
+``bytes32`` (the same byte values widened to int32, the LWE GEMM's
+operand). A view name is protocol metadata (``PIRProtocol.db_view``). Not
+ported yet: the checksum column of verified reconstruction
+(``row_checksum``, ``verify_records``); ``IntegrityError`` is here for the
+LWE noise check.
 """
 from __future__ import annotations
 
@@ -18,7 +21,22 @@ from repro_torch.config import PIRConfig
 VIEWS = {
     "words": np.dtype(np.uint32),   # [N, item_words] — XOR schemes
     "bytes": np.dtype(np.int8),     # [N, item_bytes] — additive GEMM
+    "bytes32": np.dtype(np.int32),  # [N, item_bytes] — LWE GEMM
+    # bytes32 holds the byte values 0..255 widened to int32: the LWE
+    # contraction is mod-2^32 arithmetic, and the int8 view's negatives
+    # (byte >= 128 -> byte - 256) would shift it by 256·k, not 0 mod q.
 }
+
+
+class IntegrityError(RuntimeError):
+    """A reconstructed record failed verification.
+
+    Raised instead of returning a silently wrong record; for the LWE
+    scheme, when the recovered noise exceeds the validated bound (answers
+    that do not match the hint or epoch). The reference's ``bad_queries``
+    (batch indices for a router to resubmit) comes with the row checksum
+    of verified reconstruction.
+    """
 
 
 @dataclass(frozen=True)

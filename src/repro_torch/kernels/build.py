@@ -5,9 +5,9 @@ into ``build/repro_torch/`` at the root of the checkout, under a file name
 hashed over every source in ``csrc/`` and the flags, so an edited source
 rebuilds and an unchanged one loads from disk. The sources export a plain
 C interface (no PyTorch headers), which keeps a build to seconds; the
-wrappers in ``dpxor.py``, ``fused_scan.py`` and ``pir_matmul.py`` register
-each kernel as a ``torch.library`` op that launches on PyTorch's current
-stream.
+wrappers in ``dpxor.py``, ``fused_scan.py``, ``pir_matmul.py`` and
+``lwe_matmul.py`` register each kernel as a ``torch.library`` op that
+launches on PyTorch's current stream.
 
 A failed build raises :class:`BuildError` with nvcc's output. ``build``
 compiles several libraries at once, one nvcc process per source.
@@ -44,6 +44,8 @@ LIBRARIES = {
     "fused_scan_add": ("fused_scan_add.cu", {
         "repro_fused_scan_add": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L,
                                  _I, _I, _I, _P]}),
+    "lwe_gemm": ("lwe_gemm.cu", {
+        "repro_lwe_gemm": [_P, _P, _P, _L, _L, _L, _I, _P]}),
 }
 
 

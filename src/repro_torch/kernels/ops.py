@@ -13,9 +13,10 @@ from typing import Dict
 
 from repro_torch.engine.backend import legal_tile
 from repro_torch.kernels import build, dpxor as _dpxor, fused_scan as _fused
-from repro_torch.kernels import pir_matmul as _gemm
+from repro_torch.kernels import lwe_matmul as _lwe, pir_matmul as _gemm
 from repro_torch.kernels.dpxor import dpxor
 from repro_torch.kernels.fused_scan import fused_scan_xor
+from repro_torch.kernels.lwe_matmul import lwe_gemm
 from repro_torch.kernels.pir_matmul import pir_gemm
 
 #: fused expand + select-add over the int8 byte view: only an alias of
@@ -24,7 +25,7 @@ from repro_torch.kernels.pir_matmul import pir_gemm
 fused_scan_bytes = _fused.fused_scan_add
 
 __all__ = ["COUNTS", "counts", "dpxor", "fused_scan_bytes", "fused_scan_xor",
-           "fused_tile", "pir_gemm", "reset_counts"]
+           "fused_tile", "lwe_gemm", "pir_gemm", "reset_counts"]
 
 #: kernel name -> its counter (``build.KernelCount``)
 COUNTS: Dict[str, build.KernelCount] = {
@@ -32,6 +33,7 @@ COUNTS: Dict[str, build.KernelCount] = {
     "fused_scan_xor": _fused.count,
     "pir_gemm": _gemm.count,
     "fused_scan_add": _fused.count_add,
+    "lwe_gemm": _lwe.count,
 }
 
 

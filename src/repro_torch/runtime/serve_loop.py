@@ -9,10 +9,11 @@ Pipeline (paper Figure 8, §3.4):
      reconciled (``PIRProtocol.reconstruct``) when a batch completes
 
 The port keeps ``AnswerFuture``, ``QueryScheduler``, ``MultiServerPIR``
-(k parties, e.g. ``xor-dpf-k``) and ``TwoServerPIR`` (``xor-dpf-2``,
-``additive-dpf-2``) on one device and one dispatch lane. Chaos seams,
-straggler shedding, hints, online updates and replica hooks are not
-ported yet.
+(k parties, e.g. ``xor-dpf-k``), ``TwoServerPIR`` (``xor-dpf-2``,
+``additive-dpf-2``) and ``SingleServerPIR`` (``lwe-simple-1``: per-query
+client state and a client hint cache) on one device and one dispatch
+lane. Chaos seams, straggler shedding, online updates and replica hooks
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -20,12 +21,12 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.config import PIRConfig
-from repro_torch.core import dpf
+from repro_torch.core import dpf, lwe
 from repro_torch.core import protocol as protocol_mod
 from repro_torch.core.protocol import PIRProtocol
 from repro_torch.core.server import PIRServer, bucket_for
@@ -316,6 +317,11 @@ class MultiServerPIR:
       submit(index)   streaming form: returns an :class:`AnswerFuture`
     """
 
+    #: hint protocols (``PIRProtocol.needs_hint``) carry per-query client
+    #: state and an epoch hint through the scheduler; only subclasses that
+    #: do (SingleServerPIR) may serve them
+    _supports_hint_protocols = False
+
     def __init__(self, db_words, cfg: PIRConfig, *, device: Device = None,
                  path: Optional[str] = None, n_queries: int = 4,
                  buckets: Optional[Sequence[int]] = None,
@@ -327,6 +333,11 @@ class MultiServerPIR:
         self.cfg = cfg
         self.protocol = (protocol if protocol is not None
                          else protocol_mod.for_config(cfg))
+        if self.protocol.needs_hint and not self._supports_hint_protocols:
+            raise ValueError(
+                f"protocol {self.protocol.name!r} needs hint plumbing "
+                f"(per-query client state + epoch hints) — use "
+                f"SingleServerPIR, not {type(self).__name__}")
         self.n_parties = self.protocol.n_parties(cfg)
         self.db = (db_words if isinstance(db_words, Database)
                    else Database(db_words, cfg, device))
@@ -400,18 +411,123 @@ class MultiServerPIR:
 
     def query(self, indices: Sequence[int]) -> np.ndarray:
         """Private retrieval of ``db[indices]``: ``[Q, W]`` uint32 records,
-        or ``[Q, L]`` uint8 for the additive scheme."""
+        or ``[Q, L]`` uint8 for the byte schemes."""
         indices = list(indices)
         if not indices:
             tail, dtype = self.protocol.record_struct(self.cfg)
             return np.empty((0,) + tail, dtype)
         with self._lock:
-            batch = self.protocol.query_gen_batch(self.rng, indices, self.cfg)
-        futs = [self.scheduler.submit(tuple(dpf.key_at(k, i) for k in batch))
-                for i in range(len(indices))]
+            items = self._query_items(indices)
+        futs = [self.scheduler.submit(it) for it in items]
         if not self.scheduler.running:
             self.scheduler.pump()
         return np.stack([f.result() for f in futs])
+
+    def _query_items(self, indices: List[int]) -> List[Any]:
+        """The scheduler's per-query items for a whole call, generated in
+        one batch (the same rng draws as one :meth:`submit` per index):
+        one key per party."""
+        batch = self.protocol.query_gen_batch(self.rng, indices, self.cfg)
+        return [tuple(dpf.key_at(k, i) for k in batch)
+                for i in range(len(indices))]
+
+
+class SingleServerPIR(MultiServerPIR):
+    """Single-server deployment for hint protocols (``lwe-simple-1``).
+
+    Reuses the multi-server machinery — ``Database``, ``PIRServer``'s
+    bucketed plans, the ``QueryScheduler`` — with the two additions a hint
+    protocol needs (``serve_loop.py:938-1050`` upstream):
+
+      * client state: queries carry ``(ciphertext, state)``; the secret
+        rides through the scheduler beside the ciphertext (never to the
+        device) and meets the answers again at finalize;
+      * a client-side hint cache keyed by the epoch each batch's answers
+        are tagged with; a miss fetches the epoch's hint from the database
+        (``hint_fetches`` counts the fetches) and two epochs are kept.
+
+    The client encrypts on the database's device: ``A.s`` is one int32
+    GEMM through ``ops.lwe_gemm``.
+    """
+
+    _supports_hint_protocols = True
+
+    def __init__(self, db_words, cfg: PIRConfig, *,
+                 protocol: Optional[PIRProtocol] = None, **kwargs):
+        proto = (protocol if protocol is not None
+                 else protocol_mod.for_config(cfg))
+        k = proto.n_parties(cfg)
+        if k != 1:
+            raise ValueError(
+                f"SingleServerPIR requires a 1-party protocol; "
+                f"{proto.name!r} has {k} parties — use MultiServerPIR")
+        # the client hint cache exists before the scheduler's finalize
+        # closure is built
+        self._hint_lock = threading.Lock()
+        self._hint_cache: Dict[int, np.ndarray] = {}
+        self.hint_fetches = 0
+        super().__init__(db_words, cfg, protocol=proto, **kwargs)
+
+    def _client_hint(self, epoch: int) -> np.ndarray:
+        """The hint of one epoch (``[n, L]`` int32 on the host), through
+        the client-side cache."""
+        with self._hint_lock:
+            if epoch not in self._hint_cache:
+                self.hint_fetches += 1
+                self._hint_cache[epoch] = self.db.hint(
+                    self.protocol.name, epoch=epoch).cpu().numpy()
+                for e in sorted(self._hint_cache)[:-2]:
+                    del self._hint_cache[e]
+            return self._hint_cache[epoch]
+
+    def _make_scheduler(self, max_wait_s: float) -> QueryScheduler:
+        server, proto, db, cfg = (self.servers[0], self.protocol, self.db,
+                                  self.cfg)
+        db.register_hint(proto.name, proto.hint_builder(cfg))
+
+        def collate(items):
+            # items: ((ct,), state) per query -> one [Q, N] batch and the
+            # states beside it (host only, never staged)
+            return (lwe.stack_ciphertexts([it[0][0] for it in items]),
+                    [it[1] for it in items])
+
+        def stage(payload):
+            keys, states = payload
+            return server.stage_keys(keys), states
+
+        def dispatch(staged):
+            keys, states = staged
+            epoch, views = db.snapshot((proto.db_view,))
+            ans = server.bucketed.answer(views[proto.db_view], keys)
+            return ans, epoch, states
+
+        def finalize(raw, n):
+            ans, epoch, states = raw
+            rec = proto.reconstruct_with([ans[:n]], states[:n], cfg=cfg,
+                                         hint=self._client_hint(epoch))
+            return list(rec)
+
+        return QueryScheduler(
+            collate=collate, stage=stage, dispatch=dispatch,
+            finalize=finalize, buckets=server.buckets,
+            max_wait_s=max_wait_s, epoch_of=lambda raw: raw[1])
+
+    def submit(self, index: int) -> AnswerFuture:
+        """Private retrieval of ``db[index]``; resolves to one record
+        (``[L]`` uint8). The secret stays with the client: only the
+        ciphertext reaches the device path."""
+        with self._lock:         # client-side keygen shares one rng
+            keys, state = self.protocol.query_gen_full(
+                self.rng, index, self.cfg, device=self.db.device)
+        return self.scheduler.submit((keys, state))
+
+    def _query_items(self, indices: List[int]) -> List[Any]:
+        """``((ct,), state)`` per query, the whole call encrypted in one
+        batch on the database's device."""
+        (ct,), states = self.protocol.query_gen_batch_full(
+            self.rng, indices, self.cfg, device=self.db.device)
+        return [((ct.map(lambda x, i=i: x[i]),), states[i])
+                for i in range(len(indices))]
 
 
 class TwoServerPIR(MultiServerPIR):

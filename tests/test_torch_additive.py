@@ -345,7 +345,7 @@ def test_database_bytes_view_matches_reference():
     with pytest.raises(KeyError):
         database.view("nonsense")
     with pytest.raises(KeyError):
-        database.spec.view_shape("bytes32")
+        database.spec.view_shape("bytes64")
 
 
 def test_packing_matches_reference():
@@ -429,7 +429,8 @@ def test_additive_cuda_plans_route_through_the_kernel_wrappers(proto_setup):
         "dpxor": {"launches": 0, "plain_calls": 0},
         "fused_scan_xor": {"launches": 0, "plain_calls": 0},
         "pir_gemm": {"launches": 0, "plain_calls": 1},
-        "fused_scan_add": {"launches": 0, "plain_calls": 1}}
+        "fused_scan_add": {"launches": 0, "plain_calls": 1},
+        "lwe_gemm": {"launches": 0, "plain_calls": 0}}
 
 
 def test_additive_record_struct_and_registry():

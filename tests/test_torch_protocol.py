@@ -103,7 +103,8 @@ def test_cuda_plans_route_through_the_kernel_wrappers(setup):
         "dpxor": {"launches": 0, "plain_calls": 1},
         "fused_scan_xor": {"launches": 0, "plain_calls": 1},
         "pir_gemm": {"launches": 0, "plain_calls": 0},
-        "fused_scan_add": {"launches": 0, "plain_calls": 0}}
+        "fused_scan_add": {"launches": 0, "plain_calls": 0},
+        "lwe_gemm": {"launches": 0, "plain_calls": 0}}
 
 
 def test_reconstruct_is_xor(setup):
@@ -145,7 +146,7 @@ def test_plan_for_rejects_unknown_backend_and_protocol():
     with pytest.raises(ValueError):
         protocol.plan_for(configs.PIR_SMOKE, 4, backend="tpu")
     with pytest.raises(KeyError):
-        protocol.plan_for(PIRConfig(n_items=64, protocol="lwe-simple-1"),
+        protocol.plan_for(PIRConfig(n_items=64, protocol="nonsense-1"),
                           4, backend="cuda")
 
 
@@ -173,12 +174,20 @@ def test_pir_config_fields_match_reference():
     assert fields == ref_fields
 
 
+#: port configs the reference does not have: (its source point, the cut)
+PORT_CUTS = {"pir-128m-lwe": ("pir-1g-lwe", {"n_items": 1 << 22})}
+
+
 @pytest.mark.parametrize("name", sorted(configs.PIR_CONFIGS))
 def test_config_points_match_reference(name):
-    """One spec builds both sides: the same field values."""
-    assert configs.PIR_CONFIGS[name].to_dict() == \
-        ref_configs.PIR_CONFIGS[name].to_dict()
-    ref_cfg = ref_configs.PIR_CONFIGS[name]
+    """One spec builds both sides: the same field values (a port-only
+    point equals its reference source point with only the stated cut)."""
+    if name in PORT_CUTS:
+        source, cut = PORT_CUTS[name]
+        ref_cfg = dataclasses.replace(ref_configs.PIR_CONFIGS[source], **cut)
+    else:
+        ref_cfg = ref_configs.PIR_CONFIGS[name]
+    assert configs.PIR_CONFIGS[name].to_dict() == ref_cfg.to_dict()
     port_cfg = PIRConfig(**ref_cfg.to_dict())
     assert port_cfg.log_n == ref_cfg.log_n
     assert port_cfg.share_kind == ref_cfg.share_kind
@@ -193,6 +202,7 @@ def test_registry():
     assert protocol.get("xor-dpf-2").name == "xor-dpf-2"
     assert protocol.for_config(configs.PIR_SMOKE).n_parties(
         configs.PIR_SMOKE) == 2
+    assert protocol.get("lwe-simple-1").name == "lwe-simple-1"
     with pytest.raises(KeyError):
-        protocol.get("lwe-simple-1")
+        protocol.get("nonsense-1")
     assert PIRConfig(n_items=64, protocol="lwe-simple-1").share_kind == "lwe"
