@@ -27,7 +27,27 @@ Phases, one JSON line each:
               end-to-end latency and records/s for batches of 1 and 32 with
               keygen, root descent and kernel time apart; peak device memory
   timing_add  the same for the additive scheme, and k = 3 end to end
-The XOR/additive database is then freed, and the single-server LWE scheme
+  check_ggm   the GGM level kernel against its plain version (full-range
+              seeds at n = 2^24 and at n = 1000 with 256-thread blocks
+              requested, rounds 12 and 2), then ops.ggm_eval_leaves over one
+              PIR_1G key (25 launches) against the plain leaf expansion
+  engine_smoke  python -m repro_torch.engine --smoke on the card
+  tune        the tuner: tune_standalone("ggm-expand", 2^24) beside the
+              bound, then autotune at PIR_1G and PIR_1G_ADD, buckets 1 and
+              32, into a plan cache under a temporary directory: per bucket
+              the heuristic's and the tuned plan's ms per batch (every
+              party's answer step back to back), every timed candidate,
+              what the memory model pruned, the heuristic's predicted and
+              measured peak memory
+  serve_tuned TwoServerPIR at PIR_1G and PIR_1G_ADD with path=None on that
+              cache: batches of 32 and 1 and a session, records exact, plans
+              "tuned", the tuned plans' kernels launched; then end-to-end
+              latency of batches of 1 and 32 on the tuned and a heuristic
+              deployment, interleaved (fails if the tuned median is slower by
+              more than the heuristic's spread), beside the card's clocks and
+              the heuristic's latency from timing / timing_add
+The plan cache is off (REPRO_TORCH_PLAN_CACHE=off) in every other phase, so
+their plans are plan_for's. The XOR/additive database is then freed, and the single-server LWE scheme
 runs at PIR_128M_LWE (2^22 records x 32 B; A is 2^22 x 1024 int32 = 16 GiB):
   database_lwe  its own records from a seed, the int32 byte view, and A
               drawn on the host threads and placed on the card (timed)
@@ -50,8 +70,10 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -112,6 +134,17 @@ def fused_add_bound_ms(rows: int, queries: int, clog: int,
     blocks = queries * (2 * rows - chunks)
     ops = blocks * (rounds // 2) * ARX_OPS_PER_DOUBLE_ROUND
     return ops / INT32_OPS_PER_S * 1e3
+
+
+def ggm_bound(n: int, rounds: int) -> dict:
+    """Bound of one GGM level over n parents: 20 B read and 40 B written per
+    node over HBM, and one ChaCha block per node at the int32 issue rate;
+    the larger of the two bounds it."""
+    bytes_ms = 60 * n / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * (rounds // 2) * ARX_OPS_PER_DOUBLE_ROUND / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms}
 
 
 def lwe_gemm_bound(m: int, k: int, p: int) -> tuple:
@@ -333,14 +366,17 @@ def expected_records(system, host_db: np.ndarray, idx) -> np.ndarray:
 
 
 def serve_phase(phase: str, config: str, system, host_db, *, sizes, kernels,
-                rng) -> dict:
+                rng, provenance: str = "heuristic") -> dict:
     """Serve batches of ``sizes`` through ``query()`` and then a 3-query
-    session; every record must equal the database's, and the counters,
-    zeroed just before, must show each of ``kernels`` launched and no plain
-    call. Returns the launches of this run."""
+    session; every record must equal the database's, every party's plans
+    must have ``provenance``, and the counters, zeroed just before, must
+    show each of ``kernels`` launched and no plain call. Returns the
+    launches of this run."""
     from repro_torch.kernels import ops
     cfg = system.cfg
     plans = system.servers[0].plan_report()
+    origin = {b: s.bucketed.plan_for_bucket(b).provenance
+              for s in system.servers for b in s.buckets}
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
     ops.reset_counts()
@@ -366,7 +402,8 @@ def serve_phase(phase: str, config: str, system, host_db, *, sizes, kernels,
     launches = {k: v["launches"] for k, v in counts.items()}
     plain = {k: v["plain_calls"] for k, v in counts.items()}
     info = {"phase": phase, "config": config, "protocol": cfg.protocol,
-            "parties": system.n_parties, "plans": plans, "batches": batches,
+            "parties": system.n_parties, "plans": plans,
+            "provenance": origin, "batches": batches,
             "launches": launches, "plain_calls": plain,
             "db_resident_bytes": system.db.resident_bytes,
             "peak_device_bytes": torch.cuda.max_memory_allocated(),
@@ -375,10 +412,13 @@ def serve_phase(phase: str, config: str, system, host_db, *, sizes, kernels,
     if not all(b["exact"] for b in batches):
         raise AssertionError(f"{phase}: a served record differs from the "
                              f"database")
-    if min(launches[k] for k in kernels) < 1 or any(plain.values()):
+    if any(launches[k] < 1 for k in kernels) or any(plain.values()):
         raise AssertionError(f"{phase}: main path did not run on the "
                              f"kernels {kernels}: launches {launches}, "
                              f"plain calls {plain}")
+    if set(origin.values()) != {provenance}:
+        raise AssertionError(f"{phase}: plan provenance {origin}, expected "
+                             f"{provenance!r} for every bucket")
     return launches
 
 
@@ -475,6 +515,7 @@ def phase_timing(database, cfg, card, device):
             "plan": plan_for(cfg, q, backend="cuda").name}
 
     # end to end through TwoServerPIR.query (host clock, result on host)
+    out["card_state"] = card_state()
     out.update(e2e(system, cfg, rng, ((1, 5), (32, 3))))
 
     # one party's answer step at a batch of 1, under each CUDA plan
@@ -593,6 +634,7 @@ def phase_timing_add(database, cfg, cfg_k3, card, device, kept):
             "kernel_ms_per_party": kernel_ms,
             "plan": plan_for(cfg, q, backend="cuda").name}
 
+    out["card_state"] = card_state()
     out.update(e2e(system, cfg, rng, ((1, 5), (32, 3))))
 
     # one party's answer step at a batch of 1, under each CUDA plan
@@ -612,6 +654,270 @@ def phase_timing_add(database, cfg, cfg_k3, card, device, kept):
     out["peak_device_bytes_run"] = torch.cuda.max_memory_allocated()
     emit(out)
     return out
+
+
+#: the tuner's budget on the card, per (scheme, bucket): up to 8 legal
+#: candidates per kernel, one warm-up and the median of 3 timed runs each,
+#: no new candidate after 20 s
+TUNE_BUDGET = dict(max_candidates=8, warmup=1, iters=3, max_seconds=20.0)
+
+#: the GGM level's width on the path: the widest level of one PIR_1G key
+GGM_N = 1 << 24
+
+
+#: serve_tuned's interleaved rounds per batch size: each round times the
+#: heuristic, the tuned, the tuned and the heuristic deployment in turn
+SERVE_TUNED_ROUNDS = ((1, 2), (32, 4))
+
+
+def _kernels_of(plan, share_kind: str) -> tuple:
+    """The counter a plan's answer step must advance on the card; a plan
+    that launches no kernel raises."""
+    from repro_torch.engine.kernels import descriptor_for_plan
+    library = descriptor_for_plan(plan, share_kind).library
+    if library is None:
+        raise AssertionError(f"plan {plan.name} launches no kernel")
+    return (library,)
+
+
+def card_state() -> dict:
+    """SM and memory clocks, temperature and power draw, as nvidia-smi
+    reads them now."""
+    fields = ("clocks.sm", "clocks.mem", "temperature.gpu", "power.draw")
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={','.join(fields)}",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0]
+    return dict(zip(fields, (v.strip() for v in out.split(","))))
+
+
+def phase_check_ggm(cfg, device) -> dict:
+    """B6 against its plain version (full-range seeds; n = 2^24 and a small
+    n the requested 256-thread block does not divide; rounds 12 and 2), then
+    ``ops.ggm_eval_leaves`` over one party's key at PIR_1G against the plain
+    leaf expansion (``dpf.eval_range``: the seeds and the bits
+    ``eval_bits_batch`` returns). Returns the largest error, the path's
+    launches, the plain version's time and the n = 2^24 inputs."""
+    from repro_torch.core import dpf
+    from repro_torch.core.protocol import get
+    from repro_torch.kernels import ggm_expand as kg, ops
+    rng = np.random.default_rng(SEED + 30)
+    worst, kept = 0, {}
+
+    def words(shape, high):
+        return torch.from_numpy(rng.integers(0, high, size=shape,
+                                             dtype=np.uint32).view(np.int32)
+                                ).to(device)
+
+    def record(case, got, want, **shape):
+        nonlocal worst
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        worst = max(worst, err)
+        emit({"phase": "check", "kernel": "ggm_expand", "case": case,
+              **shape, "max_abs_err": err,
+              "equal": all(torch.equal(g, w) for g, w in zip(got, want))})
+        if err:
+            raise AssertionError(f"ggm_expand differs from its plain version "
+                                 f"({case}, {shape}): max_abs_err {err}")
+
+    for n, rounds in ((GGM_N, 12), (GGM_N, 2), (1000, 12), (1000, 2)):
+        inputs = (words((n, 4), 1 << 32), words((n,), 2),
+                  words((4,), 1 << 32), words((2,), 2))
+        got = kg.ggm_expand(*inputs, rounds=rounds, tile=256)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = kg.ggm_expand_plain(*inputs, rounds=rounds)
+        torch.cuda.synchronize()
+        record("level", got, want, n=n, rounds=rounds, tile=256,
+               block=kg.block_for(n, 256), plain_s=time.perf_counter() - t0)
+        if (n, rounds) == (GGM_N, 12):
+            kept = {"inputs": inputs, "plain_ms": cuda_time_ms(
+                lambda: kg.ggm_expand_plain(*inputs, rounds=rounds), reps=2)}
+        del got, want
+
+    proto = get(cfg.protocol)
+    key = proto.query_gen_batch(rng, [int(rng.integers(cfg.n_items))],
+                                cfg)[1].to(device)
+    ops.reset_counts()
+    leaves = ops.ggm_eval_leaves(key.root_seed[0], key.party, key.cw_seed[0],
+                                 key.cw_t[0], cfg.log_n, rounds=key.rounds)
+    torch.cuda.synchronize()
+    counts = ops.counts()["ggm_expand"]
+    seeds, bits = dpf.eval_range(key, 0, cfg.log_n)
+    record("eval_leaves", leaves, (seeds[0], bits[0]), log_n=cfg.log_n,
+           party=key.party, launches=counts["launches"],
+           plain_calls=counts["plain_calls"])
+    if counts != {"launches": cfg.log_n, "plain_calls": 0}:
+        raise AssertionError(f"ggm_eval_leaves did not launch the kernel "
+                             f"once per level: {counts}")
+    return {"max_abs_err": worst, "launches": counts["launches"], **kept}
+
+
+def phase_engine_smoke(device) -> None:
+    from repro_torch.engine import tuner
+    t0 = time.perf_counter()
+    rc = tuner.smoke(device)
+    emit({"phase": "engine_smoke", "rc": rc,
+          "seconds": time.perf_counter() - t0})
+    if rc:
+        raise AssertionError(f"engine smoke returned {rc}")
+
+
+def phase_tune(card, device, ggm) -> tuple:
+    """The tuner on the card: B6's blocks, then both DPF schemes' buckets
+    at PIR_1G into a plan cache under a temporary directory. Returns the
+    cache file, B6's row and the results by config."""
+    from repro_torch.configs.pir import PIR_1G, PIR_1G_ADD
+    from repro_torch.core.protocol import get
+    from repro_torch.engine import PlanCache, tuner
+    from repro_torch.kernels import ops
+    budget = tuner.TuneBudget(**TUNE_BUDGET)
+    ops.reset_counts()
+    t_phase = t0 = time.perf_counter()
+    standalone = tuner.tune_standalone("ggm-expand", GGM_N, budget=budget,
+                                       device=device)
+    counts = ops.counts()["ggm_expand"]
+    tile = standalone["params"]["tile"]
+    ms = cuda_time_ms(lambda: ops.ggm_expand(*ggm["inputs"], tile=tile),
+                      reps=20)
+    row = {"n": GGM_N, "tile": tile, "ms": ms, "plain_ms": ggm["plain_ms"],
+           **ggm_bound(GGM_N, 12), "library_ms": None,
+           "launches": counts["launches"]}
+    emit({"phase": "tune", "kernel": "ggm-expand", "card": card,
+          "timings_ms": {k: v * 1e3 for k, v in
+                         standalone["timings"].items()},
+          "plain_calls": counts["plain_calls"], **row,
+          "seconds": time.perf_counter() - t0})
+    if counts["launches"] < 1 or counts["plain_calls"]:
+        raise AssertionError(f"tune_standalone did not run B6: {counts}")
+
+    path = os.path.join(tempfile.mkdtemp(prefix="repro_torch_plans_"),
+                        "plan_cache_torch.json")
+    cache = PlanCache(path)
+    results = {}
+    for name, cfg in (("pir-1g", PIR_1G), ("pir-1g-add", PIR_1G_ADD)):
+        t0 = time.perf_counter()
+        res = tuner.autotune(cfg, (1, 32), device=device, budget=budget,
+                             cache=cache, persist=True)
+        seconds = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        for b, r in res.items():
+            emit({"phase": "tune", "config": name, "protocol": cfg.protocol,
+                  "card": card, "bucket": b,
+                  "heuristic": tuner.plan_label(r.heuristic),
+                  "heuristic_ms": r.heuristic_s * 1e3,
+                  "tuned": tuner.plan_label(r.plan),
+                  "tuned_ms": r.tuned_s * 1e3,
+                  "timings_ms": {k: v * 1e3 for k, v in r.timings.items()},
+                  "n_candidates": r.n_candidates, "n_timed": r.n_timed,
+                  "n_pruned": r.n_pruned,
+                  "memory_pruned_predicted_bytes": r.mem_pruned,
+                  "heuristic_peak_bytes": r.heuristic_peak,
+                  "budget": TUNE_BUDGET, "seconds": seconds})
+            if r.tuned_s > r.heuristic_s:
+                raise AssertionError(f"tune {name} bucket {b}: the tuned "
+                                     f"plan is slower than the heuristic")
+            if tuner.plan_label(r.plan) not in r.timings:
+                raise AssertionError(f"tune {name} bucket {b}: the winner "
+                                     f"was not timed")
+        results[name] = (cfg, get(cfg.protocol).share_kind, res)
+    emit({"phase": "tune_cache", "path": path,
+          "entries": len(PlanCache(path)),
+          "seconds": time.perf_counter() - t_phase})
+    return path, row, results
+
+
+def interleaved_e2e(systems: dict, cfg, rng, rounds_by_q) -> dict:
+    """Host-clock latency of ``query()`` on the ``heuristic`` and the
+    ``tuned`` deployment, timed in rounds of heuristic, tuned, tuned,
+    heuristic after one untimed query each, so that both meet the same
+    state of the card and the host: per batch size and deployment the runs,
+    their median and their spread (slowest less fastest)."""
+    out = {}
+    for q, rounds in rounds_by_q:
+        lat = {name: [] for name in systems}
+        for name, system in systems.items():
+            system.query(rng.integers(0, cfg.n_items, size=q))
+        for _ in range(rounds):
+            for name in ("heuristic", "tuned", "tuned", "heuristic"):
+                idx = rng.integers(0, cfg.n_items, size=q)
+                lat[name].append(host_time_s(
+                    lambda: systems[name].query(idx), sync=False)[0])
+        out[f"e2e_{q}"] = {name: {"latency_s": v,
+                                  "median_s": float(np.median(v)),
+                                  "spread_s": max(v) - min(v)}
+                           for name, v in lat.items()}
+    return out
+
+
+def phase_serve_tuned(host_db, database, path, results, timing, timing_add,
+                      card, device) -> None:
+    """Serve PIR_1G and PIR_1G_ADD on the tuned plans (``path=None`` with
+    the port's cache pointed at the tuner's file), records exact and the
+    plans' kernels launched; then time batches of 1 and 32 on the tuned
+    and on a heuristic deployment (resolved before the cache is pointed at
+    the file), interleaved. A tuned median slower than the heuristic's by
+    more than the heuristic's spread fails. The cache is turned off again
+    after."""
+    from repro_torch import engine
+    from repro_torch.engine.tuner import plan_label
+    from repro_torch.runtime.serve_loop import TwoServerPIR
+    configs = (("pir-1g", timing), ("pir-1g-add", timing_add))
+
+    def deployment(cfg, seed):     # a closed session takes no queries
+        system = TwoServerPIR(database, cfg, device=device, n_queries=32,
+                              buckets=(1, 32), path=None,
+                              client_rng=np.random.default_rng(seed))
+        for s in system.servers:       # resolve now, under this cache
+            for b in s.buckets:
+                s.bucketed.plan_for_bucket(b)
+        return system
+
+    heuristic = {name: deployment(results[name][0], SEED + 70 + i)
+                 for i, (name, _) in enumerate(configs)}
+    os.environ["REPRO_TORCH_PLAN_CACHE"] = path
+    engine.plan_cache(reload=True)
+    try:
+        for i, (name, heur) in enumerate(configs):
+            cfg, kind, res = results[name]
+            system = deployment(cfg, SEED + 40 + i)
+            plans = {b: system.servers[0].bucketed.plan_for_bucket(b)
+                     for b in system.servers[0].buckets}
+            if any(plans[b] != res[b].plan for b in plans):
+                raise AssertionError(f"serve_tuned {name}: resolved plans "
+                                     f"{plans} are not the tuned ones")
+            kernels = tuple(sorted({k for p in plans.values()
+                                    for k in _kernels_of(p, kind)}))
+            rng = np.random.default_rng(SEED + 50 + i)
+            serve_phase("serve_tuned", name, system, host_db, sizes=(32, 1),
+                        kernels=kernels, rng=rng, provenance="tuned")
+            systems = {"heuristic": heuristic[name],
+                       "tuned": deployment(cfg, SEED + 60 + i)}
+            heur_plans = {b: plan_label(systems["heuristic"].servers[0]
+                                        .bucketed.plan_for_bucket(b))
+                          for b in plans}
+            state = card_state()
+            out = {"phase": "serve_tuned_timing", "config": name,
+                   "card": card, "card_state": state,
+                   "plans": {b: plan_label(p) for b, p in plans.items()},
+                   "heuristic_plans": heur_plans,
+                   **interleaved_e2e(systems, cfg, rng, SERVE_TUNED_ROUNDS),
+                   "card_state_after": card_state()}
+            for q in (1, 32):
+                out[f"timing_heuristic_e2e_{q}_median_s"] = heur[
+                    f"e2e_{q}"]["median_s"]
+            emit(out)
+            for q, _ in SERVE_TUNED_ROUNDS:
+                h, t = out[f"e2e_{q}"]["heuristic"], out[f"e2e_{q}"]["tuned"]
+                if t["median_s"] > h["median_s"] + h["spread_s"]:
+                    raise AssertionError(
+                        f"serve_tuned {name}: the tuned batch of {q} took "
+                        f"{t['median_s']:.4f} s, the heuristic's "
+                        f"{h['median_s']:.4f} s (spread {h['spread_s']:.4f})")
+    finally:
+        os.environ["REPRO_TORCH_PLAN_CACHE"] = "off"
+        engine.plan_cache(reload=True)
 
 
 def phase_database_lwe(cfg, device):
@@ -783,6 +1089,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    # the plans of every phase but serve_tuned are plan_for's, whatever
+    # cache file the machine holds
+    os.environ["REPRO_TORCH_PLAN_CACHE"] = "off"
     # the port must import before anything is printed: a copy of this
     # script without the repo fails here, with no result
     from repro_torch import quickstart
@@ -825,6 +1134,18 @@ def main() -> int:
     timing_add = phase_timing_add(database, PIR_1G_ADD, PIR_1G_K3,
                                   info["card"], device, kept)
 
+    # the engine plane: B6, the smoke gate, the tuner, tuned serving
+    ggm = phase_check_ggm(cfg, device)
+    worst["ggm_expand"] = ggm["max_abs_err"]
+    phase_engine_smoke(device)
+    cache_file, ggm_row, tuned = phase_tune(info["card"], device, ggm)
+    ggm_row["launches"] += ggm["launches"]
+    del ggm
+    phase_serve_tuned(host_db, database, cache_file, tuned, timing,
+                      timing_add, info["card"], device)
+    shutil.rmtree(os.path.dirname(cache_file))
+    launches_ggm = {"ggm_expand": ggm_row["launches"]}
+
     # the single-server LWE scheme on its own database: the 1 GiB one and
     # the multi-server phases' temporaries go first, A takes 16 GiB
     del database, db, host_db, kept
@@ -854,7 +1175,10 @@ def main() -> int:
              timing_add),
             ("lwe_gemm", "src/repro_torch/csrc/lwe_gemm.cu",
              "src/repro/kernels/pir_matmul.py:35", launches_lwe,
-             timing_lwe)):
+             timing_lwe),
+            ("ggm_expand", "src/repro_torch/csrc/ggm_expand.cu",
+             "src/repro/kernels/ggm_expand.py:90", launches_ggm,
+             {"ggm_expand": ggm_row})):
         t = times[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": path_launches[name],

@@ -8,14 +8,19 @@ Ported so far, served end to end on one device: the multi-server
 schemes — the paper's two-server XOR scheme (``xor-dpf-2``), two-server
 additive Z_256 shares (``additive-dpf-2``) and k-server XOR
 (``xor-dpf-k``) — and the single-server LWE scheme (``lwe-simple-1``),
-with the TPU kernels on their paths rewritten as hand-written CUDA C++ for
-Hopper (``csrc/``):
+with every TPU kernel of the reference rewritten as hand-written CUDA C++
+for Hopper (``csrc/``):
 
   kernels/dpxor.py       select-XOR scan             (csrc/dpxor.cu)
   kernels/fused_scan.py  fused GGM-expand + XOR scan (csrc/fused_scan_xor.cu)
                          fused GGM-expand + add scan (csrc/fused_scan_add.cu)
   kernels/pir_matmul.py  int8 GEMM                   (csrc/pir_gemm.cu)
   kernels/lwe_matmul.py  wrapping int32 GEMM         (csrc/lwe_gemm.cu)
+  kernels/ggm_expand.py  one corrected GGM level     (csrc/ggm_expand.cu)
+
+The engine plane (``engine/``) picks each batch bucket's plan: a measured
+tuner on the card and a plan cache keyed by the card's name, falling back
+to ``core.protocol.plan_for``.
 
 Entry points (``runtime.serve_loop.TwoServerPIR``, ``MultiServerPIR``,
 ``SingleServerPIR``, ``core.server.PIRServer``, ``kernels.ops``) run on

@@ -68,7 +68,9 @@ class ExecutionPlan:
     chunk_log  log2 leaves per chunk (fused expansions).
     tile_r     the reference's row tile; legalizes ``chunk_log`` for the
                fused kernel (``ops.fused_tile``).
-    provenance "heuristic" (``plan_for``) or "forced" (a ``path=`` string).
+    provenance "heuristic" (``plan_for``), "forced" (a ``path=`` string),
+               "tuned" (the engine's plan cache, measured by its tuner) or
+               "warm" (a cache entry seeded by ``engine.record_plans``).
     """
     expand: str = "materialize"
     scan: str = "torch"
@@ -101,8 +103,10 @@ def plan_for(cfg: PIRConfig, n_queries: int, *, backend: str,
     large DB, and that path runs no kernel; only its measured tuner picks
     the ``fused-pallas`` megakernel. For the additive scheme it picks
     ``materialize`` at every batch, which at 2^25 rows and 32 queries would
-    hold 16 GiB of leaf seeds per party before the ChaCha temporaries. The
-    port has no tuner yet, so on ``backend="cuda"`` it picks the kernels
+    hold 16 GiB of leaf seeds per party before the ChaCha temporaries. This
+    rule is the engine's cache-miss fallback (``resolve_plan`` with
+    ``path=None`` reaches it through ``engine.resolve``; the engine's tuner
+    is the route past it), so on ``backend="cuda"`` it picks the kernels
     directly, for every scheme:
 
       * ``materialize`` + the scan kernel (dpXOR, or the int8 GEMM) when
@@ -129,23 +133,28 @@ def plan_for(cfg: PIRConfig, n_queries: int, *, backend: str,
     else:
         raise ValueError(
             f"unknown backend {backend!r}; expected 'cuda' or 'cpu'")
-    return _pin_tile(plan, cfg)
+    return pin_tile(plan, cfg)
 
 
 def resolve_plan(path: Optional[str], cfg: PIRConfig, n_queries: int, *,
-                 backend: str, chunk_log: int = 12) -> ExecutionPlan:
-    """A plan from a ``path`` string, or ``plan_for`` when path is
-    None/"auto". GEMM schemes pin the GEMM tile on forced plans too."""
+                 backend: str, chunk_log: int = 12,
+                 device=None) -> ExecutionPlan:
+    """A plan from a ``path`` string, or through the engine when path is
+    None/"auto": the tuned plan on a plan-cache hit for ``device`` (or, if
+    not given, the backend's current card), ``plan_for`` on a miss. GEMM
+    schemes pin the GEMM tile on forced plans too."""
     if path is None or path == "auto":
-        return plan_for(cfg, n_queries, backend=backend, chunk_log=chunk_log)
+        from repro_torch import engine
+        return engine.resolve(cfg, n_queries, backend=backend, device=device,
+                              chunk_log=chunk_log)
     if path not in PATH_PLANS:
         raise ValueError(f"unknown path {path!r}; "
                          f"expected one of {sorted(PATH_PLANS)} or 'auto'")
-    return _pin_tile(replace(PATH_PLANS[path], chunk_log=chunk_log,
-                             provenance="forced"), cfg)
+    return pin_tile(replace(PATH_PLANS[path], chunk_log=chunk_log,
+                            provenance="forced"), cfg)
 
 
-def _pin_tile(plan: ExecutionPlan, cfg: PIRConfig) -> ExecutionPlan:
+def pin_tile(plan: ExecutionPlan, cfg: PIRConfig) -> ExecutionPlan:
     """Additive and LWE schemes run on the reference's GEMM tile
     (``protocol.py:164-166`` upstream), heuristic or forced."""
     if get(cfg.protocol).share_kind in _GEMM_KINDS:
@@ -164,6 +173,7 @@ class PIRProtocol:
     share_kind: str = "xor"            # xor | additive | lwe
     db_view: str = "words"             # the database view it scans
     needs_hint: bool = False           # per-query client state + epoch hint
+    key_components: int = 1           # GGM trees a query's key holds, at most
 
     # -- client side ----------------------------------------------------
     def n_parties(self, cfg: PIRConfig) -> int:
@@ -421,6 +431,7 @@ class XorDpfK(_XorProtocol):
     """
 
     name = "xor-dpf-k"
+    key_components = 3
 
     def n_parties(self, cfg: PIRConfig) -> int:
         if cfg.n_servers < 2:

@@ -58,18 +58,21 @@ def default_buckets(n_clusters: int = 1, max_bucket: int = 32
 class BucketedServeFns:
     """Per-bucket plans of one party, and the padded answer dispatch.
 
-    ``path=None`` resolves each bucket's plan through ``plan_for`` for the
-    database's backend, so small and large buckets may take different
-    kernel paths; plans are resolved once per bucket and cached.
+    ``path=None`` resolves each bucket's plan through the engine for the
+    device served on: its tuned plan on a plan-cache hit, else ``plan_for``
+    for the backend, so small and large buckets may take different kernel
+    paths; plans are resolved once per bucket and cached.
     """
 
     def __init__(self, cfg: PIRConfig, *, buckets: Sequence[int],
                  backend: str, path: Optional[str] = None,
-                 protocol: Optional[PIRProtocol] = None, chunk_log: int = 12):
+                 protocol: Optional[PIRProtocol] = None, chunk_log: int = 12,
+                 device: Device = None):
         if not buckets:
             raise ValueError("need at least one bucket")
         self.cfg = cfg
         self.backend = backend
+        self.device = device
         self.path = path
         self.chunk_log = chunk_log
         self.protocol = (protocol if protocol is not None
@@ -85,7 +88,7 @@ class BucketedServeFns:
         if bucket not in self._plans:
             self._plans[bucket] = protocol_mod.resolve_plan(
                 self.path, self.cfg, bucket, backend=self.backend,
-                chunk_log=self.chunk_log)
+                chunk_log=self.chunk_log, device=self.device)
         return self._plans[bucket]
 
     def stage(self, keys: Keys, device: torch.device) -> Keys:
@@ -161,7 +164,7 @@ class PIRServer:
             buckets = tuple(sorted(set(buckets) | {n_queries}))
         self.bucketed = BucketedServeFns(
             cfg, buckets=buckets, backend=backend_of(self.device), path=path,
-            protocol=protocol)
+            protocol=protocol, device=self.device)
         self.protocol = self.bucketed.protocol
 
     @property

@@ -5,9 +5,9 @@ into ``build/repro_torch/`` at the root of the checkout, under a file name
 hashed over every source in ``csrc/`` and the flags, so an edited source
 rebuilds and an unchanged one loads from disk. The sources export a plain
 C interface (no PyTorch headers), which keeps a build to seconds; the
-wrappers in ``dpxor.py``, ``fused_scan.py``, ``pir_matmul.py`` and
-``lwe_matmul.py`` register each kernel as a ``torch.library`` op that
-launches on PyTorch's current stream.
+wrappers in ``dpxor.py``, ``fused_scan.py``, ``pir_matmul.py``,
+``lwe_matmul.py`` and ``ggm_expand.py`` register each kernel as a
+``torch.library`` op that launches on PyTorch's current stream.
 
 A failed build raises :class:`BuildError` with nvcc's output. ``build``
 compiles several libraries at once, one nvcc process per source.
@@ -17,13 +17,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -46,6 +47,8 @@ LIBRARIES = {
                                  _I, _I, _I, _P]}),
     "lwe_gemm": ("lwe_gemm.cu", {
         "repro_lwe_gemm": [_P, _P, _P, _L, _L, _L, _I, _P]}),
+    "ggm_expand": ("ggm_expand.cu", {
+        "repro_ggm_expand": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P]}),
 }
 
 
@@ -148,6 +151,16 @@ def build(names: Sequence[str]) -> Dict[str, BuildRecord]:
     if failures:
         raise BuildError("nvcc failed:\n" + "\n".join(failures))
     return {name: RECORDS[name] for name in names}
+
+
+def registers(name: str) -> Optional[int]:
+    """The most registers per thread ptxas gave a kernel of library
+    ``name`` in this process's build, or None when it was not built here
+    (or loaded from disk, which keeps no ptxas report)."""
+    rec = RECORDS.get(name)
+    used = [int(m.group(1)) for ln in (rec.ptxas if rec else ())
+            for m in [re.search(r"Used (\d+) registers", ln)] if m]
+    return max(used) if used else None
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -104,10 +104,12 @@ def _fused_scan_xor_op(db_words: torch.Tensor, roots: torch.Tensor,
                        t_roots: torch.Tensor, cw_seed_lv: torch.Tensor,
                        cw_t_lv: torch.Tensor, rounds: int) -> torch.Tensor:
     build.require_cuda_words("db_words", db_words, 2)
-    build.require_cuda_words("roots", roots, 3)
-    build.require_cuda_words("t_roots", t_roots, 2)
-    build.require_cuda_words("cw_seed_lv", cw_seed_lv, 3)
-    build.require_cuda_words("cw_t_lv", cw_t_lv, 3)
+    build.require_cuda_words("roots", roots, 3)           # uint4 loads
+    # read word by word: a level slice of one query's key is contiguous but
+    # only 8-byte aligned when it starts at an odd level
+    build.require_cuda_words("t_roots", t_roots, 2, align=4)
+    build.require_cuda_words("cw_seed_lv", cw_seed_lv, 3, align=4)
+    build.require_cuda_words("cw_t_lv", cw_t_lv, 3, align=4)
     r, w = db_words.shape
     q, c = t_roots.shape
     clog = cw_seed_lv.shape[1]

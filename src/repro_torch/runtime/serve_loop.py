@@ -307,9 +307,10 @@ class MultiServerPIR:
     One shared :class:`Database` on ``device`` (``None`` means CUDA; no
     card raises), one :class:`PIRServer` per party, and one
     :class:`QueryScheduler` that fans every batch out to all parties and
-    reconstructs the records. ``path=None`` lets ``plan_for`` pick each
-    bucket's kernel path (the reference defaults to ``"fused"``, its
-    jnp-chunked path, which runs no kernel).
+    reconstructs the records. ``path=None`` lets the engine pick each
+    bucket's kernel path: the tuned plan on a plan-cache hit, else
+    ``plan_for`` (the reference defaults to ``"fused"``, its jnp-chunked
+    path, which runs no kernel).
 
       query(indices)  synchronous retrieval (keys for the whole call are
                       generated in one batch; pumps the scheduler unless a

@@ -430,7 +430,8 @@ def test_additive_cuda_plans_route_through_the_kernel_wrappers(proto_setup):
         "fused_scan_xor": {"launches": 0, "plain_calls": 0},
         "pir_gemm": {"launches": 0, "plain_calls": 1},
         "fused_scan_add": {"launches": 0, "plain_calls": 1},
-        "lwe_gemm": {"launches": 0, "plain_calls": 0}}
+        "lwe_gemm": {"launches": 0, "plain_calls": 0},
+        "ggm_expand": {"launches": 0, "plain_calls": 0}}
 
 
 def test_additive_record_struct_and_registry():

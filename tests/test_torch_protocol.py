@@ -104,7 +104,8 @@ def test_cuda_plans_route_through_the_kernel_wrappers(setup):
         "fused_scan_xor": {"launches": 0, "plain_calls": 1},
         "pir_gemm": {"launches": 0, "plain_calls": 0},
         "fused_scan_add": {"launches": 0, "plain_calls": 0},
-        "lwe_gemm": {"launches": 0, "plain_calls": 0}}
+        "lwe_gemm": {"launches": 0, "plain_calls": 0},
+        "ggm_expand": {"launches": 0, "plain_calls": 0}}
 
 
 def test_reconstruct_is_xor(setup):
