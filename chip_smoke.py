@@ -47,20 +47,44 @@ Phases, one JSON line each:
               more than the heuristic's spread), beside the card's clocks and
               the heuristic's latency from timing / timing_add
 The plan cache is off (REPRO_TORCH_PLAN_CACHE=off) in every other phase, so
-their plans are plan_for's. The XOR/additive database is then freed, and the single-server LWE scheme
+their plans are plan_for's. Then every record width and verified
+reconstruction:
+  database_widths  PIR_1G's records stored with their checksum word (36
+              bytes, W = 9, 1,207,959,552 B) and 2^23 records of 128 bytes
+              (W = 32, 1 GiB) from their own seed, both on the card
+  check_widths  B1-B4 on those operands exact against their plain versions
+              at Q = 1 and Q = 32, dpXOR on a row slice only 4-byte aligned,
+              ptxas's registers and spills of each instance the widths
+              select, then each kernel at 32, 36 and 128 bytes timed in turns
+              beside its bound
+  serve_chk   TwoServerPIR with checksum=True at PIR_1G, xor-dpf-2 and
+              additive-dpf-2: one word of one party's share flipped for one
+              query of a batch of 32 must raise IntegrityError naming that
+              query; batches of 32 and 1 and a session exact at the logical
+              width on the path's kernels
+  serve_w128  TwoServerPIR over the 128-byte records, XOR and additive:
+              batches of 32 and 1 and a session exact
+The XOR/additive databases are then freed, and the single-server LWE scheme
 runs at PIR_128M_LWE (2^22 records x 32 B; A is 2^22 x 1024 int32 = 16 GiB):
   database_lwe  its own records from a seed, the int32 byte view, and A
               drawn on the host threads and placed on the card (timed)
   check_lwe   the int32 GEMM kernel against its plain version with full-
               range int32 operands (every sum wraps): the answer at 1, 8 and
               32 queries, the hint and the client's A.S at 1 and 32 queries
-  serve_lwe   SingleServerPIR: batches of 32, 5 and 1, then a session;
+  serve_lwe   SingleServerPIR: batches of 32 and 1, then a session;
               records exact, the GEMM kernel launched, no plain call, and
               one hint fetch
   timing_lwe  the kernel at 1 and 32 queries beside its bound and the plain
               version, the hint build, and batches of 1 and 32 end to end
               with host keygen, A.S on the card, the answer and host decode
               apart; peak device memory
+  serve_chk (LWE)  the same records with checksum=True (36 bytes): B5 exact
+              against its plain version at the answer shapes (1 and 32
+              queries x 36) and the hint shape ([36, N] x A), timed at 36
+              and 32 columns in turns; an answer word's top byte flipped
+              and an answer shifted by Delta, which the noise check passes,
+              must each raise IntegrityError naming the query; batches of
+              32 and 1 and a session exact at the logical width
 Then the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
 line. Without a CUDA card the script exits 1 at once.
@@ -75,6 +99,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -650,7 +675,7 @@ def phase_timing_add(database, cfg, cfg_k3, card, device, kept):
                         client_rng=np.random.default_rng(SEED + 19))
     out["k3"] = {"config": "pir-1g-k3", "parties": k3.n_parties,
                  "plans": k3.servers[0].plan_report(),
-                 **e2e(k3, cfg_k3, rng, ((1, 3), (32, 3)))}
+                 **e2e(k3, cfg_k3, rng, ((1, 2), (32, 3)))}
     out["peak_device_bytes_run"] = torch.cuda.max_memory_allocated()
     emit(out)
     return out
@@ -946,10 +971,14 @@ def phase_database_lwe(cfg, device):
     return host_db, database, a
 
 
-def phase_check_lwe(database, a, device) -> tuple:
+def phase_check_lwe(database, a, device, *, answer_qs=(1, 8, 32),
+                    client_qs=(1, 32)) -> tuple:
     """The int32 GEMM kernel against its plain version at the path's three
-    shapes, full size, with full-range int32 operands so that every sum
-    wraps. Returns the largest error and the plain answer's time by batch."""
+    shapes (the answer at ``answer_qs`` queries, the hint, the client's
+    A.S^T at ``client_qs``), full size, with full-range int32 operands so
+    that every sum wraps; the answer and the hint read ``database``'s
+    bytes32 view, 36 columns where it holds checksums. Returns the largest
+    error and the plain answer's time by batch."""
     from repro_torch.kernels import lwe_matmul as kl
     gen = torch.Generator(device=device).manual_seed(SEED + 21)
     db32 = database.view("bytes32")
@@ -980,12 +1009,12 @@ def phase_check_lwe(database, a, device) -> tuple:
                                  f"{tuple(y.shape)}): max_abs_err {err}")
         return plain_s
 
-    for q in (1, 8, 32):           # the answer: ct [Q, N] x bytes32 [N, L]
+    for q in answer_qs:            # the answer: ct [Q, N] x bytes32 [N, L]
         plain_ms[q] = check("answer", full_range((q, rows)), db32, q=q) * 1e3
     d_t = db32.t().contiguous()    # the hint as (D^T.A)^T
     check("hint", d_t, a)
     del d_t
-    for q in (1, 32):              # the client's A.S^T
+    for q in client_qs:            # the client's A.S^T
         check("client", a, full_range((a.shape[1], q)), q=q)
     return worst, plain_ms
 
@@ -995,7 +1024,7 @@ def phase_serve_lwe(host_db, cfg, database, device):
     system = SingleServerPIR(database, cfg, device=device, n_queries=32,
                              client_rng=np.random.default_rng(SEED + 23))
     launches = serve_phase("serve_lwe", "pir-128m-lwe", system, host_db,
-                           sizes=(32, 5, 1), kernels=("lwe_gemm",),
+                           sizes=(32, 1), kernels=("lwe_gemm",),
                            rng=np.random.default_rng(SEED + 22))
     emit({"phase": "serve_lwe_hint", "hint_fetches": system.hint_fetches,
           "hint_builds": database.n_hint_builds})
@@ -1077,11 +1106,393 @@ def phase_timing_lwe(host_db, database, a, cfg, card, device, plain_ms):
                   f"its bound {r['bound_ms']:.4f} ms", flush=True)
 
     # end to end through SingleServerPIR.query (host clock, records on host)
-    out.update(e2e(system, cfg, rng, ((1, 3), (32, 2))))
+    out.update(e2e(system, cfg, rng, ((1, 3), (32, 1))))
     out["hint_fetches"] = system.hint_fetches
     out["peak_device_bytes_run"] = torch.cuda.max_memory_allocated()
     emit(out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Every record width, and verified reconstruction
+# ---------------------------------------------------------------------------
+
+#: the kernels whose record width is free: B1-B4
+WIDTH_KERNELS = ("dpxor", "fused_scan_xor", "pir_gemm", "fused_scan_add")
+
+#: the private embedding lookup's records (tests/test_system.py): 128 bytes,
+#: 2^23 of them (1 GiB, as PIR_1G)
+ROWS_128 = 1 << 23
+
+#: rounds of the interleaved width timing (32, 36, 128, 128, 36, 32 bytes)
+WIDTH_ROUNDS = 2
+WIDTH_TURNS = (32, 36, 128, 128, 36, 32)
+
+
+def phase_database_widths(host_db, cfg, device) -> tuple:
+    """PIR_1G with the checksum column (the same payload records, each
+    stored as 36 bytes: W = 9, the column attached on the host) and 2^23
+    records of 128 bytes (W = 32) from their own seed; both placed on the
+    card. Returns (checksum Database, 128-byte host words, its Database)."""
+    from repro_torch.core import pir
+    from repro_torch.db import Database
+    t0 = time.perf_counter()
+    chk = Database(host_db, replace(cfg, checksum=True), device)
+    torch.cuda.synchronize()
+    chk_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host128 = pir.make_database(np.random.default_rng(SEED + 80), ROWS_128,
+                                128)
+    w128 = Database(host128, replace(cfg, n_items=ROWS_128, item_bytes=128),
+                    device)
+    torch.cuda.synchronize()
+    emit({"phase": "database_widths",
+          "checksum": {"rows": cfg.n_items,
+                       "stored_bytes": chk.spec.stored_bytes,
+                       "bytes": chk.resident_bytes, "seconds": chk_s},
+          "w128": {"rows": ROWS_128, "stored_bytes": w128.spec.stored_bytes,
+                   "bytes": w128.resident_bytes,
+                   "seconds": time.perf_counter() - t0}})
+    return chk, host128, w128
+
+
+def width_instances() -> dict:
+    """ptxas's registers and spills of every template instance the 36- and
+    128-byte records select at Q = 1 and Q = 32."""
+    from repro_torch.kernels import build, dpxor as kd, fused_scan as kf
+    from repro_torch.kernels import pir_matmul as km
+    wanted = {
+        "dpxor": {kd.instance(w, q) for w in (9, 32) for q in (1, 32)},
+        "fused_scan_xor": {kf.instance_xor(w) for w in (9, 32)},
+        "pir_gemm": {km.instance(b, q) for b in (36, 128) for q in (1, 32)},
+        "fused_scan_add": {kf.instance_add(b) for b in (36, 128)},
+    }
+    out = {}
+    for name, stems in wanted.items():
+        report = build.ptxas_report(name)
+        for stem in sorted(stems):
+            hits = [v for k, v in report.items() if stem in k]
+            if len(hits) != 1:
+                raise AssertionError(f"{name}: ptxas reports {len(hits)} "
+                                     f"entries for instance {stem}")
+            out[f"{name}:{stem}"] = hits[0]
+    return out
+
+
+def phase_check_widths(dbs, cfg, card, device) -> dict:
+    """B1-B4 past their fixed-width instances, on the served operands:
+    36-byte records (``dbs[36]``, PIR_1G's rows with the checksum column)
+    and 128-byte records (``dbs[128]``, 2^23 rows), each exact against its
+    plain version at Q = 1 and Q = 32 (at Q = 32 every lane of a fused
+    kernel's warp is a query); dpXOR on a row slice only 4-byte aligned;
+    the registers and spills of each instance; then every kernel at 32, 36
+    and 128 bytes timed in turns (WIDTH_TURNS, WIDTH_ROUNDS times) beside
+    its bound at each width. Returns each kernel's largest error."""
+    from repro_torch.core import dpf
+    from repro_torch.core.protocol import GEMM_TILE_R_DEFAULT, PAYLOAD_ONE
+    from repro_torch.core.protocol import plan_for
+    from repro_torch.kernels import dpxor as kd, fused_scan as kf, ops
+    from repro_torch.kernels import pir_matmul as km
+    rng = np.random.default_rng(SEED + 90)
+    gen = torch.Generator(device=device).manual_seed(SEED + 91)
+    worst = {k: 0 for k in WIDTH_KERNELS}
+    t_phase = time.perf_counter()
+
+    def record(kernel, got, want, **shape):
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        worst[kernel] = max(worst[kernel], err)
+        emit({"phase": "check_widths", "kernel": kernel, **shape,
+              "equal": bool(torch.equal(got, want)), "max_abs_err": err})
+        if err:
+            raise AssertionError(f"{kernel} differs from its plain version "
+                                 f"at {shape}: max_abs_err {err}")
+
+    def timed_plain(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # the plans' chunk logs at each DB's rows, as the served path takes them
+    plan = plan_for(cfg, 32, backend="cuda")
+
+    def clogs(rows):
+        lg = (rows - 1).bit_length()
+        _, cx = ops.fused_tile(rows, plan.tile_r, min(plan.chunk_log, lg))
+        _, ca = ops.fused_tile(rows, GEMM_TILE_R_DEFAULT, lg)
+        return lg, cx, ca
+
+    for item_bytes, db in dbs.items():
+        if item_bytes == 32:
+            continue
+        rows = db.shape[0]
+        lg, clog_x, clog_a = clogs(rows)
+        b = db.view(torch.int8)
+        for q in (1, 32):
+            bits = torch.randint(0, 2, (q, rows), generator=gen,
+                                 device=device, dtype=torch.int32)
+            record("dpxor", kd.dpxor(db, bits), kd.dpxor_plain(db, bits),
+                   q=q, rows=rows, item_bytes=item_bytes)
+            shares = torch.randint(-128, 128, (q, rows), generator=gen,
+                                   device=device, dtype=torch.int8)
+            record("pir_gemm", km.pir_gemm(shares, b),
+                   km.pir_gemm_plain(shares, b), q=q, rows=rows,
+                   item_bytes=item_bytes)
+            del bits, shares
+            idx = rng.integers(0, rows, size=q)
+            party = (q + item_bytes // 4) % 2
+            keys = dpf.gen_keys_batch(rng, idx, lg)[party].to(device)
+            inputs = fused_inputs(keys, 0, lg, clog_x)
+            want, plain_s = timed_plain(lambda: kf.fused_scan_xor_plain(
+                db, *inputs, rounds=keys.rounds))
+            record("fused_scan_xor", kf.fused_scan_xor(
+                db, *inputs, rounds=keys.rounds), want, q=q, rows=rows,
+                item_bytes=item_bytes, clog=clog_x, party=party,
+                plain_s=plain_s)
+            keys = dpf.gen_keys_batch(rng, idx, lg,
+                                      payload=PAYLOAD_ONE)[party].to(device)
+            inputs = fused_inputs(keys, 0, lg, clog_a) + (
+                keys.cw_final[:, 0].contiguous(),)
+            want, plain_s = timed_plain(lambda: kf.fused_scan_add_plain(
+                b, *inputs, party=party, rounds=keys.rounds))
+            record("fused_scan_add", kf.fused_scan_add(
+                b, *inputs, party=party, rounds=keys.rounds), want, q=q,
+                rows=rows, item_bytes=item_bytes, clog=clog_a, party=party,
+                plain_s=plain_s)
+            del inputs, want
+    # a row slice of the 36-byte DB starts 36 bytes in (4-byte aligned
+    # only), and its bits are cut from a flat buffer one word in
+    db36 = dbs[36]
+    rows = db36.shape[0]
+    sliced = db36[1:]
+    flat = torch.randint(0, 2, (2 * (rows - 1) + 1,), generator=gen,
+                         device=device, dtype=torch.int32)
+    bits = flat[1:].view(2, rows - 1)
+    record("dpxor", kd.dpxor(sliced, bits), kd.dpxor_plain(sliced, bits),
+           q=2, rows=rows - 1, item_bytes=36, row_slice=True,
+           db_align=sliced.data_ptr() % 16, bits_align=bits.data_ptr() % 16)
+    del flat, bits
+    emit({"phase": "check_widths_ptxas", "instances": width_instances()})
+
+    # times: each width on its served operand, in turns
+    runs = {}
+    for item_bytes, db in dbs.items():
+        rows = db.shape[0]
+        lg, clog_x, clog_a = clogs(rows)
+        bits = torch.randint(0, 2, (1, rows), generator=gen, device=device,
+                             dtype=torch.int32)
+        shares = torch.randint(-128, 128, (1, rows), generator=gen,
+                               device=device, dtype=torch.int8)
+        idx = rng.integers(0, rows, size=32)
+        kx = dpf.gen_keys_batch(rng, idx, lg)[0].to(device)
+        in_x = fused_inputs(kx, 0, lg, clog_x)
+        ka = dpf.gen_keys_batch(rng, idx, lg,
+                                payload=PAYLOAD_ONE)[0].to(device)
+        in_a = fused_inputs(ka, 0, lg, clog_a) + (
+            ka.cw_final[:, 0].contiguous(),)
+        b = db.view(torch.int8)
+        runs[item_bytes] = {
+            "dpxor": (lambda db=db, bits=bits: kd.dpxor(db, bits), 20,
+                      (dpxor_bound_ms(rows, item_bytes // 4, 1), "bytes")),
+            "pir_gemm": (lambda b=b, s=shares: km.pir_gemm(s, b), 20,
+                         (gemm_bound_ms(rows, item_bytes, 1), "bytes")),
+            "fused_scan_xor": (
+                lambda db=db, i=in_x, r=kx.rounds: kf.fused_scan_xor(
+                    db, *i, rounds=r), 3,
+                (fused_bound_ms(rows, 32, clog_x, kx.rounds), "operations")),
+            "fused_scan_add": (
+                lambda b=b, i=in_a, r=ka.rounds: kf.fused_scan_add(
+                    b, *i, party=0, rounds=r), 3,
+                (fused_add_bound_ms(rows, 32, clog_a, ka.rounds),
+                 "operations")),
+        }
+    times = {k: {w: [] for w in dbs} for k in WIDTH_KERNELS}
+    state = card_state()
+    for _ in range(WIDTH_ROUNDS):
+        for name in WIDTH_KERNELS:
+            for w in WIDTH_TURNS:
+                fn, reps, _ = runs[w][name]
+                times[name][w].append(cuda_time_ms(fn, reps=reps))
+    out = {"phase": "check_widths_timing", "card": card, "card_state": state,
+           "turns": WIDTH_TURNS, "rounds": WIDTH_ROUNDS, "kernels": {}}
+    for name in WIDTH_KERNELS:
+        row = {"q": 1 if name in ("dpxor", "pir_gemm") else 32}
+        for w in dbs:
+            t = times[name][w]
+            bound, by = runs[w][name][2]
+            ms = float(np.median(t))
+            row[str(w)] = {"rows": dbs[w].shape[0], "ms": ms, "runs": t,
+                           "spread_ms": max(t) - min(t), "bound_ms": bound,
+                           "bound_by": by, "share_of_bound": bound / ms}
+        out["kernels"][name] = row
+    out["card_state_after"] = card_state()
+    out["worst"] = worst
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return worst
+
+
+def corrupt_batch(system, idx, edit) -> tuple:
+    """Serve ``idx`` with ``edit`` applied to the batch's raw answers
+    between the scheduler's dispatch and its finalize; returns the
+    ``bad_queries`` of the IntegrityError the batch must raise."""
+    from repro_torch.db import IntegrityError
+    sched = system.scheduler
+    orig = sched._dispatch
+    sched._dispatch = lambda staged: edit(orig(staged))
+    try:
+        system.query(idx)
+    except IntegrityError as e:
+        return e.bad_queries
+    finally:
+        sched._dispatch = orig
+    raise AssertionError("a corrupted batch reconstructed without an "
+                         "IntegrityError")
+
+
+def flip_share(party: int, query: int, word: int, mask: int):
+    """An ``edit`` for :func:`corrupt_batch`: XOR ``mask`` into one word of
+    one party's answer share for one query (the LWE answer is its one
+    share)."""
+    def edit(raw):
+        answers, rest = raw[0], raw[1:]
+        if isinstance(answers, tuple):          # multi-server: per party
+            a = answers[party].clone()
+            a[query, word] ^= mask
+            return (answers[:party] + (a,) + answers[party + 1:],) + rest
+        a = answers.clone()
+        a[query, word] ^= mask
+        return (a,) + rest
+    return edit
+
+
+def phase_serve_chk(host_db, configs, database, device) -> dict:
+    """Verified reconstruction at PIR_1G with the checksum column, through
+    TwoServerPIR, for xor-dpf-2 and additive-dpf-2 on one database: one
+    word of one party's share flipped for one query of a batch of 32 must
+    raise IntegrityError naming exactly that query; then batches of 32 and
+    1 and a session exact at the logical width on the path's kernels.
+    Returns the launches by kernel."""
+    from repro_torch.runtime.serve_loop import TwoServerPIR
+    launches = {}
+    for i, (name, cfg, kernels) in enumerate(configs):
+        system = TwoServerPIR(database, cfg, device=device, n_queries=32,
+                              client_rng=np.random.default_rng(SEED + 100 + i))
+        rng = np.random.default_rng(SEED + 110 + i)
+        bad, party = int(rng.integers(32)), i % 2
+        got = corrupt_batch(system, rng.integers(0, cfg.n_items, size=32),
+                            flip_share(party, bad, 3, 0x5A))
+        emit({"phase": "serve_chk_corrupt", "config": name, "party": party,
+              "flipped_query": bad, "bad_queries": list(got)})
+        if got != (bad,):
+            raise AssertionError(f"serve_chk {name}: flipped query {bad}, "
+                                 f"IntegrityError named {got}")
+        for k, n in serve_phase("serve_chk", name, system, host_db,
+                                sizes=(32, 1), kernels=kernels,
+                                rng=rng).items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
+
+
+def phase_serve_w128(host128, configs, database, device) -> dict:
+    """128-byte records (the private embedding lookup's, 2^23 of them)
+    through TwoServerPIR, xor-dpf-2 and additive-dpf-2 on one database:
+    batches of 32 and 1 and a session exact on the path's kernels. Returns
+    the launches by kernel."""
+    from repro_torch.runtime.serve_loop import TwoServerPIR
+    launches = {}
+    for i, (name, cfg, kernels) in enumerate(configs):
+        system = TwoServerPIR(database, cfg, device=device, n_queries=32,
+                              client_rng=np.random.default_rng(SEED + 120 + i))
+        for k, n in serve_phase("serve_w128", name, system, host128,
+                                sizes=(32, 1), kernels=kernels,
+                                rng=np.random.default_rng(SEED + 130 + i)
+                                ).items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
+
+
+def phase_serve_chk_lwe(host_db, cfg, a, card, device) -> tuple:
+    """Verified reconstruction of the single-server scheme at PIR_128M_LWE
+    with the checksum column (its own Database of the same payload,
+    stored at 36 bytes): B5 against its plain version at this database's
+    answer shapes (1 and 32 queries x 36 columns) and hint shape ([36, N]
+    x A); B5 at 36 and at 32 columns timed in turns; one answer word of a
+    batch with its top byte flipped (a shift by a multiple of Delta) and
+    one answer shifted by Delta, each of which the noise check passes and
+    the checksum must name; then batches of 32 and 1 and a session exact
+    at the logical width on B5. Returns B5's largest error and the
+    launches."""
+    from repro_torch.core import lwe
+    from repro_torch.db import Database
+    from repro_torch.kernels import lwe_matmul as kl
+    from repro_torch.runtime.serve_loop import SingleServerPIR
+    database = Database(host_db, cfg, device)
+    worst, _ = phase_check_lwe(database, a, device, answer_qs=(1, 32),
+                               client_qs=())
+    db36 = database.view("bytes32")
+    rows = db36.shape[0]
+    db32 = db36[:, :32].contiguous()
+    gen = torch.Generator(device=device).manual_seed(SEED + 152)
+    ct = torch.randint(-(1 << 31), (1 << 31) - 1, (32, rows), generator=gen,
+                       device=device, dtype=torch.int32)
+    d36, d32 = db36.t().contiguous(), db32.t().contiguous()
+    shapes = {"answer_q32": {36: (ct, db36), 32: (ct, db32)},
+              "hint": {36: (d36, a), 32: (d32, a)}}
+    times = {c: {p: [] for p in (36, 32)} for c in shapes}
+    for _ in range(2):
+        for case, by_p in shapes.items():
+            for p in (32, 36, 36, 32):
+                x, y = by_p[p]
+                times[case][p].append(cuda_time_ms(
+                    lambda: kl.lwe_gemm(x, y),
+                    reps=20 if case == "answer_q32" else 3))
+    out = {"phase": "serve_chk_lwe_timing", "card": card, "kernels": {}}
+    for case, by_p in shapes.items():
+        row = {}
+        for p, (x, y) in by_p.items():
+            t = times[case][p]
+            bound, by = lwe_gemm_bound(x.shape[0], x.shape[1], y.shape[1])
+            row[str(p)] = {"m": x.shape[0], "k": x.shape[1], "p": y.shape[1],
+                           "ms": float(np.median(t)), "runs": t,
+                           "bound_ms": bound, "bound_by": by}
+        out["kernels"][case] = row
+    emit(out)
+    del ct, d36, d32, db32, shapes
+
+    system = SingleServerPIR(database, cfg, device=device, n_queries=32,
+                             client_rng=np.random.default_rng(SEED + 150))
+    rng = np.random.default_rng(SEED + 151)
+    delta = lwe.params_for(cfg.n_items).delta
+    bad = int(rng.integers(4))
+    got = corrupt_batch(system, rng.integers(0, cfg.n_items, size=4),
+                        flip_share(0, bad, 5, 0x5A << 24))
+    emit({"phase": "serve_chk_corrupt", "config": "pir-128m-lwe+chk",
+          "flipped_query": bad, "mask": 0x5A << 24,
+          "bad_queries": list(got)})
+    if got != (bad,):
+        raise AssertionError(f"serve_chk LWE: flipped query {bad}, "
+                             f"IntegrityError named {got}")
+
+    bad = int(rng.integers(4))
+
+    def shift(raw):                # the checksum word's first byte + Delta
+        ans = raw[0].clone()
+        ans[bad, cfg.item_bytes] += delta
+        return (ans,) + raw[1:]
+
+    got = corrupt_batch(system, rng.integers(0, cfg.n_items, size=4), shift)
+    emit({"phase": "serve_chk_corrupt", "config": "pir-128m-lwe+chk",
+          "shifted_by_delta": bad, "bad_queries": list(got)})
+    if got != (bad,):
+        raise AssertionError(f"serve_chk LWE: shifted query {bad}, "
+                             f"IntegrityError named {got}")
+    launches = serve_phase("serve_chk", "pir-128m-lwe+chk", system, host_db,
+                           sizes=(32, 1), kernels=("lwe_gemm",), rng=rng)
+    del system, database
+    return worst["lwe_gemm"], launches
 
 
 def main() -> int:
@@ -1146,9 +1557,29 @@ def main() -> int:
     shutil.rmtree(os.path.dirname(cache_file))
     launches_ggm = {"ggm_expand": ggm_row["launches"]}
 
-    # the single-server LWE scheme on its own database: the 1 GiB one and
+    # every record width, and verified reconstruction: the same records
+    # stored with their checksum word (36 bytes), and 128-byte records
+    database_chk, host128, database_w128 = phase_database_widths(
+        host_db, cfg, device)
+    widths = phase_check_widths(
+        {32: db, 36: database_chk.view("words"),
+         128: database_w128.view("words")}, cfg, info["card"], device)
+    for name, err in widths.items():
+        worst[name] = max(worst[name], err)
+    xor_k, add_k = ("dpxor", "fused_scan_xor"), ("pir_gemm", "fused_scan_add")
+    launches_chk = phase_serve_chk(host_db, (
+        ("pir-1g+chk", replace(cfg, checksum=True), xor_k),
+        ("pir-1g-add+chk", replace(PIR_1G_ADD, checksum=True), add_k)),
+        database_chk, device)
+    cfg128 = replace(cfg, n_items=ROWS_128, item_bytes=128)
+    launches_w128 = phase_serve_w128(host128, (
+        ("pir-1g-128b", cfg128, xor_k),
+        ("pir-1g-128b-add", replace(cfg128, protocol=PIR_1G_ADD.protocol),
+         add_k)), database_w128, device)
+
+    # the single-server LWE scheme on its own database: the 1 GiB ones and
     # the multi-server phases' temporaries go first, A takes 16 GiB
-    del database, db, host_db, kept
+    del database, db, host_db, kept, database_chk, database_w128, host128
     gc.collect()
     torch.cuda.empty_cache()
     host_lwe, database_lwe, a = phase_database_lwe(PIR_128M_LWE, device)
@@ -1158,24 +1589,37 @@ def main() -> int:
                                    device)
     timing_lwe = phase_timing_lwe(host_lwe, database_lwe, a, PIR_128M_LWE,
                                   info["card"], device, plain_lwe)
-    del database_lwe, a
+    del database_lwe
+    gc.collect()
+    torch.cuda.empty_cache()
+    err_chk, launches_lwe_chk = phase_serve_chk_lwe(
+        host_lwe, replace(PIR_128M_LWE, checksum=True), a, info["card"],
+        device)
+    worst["lwe_gemm"] = max(worst["lwe_gemm"], err_chk)
+    del a
     lwe.clear_matrix_cache()
     timing_lwe["lwe_gemm"] = timing_lwe["lwe_gemm_q32"]
+
+    def total(*runs):               # each path's launches, read after it
+        return {k: sum(r.get(k, 0) for r in runs) for k in worst}
 
     rows = []
     for name, source, replaces, path_launches, times in (
             ("dpxor", "src/repro_torch/csrc/dpxor.cu",
-             "src/repro/kernels/dpxor.py:56", launches, timing),
+             "src/repro/kernels/dpxor.py:56",
+             total(launches, launches_chk, launches_w128), timing),
             ("fused_scan_xor", "src/repro_torch/csrc/fused_scan_xor.cu",
-             "src/repro/kernels/fused_scan.py:94", launches, timing),
+             "src/repro/kernels/fused_scan.py:94",
+             total(launches, launches_chk, launches_w128), timing),
             ("pir_gemm", "src/repro_torch/csrc/pir_gemm.cu",
-             "src/repro/kernels/pir_matmul.py:35", launches_add, timing_add),
+             "src/repro/kernels/pir_matmul.py:35",
+             total(launches_add, launches_chk, launches_w128), timing_add),
             ("fused_scan_add", "src/repro_torch/csrc/fused_scan_add.cu",
-             "src/repro/kernels/fused_scan.py:131", launches_add,
-             timing_add),
+             "src/repro/kernels/fused_scan.py:131",
+             total(launches_add, launches_chk, launches_w128), timing_add),
             ("lwe_gemm", "src/repro_torch/csrc/lwe_gemm.cu",
-             "src/repro/kernels/pir_matmul.py:35", launches_lwe,
-             timing_lwe),
+             "src/repro/kernels/pir_matmul.py:35",
+             total(launches_lwe, launches_lwe_chk), timing_lwe),
             ("ggm_expand", "src/repro_torch/csrc/ggm_expand.cu",
              "src/repro/kernels/ggm_expand.py:90", launches_ggm,
              {"ggm_expand": ggm_row})):

@@ -37,7 +37,7 @@ class PIRConfig:
     batch_queries: int = 32        # concurrent queries per step
     prf: str = "chacha12"          # chacha12 | chacha8 | chacha20
     fused_kernel: bool = False     # fused GGM-expand + dpXOR (beyond paper)
-    checksum: bool = False         # verified reconstruction (not ported yet)
+    checksum: bool = False         # verified reconstruction (row checksum)
     batch_m: int = 0               # batch PIR (not ported yet)
     cuckoo_c: float = 2.0
     cuckoo_hashes: int = 3

@@ -47,6 +47,12 @@ PIR_SMOKE_K3 = PIRConfig(n_items=1 << 12, item_bytes=32,
 PIR_SMOKE_LWE = PIRConfig(n_items=1 << 14, item_bytes=32,
                           protocol="lwe-simple-1", n_servers=1,
                           batch_queries=4)
+# verified reconstruction (the reference's chaos smoke): the per-row
+# checksum column on the single-server scheme, so that a corrupted answer
+# raises IntegrityError instead of decoding to garbage
+PIR_SMOKE_CHK = PIRConfig(n_items=1 << 12, item_bytes=32,
+                          protocol="lwe-simple-1", n_servers=1,
+                          batch_queries=4, checksum=True)
 
 PIR_CONFIGS = {
     "pir-512m": PIR_512M,
@@ -61,4 +67,5 @@ PIR_CONFIGS = {
     "pir-smoke-add": PIR_SMOKE_ADD,
     "pir-smoke-k3": PIR_SMOKE_K3,
     "pir-smoke-lwe": PIR_SMOKE_LWE,
+    "pir-smoke-chk": PIR_SMOKE_CHK,
 }

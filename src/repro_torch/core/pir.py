@@ -19,6 +19,7 @@ import torch
 from repro_torch.config import PIRConfig
 from repro_torch.core import dpf
 from repro_torch.crypto.packing import np_words_to_bytes
+from repro_torch.db.spec import row_checksum
 from repro_torch.kernels.dpxor import dpxor_plain, xor_fold
 from repro_torch.kernels.pir_matmul import pir_gemm_plain
 
@@ -28,14 +29,21 @@ __all__ = ["Query", "answer_additive_matmul", "db_as_bytes", "dpxor",
 
 
 def make_database(rng: np.random.Generator, n_items: int,
-                  item_bytes: int = 32) -> np.ndarray:
+                  item_bytes: int = 32, *, checksum: bool = False
+                  ) -> np.ndarray:
     """Random DB of ``n_items`` records of ``item_bytes`` bytes, as
     ``[N, item_bytes // 4]`` uint32 words on the host — the same draw as
-    the reference (``pir.py:55``), so one seed gives one database."""
+    the reference (``pir.py:42``), so one seed gives one database.
+    ``checksum=True`` appends the verified-reconstruction column (one u32
+    ``row_checksum`` per row): the stored layout a checksummed config
+    serves, for oracles that build answers at the stored width."""
     if item_bytes % 4:
         raise ValueError("item_bytes must be a multiple of 4")
-    return rng.integers(0, 1 << 32, size=(n_items, item_bytes // 4),
-                        dtype=np.uint32)
+    words = rng.integers(0, 1 << 32, size=(n_items, item_bytes // 4),
+                         dtype=np.uint32)
+    if checksum:
+        words = np.concatenate([words, row_checksum(words)[:, None]], axis=1)
+    return words
 
 
 def db_as_bytes(db_words: np.ndarray) -> np.ndarray:

@@ -33,7 +33,8 @@ import torch
 from repro_torch.config import PIRConfig
 from repro_torch.core import dpf, lwe, pir
 from repro_torch.crypto.chacha import PRG_ROUNDS
-from repro_torch.db.spec import IntegrityError
+from repro_torch.crypto.packing import records_to_host
+from repro_torch.db.spec import IntegrityError, verify_records
 from repro_torch.kernels.dpxor import xor_fold
 
 #: the reference's GEMM reduction tile default (``engine/kernels.py:153``),
@@ -195,9 +196,30 @@ class PIRProtocol:
         """Combine all parties' answer shares into the records."""
         raise NotImplementedError
 
+    def reconstruct_with(self, answers, states, *, cfg=None, hint=None):
+        """Reconstruction with per-query client state and the epoch's hint
+        (``protocol.py:244-261`` upstream): schemes without client state
+        ignore both and combine the shares. With ``cfg.checksum`` the
+        records go through :meth:`verify_reconstruction`, so a corrupted
+        share raises ``IntegrityError`` instead of decoding to garbage."""
+        rec = self.reconstruct(answers)
+        if cfg is not None and cfg.checksum:
+            rec = self.verify_reconstruction(rec, cfg)
+        return rec
+
+    def verify_reconstruction(self, rec, cfg: PIRConfig) -> np.ndarray:
+        """Check stored-width records against their checksum column and
+        strip it: the logical payload as numpy (``[Q, W]`` uint32 words for
+        the XOR schemes, ``[Q, L]`` uint8 bytes for the byte schemes). The
+        check runs on the reconstructed records, not on the shares, so it
+        holds for every share algebra. Raises ``IntegrityError`` naming the
+        offending batch indices."""
+        return verify_records(records_to_host(rec), cfg.item_bytes)
+
     def record_struct(self, cfg: PIRConfig) -> Tuple[Tuple[int, ...], type]:
-        """(shape tail, dtype) of one reconstructed record: XOR schemes
-        return u32 words, additive and LWE schemes bytes."""
+        """(shape tail, dtype) of one record as the client receives it, at
+        the logical width (a checksum column is verified and stripped):
+        XOR schemes return u32 words, additive and LWE schemes bytes."""
         if self.share_kind in _GEMM_KINDS:
             return (cfg.item_bytes,), np.uint8
         return (cfg.item_bytes // 4,), np.uint32
@@ -590,7 +612,10 @@ class LweSimple1(PIRProtocol):
         analytic tail bound ``validate`` enforces: honest noise sits ~TAIL
         sigmas inside it, while a wrong hint or epoch makes the residual
         near-uniform in the Delta window (``protocol.py:808-823``
-        upstream). The checksum column (A16) is not ported yet.
+        upstream). A corruption that shifts an answer by a multiple of
+        Delta decodes to a clean plaintext shift the noise check cannot
+        see; with ``cfg.checksum`` the row checksum, run after the noise
+        check, catches it, and the records come back at the logical width.
         """
         if cfg is None or hint is None or any(s is None for s in states):
             raise ValueError("lwe-simple-1 reconstruct_with needs cfg=, "
@@ -612,6 +637,8 @@ class LweSimple1(PIRProtocol):
                 f"tail bound {bound:.4g} (budget q/(2p) = "
                 f"{params.noise_budget}); the answers do not match this "
                 f"hint/epoch — reconstruction is not trustworthy")
+        if cfg.checksum:
+            records = self.verify_reconstruction(records, cfg)
         return records
 
     # -- server side ----------------------------------------------------

@@ -20,7 +20,7 @@ from repro_torch.core import dpf
 from repro_torch.core import protocol as protocol_mod
 from repro_torch.core.lwe import LWECiphertext
 from repro_torch.core.protocol import ExecutionPlan, PIRProtocol
-from repro_torch.db import Database
+from repro_torch.db import Database, DatabaseSpec
 from repro_torch.engine.backend import Device, backend_of
 
 
@@ -150,8 +150,7 @@ class PIRServer:
         elif device is not None and torch.device(device) != database.device:
             raise ValueError(f"database lives on {database.device}, not "
                              f"{device}")
-        if database.spec.n_items != cfg.n_items or \
-                database.spec.item_bytes != cfg.item_bytes:
+        if database.spec != DatabaseSpec.from_config(cfg):
             raise ValueError(f"database spec {database.spec} does not match "
                              f"the config")
         self.party = party

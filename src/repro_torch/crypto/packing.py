@@ -24,6 +24,16 @@ def tensor_to_words(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.int32).contiguous().numpy().view(np.uint32)
 
 
+def records_to_host(rec) -> np.ndarray:
+    """Reconstructed records as numpy: an int32 words tensor as uint32
+    words, a byte tensor as its bytes; numpy records pass through."""
+    if isinstance(rec, np.ndarray):
+        return rec
+    if rec.dtype == torch.int32:
+        return tensor_to_words(rec)
+    return rec.detach().cpu().numpy()
+
+
 def np_words_to_bytes(w: np.ndarray) -> np.ndarray:
     """``[..., W] uint32 -> [..., 4W] uint8``, little-endian on any host."""
     le = np.ascontiguousarray(w, dtype="<u4")
@@ -56,8 +66,9 @@ def words_to_bytes_i32(w: torch.Tensor) -> torch.Tensor:
 
 
 def np_bytes_to_words(b: np.ndarray) -> np.ndarray:
-    """``[..., 4k] uint8 -> [..., k] uint32`` on the host, little-endian.
-    A parity helper; no served path packs bytes back into words."""
+    """``[..., 4k] uint8 -> [..., k] uint32`` on the host, little-endian
+    (verified reconstruction reads a byte record's payload and checksum
+    words this way)."""
     b = np.asarray(b, np.uint8)
     if b.shape[-1] % 4:
         raise ValueError(f"byte length {b.shape[-1]} not a multiple of 4")

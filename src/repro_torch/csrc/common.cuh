@@ -50,8 +50,23 @@ __device__ __forceinline__ void chacha_block(uint32_t out[16],
 
 #undef REPRO_QR
 
+// The alignment load_row<W> needs of the DB base: its load width, which
+// also divides the row stride, so every row is as aligned as the base.
+template <int W>
+constexpr int row_align() {
+  return W % 4 == 0 ? 16 : W % 2 == 0 ? 8 : 4;
+}
+
+// Whether a pointer is `bytes`-aligned. The host dispatchers take a
+// width's vector path only for an operand aligned for it, and the
+// word-by-word path otherwise (a row slice of a 36-byte-record DB is only
+// 4-byte aligned).
+inline bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 // One DB row of W u32 words into registers, in the widest aligned loads
-// (the caller guarantees 16-byte alignment of the DB base).
+// (the caller guarantees row_align<W>() alignment of the DB base).
 template <int W>
 __device__ __forceinline__ void load_row(const uint32_t* __restrict__ p,
                                          uint32_t (&r)[W]) {

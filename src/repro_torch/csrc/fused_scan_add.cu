@@ -32,6 +32,16 @@
 // of the same query, across warps in shared memory, then with one
 // atomicAdd per (q, l) into the zeroed output; addition mod 2^32 makes the
 // result independent of the order.
+//
+// Widths: L in {4, 8, 16, 32} with the DB aligned for load_row<L/4> takes
+// the exact instance (<L, true>). Any other L (a multiple of 4), or a DB
+// only 4-byte aligned, takes a column-group instance (<G, false>, G = 16,
+// 48 or 64 bytes): G accumulators, the first nb = min(G, L - col0) live,
+// rows read one 4-byte word at a time; grid.z covers L > 64 in groups of
+// 64 bytes, each group expanding the subtrees again. At L = 36 (32-byte
+// records with a checksum word) that is one group of 48. Its partials meet
+// in one shared [32, G] array by shared atomicAdd, since a [warps, 32, G]
+// array as the exact instance keeps would pass 48 KB at G = 48.
 #include "common.cuh"
 
 namespace {
@@ -42,28 +52,37 @@ constexpr int kMaxClog = 24;
 
 // acc += int8(share(seed, t)) * int8(row) over the row's L bytes; the
 // accumulators are unsigned so that their wraparound is defined.
-template <int L>
-__device__ __forceinline__ void add_leaf(uint32_t (&acc)[L],
+// The exact instance reads the whole row (L = G bytes) in vector loads; a
+// column group reads its nb bytes (a multiple of 4) from byte col0 on, one
+// word at a time, in a row of `cols` bytes.
+template <int G, bool kExact>
+__device__ __forceinline__ void add_leaf(uint32_t (&acc)[G],
                                          const uint32_t* __restrict__ db,
                                          long long row, const uint32_t (&seed)[4],
                                          uint32_t t, uint32_t cwf, int party,
-                                         int rounds) {
+                                         int rounds, int cols, int col0, int nb) {
   uint32_t o[16];
   repro::chacha_block(o, seed, 1u, rounds);
   uint32_t share = ((o[0] & 0xFFu) + t * cwf) & 0xFFu;
   if (party) share = (256u - share) & 0xFFu;
   const int s = static_cast<int>(share) - (share >= 128u ? 256 : 0);
-  uint32_t r[L / 4];
-  repro::load_row<L / 4>(db + row * (L / 4), r);
+  uint32_t r[G / 4];
+  if constexpr (kExact) {
+    repro::load_row<G / 4>(db + row * (G / 4), r);
+  } else {
+    const uint32_t* p = db + row * (cols / 4) + col0 / 4;
 #pragma unroll
-  for (int w = 0; w < L / 4; ++w)
+    for (int w = 0; w < G / 4; ++w) r[w] = 4 * w < nb ? __ldg(p + w) : 0u;
+  }
+#pragma unroll
+  for (int w = 0; w < G / 4; ++w)
 #pragma unroll
     for (int b = 0; b < 4; ++b)
       acc[4 * w + b] += static_cast<uint32_t>(
           s * static_cast<int>(static_cast<int8_t>(r[w] >> (8 * b))));
 }
 
-template <int L>
+template <int G, bool kExact>
 __global__ void __launch_bounds__(kThreads)
 fused_scan_add_kernel(const uint32_t* __restrict__ db,       // [R, L/4] (int8 bytes)
                       const uint32_t* __restrict__ roots,    // [Q, C, 4]
@@ -73,13 +92,15 @@ fused_scan_add_kernel(const uint32_t* __restrict__ db,       // [R, L/4] (int8 b
                       const uint32_t* __restrict__ cw_final, // [Q]
                       uint32_t* __restrict__ out,            // [Q, L] int32 bits
                       long long chunks, int queries, int group, int clog,
-                      int rounds, int party) {
+                      int rounds, int party, int cols) {
   const long long gid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const int q = blockIdx.y * group + static_cast<int>(gid % group);
   const long long c = gid / group;
-  uint32_t acc[L];
+  const int col0 = kExact ? 0 : static_cast<int>(blockIdx.z) * G;
+  const int nb = kExact ? G : min(G, cols - col0);
+  uint32_t acc[G];
 #pragma unroll
-  for (int l = 0; l < L; ++l) acc[l] = 0u;
+  for (int l = 0; l < G; ++l) acc[l] = 0u;
 
   if (q < queries && c < chunks) {
     const long long qc = static_cast<long long>(q) * chunks + c;
@@ -91,7 +112,8 @@ fused_scan_add_kernel(const uint32_t* __restrict__ db,       // [R, L/4] (int8 b
     const uint32_t* cwt = cw_t + static_cast<long long>(q) * clog * 2;
     const long long base = c << clog;
     if (clog == 0) {
-      add_leaf<L>(acc, db, base, s, t, cwf, party, rounds);  // roots are leaves
+      add_leaf<G, kExact>(acc, db, base, s, t, cwf, party, rounds, cols, col0,
+                          nb);  // roots are leaves
     } else {
       uint32_t stk_s[kMaxClog][4];
       uint32_t stk_t[kMaxClog];
@@ -130,79 +152,115 @@ fused_scan_add_kernel(const uint32_t* __restrict__ db,       // [R, L/4] (int8 b
         }
         const uint32_t tl = (o[8] & 1u) ^ (t & __ldg(cwt + last * 2));
         const uint32_t tr = (o[9] & 1u) ^ (t & __ldg(cwt + last * 2 + 1));
-        add_leaf<L>(acc, db, base + 2 * k, sl, tl, cwf, party, rounds);
-        add_leaf<L>(acc, db, base + 2 * k + 1, sr, tr, cwf, party, rounds);
+        add_leaf<G, kExact>(acc, db, base + 2 * k, sl, tl, cwf, party, rounds,
+                            cols, col0, nb);
+        add_leaf<G, kExact>(acc, db, base + 2 * k + 1, sr, tr, cwf, party, rounds,
+                            cols, col0, nb);
       }
     }
   }
 
   // lanes l and l ^ off serve the same query when off >= group
 #pragma unroll
-  for (int l = 0; l < L; ++l)
+  for (int l = 0; l < G; ++l)
     for (int off = 16; off >= group; off >>= 1)
       acc[l] += __shfl_xor_sync(0xffffffffu, acc[l], off);
 
-  __shared__ uint32_t part[kWarps][32 * L];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane < group) {
+  if constexpr (kExact) {
+    __shared__ uint32_t part[kWarps][32 * G];
+    if (lane < group) {
 #pragma unroll
-    for (int l = 0; l < L; ++l) part[warp][lane * L + l] = acc[l];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < group * L; i += kThreads) {
-    const int qq = blockIdx.y * group + i / L;
-    if (qq >= queries) continue;
-    uint32_t v = 0u;
+      for (int l = 0; l < G; ++l) part[warp][lane * G + l] = acc[l];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < group * G; i += kThreads) {
+      const int qq = blockIdx.y * group + i / G;
+      if (qq >= queries) continue;
+      uint32_t v = 0u;
 #pragma unroll
-    for (int k = 0; k < kWarps; ++k) v += part[k][i];
-    if (v) atomicAdd(out + static_cast<long long>(qq) * L + i % L, v);
+      for (int k = 0; k < kWarps; ++k) v += part[k][i];
+      if (v) atomicAdd(out + static_cast<long long>(qq) * G + i % G, v);
+    }
+  } else {
+    __shared__ uint32_t part[32 * G];
+    for (int i = threadIdx.x; i < group * G; i += kThreads) part[i] = 0u;
+    __syncthreads();
+    if (lane < group) {
+#pragma unroll
+      for (int l = 0; l < G; ++l)
+        if (l < nb && acc[l]) atomicAdd(part + lane * G + l, acc[l]);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < group * G; i += kThreads) {
+      const int qq = blockIdx.y * group + i / G;
+      const uint32_t v = part[i];
+      if (qq < queries && i % G < nb && v)
+        atomicAdd(out + static_cast<long long>(qq) * cols + col0 + i % G, v);
+    }
   }
 }
 
-template <int L>
+template <int G, bool kExact>
 void launch(const uint32_t* db, const uint32_t* roots, const uint32_t* t_roots,
             const uint32_t* cw_seed, const uint32_t* cw_t,
             const uint32_t* cw_final, uint32_t* out, long long chunks, int queries,
-            int clog, int rounds, int party, cudaStream_t stream) {
+            int clog, int rounds, int party, int cols, cudaStream_t stream) {
   int group = 1;                    // queries per warp slice: a power of two <= 32
   while (group < queries && group < 32) group <<= 1;
   const long long threads = chunks * group;
   const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads),
-                  static_cast<unsigned>((queries + group - 1) / group));
-  fused_scan_add_kernel<L><<<grid, kThreads, 0, stream>>>(
+                  static_cast<unsigned>((queries + group - 1) / group),
+                  static_cast<unsigned>(kExact ? 1 : (cols + G - 1) / G));
+  fused_scan_add_kernel<G, kExact><<<grid, kThreads, 0, stream>>>(
       db, roots, t_roots, cw_seed, cw_t, cw_final, out, chunks, queries, group,
-      clog, rounds, party);
+      clog, rounds, party, cols);
 }
 
 }  // namespace
 
-// db [rows, cols] int8 row-major (16-byte aligned); roots [queries, chunks, 4],
-// t_roots [queries, chunks], cw_seed [queries, clog, 4], cw_t [queries, clog,
-// 2], cw_final [queries] u32; out [queries, cols] int32 zeroed by the caller;
-// rows == chunks << clog; party 0 or 1. Launches on `stream` and returns
-// cudaGetLastError() (cudaErrorInvalidValue for an unsupported shape).
+// db [rows, cols] int8 row-major (cols % 4 == 0, 4-byte aligned; the exact
+// instance needs load_row's alignment); roots [queries, chunks, 4] (16-byte
+// aligned), t_roots [queries, chunks], cw_seed [queries, clog, 4], cw_t
+// [queries, clog, 2], cw_final [queries] u32; out [queries, cols] int32
+// zeroed by the caller; rows == chunks << clog; party 0 or 1. Launches on
+// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for an
+// unsupported shape).
 extern "C" int repro_fused_scan_add(const void* db, const uint32_t* roots,
                                     const uint32_t* t_roots, const uint32_t* cw_seed,
                                     const uint32_t* cw_t, const uint32_t* cw_final,
                                     int* out, long long rows, int cols,
                                     int queries, long long chunks, int clog,
                                     int rounds, int party, void* stream) {
-  if (queries <= 0 || chunks <= 0 || clog < 0 || clog > kMaxClog ||
-      (chunks << clog) != rows || rounds <= 0 || rounds % 2 ||
-      (party != 0 && party != 1))
+  if (cols <= 0 || cols % 4 || queries <= 0 || chunks <= 0 || clog < 0 ||
+      clog > kMaxClog || (chunks << clog) != rows || rounds <= 0 || rounds % 2 ||
+      (party != 0 && party != 1) || !repro::aligned(db, 4) ||
+      !repro::aligned(roots, 16))
     return cudaErrorInvalidValue;
   const auto* d = static_cast<const uint32_t*>(db);
   auto* o = reinterpret_cast<uint32_t*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_CASE(L_)                                                        \
+#define REPRO_EXACT(L_)                                                       \
   case L_:                                                                    \
-    launch<L_>(d, roots, t_roots, cw_seed, cw_t, cw_final, o, chunks,         \
-               queries, clog, rounds, party, s);                              \
+    if (repro::aligned(d, repro::row_align<L_ / 4>())) {                      \
+      launch<L_, true>(d, roots, t_roots, cw_seed, cw_t, cw_final, o, chunks, \
+                       queries, clog, rounds, party, cols, s);                \
+      return cudaGetLastError();                                              \
+    }                                                                         \
     break;
   switch (cols) {
-    REPRO_CASE(4) REPRO_CASE(8) REPRO_CASE(16) REPRO_CASE(32)
-    default: return cudaErrorInvalidValue;
+    REPRO_EXACT(4) REPRO_EXACT(8) REPRO_EXACT(16) REPRO_EXACT(32)
+    default: break;
   }
-#undef REPRO_CASE
+#undef REPRO_EXACT
+  if (cols <= 16)
+    launch<16, false>(d, roots, t_roots, cw_seed, cw_t, cw_final, o, chunks,
+                      queries, clog, rounds, party, cols, s);
+  else if (cols <= 48)
+    launch<48, false>(d, roots, t_roots, cw_seed, cw_t, cw_final, o, chunks,
+                      queries, clog, rounds, party, cols, s);
+  else
+    launch<64, false>(d, roots, t_roots, cw_seed, cw_t, cw_final, o, chunks,
+                      queries, clog, rounds, party, cols, s);
   return cudaGetLastError();
 }

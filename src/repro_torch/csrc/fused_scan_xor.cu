@@ -26,6 +26,15 @@
 // load the same row together and the DB streams from HBM about once per
 // batch. Partials are reduced by shuffle-XOR across lanes of the same
 // query, across warps in shared memory, then one atomicXor per (q, w).
+//
+// Widths: W in {1, 2, 4, 8, 16} with the DB aligned for load_row<W> takes
+// the exact instance (<W, true>: W accumulators, vector loads). Any other W,
+// or a DB only 4-byte aligned, takes a column-group instance (<G, false>,
+// G = 8, 16 or 32 >= W where it can): the thread keeps G accumulators, of
+// which the first nw = min(G, W - col0) are live, and reads its row's nw
+// words one 4-byte load each; grid.z covers W > 32 in groups of 32, each
+// group expanding the subtrees again. At W = 9 (36-byte records with a
+// checksum column) that is one group of 16 accumulators, as at W = 16.
 #include "common.cuh"
 
 namespace {
@@ -34,20 +43,30 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxClog = 24;
 
-template <int W>
-__device__ __forceinline__ void fold_leaf(uint32_t (&acc)[W],
+// acc ^= the row's words [col0, col0 + nw) when the leaf's t is set; the
+// exact instance reads the whole row (nw = W = G) in vector loads.
+template <int G, bool kExact>
+__device__ __forceinline__ void fold_leaf(uint32_t (&acc)[G],
                                           const uint32_t* __restrict__ db,
-                                          long long row, uint32_t t) {
+                                          long long row, uint32_t t, int words,
+                                          int col0, int nw) {
   if (t) {
-    uint32_t r[W];
-    repro::load_row<W>(db + row * W, r);
     const uint32_t m = 0u - t;
+    if constexpr (kExact) {
+      uint32_t r[G];
+      repro::load_row<G>(db + row * G, r);
 #pragma unroll
-    for (int w = 0; w < W; ++w) acc[w] ^= r[w] & m;
+      for (int w = 0; w < G; ++w) acc[w] ^= r[w] & m;
+    } else {
+      const uint32_t* p = db + row * words + col0;
+#pragma unroll
+      for (int w = 0; w < G; ++w)
+        if (w < nw) acc[w] ^= __ldg(p + w) & m;
+    }
   }
 }
 
-template <int W>
+template <int G, bool kExact>
 __global__ void __launch_bounds__(kThreads)
 fused_scan_xor_kernel(const uint32_t* __restrict__ db,
                       const uint32_t* __restrict__ roots,    // [Q, C, 4]
@@ -56,13 +75,15 @@ fused_scan_xor_kernel(const uint32_t* __restrict__ db,
                       const uint32_t* __restrict__ cw_t,     // [Q, clog, 2]
                       uint32_t* __restrict__ out,            // [Q, W]
                       long long chunks, int queries, int group, int clog,
-                      int rounds) {
+                      int rounds, int words) {
   const long long gid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const int q = blockIdx.y * group + static_cast<int>(gid % group);
   const long long c = gid / group;
-  uint32_t acc[W];
+  const int col0 = kExact ? 0 : static_cast<int>(blockIdx.z) * G;
+  const int nw = kExact ? G : min(G, words - col0);
+  uint32_t acc[G];
 #pragma unroll
-  for (int w = 0; w < W; ++w) acc[w] = 0u;
+  for (int w = 0; w < G; ++w) acc[w] = 0u;
 
   if (q < queries && c < chunks) {
     const long long qc = static_cast<long long>(q) * chunks + c;
@@ -73,7 +94,7 @@ fused_scan_xor_kernel(const uint32_t* __restrict__ db,
     const uint32_t* cwt = cw_t + static_cast<long long>(q) * clog * 2;
     const long long base = c << clog;
     if (clog == 0) {
-      fold_leaf<W>(acc, db, base, t);            // the roots are the leaves
+      fold_leaf<G, kExact>(acc, db, base, t, words, col0, nw);            // the roots are the leaves
     } else {
       uint32_t stk_s[kMaxClog][4];
       uint32_t stk_t[kMaxClog];
@@ -103,52 +124,55 @@ fused_scan_xor_kernel(const uint32_t* __restrict__ db,
         repro::chacha_block(o, s, 0u, rounds);   // children are leaves 2k, 2k+1
         const uint32_t tl = (o[8] & 1u) ^ (t & __ldg(cwt + (clog - 1) * 2));
         const uint32_t tr = (o[9] & 1u) ^ (t & __ldg(cwt + (clog - 1) * 2 + 1));
-        fold_leaf<W>(acc, db, base + 2 * k, tl);
-        fold_leaf<W>(acc, db, base + 2 * k + 1, tr);
+        fold_leaf<G, kExact>(acc, db, base + 2 * k, tl, words, col0, nw);
+        fold_leaf<G, kExact>(acc, db, base + 2 * k + 1, tr, words, col0, nw);
       }
     }
   }
 
   // lanes l and l ^ off serve the same query when off >= group
 #pragma unroll
-  for (int w = 0; w < W; ++w)
+  for (int w = 0; w < G; ++w)
     for (int off = 16; off >= group; off >>= 1)
       acc[w] ^= __shfl_xor_sync(0xffffffffu, acc[w], off);
 
-  __shared__ uint32_t part[kWarps][32 * W];
+  __shared__ uint32_t part[kWarps][32 * G];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (lane < group) {
 #pragma unroll
-    for (int w = 0; w < W; ++w) part[warp][lane * W + w] = acc[w];
+    for (int w = 0; w < G; ++w) part[warp][lane * G + w] = acc[w];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < group * W; i += kThreads) {
-    const int qq = blockIdx.y * group + i / W;
-    if (qq >= queries) continue;
+  for (int i = threadIdx.x; i < group * G; i += kThreads) {
+    const int qq = blockIdx.y * group + i / G;
+    if (qq >= queries || i % G >= nw) continue;
     uint32_t v = 0u;
 #pragma unroll
     for (int k = 0; k < kWarps; ++k) v ^= part[k][i];
-    if (v) atomicXor(out + static_cast<long long>(qq) * W + i % W, v);
+    if (v) atomicXor(out + static_cast<long long>(qq) * words + col0 + i % G, v);
   }
 }
 
-template <int W>
+template <int G, bool kExact>
 void launch(const uint32_t* db, const uint32_t* roots, const uint32_t* t_roots,
             const uint32_t* cw_seed, const uint32_t* cw_t, uint32_t* out,
-            long long chunks, int queries, int clog, int rounds,
+            long long chunks, int queries, int clog, int rounds, int words,
             cudaStream_t stream) {
   int group = 1;                    // queries per warp slice: a power of two <= 32
   while (group < queries && group < 32) group <<= 1;
   const long long threads = chunks * group;
   const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads),
-                  static_cast<unsigned>((queries + group - 1) / group));
-  fused_scan_xor_kernel<W><<<grid, kThreads, 0, stream>>>(
-      db, roots, t_roots, cw_seed, cw_t, out, chunks, queries, group, clog, rounds);
+                  static_cast<unsigned>((queries + group - 1) / group),
+                  static_cast<unsigned>(kExact ? 1 : (words + G - 1) / G));
+  fused_scan_xor_kernel<G, kExact><<<grid, kThreads, 0, stream>>>(
+      db, roots, t_roots, cw_seed, cw_t, out, chunks, queries, group, clog, rounds,
+      words);
 }
 
 }  // namespace
 
-// db [rows, words] u32 row-major (16-byte aligned); roots [queries, chunks, 4],
+// db [rows, words] u32 row-major (4-byte aligned; the exact instance needs
+// load_row's alignment); roots [queries, chunks, 4] (16-byte aligned),
 // t_roots [queries, chunks], cw_seed [queries, clog, 4], cw_t [queries, clog, 2]
 // u32; out [queries, words] u32 zeroed by the caller; rows == chunks << clog.
 // Launches on `stream` and returns cudaGetLastError() (cudaErrorInvalidValue
@@ -159,19 +183,32 @@ extern "C" int repro_fused_scan_xor(const uint32_t* db, const uint32_t* roots,
                                     long long rows, int words, int queries,
                                     long long chunks, int clog, int rounds,
                                     void* stream) {
-  if (queries <= 0 || chunks <= 0 || clog < 0 || clog > kMaxClog ||
-      (chunks << clog) != rows || rounds <= 0 || rounds % 2)
+  if (words <= 0 || queries <= 0 || chunks <= 0 || clog < 0 || clog > kMaxClog ||
+      (chunks << clog) != rows || rounds <= 0 || rounds % 2 ||
+      !repro::aligned(db, 4) || !repro::aligned(roots, 16))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_CASE(W_)                                                        \
+#define REPRO_EXACT(W_)                                                       \
   case W_:                                                                    \
-    launch<W_>(db, roots, t_roots, cw_seed, cw_t, out, chunks, queries, clog, \
-               rounds, s);                                                    \
+    if (repro::aligned(db, repro::row_align<W_>())) {                         \
+      launch<W_, true>(db, roots, t_roots, cw_seed, cw_t, out, chunks,        \
+                       queries, clog, rounds, words, s);                      \
+      return cudaGetLastError();                                              \
+    }                                                                         \
     break;
   switch (words) {
-    REPRO_CASE(1) REPRO_CASE(2) REPRO_CASE(4) REPRO_CASE(8) REPRO_CASE(16)
-    default: return cudaErrorInvalidValue;
+    REPRO_EXACT(1) REPRO_EXACT(2) REPRO_EXACT(4) REPRO_EXACT(8) REPRO_EXACT(16)
+    default: break;
   }
-#undef REPRO_CASE
+#undef REPRO_EXACT
+  if (words <= 8)
+    launch<8, false>(db, roots, t_roots, cw_seed, cw_t, out, chunks, queries,
+                     clog, rounds, words, s);
+  else if (words <= 16)
+    launch<16, false>(db, roots, t_roots, cw_seed, cw_t, out, chunks, queries,
+                      clog, rounds, words, s);
+  else
+    launch<32, false>(db, roots, t_roots, cw_seed, cw_t, out, chunks, queries,
+                      clog, rounds, words, s);
   return cudaGetLastError();
 }

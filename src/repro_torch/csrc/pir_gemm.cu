@@ -25,6 +25,17 @@
 // order of the atomics cannot change a bit of the result. A block covers QB
 // queries (QB <= 8 keeps the accumulators in registers); grid.y covers
 // larger batches, each reading the DB once more.
+//
+// Widths: L in {4, 8, 16, 32} with the DB 8-byte aligned (4 at L = 4) takes
+// that instance. Any other L (a multiple of 4), or a DB only 4-byte
+// aligned, takes pir_gemm_any_kernel<QB>: rows of 36 bytes are 4- but not
+// 8-byte aligned after the first, and 9 words do not split into 2-word
+// slices over a power-of-two number of threads. There a thread owns one
+// word column (CW = 1, 4-byte loads) of 4-row quads; a block of 256
+// threads covers cols = min(L/4, 256) word columns of 256 / cols quads per
+// step (grid.z covers L > 1024), neighbouring threads read neighbouring
+// words, and the partials meet in shared memory (atomicAdd) and then in
+// the output. The __dp4a over a 4-row x 4-byte block is the same.
 #include "common.cuh"
 
 namespace {
@@ -153,27 +164,122 @@ void launch_l(const uint32_t* shares, const uint32_t* db, uint32_t* out,
   else launch<L, 8>(shares, db, out, rows, queries, n_sm, stream);
 }
 
+// Any width L = 4 * words, 4-byte aligned: see the header.
+template <int QB>
+__global__ void __launch_bounds__(kThreads)
+pir_gemm_any_kernel(const uint32_t* __restrict__ shares,  // [Q, R/4]
+                    const uint32_t* __restrict__ db,      // [R, words]
+                    uint32_t* __restrict__ out,           // [Q, 4 * words]
+                    long long quads, int words, int queries) {
+  const int col0 = blockIdx.z * kThreads;                 // first word column
+  const int cols = min(words - col0, kThreads);
+  const int qpb = kThreads / cols;
+  const int q0 = blockIdx.y * QB;
+  const int nq = min(QB, queries - q0);
+  __shared__ uint32_t part[QB * 4 * kThreads];
+  for (int i = threadIdx.x; i < QB * 4 * cols; i += kThreads) part[i] = 0u;
+  __syncthreads();
+
+  if (threadIdx.x < qpb * cols) {
+    const int c = threadIdx.x % cols;
+    uint32_t acc[QB][4];
+#pragma unroll
+    for (int q = 0; q < QB; ++q)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[q][b] = 0u;
+    const long long step = static_cast<long long>(gridDim.x) * qpb;
+    for (long long quad = static_cast<long long>(blockIdx.x) * qpb +
+                          threadIdx.x / cols;
+         quad < quads; quad += step) {
+      const uint32_t* p = db + 4 * quad * words + col0 + c;
+      uint32_t col[4];
+      transpose4(__ldg(p), __ldg(p + words), __ldg(p + 2 * words),
+                 __ldg(p + 3 * words), col);
+#pragma unroll
+      for (int q = 0; q < QB; ++q) {
+        if (q < nq) {
+          const int s4 = static_cast<int>(
+              __ldg(shares + static_cast<long long>(q0 + q) * quads + quad));
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            acc[q][b] = static_cast<uint32_t>(
+                __dp4a(s4, static_cast<int>(col[b]), static_cast<int>(acc[q][b])));
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < QB; ++q)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (q < nq && acc[q][b]) atomicAdd(part + q * 4 * cols + 4 * c + b, acc[q][b]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nq * 4 * cols; i += kThreads) {
+    const uint32_t v = part[i];
+    if (v)
+      atomicAdd(out + static_cast<long long>(q0 + i / (4 * cols)) * 4 * words +
+                    4 * col0 + i % (4 * cols), v);
+  }
+}
+
+template <int QB>
+void launch_any(const uint32_t* shares, const uint32_t* db, uint32_t* out,
+                long long rows, int words, int queries, int n_sm,
+                cudaStream_t stream) {
+  const long long quads = rows / 4;
+  const int qpb = kThreads / (words < kThreads ? words : kThreads);
+  const long long want = (quads + qpb - 1) / qpb;
+  const long long cap = static_cast<long long>(n_sm) * (2048 / kThreads);
+  const dim3 grid(static_cast<unsigned>(want < cap ? want : cap),
+                  static_cast<unsigned>((queries + QB - 1) / QB),
+                  static_cast<unsigned>((words + kThreads - 1) / kThreads));
+  pir_gemm_any_kernel<QB><<<grid, kThreads, 0, stream>>>(shares, db, out, quads,
+                                                          words, queries);
+}
+
+void launch_any_q(const uint32_t* shares, const uint32_t* db, uint32_t* out,
+                  long long rows, int words, int queries, int n_sm,
+                  cudaStream_t stream) {
+  if (queries <= 1) launch_any<1>(shares, db, out, rows, words, queries, n_sm, stream);
+  else if (queries <= 2) launch_any<2>(shares, db, out, rows, words, queries, n_sm, stream);
+  else if (queries <= 4) launch_any<4>(shares, db, out, rows, words, queries, n_sm, stream);
+  else launch_any<8>(shares, db, out, rows, words, queries, n_sm, stream);
+}
+
+// The fixed-width instance for L when the DB is aligned for its loads
+// (2-word loads from L = 8 on).
+template <int L>
+bool launch_fast(const uint32_t* shares, const uint32_t* db, uint32_t* out,
+                 long long rows, int queries, int n_sm, cudaStream_t stream) {
+  if (!repro::aligned(db, L >= 8 ? 8 : 4)) return false;
+  launch_l<L>(shares, db, out, rows, queries, n_sm, stream);
+  return true;
+}
+
 }  // namespace
 
-// shares [queries, rows] int8, db [rows, cols] int8 row-major (both 16-byte
-// aligned, rows % 4 == 0), out [queries, cols] int32 zeroed by the caller.
-// Launches on `stream` and returns cudaGetLastError()
+// shares [queries, rows] int8, db [rows, cols] int8 row-major (both 4-byte
+// aligned, rows % 4 == 0, cols % 4 == 0), out [queries, cols] int32 zeroed
+// by the caller. Launches on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for an unsupported shape).
 extern "C" int repro_pir_gemm(const void* shares, const void* db, int* out,
                               long long rows, int cols, int queries, int n_sm,
                               void* stream) {
-  if (rows <= 0 || rows % 4 || queries <= 0 || n_sm <= 0)
+  if (rows <= 0 || rows % 4 || cols <= 0 || cols % 4 || queries <= 0 ||
+      n_sm <= 0 || !repro::aligned(shares, 4) || !repro::aligned(db, 4))
     return cudaErrorInvalidValue;
   const auto* s = static_cast<const uint32_t*>(shares);
   const auto* d = static_cast<const uint32_t*>(db);
   auto* o = reinterpret_cast<uint32_t*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bool fast = false;
   switch (cols) {
-    case 4: launch_l<4>(s, d, o, rows, queries, n_sm, st); break;
-    case 8: launch_l<8>(s, d, o, rows, queries, n_sm, st); break;
-    case 16: launch_l<16>(s, d, o, rows, queries, n_sm, st); break;
-    case 32: launch_l<32>(s, d, o, rows, queries, n_sm, st); break;
-    default: return cudaErrorInvalidValue;
+    case 4: fast = launch_fast<4>(s, d, o, rows, queries, n_sm, st); break;
+    case 8: fast = launch_fast<8>(s, d, o, rows, queries, n_sm, st); break;
+    case 16: fast = launch_fast<16>(s, d, o, rows, queries, n_sm, st); break;
+    case 32: fast = launch_fast<32>(s, d, o, rows, queries, n_sm, st); break;
+    default: break;
   }
+  if (!fast) launch_any_q(s, d, o, rows, cols / 4, queries, n_sm, st);
   return cudaGetLastError();
 }

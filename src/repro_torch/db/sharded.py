@@ -2,14 +2,17 @@
 
 Single-device counterpart of ``repro/db/sharded.py ShardedDatabase``: it
 owns the ``words`` view, resident once on the device as a row-major
-``[R, W]`` int32 tensor (each 32-byte record contiguous; the kernels read
-it as stored, with no per-batch transpose), and the epoch tag that answers
-are stamped with. The ``bytes`` view is not a second copy: it is the same
-memory reinterpreted as ``[R, 4W]`` int8 (``words.view(torch.int8)``),
-whose byte order is little-endian on the host and on the card, as the
-reference's ``words_to_bytes_i8`` packs it. The ``bytes32`` view (the LWE
-GEMM's operand, 4x the records) is a real copy, so it is built on the
-device the first time it is asked for and kept for the epoch.
+``[R, W]`` int32 tensor (each record contiguous; the kernels read it as
+stored, with no per-batch transpose), and the epoch tag that answers are
+stamped with. With ``cfg.checksum`` the rows are stored with their checksum
+word, attached once on the host at construction, so every view is at the
+stored width (``W = item_words + 1``). The ``bytes`` view is not a second
+copy: it is the same memory reinterpreted as ``[R, 4W]`` int8
+(``words.view(torch.int8)``), whose byte order is little-endian on the
+host and on the card, as the reference's ``words_to_bytes_i8`` packs it.
+The ``bytes32`` view (the LWE GEMM's operand, 4x the records) is a real
+copy, so it is built on the device the first time it is asked for and
+kept for the epoch.
 
 Hints (single-server preprocessing, ``H = A^T.D`` for ``lwe-simple-1``) are
 registered by name with a builder and built lazily per epoch, as upstream
@@ -38,8 +41,10 @@ class Database:
                  device: Device = None):
         self.spec = DatabaseSpec.from_config(cfg)
         self.device = resolve_device(device)
-        self._words = words_to_tensor(self.spec.validate_words(db_words),
-                                      self.device)
+        # payload rows take their checksum column here, once (rows already
+        # at the stored width pass through)
+        host = self.spec.validate_words(self.spec.attach_checksums(db_words))
+        self._words = words_to_tensor(host, self.device)
         self._epoch = 0
         self._lock = threading.RLock()
         self._bytes32: Optional[torch.Tensor] = None

@@ -17,8 +17,10 @@ and declares:
     the leaf expansion's ChaCha temporaries, below), compared with the free
     device memory less a margin (:func:`memory_budget`; no budget on the
     CPU). CUDA kernels are held to their launch limits: threads per block
-    <= 1024 and ptxas's registers x threads <= 65,536, and the fused
-    kernels' clog <= 24. Infeasible candidates are pruned without running.
+    <= 1024 and ptxas's registers x threads <= 65,536, read for the
+    template instance the shape's record width and batch select, and the
+    fused kernels' clog <= 24. Every kernel takes any record width of whole
+    4-byte words. Infeasible candidates are pruned without running.
   * a **bytes model** (the memory-roofline numerator reported next to a
     plan) and a **host-op model** (eager PyTorch ops one step runs); the
     tuner prunes a candidate whose floor from either already exceeds the
@@ -162,15 +164,21 @@ class KernelDescriptor:
     #: shape, params -> threads per block of that launch
     threads_fn: Callable[[ProblemShape, Params], int] = \
         field(default=lambda s, p: SERVE_KERNEL_THREADS)
+    #: shape -> the template instance the library launches for it (the
+    #: mangled-name stem ``build.registers`` looks up); None: the library's
+    #: largest register count
+    instance_fn: Callable[[ProblemShape], Optional[str]] = \
+        field(default=lambda s: None)
     serve: bool = True
 
     def launch_ok(self, shape: ProblemShape, params: Params) -> bool:
-        """The launch limits: threads per block, registers, fused depth."""
+        """The launch limits: threads per block, the registers of the
+        instance the shape selects, fused depth."""
         if self.library is None:
             return True
         from repro_torch.kernels import build
         threads = self.threads_fn(shape, params)
-        regs = build.registers(self.library)
+        regs = build.registers(self.library, self.instance_fn(shape))
         return (threads <= MAX_THREADS_PER_BLOCK
                 and (regs is None or regs * threads <= REGISTERS_PER_SM)
                 and params.get("chunk_log", 0) <= FUSED_MAX_CLOG)
@@ -408,21 +416,49 @@ def _lwe_ops(shape: ProblemShape, p: Params, *, plain: bool) -> int:
 # Descriptors
 # ---------------------------------------------------------------------------
 
-def _pair(name, kind, scan, library, footprint, nbytes, ops):
-    """The plain (``torch``) and kernel (``cuda``) forms of one plan."""
+def _dpxor_instance(s: ProblemShape) -> str:
+    from repro_torch.kernels import dpxor
+    return dpxor.instance(s.words, s.bucket)   # components fold before it
+
+
+def _fused_xor_instance(s: ProblemShape) -> str:
+    from repro_torch.kernels import fused_scan
+    return fused_scan.instance_xor(s.words)
+
+
+def _pir_gemm_instance(s: ProblemShape) -> str:
+    from repro_torch.kernels import pir_matmul
+    return pir_matmul.instance(s.item_bytes, s.bucket)
+
+
+def _fused_add_instance(s: ProblemShape) -> str:
+    from repro_torch.kernels import fused_scan
+    return fused_scan.instance_add(s.item_bytes)
+
+
+def _lwe_gemm_instance(s: ProblemShape) -> str:
+    from repro_torch.kernels import lwe_matmul
+    return lwe_matmul.instance(s.bucket)
+
+
+def _pair(name, kind, scan, library, footprint, nbytes, ops, instance=None):
+    """The plain (``torch``) and kernel (``cuda``) forms of one plan; the
+    kernel form names its ``instance`` function."""
     plain = scan == "torch"
     return register_kernel(KernelDescriptor(
         name=name, share_kind=kind, expand="materialize", scan=scan,
         footprint_fn=lambda s, p: footprint(s, p, plain=plain),
         bytes_fn=lambda s, p: nbytes(s, p, plain=plain),
         host_ops_fn=lambda s, p: ops(s, p, plain=plain),
-        library=None if plain else library))
+        library=None if plain else library,
+        instance_fn=instance or (lambda s: None)))
 
 
 MATERIALIZE_TORCH = _pair("xor-materialize-torch", "xor", "torch", None,
                           _xor_mat_footprint, _xor_mat_bytes, _xor_mat_ops)
 MATERIALIZE_CUDA = _pair("xor-materialize-cuda", "xor", "cuda", "dpxor",
-                         _xor_mat_footprint, _xor_mat_bytes, _xor_mat_ops)
+                         _xor_mat_footprint, _xor_mat_bytes, _xor_mat_ops,
+                         _dpxor_instance)
 
 FUSED_TORCH = register_kernel(KernelDescriptor(
     name="xor-fused-torch", share_kind="xor", expand="fused", scan="torch",
@@ -437,12 +473,14 @@ FUSED_CUDA = register_kernel(KernelDescriptor(
     bytes_fn=lambda s, p: _fused_kernel_bytes(s, p, cols=s.words,
                                               elem=U32_BYTES),
     host_ops_fn=_fused_kernel_ops, library="fused_scan_xor",
+    instance_fn=_fused_xor_instance,
 ))
 
 GEMM_TORCH = _pair("gemm-torch", "additive", "torch", None,
                    _gemm_footprint, _gemm_bytes, _gemm_ops)
 GEMM_CUDA = _pair("gemm-cuda", "additive", "cuda", "pir_gemm",
-                  _gemm_footprint, _gemm_bytes, _gemm_ops)
+                  _gemm_footprint, _gemm_bytes, _gemm_ops,
+                  _pir_gemm_instance)
 
 FUSED_CUDA_GEMM = register_kernel(KernelDescriptor(
     name="gemm-fused-cuda", share_kind="additive", expand="fused-cuda",
@@ -451,12 +489,14 @@ FUSED_CUDA_GEMM = register_kernel(KernelDescriptor(
     bytes_fn=lambda s, p: _fused_kernel_bytes(s, p, cols=s.item_bytes,
                                               elem=1),
     host_ops_fn=_fused_kernel_ops, library="fused_scan_add",
+    instance_fn=_fused_add_instance,
 ))
 
 LWE_GEMM_TORCH = _pair("lwe-gemm-torch", "lwe", "torch", None,
                        _lwe_footprint, _lwe_bytes, _lwe_ops)
 LWE_GEMM_CUDA = _pair("lwe-gemm-cuda", "lwe", "cuda", "lwe_gemm",
-                      _lwe_footprint, _lwe_bytes, _lwe_ops)
+                      _lwe_footprint, _lwe_bytes, _lwe_ops,
+                      _lwe_gemm_instance)
 
 GGM_EXPAND = register_kernel(KernelDescriptor(
     name="ggm-expand", share_kind="prg", serve=False, space_fn=_ggm_space,

@@ -67,10 +67,14 @@ def heuristic_plan(cfg, n_queries: int, *, backend: str,
 # ---------------------------------------------------------------------------
 
 def problem_shape(cfg, bucket: int) -> ProblemShape:
+    """The shape a plan serves. Its record width is the stored one (with
+    ``cfg.checksum``, 4 bytes past ``item_bytes``): the kernels scan the
+    stored rows, and the width selects their template instance."""
     from repro_torch.core import protocol as protocol_mod
+    from repro_torch.db.spec import DatabaseSpec
     proto = protocol_mod.get(cfg.protocol)
     return ProblemShape(bucket=bucket, rows=cfg.n_items,
-                        item_bytes=cfg.item_bytes,
+                        item_bytes=DatabaseSpec.from_config(cfg).stored_bytes,
                         components=proto.key_components)
 
 

@@ -153,13 +153,55 @@ def build(names: Sequence[str]) -> Dict[str, BuildRecord]:
     return {name: RECORDS[name] for name in names}
 
 
-def registers(name: str) -> Optional[int]:
-    """The most registers per thread ptxas gave a kernel of library
-    ``name`` in this process's build, or None when it was not built here
-    (or loaded from disk, which keeps no ptxas report)."""
+def query_block(queries: int) -> int:
+    """Queries per block (QB) of the select kernels' dispatch
+    (``csrc/dpxor.cu``, ``csrc/pir_gemm.cu``): 1, 2, 4 or 8."""
+    return next(qb for qb in (1, 2, 4, 8) if queries <= qb or qb == 8)
+
+
+def mangled(kernel: str, *args) -> str:
+    """The stem of a template instance's mangled entry name, as ptxas
+    reports it: ``mangled("dpxor_kernel", 16, 8)`` is
+    ``12dpxor_kernelILi16ELi8EE`` (``dpxor_kernel<16, 8>``); a bool
+    argument mangles as ``Lb0E`` / ``Lb1E``."""
+    parts = "".join(f"Lb{int(a)}E" if isinstance(a, bool) else f"Li{a}E"
+                    for a in args)
+    return f"{len(kernel)}{kernel}I{parts}E"
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """ptxas's ``-v`` report of library ``name``'s kernels in this
+    process's build, by mangled entry name: ``registers`` per thread and
+    the ``stack``, ``spill_stores`` and ``spill_loads`` bytes. Empty when
+    the library was not built here (loaded from disk keeps no report)."""
     rec = RECORDS.get(name)
-    used = [int(m.group(1)) for ln in (rec.ptxas if rec else ())
-            for m in [re.search(r"Used (\d+) registers", ln)] if m]
+    out: Dict[str, Dict[str, int]] = {}
+    current = ""
+    for ln in rec.ptxas if rec else ():
+        m = re.search(r"entry function '([^']+)'", ln)
+        if m:
+            current = m.group(1)
+            continue
+        entry = out.setdefault(current, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            entry.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                         spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            entry["registers"] = int(m.group(1))
+    return out
+
+
+def registers(name: str, entry: Optional[str] = None) -> Optional[int]:
+    """Registers per thread ptxas gave library ``name``'s kernels in this
+    process's build: the instance whose mangled entry name contains
+    ``entry`` (a :func:`mangled` stem), or the most of any kernel when
+    ``entry`` is None. None when the library was not built here or no
+    entry matches."""
+    used = [r["registers"] for e, r in ptxas_report(name).items()
+            if "registers" in r and (entry is None or entry in e)]
     return max(used) if used else None
 
 
@@ -207,13 +249,14 @@ def require_cuda_words(name: str, t: torch.Tensor, ndim: int,
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.numel() and t.data_ptr() % align:
-        raise ValueError(f"{name} must be {align}-byte aligned")
+    if t.numel() and t.data_ptr() % 4:
+        raise ValueError(f"{name} must be 4-byte aligned")
 
 
 def require_cuda_bytes(name: str, t: torch.Tensor):
-    """Check a byte operand: a contiguous, 16-byte aligned int8 matrix on
-    a CUDA device."""
+    """Check a byte operand: a contiguous, 4-byte aligned int8 matrix on a
+    CUDA device (the byte kernels read whole 4-byte words and take their
+    vector loads only where the address allows them)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be on a CUDA device, got {t.device}")
     if t.dtype != torch.int8:
@@ -222,5 +265,5 @@ def require_cuda_bytes(name: str, t: torch.Tensor):
         raise ValueError(f"{name} must have 2 dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.numel() and t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+    if t.numel() and t.data_ptr() % 4:
+        raise ValueError(f"{name} must be 4-byte aligned")

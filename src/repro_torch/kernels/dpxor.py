@@ -9,6 +9,10 @@ row axis fills the TPU's lanes, and carries an accumulator across a
 sequential grid. On the GPU the DB stays row-major ``[R, W]`` (one 32-byte
 record per row, read in 16-byte loads), blocks run in parallel and combine
 with ``atomicXor`` — see ``csrc/dpxor.cu`` for the design and its bound.
+The kernel takes any record width: 1, 2, 4, 8 and 16 words on
+vector-load instances, other widths (36-byte records with a checksum
+column, 128-byte records) and operands only 4-byte aligned (a row slice)
+on a word-by-word path that the kernel picks from the operand's address.
 
 ``dpxor`` dispatches on the tensors' device: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes ``dpxor_plain``. ``count`` tallies
@@ -26,6 +30,19 @@ count = build.KernelCount()
 
 #: rows per step of the plain version (bounds its [Q, rows, W] temporary)
 _PLAIN_ELEMS = 1 << 24
+
+#: record widths (words) with a vector-load instance (``dpxor_kernel<W, QB>``)
+VECTOR_WIDTHS = (1, 2, 4, 8, 16)
+
+
+def instance(words: int, queries: int) -> str:
+    """The template instance ``csrc/dpxor.cu`` launches for a ``[R, words]``
+    DB aligned as an allocation is and ``queries`` queries, as the stem of
+    its mangled name (``build.registers`` reads its ptxas report)."""
+    qb = build.query_block(queries)
+    if words in VECTOR_WIDTHS:
+        return build.mangled("dpxor_kernel", words, qb)
+    return build.mangled("dpxor_any_kernel", qb)
 
 
 def xor_fold(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -66,16 +83,15 @@ def dpxor_plain(db_words: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
 @torch.library.custom_op("repro_torch::dpxor", mutates_args=(),
                          device_types="cuda")
 def _dpxor_op(db_words: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    build.require_cuda_words("db_words", db_words, 2)
-    build.require_cuda_words("bits", bits, 2)
+    # read word by word (the vector loads are taken only where the DB's
+    # address allows them), so 4-byte alignment is all either needs
+    build.require_cuda_words("db_words", db_words, 2, align=4)
+    build.require_cuda_words("bits", bits, 2, align=4)
     r, w = db_words.shape
     q = bits.shape[0]
     if bits.shape[1] != r or bits.device != db_words.device:
         raise ValueError(f"bits {tuple(bits.shape)} on {bits.device} does not "
                          f"match db {tuple(db_words.shape)} on {db_words.device}")
-    if w not in (1, 2, 4, 8, 16):
-        raise ValueError(f"dpxor kernel takes 1, 2, 4, 8 or 16 words per "
-                         f"record, got {w}")
     out = torch.zeros((q, w), dtype=torch.int32, device=db_words.device)
     if q == 0 or r == 0:
         return out

@@ -15,7 +15,10 @@ one (query, chunk root) and walks its subtree depth-first with ChaCha's
 state in registers — see ``csrc/fused_scan_xor.cu`` and
 ``csrc/fused_scan_add.cu`` for the designs and their bounds. There is no DMA tile, so the reference's ``tile_r``/``depth``
 do not reach the kernel; ``ops.fused_tile`` still legalizes ``chunk_log``
-against ``tile_r`` exactly as the reference does.
+against ``tile_r`` exactly as the reference does. Both kernels take any
+record width (a multiple of 4 bytes): the widths of their exact instances
+read rows in vector loads, others read 4-byte words in column groups
+(grid.z), each group expanding the subtrees again.
 
 ``fused_scan_xor`` and ``fused_scan_add`` dispatch on the tensors' device:
 CUDA launches the kernel (or raises), CPU takes the plain version;
@@ -30,7 +33,8 @@ import torch
 from repro_torch.crypto.chacha import chacha_block, prg_bits
 from repro_torch.kernels import build
 from repro_torch.kernels.dpxor import xor_fold
-from repro_torch.kernels.pir_matmul import KERNEL_WIDTHS, pir_gemm_plain, \
+from repro_torch.kernels.dpxor import VECTOR_WIDTHS
+from repro_torch.kernels.pir_matmul import VECTOR_BYTES, pir_gemm_plain, \
     wrap_int32
 
 count = build.KernelCount()
@@ -38,6 +42,32 @@ count_add = build.KernelCount()
 
 #: leaves per step of the plain version (bounds its expansion temporaries)
 _PLAIN_LEAVES = 1 << 24
+
+#: accumulators per thread of the column-group instances: words of the XOR
+#: kernel, bytes of the add kernel (``csrc/fused_scan_*.cu``)
+XOR_GROUPS = (8, 16, 32)
+ADD_GROUPS = (16, 48, 64)
+
+
+def instance_xor(words: int) -> str:
+    """The template instance ``csrc/fused_scan_xor.cu`` launches for
+    records of ``words`` words in a DB aligned as an allocation is: the
+    exact one (``<W, true>``) or the column group that holds them
+    (``<G, false>``, the last group repeated over grid.z), as the stem of
+    its mangled name."""
+    if words in VECTOR_WIDTHS:
+        return build.mangled("fused_scan_xor_kernel", words, True)
+    g = next((g for g in XOR_GROUPS if words <= g), XOR_GROUPS[-1])
+    return build.mangled("fused_scan_xor_kernel", g, False)
+
+
+def instance_add(cols: int) -> str:
+    """:func:`instance_xor` for ``csrc/fused_scan_add.cu``, records of
+    ``cols`` bytes."""
+    if cols in VECTOR_BYTES:
+        return build.mangled("fused_scan_add_kernel", cols, True)
+    g = next((g for g in ADD_GROUPS if cols <= g), ADD_GROUPS[-1])
+    return build.mangled("fused_scan_add_kernel", g, False)
 
 
 def _interleave(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
@@ -103,7 +133,7 @@ def _check_chunking(rows: int, roots, t_roots, cw_seed_lv, cw_t_lv):
 def _fused_scan_xor_op(db_words: torch.Tensor, roots: torch.Tensor,
                        t_roots: torch.Tensor, cw_seed_lv: torch.Tensor,
                        cw_t_lv: torch.Tensor, rounds: int) -> torch.Tensor:
-    build.require_cuda_words("db_words", db_words, 2)
+    build.require_cuda_words("db_words", db_words, 2, align=4)
     build.require_cuda_words("roots", roots, 3)           # uint4 loads
     # read word by word: a level slice of one query's key is contiguous but
     # only 8-byte aligned when it starts at an odd level
@@ -117,9 +147,6 @@ def _fused_scan_xor_op(db_words: torch.Tensor, roots: torch.Tensor,
     if len({t.device for t in (db_words, roots, t_roots, cw_seed_lv,
                                cw_t_lv)}) != 1:
         raise ValueError("fused_scan_xor operands are on different devices")
-    if w not in (1, 2, 4, 8, 16):
-        raise ValueError(f"fused_scan_xor kernel takes 1, 2, 4, 8 or 16 "
-                         f"words per record, got {w}")
     if clog > 24:
         raise ValueError(f"chunk_log {clog} exceeds the kernel's stack (24)")
     if rounds <= 0 or rounds % 2:
@@ -215,9 +242,9 @@ def _fused_scan_add_op(db_bytes: torch.Tensor, roots: torch.Tensor,
     if len({t.device for t in (db_bytes, roots, t_roots, cw_seed_lv,
                                cw_t_lv, cw_final)}) != 1:
         raise ValueError("fused_scan_add operands are on different devices")
-    if l not in KERNEL_WIDTHS:
-        raise ValueError(f"fused_scan_add kernel takes records of "
-                         f"{KERNEL_WIDTHS} bytes, got {l}")
+    if l % 4:
+        raise ValueError(f"fused_scan_add kernel reads whole 4-byte words; "
+                         f"got records of {l} bytes")
     if clog > 24:
         raise ValueError(f"chunk_log {clog} exceeds the kernel's stack (24)")
     if rounds <= 0 or rounds % 2:

@@ -33,6 +33,14 @@ _PLAIN_ELEMS = 1 << 24
 _LOW32 = 0xFFFFFFFF
 
 
+def instance(m: int) -> str:
+    """The template instance ``csrc/lwe_gemm.cu`` launches for ``m`` rows
+    of ``a`` (BM, the least power of two >= m, at most 32), as the stem of
+    its mangled name."""
+    bm = next(b for b in (1, 2, 4, 8, 16, 32) if m <= b or b == 32)
+    return build.mangled("lwe_gemm_kernel", bm)
+
+
 def _check_shapes(a: torch.Tensor, b: torch.Tensor):
     if a.dtype != torch.int32 or b.dtype != torch.int32:
         raise TypeError(f"lwe_gemm takes int32 operands, got {a.dtype} x "

@@ -11,7 +11,10 @@ The Pallas kernel tiles (Q, L, R) and carries each output block across a
 sequential R axis in VMEM. On the GPU blocks run in parallel, so the sum
 is split over R instead: each block folds its rows to a ``[Q, L]`` partial
 and adds it to the zeroed output with ``atomicAdd`` — see
-``csrc/pir_gemm.cu`` for the design and its bound.
+``csrc/pir_gemm.cu`` for the design and its bound. Any record width that
+is a multiple of 4 bytes is taken: 4, 8, 16 and 32 bytes on fixed-width
+instances, others (36-byte checksummed records, 128-byte records) on a
+word-column path.
 
 ``pir_gemm`` dispatches on the tensors' device: CUDA launches the kernel
 (or raises), CPU takes ``pir_gemm_plain``; ``count`` tallies both.
@@ -29,8 +32,19 @@ count = build.KernelCount()
 #: products per step of the plain version (bounds its [Q, rows, L] temporary)
 _PLAIN_ELEMS = 1 << 24
 
-#: record widths (bytes) the kernel is built for
-KERNEL_WIDTHS = (4, 8, 16, 32)
+#: record widths (bytes) with a fixed-width instance (``pir_gemm_kernel<L,
+#: QB>``; the fused add kernel has exact instances at the same widths)
+VECTOR_BYTES = (4, 8, 16, 32)
+
+
+def instance(cols: int, queries: int) -> str:
+    """The template instance ``csrc/pir_gemm.cu`` launches for a ``[R,
+    cols]`` byte DB aligned as an allocation is and ``queries`` queries, as
+    the stem of its mangled name."""
+    qb = build.query_block(queries)
+    if cols in VECTOR_BYTES:
+        return build.mangled("pir_gemm_kernel", cols, qb)
+    return build.mangled("pir_gemm_any_kernel", qb)
 
 
 def wrap_int32(acc: torch.Tensor) -> torch.Tensor:
@@ -86,9 +100,9 @@ def _pir_gemm_op(shares: torch.Tensor, db_bytes: torch.Tensor
         raise ValueError(f"shares {tuple(shares.shape)} on {shares.device} "
                          f"does not match db {tuple(db_bytes.shape)} on "
                          f"{db_bytes.device}")
-    if l not in KERNEL_WIDTHS:
-        raise ValueError(f"pir_gemm kernel takes records of "
-                         f"{KERNEL_WIDTHS} bytes, got {l}")
+    if l % 4:
+        raise ValueError(f"pir_gemm kernel reads whole 4-byte words; got "
+                         f"records of {l} bytes")
     if r % 4:
         raise ValueError(f"pir_gemm kernel needs rows % 4 == 0, got {r}")
     out = torch.zeros((q, l), dtype=torch.int32, device=db_bytes.device)

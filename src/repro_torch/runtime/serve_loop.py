@@ -6,14 +6,17 @@ Pipeline (paper Figure 8, §3.4):
   ③ a depth-2 dispatch loop stages batch k+1's keys (pad, pinned upload)
      and launches its answer step while batch k still runs on the card
   ④ answers return through per-query futures; all parties' shares are
-     reconciled (``PIRProtocol.reconstruct``) when a batch completes
+     reconciled (``PIRProtocol.reconstruct_with``) when a batch completes
 
 The port keeps ``AnswerFuture``, ``QueryScheduler``, ``MultiServerPIR``
 (k parties, e.g. ``xor-dpf-k``), ``TwoServerPIR`` (``xor-dpf-2``,
 ``additive-dpf-2``) and ``SingleServerPIR`` (``lwe-simple-1``: per-query
 client state and a client hint cache) on one device and one dispatch
-lane. Chaos seams, straggler shedding, online updates and replica hooks
-are not ported yet.
+lane, with verified reconstruction (``cfg.checksum``): records come back
+at the logical width, and a batch whose records fail their checksum fails
+its own futures with ``IntegrityError`` (``bad_queries`` are indices in
+that batch) while the scheduler goes on with the next. Chaos seams,
+straggler shedding, online updates and replica hooks are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,8 +33,8 @@ from repro_torch.core import dpf, lwe
 from repro_torch.core import protocol as protocol_mod
 from repro_torch.core.protocol import PIRProtocol
 from repro_torch.core.server import PIRServer, bucket_for
-from repro_torch.crypto.packing import tensor_to_words
-from repro_torch.db import Database
+from repro_torch.crypto.packing import records_to_host
+from repro_torch.db import Database, IntegrityError
 from repro_torch.engine.backend import Device
 
 #: dispatch depth: one batch running on the card, one being staged
@@ -112,7 +115,8 @@ class QueryScheduler:
     its own dispatch result. Batches are cut when a full largest bucket is
     pending or when the oldest query has waited ``max_wait_s``. Drive it
     with :meth:`pump` or as a background session (:meth:`start` /
-    :meth:`stop`).
+    :meth:`stop`). An ``IntegrityError`` from ``finalize`` fails that
+    batch's futures only; any other error fails them and is raised.
     """
 
     def __init__(self, *, collate: Callable[[List[Any]], Any],
@@ -197,6 +201,10 @@ class QueryScheduler:
             for fut, ans in zip(batch.futures, answers):
                 fut.epoch = batch.epoch
                 fut.set_result(ans)
+        except IntegrityError as e:      # this batch's records, not the loop
+            for fut in batch.futures:
+                fut.set_exception(e)
+            return
         except BaseException as e:
             for fut in batch.futures:
                 fut.set_exception(e)
@@ -371,14 +379,15 @@ class MultiServerPIR:
             return tuple(servers[p].bucketed.answer(view, staged[p])
                          for p in parties), epoch
 
-        _, record_dtype = proto.record_struct(self.cfg)
+        cfg = self.cfg
 
         def finalize(raw, n):
             answers, _ = raw
-            rec = proto.reconstruct([a[:n] for a in answers])
-            if record_dtype == np.uint32:
-                return list(tensor_to_words(rec))
-            return list(rec.cpu().numpy())
+            # with cfg.checksum the records are verified and stripped to the
+            # logical width; a corrupted share raises IntegrityError here
+            rec = proto.reconstruct_with([a[:n] for a in answers], [None] * n,
+                                         cfg=cfg)
+            return list(records_to_host(rec))
 
         return QueryScheduler(
             collate=collate, stage=stage, dispatch=dispatch,

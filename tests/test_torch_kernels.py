@@ -44,6 +44,9 @@ def _u(t):
     (1, 64, 8, 64),
     (4, 256, 8, 64),
     (3, 128, 5, 128),      # odd record width
+    (2, 128, 3, 64),       # 12-byte records
+    (2, 128, 9, 64),       # 36-byte records (checksum column)
+    (3, 64, 32, 64),       # 128-byte records
 ])
 def test_dpxor_plain_matches_reference(q, r, w, tile):
     db = RNG.integers(0, 1 << 32, size=(r, w), dtype=np.uint32)
@@ -224,3 +227,308 @@ def test_library_names_hash_sources_and_flags(monkeypatch):
     assert path.parent == build.BUILD_DIR and "dpxor-" in path.name
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
     assert build.library_path("dpxor") != path
+
+
+# ---------------------------------------------------------------------------
+# Every record width (12-, 36- and 128-byte records past the fixed-width
+# instances): the plain versions against the reference, the wrappers'
+# dispatch, the instance each width selects
+# ---------------------------------------------------------------------------
+
+#: record widths in bytes past the kernels' fixed-width instances: 12 (W =
+#: 3), 36 (a 32-byte payload and its checksum word, W = 9) and 128 (W = 32)
+ANY_WIDTHS = [12, 36, 128]
+
+
+@pytest.mark.parametrize("item_bytes", ANY_WIDTHS)
+@pytest.mark.parametrize("q", [1, 3])
+def test_pir_gemm_plain_any_width_matches_reference(item_bytes, q):
+    s = RNG.integers(-128, 128, size=(q, 64)).astype(np.int8)
+    d = RNG.integers(-128, 128, size=(64, item_bytes)).astype(np.int8)
+    want = np.asarray(ref_ops.pir_gemm(jnp.asarray(s), jnp.asarray(d),
+                                       tile_q=1, tile_r=64, tile_l=4))
+    got = ops.pir_gemm(convert.bytes_from_reference(s),
+                       convert.bytes_from_reference(d)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("item_bytes", ANY_WIDTHS)
+@pytest.mark.parametrize("clog", [0, 3])
+def test_fused_xor_plain_any_width_matches_reference(fused_setup, item_bytes,
+                                                     clog):
+    _, keys, port_keys = fused_setup
+    db = np.random.default_rng(item_bytes).integers(
+        0, 1 << 32, size=(N, item_bytes // 4), dtype=np.uint32)
+    want = _ref_fused(db, keys, 8, clog, 2)
+    np.testing.assert_array_equal(_u(_port_fused(db, port_keys, clog)), want)
+
+
+@pytest.mark.parametrize("item_bytes", ANY_WIDTHS)
+@pytest.mark.parametrize("party", [0, 1])
+def test_fused_add_plain_any_width_matches_reference(item_bytes, party):
+    rng = np.random.default_rng(item_bytes + party)
+    db = rng.integers(-128, 128, size=(N, item_bytes)).astype(np.int8)
+    pairs = [ref_dpf.gen_keys(rng, i, LOG_N, payload=np.array([1], np.uint32),
+                              payload_mod=256) for i in IDXS]
+    key = ref_dpf.stack_keys([p[party] for p in pairs])
+    port_key = convert.keys_from_reference(
+        party=key.party, log_n=key.log_n, root_seed=np.asarray(key.root_seed),
+        cw_seed=np.asarray(key.cw_seed), cw_t=np.asarray(key.cw_t),
+        cw_final=np.asarray(key.cw_final), rounds=key.rounds)
+    clog = 3
+    lvl0 = LOG_N - clog
+
+    def inputs(k, eval_roots):
+        roots, t_roots = eval_roots(k, 0, LOG_N, clog)
+        return (roots, t_roots, k.cw_seed[:, lvl0:, :], k.cw_t[:, lvl0:, :],
+                k.cw_final[:, 0])
+
+    want = np.asarray(ref_ops.fused_scan_bytes(
+        jnp.asarray(db), *inputs(key, ref_dpf.eval_roots_batch),
+        party=party, tile_r=8, depth=2))
+    got = ops.fused_scan_bytes(convert.bytes_from_reference(db),
+                               *inputs(port_key, dpf.eval_roots_batch),
+                               party=party).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("item_bytes", ANY_WIDTHS)
+@pytest.mark.parametrize("q", [1, 32])
+def test_wrappers_take_any_width_on_the_plain_versions(item_bytes, q):
+    """On CPU tensors every wrapper takes its plain version at these
+    widths (the count says so) and agrees with the plain function."""
+    from repro_torch.kernels import pir_matmul as km
+    rng = np.random.default_rng(item_bytes * q)
+    r, w = 64, item_bytes // 4
+    db = _t(rng.integers(0, 1 << 32, size=(r, w), dtype=np.uint32))
+    bits = _t(rng.integers(0, 2, size=(q, r), dtype=np.uint32))
+    shares = torch.from_numpy(rng.integers(-128, 128, size=(q, r)).astype(
+        np.int8))
+    keys = dpf.gen_keys_batch(rng, rng.integers(0, r, size=q), 6,
+                              payload=np.array([1], np.uint32))[1]
+    roots, t_roots = dpf.eval_roots_batch(keys, 0, 6, 3)
+    lv = (keys.cw_seed[:, 3:], keys.cw_t[:, 3:])
+    ops.reset_counts()
+    runs = [  # (wrapper, plain version, args, keywords, answer columns)
+        (kd.dpxor, kd.dpxor_plain, (db, bits), {}, w),
+        (km.pir_gemm, km.pir_gemm_plain, (shares, db.view(torch.int8)), {},
+         item_bytes),
+        (kf.fused_scan_xor, kf.fused_scan_xor_plain,
+         (db, roots, t_roots, *lv), {"rounds": keys.rounds}, w),
+        (kf.fused_scan_add, kf.fused_scan_add_plain,
+         (db.view(torch.int8), roots, t_roots, *lv, keys.cw_final[:, 0]),
+         {"party": 1, "rounds": keys.rounds}, item_bytes),
+    ]
+    for wrapper, plain, args, kw, cols in runs:
+        got = wrapper(*args, **kw)
+        assert got.shape == (q, cols)
+        assert torch.equal(got, plain(*args, **kw))
+    counts = ops.counts()
+    for name in ("dpxor", "pir_gemm", "fused_scan_xor", "fused_scan_add"):
+        assert counts[name] == {"launches": 0, "plain_calls": 1}
+
+
+@pytest.mark.parametrize("words,queries,want", [
+    (8, 1, "12dpxor_kernelILi8ELi1EE"),
+    (16, 32, "12dpxor_kernelILi16ELi8EE"),
+    (9, 1, "16dpxor_any_kernelILi1EE"),
+    (32, 3, "16dpxor_any_kernelILi4EE"),
+])
+def test_dpxor_instance_names_the_dispatched_template(words, queries, want):
+    assert kd.instance(words, queries) == want
+
+
+def test_instances_follow_each_kernels_dispatch():
+    from repro_torch.kernels import lwe_matmul as kl, pir_matmul as km
+    assert kf.instance_xor(8) == "21fused_scan_xor_kernelILi8ELb1EE"
+    assert kf.instance_xor(3) == "21fused_scan_xor_kernelILi8ELb0EE"
+    assert kf.instance_xor(9) == "21fused_scan_xor_kernelILi16ELb0EE"
+    assert kf.instance_xor(32) == "21fused_scan_xor_kernelILi32ELb0EE"
+    assert kf.instance_xor(40) == "21fused_scan_xor_kernelILi32ELb0EE"
+    assert kf.instance_add(32) == "21fused_scan_add_kernelILi32ELb1EE"
+    assert kf.instance_add(12) == "21fused_scan_add_kernelILi16ELb0EE"
+    assert kf.instance_add(36) == "21fused_scan_add_kernelILi48ELb0EE"
+    assert kf.instance_add(128) == "21fused_scan_add_kernelILi64ELb0EE"
+    assert km.instance(32, 5) == "15pir_gemm_kernelILi32ELi8EE"
+    assert km.instance(36, 2) == "19pir_gemm_any_kernelILi2EE"
+    assert kl.instance(1) == "15lwe_gemm_kernelILi1EE"
+    assert kl.instance(36) == "15lwe_gemm_kernelILi32EE"
+
+
+#: ptxas's report as the build records it (-Xptxas -v), for two instances
+_PTXAS = [
+    "ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__f0_8_dpxor_cu"
+    "_d12dpxor_kernelILi16ELi8EEEvPKjS2_Pjxi' for 'sm_90a'",
+    "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+    "ptxas info    : Used 199 registers, used 1 barriers, 4096 bytes smem",
+    "ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__f0_8_dpxor_cu"
+    "_d16dpxor_any_kernelILi8EEEvPKjS2_Pjxii' for 'sm_90a'",
+    "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+    "ptxas info    : Used 44 registers, used 1 barriers, 8192 bytes smem",
+]
+
+
+def test_registers_are_read_for_the_instance_a_width_selects(monkeypatch):
+    from repro_torch import engine
+    from repro_torch.engine.kernels import ProblemShape
+    monkeypatch.setitem(build.RECORDS, "dpxor", build.BuildRecord(
+        "dpxor", "lib", ptxas=_PTXAS))
+    assert build.registers("dpxor") == 199
+    assert build.registers("dpxor", kd.instance(16, 8)) == 199
+    assert build.registers("dpxor", kd.instance(9, 8)) == 44
+    assert build.registers("dpxor", kd.instance(4, 1)) is None
+    desc = engine.get_kernel("xor-materialize-cuda")
+    assert desc.instance_fn(ProblemShape(8, 1 << 10, 36)) == \
+        kd.instance(9, 8)
+    # 199 registers x 256 threads fit the SM's 65,536: both launch
+    for item_bytes in (64, 36):
+        assert desc.launch_ok(ProblemShape(8, 1 << 10, item_bytes), {})
+
+
+@pytest.mark.parametrize("scheme", ["xor-dpf-2", "additive-dpf-2",
+                                    "xor-dpf-k", "lwe-simple-1"])
+@pytest.mark.parametrize("item_bytes", [4, 8, 16, 32, 64])
+def test_plan_for_on_the_cpu_is_unchanged_for_the_widths_that_worked(
+        scheme, item_bytes):
+    """plan_for does not read the record width: on the CPU every width
+    that worked before gets the same plan at every bucket as the 32-byte
+    records, and so does a checksummed config."""
+    from repro_torch.config import PIRConfig
+    from repro_torch.core.protocol import plan_for
+    base = PIRConfig(n_items=1 << 14, protocol=scheme,
+                     n_servers=1 if scheme == "lwe-simple-1" else 3)
+    for q in (1, 2, 32):
+        want = plan_for(base, q, backend="cpu")
+        for cfg in (PIRConfig(**{**base.__dict__, "item_bytes": item_bytes}),
+                    PIRConfig(**{**base.__dict__, "item_bytes": item_bytes,
+                                 "checksum": True})):
+            assert plan_for(cfg, q, backend="cpu") == want
+            assert plan_for(cfg, q, backend="cuda") == plan_for(
+                base, q, backend="cuda")
+
+
+# On the card: B1-B4 against their plain versions at every width (the
+# fixed-width 32 bytes for contrast), at Q = 1 and Q = 32 (at Q = 32 all
+# lanes of a fused kernel's warp are queries), and B5 at P = 36
+
+CARD_WIDTHS = [12, 36, 128, 32]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m cuda on the card; "
+                    "chip_smoke.py's check_widths holds the same kernels "
+                    "at full size)")
+    return torch.device("cuda")
+
+
+def _card_db(card, rows, item_bytes, seed, offset_words=0):
+    """A ``[rows, item_bytes / 4]`` word DB on the card, starting
+    ``offset_words`` words into its allocation (1: only 4-byte aligned)."""
+    w = item_bytes // 4
+    flat = np.random.default_rng(seed).integers(
+        0, 1 << 32, size=rows * w + offset_words, dtype=np.uint32)
+    return _t(flat).to(card)[offset_words:].view(rows, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("item_bytes", CARD_WIDTHS)
+@pytest.mark.parametrize("q", [1, 5, 32])
+def test_dpxor_kernel_any_width_on_the_card(card, item_bytes, q):
+    db = _card_db(card, 1 << 12, item_bytes, q)
+    bits = torch.randint(0, 2, (q, 1 << 12), dtype=torch.int32, device=card)
+    assert torch.equal(kd.dpxor(db, bits), kd.dpxor_plain(db, bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("item_bytes", [4, 8, 36])
+def test_dpxor_kernel_takes_a_row_slice_on_the_card(card, item_bytes):
+    """An operand only 4-byte aligned, as a row slice of 4-byte records or
+    of 36-byte ones is: the kernel reads it word by word; the bits are cut
+    from a flat buffer at a 4-byte offset too."""
+    db = _card_db(card, 1 << 12, item_bytes, 7, offset_words=1)
+    flat = torch.randint(0, 2, (3 * (1 << 12) + 1,), dtype=torch.int32,
+                         device=card)
+    bits = flat[1:].view(3, 1 << 12)
+    assert db.data_ptr() % 16 and bits.data_ptr() % 16
+    assert torch.equal(kd.dpxor(db, bits), kd.dpxor_plain(db, bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("item_bytes", CARD_WIDTHS)
+@pytest.mark.parametrize("q", [1, 32])
+def test_pir_gemm_kernel_any_width_on_the_card(card, item_bytes, q):
+    from repro_torch.kernels import pir_matmul as km
+    db = _card_db(card, 1 << 12, item_bytes, q).view(torch.int8)
+    shares = torch.randint(-128, 128, (q, 1 << 12), dtype=torch.int8,
+                           device=card)
+    assert torch.equal(km.pir_gemm(shares, db), km.pir_gemm_plain(shares, db))
+    sliced = _card_db(card, 1 << 12, item_bytes, 3, 1).view(torch.int8)
+    assert torch.equal(km.pir_gemm(shares, sliced),
+                       km.pir_gemm_plain(shares, sliced))
+
+
+def _card_fused_inputs(card, q, log_n, clog, payload=None):
+    keys = dpf.gen_keys_batch(np.random.default_rng(q + clog),
+                              list(range(3, 3 + q)), log_n,
+                              payload=payload)[q % 2].to(card)
+    roots, t_roots = dpf.eval_roots_batch(keys, 0, log_n, clog)
+    lvl0 = keys.log_n - clog
+    return keys, (roots, t_roots, keys.cw_seed[:, lvl0:].contiguous(),
+                  keys.cw_t[:, lvl0:].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("item_bytes", CARD_WIDTHS)
+@pytest.mark.parametrize("q,clog,offset", [(1, 6, 0), (8, 0, 1), (32, 5, 0),
+                                           (32, 5, 1)])
+def test_fused_xor_kernel_any_width_on_the_card(card, item_bytes, q, clog,
+                                                offset):
+    keys, inputs = _card_fused_inputs(card, q, 12, clog)
+    db = _card_db(card, 1 << 12, item_bytes, clog, offset)
+    assert torch.equal(kf.fused_scan_xor(db, *inputs, rounds=keys.rounds),
+                       kf.fused_scan_xor_plain(db, *inputs,
+                                               rounds=keys.rounds))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("item_bytes", CARD_WIDTHS)
+@pytest.mark.parametrize("q,clog,party,offset", [
+    (1, 6, 0, 0), (8, 0, 1, 1), (32, 5, 1, 0), (32, 5, 0, 1)])
+def test_fused_add_kernel_any_width_on_the_card(card, item_bytes, q, clog,
+                                                party, offset):
+    keys, inputs = _card_fused_inputs(card, q, 12, clog,
+                                      payload=np.array([1], np.uint32))
+    db = _card_db(card, 1 << 12, item_bytes, clog, offset).view(torch.int8)
+    cwf = keys.cw_final[:, 0].contiguous()
+    got = kf.fused_scan_add(db, *inputs, cwf, party=party, rounds=keys.rounds)
+    want = kf.fused_scan_add_plain(db, *inputs, cwf, party=party,
+                                   rounds=keys.rounds)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,p", [(1, 4096, 36), (32, 4096, 36),
+                                   (36, 4096, 1024)])
+def test_lwe_gemm_kernel_at_the_checksum_width_on_the_card(card, m, k, p):
+    """B5 at the checksum database's answer shapes ([Q, N] x [N, 36]) and
+    its hint shape ([36, N] x A), full-range operands so every sum wraps."""
+    from repro_torch.kernels import lwe_matmul as kl
+    gen = torch.Generator(device=card).manual_seed(m + p)
+    a = torch.randint(-(1 << 31), (1 << 31) - 1, (m, k), generator=gen,
+                      device=card, dtype=torch.int32)
+    b = torch.randint(-(1 << 31), (1 << 31) - 1, (k, p), generator=gen,
+                      device=card, dtype=torch.int32)
+    assert torch.equal(kl.lwe_gemm(a, b), kl.lwe_gemm_plain(a, b))
+
+
+def test_ptxas_report_reads_registers_and_spills(monkeypatch):
+    monkeypatch.setitem(build.RECORDS, "dpxor", build.BuildRecord(
+        "dpxor", "lib", ptxas=_PTXAS))
+    report = build.ptxas_report("dpxor")
+    assert len(report) == 2
+    any8 = next(v for k, v in report.items() if kd.instance(9, 8) in k)
+    assert any8 == {"registers": 44, "stack": 0, "spill_stores": 0,
+                    "spill_loads": 0}
+    assert build.ptxas_report("no-such-library") == {}

@@ -159,8 +159,11 @@ def test_database_views_and_validation(db):
         database.view("nonsense")
     with pytest.raises(ValueError):
         Database(db[:5], CFG, "cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        DatabaseSpec.from_config(PIRConfig(n_items=64, checksum=True))
+    # a checksummed config stores one more word per record (verified
+    # reconstruction); the logical width stays item_bytes
+    spec = DatabaseSpec.from_config(PIRConfig(n_items=64, checksum=True))
+    assert spec.view_shape("words") == (64, 9)
+    assert spec.view_shape("bytes") == (64, 36)
     with pytest.raises(ValueError):
         DatabaseSpec(n_items=96)
 
