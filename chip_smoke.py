@@ -4,8 +4,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, one JSON line each:
   device      the card (nvidia-smi name and power limit), torch and CUDA
-  build       nvcc for every kernel source (in parallel), with ptxas's
-              register / shared-memory / spill report
+  build       nvcc for every kernel source (in parallel, libraries left
+              by an earlier process removed first), with ptxas's register /
+              shared-memory / spill report
   database    PIR_1G (2^25 records x 32 B = 1 GiB) made from a seed and
               placed on the card once; PIR_1G_ADD and PIR_1G_K3 serve the
               same records from it (the int8 byte view aliases the words)
@@ -53,7 +54,10 @@ reconstruction:
               bytes, W = 9, 1,207,959,552 B) and 2^23 records of 128 bytes
               (W = 32, 1 GiB) from their own seed, both on the card
   check_widths  B1-B4 on those operands exact against their plain versions
-              at Q = 1 and Q = 32, dpXOR on a row slice only 4-byte aligned,
+              at Q = 1 and Q = 32 (the fused add at 128 bytes for both
+              parties, and at 256, 512, 1056 and 2048 bytes on 2^16 rows:
+              its split instance at 4 to 32 lanes per subtree, past 1024
+              bytes in passes), dpXOR on a row slice only 4-byte aligned,
               ptxas's registers and spills of each instance the widths
               select, then each kernel at 32, 36 and 128 bytes timed in turns
               beside its bound
@@ -240,6 +244,11 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     from repro_torch.kernels import build
+    # compile every source in this run, even where an earlier process of
+    # this checkout left a library: check_widths_ptxas reads this build's
+    # ptxas report
+    for name in build.LIBRARIES:
+        build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
     records = build.build(list(build.LIBRARIES))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -1124,6 +1133,12 @@ WIDTH_KERNELS = ("dpxor", "fused_scan_xor", "pir_gemm", "fused_scan_add")
 #: 2^23 of them (1 GiB, as PIR_1G)
 ROWS_128 = 1 << 23
 
+#: widths past 128 bytes of the fused add's split instance, checked on a
+#: small DB (ROWS_SPLIT rows): P = 8, P = 16, and P = 32 in two passes of
+#: 1024 bytes (1056: one lane live in the second pass; 2048: both full)
+SPLIT_WIDTHS = (256, 512, 1056, 2048)
+ROWS_SPLIT = 1 << 16
+
 #: rounds of the interleaved width timing (32, 36, 128, 128, 36, 32 bytes)
 WIDTH_ROUNDS = 2
 WIDTH_TURNS = (32, 36, 128, 128, 36, 32)
@@ -1158,14 +1173,17 @@ def phase_database_widths(host_db, cfg, device) -> tuple:
 
 def width_instances() -> dict:
     """ptxas's registers and spills of every template instance the 36- and
-    128-byte records select at Q = 1 and Q = 32."""
+    128-byte records select at Q = 1 and Q = 32, and of both loads of the
+    fused add's split instance (all widths past 64 bytes)."""
     from repro_torch.kernels import build, dpxor as kd, fused_scan as kf
     from repro_torch.kernels import pir_matmul as km
     wanted = {
         "dpxor": {kd.instance(w, q) for w in (9, 32) for q in (1, 32)},
         "fused_scan_xor": {kf.instance_xor(w) for w in (9, 32)},
         "pir_gemm": {km.instance(b, q) for b in (36, 128) for q in (1, 32)},
-        "fused_scan_add": {kf.instance_add(b) for b in (36, 128)},
+        "fused_scan_add": {kf.instance_add(b) for b in (36, 128)} | {
+            build.mangled("fused_scan_add_split_kernel", v)
+            for v in (True, False)},
     }
     out = {}
     for name, stems in wanted.items():
@@ -1184,7 +1202,10 @@ def phase_check_widths(dbs, cfg, card, device) -> dict:
     36-byte records (``dbs[36]``, PIR_1G's rows with the checksum column)
     and 128-byte records (``dbs[128]``, 2^23 rows), each exact against its
     plain version at Q = 1 and Q = 32 (at Q = 32 every lane of a fused
-    kernel's warp is a query); dpXOR on a row slice only 4-byte aligned;
+    kernel's warp is a query), the fused add at 128 bytes for both
+    parties, and at SPLIT_WIDTHS (its split instance at P = 8, 16 and 32,
+    past 1024 bytes in passes) on 2^16 random rows; dpXOR on a row slice
+    only 4-byte aligned;
     the registers and spills of each instance; then every kernel at 32, 36
     and 128 bytes timed in turns (WIDTH_TURNS, WIDTH_ROUNDS times) beside
     its bound at each width. Returns each kernel's largest error."""
@@ -1214,6 +1235,16 @@ def phase_check_widths(dbs, cfg, card, device) -> dict:
         out = fn()
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
+
+    def check_add(b, keys, lg, clog, party, **shape):
+        inputs = fused_inputs(keys, 0, lg, clog) + (
+            keys.cw_final[:, 0].contiguous(),)
+        want, plain_s = timed_plain(lambda: kf.fused_scan_add_plain(
+            b, *inputs, party=party, rounds=keys.rounds))
+        record("fused_scan_add", kf.fused_scan_add(
+            b, *inputs, party=party, rounds=keys.rounds), want,
+            rows=b.shape[0], clog=clog, party=party, plain_s=plain_s,
+            **shape)
 
     # the plans' chunk logs at each DB's rows, as the served path takes them
     plan = plan_for(cfg, 32, backend="cuda")
@@ -1251,17 +1282,25 @@ def phase_check_widths(dbs, cfg, card, device) -> dict:
                 db, *inputs, rounds=keys.rounds), want, q=q, rows=rows,
                 item_bytes=item_bytes, clog=clog_x, party=party,
                 plain_s=plain_s)
-            keys = dpf.gen_keys_batch(rng, idx, lg,
-                                      payload=PAYLOAD_ONE)[party].to(device)
-            inputs = fused_inputs(keys, 0, lg, clog_a) + (
-                keys.cw_final[:, 0].contiguous(),)
-            want, plain_s = timed_plain(lambda: kf.fused_scan_add_plain(
-                b, *inputs, party=party, rounds=keys.rounds))
-            record("fused_scan_add", kf.fused_scan_add(
-                b, *inputs, party=party, rounds=keys.rounds), want, q=q,
-                rows=rows, item_bytes=item_bytes, clog=clog_a, party=party,
-                plain_s=plain_s)
-            del inputs, want
+            pair = dpf.gen_keys_batch(rng, idx, lg, payload=PAYLOAD_ONE)
+            # the split instance (128 B) with both parties' keys
+            for pa in (party, 1 - party) if item_bytes > 64 else (party,):
+                check_add(b, pair[pa].to(device), lg, clog_a, pa, q=q,
+                          item_bytes=item_bytes)
+    # the split instance at P = 8, 16 and 32 (and in passes) on a small DB
+    rows = ROWS_SPLIT
+    lg, _, clog_a = clogs(rows)
+    for item_bytes in SPLIT_WIDTHS:
+        b = torch.randint(-(1 << 31), (1 << 31) - 1, (rows, item_bytes // 4),
+                          generator=gen, device=device,
+                          dtype=torch.int32).view(torch.int8)
+        for q in (1, 32):
+            pair = dpf.gen_keys_batch(rng, rng.integers(0, rows, size=q), lg,
+                                      payload=PAYLOAD_ONE)
+            for pa in (0, 1):
+                check_add(b, pair[pa].to(device), lg, clog_a, pa, q=q,
+                          item_bytes=item_bytes)
+        del b
     # a row slice of the 36-byte DB starts 36 bytes in (4-byte aligned
     # only), and its bits are cut from a flat buffer one word in
     db36 = dbs[36]

@@ -17,8 +17,11 @@ state in registers — see ``csrc/fused_scan_xor.cu`` and
 do not reach the kernel; ``ops.fused_tile`` still legalizes ``chunk_log``
 against ``tile_r`` exactly as the reference does. Both kernels take any
 record width (a multiple of 4 bytes): the widths of their exact instances
-read rows in vector loads, others read 4-byte words in column groups
-(grid.z), each group expanding the subtrees again.
+read rows in vector loads. Past them the XOR kernel reads 4-byte words in
+column groups (grid.z), each group expanding the subtrees again; the add
+kernel reads one group of at most 64 bytes, and wider rows split each
+chunk's subtree over P lanes of 32 columns each that trade their leaves'
+shares, so every leaf is expanded once (up to 1024 bytes).
 
 ``fused_scan_xor`` and ``fused_scan_add`` dispatch on the tensors' device:
 CUDA launches the kernel (or raises), CPU takes the plain version;
@@ -44,7 +47,8 @@ count_add = build.KernelCount()
 _PLAIN_LEAVES = 1 << 24
 
 #: accumulators per thread of the column-group instances: words of the XOR
-#: kernel, bytes of the add kernel (``csrc/fused_scan_*.cu``)
+#: kernel, bytes of the add kernel (``csrc/fused_scan_*.cu``); records wider
+#: than the last add group take the add kernel's split instance
 XOR_GROUPS = (8, 16, 32)
 ADD_GROUPS = (16, 48, 64)
 
@@ -62,12 +66,17 @@ def instance_xor(words: int) -> str:
 
 
 def instance_add(cols: int) -> str:
-    """:func:`instance_xor` for ``csrc/fused_scan_add.cu``, records of
-    ``cols`` bytes."""
+    """The template instance ``csrc/fused_scan_add.cu`` launches for
+    records of ``cols`` bytes in a DB aligned as an allocation is: the
+    exact one (``<L, true>``), the one group that holds them (``<G,
+    false>``), or past 64 bytes the split instance, with 16-byte row loads
+    where ``cols % 16 == 0`` (``<true>``) and word loads otherwise."""
     if cols in VECTOR_BYTES:
         return build.mangled("fused_scan_add_kernel", cols, True)
-    g = next((g for g in ADD_GROUPS if cols <= g), ADD_GROUPS[-1])
-    return build.mangled("fused_scan_add_kernel", g, False)
+    if cols <= ADD_GROUPS[-1]:
+        g = next(g for g in ADD_GROUPS if cols <= g)
+        return build.mangled("fused_scan_add_kernel", g, False)
+    return build.mangled("fused_scan_add_split_kernel", cols % 16 == 0)
 
 
 def _interleave(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:

@@ -263,7 +263,7 @@ def test_fused_xor_plain_any_width_matches_reference(fused_setup, item_bytes,
     np.testing.assert_array_equal(_u(_port_fused(db, port_keys, clog)), want)
 
 
-@pytest.mark.parametrize("item_bytes", ANY_WIDTHS)
+@pytest.mark.parametrize("item_bytes", ANY_WIDTHS + [96, 256, 1056])
 @pytest.mark.parametrize("party", [0, 1])
 def test_fused_add_plain_any_width_matches_reference(item_bytes, party):
     rng = np.random.default_rng(item_bytes + party)
@@ -348,7 +348,15 @@ def test_instances_follow_each_kernels_dispatch():
     assert kf.instance_add(32) == "21fused_scan_add_kernelILi32ELb1EE"
     assert kf.instance_add(12) == "21fused_scan_add_kernelILi16ELb0EE"
     assert kf.instance_add(36) == "21fused_scan_add_kernelILi48ELb0EE"
-    assert kf.instance_add(128) == "21fused_scan_add_kernelILi64ELb0EE"
+    assert kf.instance_add(64) == "21fused_scan_add_kernelILi64ELb0EE"
+    # past 64 bytes: the split instance, 16-byte row loads where L % 16 == 0
+    assert kf.instance_add(96) == "27fused_scan_add_split_kernelILb1EE"
+    assert kf.instance_add(128) == "27fused_scan_add_split_kernelILb1EE"
+    assert kf.instance_add(256) == "27fused_scan_add_split_kernelILb1EE"
+    assert kf.instance_add(100) == "27fused_scan_add_split_kernelILb0EE"
+    # past 1024 bytes the same instance, in passes of 1024 bytes
+    assert kf.instance_add(1056) == "27fused_scan_add_split_kernelILb1EE"
+    assert kf.instance_add(1060) == "27fused_scan_add_split_kernelILb0EE"
     assert km.instance(32, 5) == "15pir_gemm_kernelILi32ELi8EE"
     assert km.instance(36, 2) == "19pir_gemm_any_kernelILi2EE"
     assert kl.instance(1) == "15lwe_gemm_kernelILi1EE"
@@ -383,6 +391,39 @@ def test_registers_are_read_for_the_instance_a_width_selects(monkeypatch):
     # 199 registers x 256 threads fit the SM's 65,536: both launch
     for item_bytes in (64, 36):
         assert desc.launch_ok(ProblemShape(8, 1 << 10, item_bytes), {})
+
+
+#: the same for the fused add: the 32-byte exact instance and the split one
+_PTXAS_ADD = [
+    "ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__f0_17_fused"
+    "_scan_add_cu_d21fused_scan_add_kernelILi32ELb1EEEvPKjS2_S2_S2_S2_S2_Pjx"
+    "iiiiii' for 'sm_90a'",
+    "480 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+    "ptxas info    : Used 96 registers, used 1 barriers, 8192 bytes smem",
+    "ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__f0_17_fused"
+    "_scan_add_cu_d27fused_scan_add_split_kernelILb1EEEvPKjS2_S2_S2_S2_S2_Pj"
+    "xiiiiiii' for 'sm_90a'",
+    "480 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+    "ptxas info    : Used 300 registers, used 1 barriers, 8192 bytes smem",
+]
+
+
+def test_launch_ok_reads_the_split_instance_registers(monkeypatch):
+    """Past 64 bytes the fused add's plan reads the split instance's
+    registers: a count too large for 256 threads (made up here) refuses
+    128- and 256-byte records and leaves 32-byte ones launching."""
+    from repro_torch import engine
+    from repro_torch.engine.kernels import ProblemShape
+    monkeypatch.setitem(build.RECORDS, "fused_scan_add", build.BuildRecord(
+        "fused_scan_add", "lib", ptxas=_PTXAS_ADD))
+    desc = engine.get_kernel("gemm-fused-cuda")
+    assert build.registers("fused_scan_add", kf.instance_add(128)) == 300
+    assert build.registers("fused_scan_add", kf.instance_add(32)) == 96
+    assert desc.launch_ok(ProblemShape(32, 1 << 10, 32), {})
+    for item_bytes in (128, 256):
+        assert desc.instance_fn(ProblemShape(32, 1 << 10, item_bytes)) == \
+            kf.instance_add(item_bytes)
+        assert not desc.launch_ok(ProblemShape(32, 1 << 10, item_bytes), {})
 
 
 @pytest.mark.parametrize("scheme", ["xor-dpf-2", "additive-dpf-2",
@@ -493,11 +534,18 @@ def test_fused_xor_kernel_any_width_on_the_card(card, item_bytes, q, clog,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("item_bytes", CARD_WIDTHS)
+@pytest.mark.parametrize("item_bytes",
+                         CARD_WIDTHS + [96, 256, 512, 1056, 2048])
 @pytest.mark.parametrize("q,clog,party,offset", [
-    (1, 6, 0, 0), (8, 0, 1, 1), (32, 5, 1, 0), (32, 5, 0, 1)])
+    (1, 6, 0, 0), (8, 0, 1, 1), (32, 5, 1, 0), (32, 5, 0, 1), (4, 1, 1, 0)])
 def test_fused_add_kernel_any_width_on_the_card(card, item_bytes, q, clog,
                                                 party, offset):
+    """Past 64 bytes the split instance: 96 bytes (P = 4 lanes of 32
+    columns, the fourth lane's group empty), 128 (P = 4), 256 (P = 8),
+    512 (P = 16: two queries per warp), and past 1024 bytes P = 32 (one
+    query per warp, no cross-lane reduction) in passes of 1024 bytes:
+    1056 (a second pass where one lane holds columns) and 2048 (two full
+    passes). clog 0 and 1 leave lanes without a leaf of their own."""
     keys, inputs = _card_fused_inputs(card, q, 12, clog,
                                       payload=np.array([1], np.uint32))
     db = _card_db(card, 1 << 12, item_bytes, clog, offset).view(torch.int8)
