@@ -980,14 +980,26 @@ def phase_database_lwe(cfg, device):
     return host_db, database, a
 
 
+#: (M, K, P) of the int32 GEMM checked beside the checksum database's
+#: shapes: the wide instance at 33, 36 and 40 answer columns (4 and 8
+#: remainder columns), also over several 32-row M tiles (36 rows, and the
+#: client's A.S^T at 4096 rows for a batch of 36 or 40 queries); the 40-row
+#: tile at 33, 36 and 40 hint rows, and 32-row tiles again at 41
+LWE_TILES = ((32, 4096, 33), (32, 4096, 36), (32, 4096, 40), (1, 4096, 36),
+             (36, 4096, 36), (4096, 1024, 36), (4096, 1024, 40),
+             (33, 4096, 1024), (36, 4096, 1024), (40, 4096, 1024),
+             (41, 4096, 1024))
+
+
 def phase_check_lwe(database, a, device, *, answer_qs=(1, 8, 32),
-                    client_qs=(1, 32)) -> tuple:
+                    client_qs=(1, 32), tiles=()) -> tuple:
     """The int32 GEMM kernel against its plain version at the path's three
     shapes (the answer at ``answer_qs`` queries, the hint, the client's
     A.S^T at ``client_qs``), full size, with full-range int32 operands so
     that every sum wraps; the answer and the hint read ``database``'s
-    bytes32 view, 36 columns where it holds checksums. Returns the largest
-    error and the plain answer's time by batch."""
+    bytes32 view, 36 columns where it holds checksums; then each (M, K, P)
+    of ``tiles``. Returns the largest error and the plain answer's
+    time by batch."""
     from repro_torch.kernels import lwe_matmul as kl
     gen = torch.Generator(device=device).manual_seed(SEED + 21)
     db32 = database.view("bytes32")
@@ -1009,7 +1021,8 @@ def phase_check_lwe(database, a, device, *, answer_qs=(1, 8, 32),
         err = max_abs_err(got, want)
         worst["lwe_gemm"] = max(worst["lwe_gemm"], err)
         emit({"phase": "check", "kernel": "lwe_gemm", "case": case,
-              "m": x.shape[0], "k": x.shape[1], "p": y.shape[1], **shape,
+              "m": x.shape[0], "k": x.shape[1], "p": y.shape[1],
+              "instance": kl.instance(x.shape[0], y.shape[1]), **shape,
               "equal": bool(torch.equal(got, want)), "max_abs_err": err,
               "plain_s": plain_s})
         if err:
@@ -1025,6 +1038,8 @@ def phase_check_lwe(database, a, device, *, answer_qs=(1, 8, 32),
     del d_t
     for q in client_qs:            # the client's A.S^T
         check("client", a, full_range((a.shape[1], q)), q=q)
+    for m, k, p in tiles:
+        check("tile", full_range((m, k)), full_range((k, p)))
     return worst, plain_ms
 
 
@@ -1173,17 +1188,24 @@ def phase_database_widths(host_db, cfg, device) -> tuple:
 
 def width_instances() -> dict:
     """ptxas's registers and spills of every template instance the 36- and
-    128-byte records select at Q = 1 and Q = 32, and of both loads of the
-    fused add's split instance (all widths past 64 bytes)."""
+    128-byte records select at Q = 1 and Q = 32, of the fused XOR's word
+    instance at 128 bytes (a row slice), of both loads of the fused add's
+    split instance (all widths past 64 bytes), and of the int32 GEMM's at
+    the checksum width (answers of 36 and 40 columns, hints of 36 rows)
+    beside 32."""
     from repro_torch.kernels import build, dpxor as kd, fused_scan as kf
-    from repro_torch.kernels import pir_matmul as km
+    from repro_torch.kernels import lwe_matmul as kl, pir_matmul as km
     wanted = {
         "dpxor": {kd.instance(w, q) for w in (9, 32) for q in (1, 32)},
-        "fused_scan_xor": {kf.instance_xor(w) for w in (9, 32)},
+        "fused_scan_xor": {kf.instance_xor(w) for w in (9, 32)} | {
+            kf.instance_xor(32, 4)},
         "pir_gemm": {km.instance(b, q) for b in (36, 128) for q in (1, 32)},
         "fused_scan_add": {kf.instance_add(b) for b in (36, 128)} | {
             build.mangled("fused_scan_add_split_kernel", v)
             for v in (True, False)},
+        "lwe_gemm": {kl.instance(m, p) for m, p in (
+            (1, 36), (32, 36), (32, 40), (36, 1024), (1, 32), (32, 32),
+            (32, 1024))},
     }
     out = {}
     for name, stems in wanted.items():
@@ -1205,7 +1227,8 @@ def phase_check_widths(dbs, cfg, card, device) -> dict:
     kernel's warp is a query), the fused add at 128 bytes for both
     parties, and at SPLIT_WIDTHS (its split instance at P = 8, 16 and 32,
     past 1024 bytes in passes) on 2^16 random rows; dpXOR on a row slice
-    only 4-byte aligned;
+    only 4-byte aligned, and the fused XOR on one of the 128-byte records
+    (its word instance; the whole DB takes the exact one);
     the registers and spills of each instance; then every kernel at 32, 36
     and 128 bytes timed in turns (WIDTH_TURNS, WIDTH_ROUNDS times) beside
     its bound at each width. Returns each kernel's largest error."""
@@ -1281,7 +1304,7 @@ def phase_check_widths(dbs, cfg, card, device) -> dict:
             record("fused_scan_xor", kf.fused_scan_xor(
                 db, *inputs, rounds=keys.rounds), want, q=q, rows=rows,
                 item_bytes=item_bytes, clog=clog_x, party=party,
-                plain_s=plain_s)
+                instance=kf.instance_xor(item_bytes // 4), plain_s=plain_s)
             pair = dpf.gen_keys_batch(rng, idx, lg, payload=PAYLOAD_ONE)
             # the split instance (128 B) with both parties' keys
             for pa in (party, 1 - party) if item_bytes > 64 else (party,):
@@ -1313,6 +1336,23 @@ def phase_check_widths(dbs, cfg, card, device) -> dict:
            q=2, rows=rows - 1, item_bytes=36, row_slice=True,
            db_align=sliced.data_ptr() % 16, bits_align=bits.data_ptr() % 16)
     del flat, bits
+    # half the 128-byte DB's rows, one word in: 4-byte aligned only, so the
+    # fused XOR reads it on its word instance, not the exact one
+    rows = dbs[128].shape[0] // 2
+    sliced = dbs[128].view(-1)[1:1 + rows * 32].view(rows, 32)
+    lg, clog_x, _ = clogs(rows)
+    for q in (1, 32):
+        keys = dpf.gen_keys_batch(rng, rng.integers(0, rows, size=q),
+                                  lg)[q % 2].to(device)
+        inputs = fused_inputs(keys, 0, lg, clog_x)
+        want, plain_s = timed_plain(lambda: kf.fused_scan_xor_plain(
+            sliced, *inputs, rounds=keys.rounds))
+        record("fused_scan_xor", kf.fused_scan_xor(
+            sliced, *inputs, rounds=keys.rounds), want, q=q, rows=rows,
+            item_bytes=128, clog=clog_x, row_slice=True,
+            db_align=sliced.data_ptr() % 16,
+            instance=kf.instance_xor(32, 4), plain_s=plain_s)
+    del sliced
     emit({"phase": "check_widths_ptxas", "instances": width_instances()})
 
     # times: each width on its served operand, in turns
@@ -1458,7 +1498,7 @@ def phase_serve_chk_lwe(host_db, cfg, a, card, device) -> tuple:
     with the checksum column (its own Database of the same payload,
     stored at 36 bytes): B5 against its plain version at this database's
     answer shapes (1 and 32 queries x 36 columns) and hint shape ([36, N]
-    x A); B5 at 36 and at 32 columns timed in turns; one answer word of a
+    x A), and at LWE_TILES; B5 at 36 and at 32 columns timed in turns; one answer word of a
     batch with its top byte flipped (a shift by a multiple of Delta) and
     one answer shifted by Delta, each of which the noise check passes and
     the checksum must name; then batches of 32 and 1 and a session exact
@@ -1470,7 +1510,7 @@ def phase_serve_chk_lwe(host_db, cfg, a, card, device) -> tuple:
     from repro_torch.runtime.serve_loop import SingleServerPIR
     database = Database(host_db, cfg, device)
     worst, _ = phase_check_lwe(database, a, device, answer_qs=(1, 32),
-                               client_qs=())
+                               client_qs=(), tiles=LWE_TILES)
     db36 = database.view("bytes32")
     rows = db36.shape[0]
     db32 = db36[:, :32].contiguous()
@@ -1494,9 +1534,12 @@ def phase_serve_chk_lwe(host_db, cfg, a, card, device) -> tuple:
         for p, (x, y) in by_p.items():
             t = times[case][p]
             bound, by = lwe_gemm_bound(x.shape[0], x.shape[1], y.shape[1])
+            ms = float(np.median(t))
             row[str(p)] = {"m": x.shape[0], "k": x.shape[1], "p": y.shape[1],
-                           "ms": float(np.median(t)), "runs": t,
-                           "bound_ms": bound, "bound_by": by}
+                           "instance": kl.instance(x.shape[0], y.shape[1]),
+                           "ms": ms, "runs": t, "spread_ms": max(t) - min(t),
+                           "bound_ms": bound, "bound_by": by,
+                           "share_of_bound": bound / ms}
         out["kernels"][case] = row
     emit(out)
     del ct, d36, d32, db32, shapes

@@ -27,14 +27,20 @@
 // batch. Partials are reduced by shuffle-XOR across lanes of the same
 // query, across warps in shared memory, then one atomicXor per (q, w).
 //
-// Widths: W in {1, 2, 4, 8, 16} with the DB aligned for load_row<W> takes
-// the exact instance (<W, true>: W accumulators, vector loads). Any other W,
-// or a DB only 4-byte aligned, takes a column-group instance (<G, false>,
-// G = 8, 16 or 32 >= W where it can): the thread keeps G accumulators, of
-// which the first nw = min(G, W - col0) are live, and reads its row's nw
-// words one 4-byte load each; grid.z covers W > 32 in groups of 32, each
-// group expanding the subtrees again. At W = 9 (36-byte records with a
-// checksum column) that is one group of 16 accumulators, as at W = 16.
+// Widths: W in {1, 2, 4, 8, 16, 32} with the DB aligned for load_row<W>
+// takes the exact instance (<W, true>: W accumulators, vector loads; at W =
+// 32, 128-byte records, eight 16-byte loads per set leaf, which an
+// allocation's 128-byte rows always allow). Any other W, or a DB only 4-byte
+// aligned (a row slice), takes a column-group instance (<G, false>, G = 8,
+// 16 or 32 >= W where it can): the thread keeps G accumulators, of which the
+// first nw = min(G, W - col0) are live, and reads its row's nw words one
+// 4-byte load each; grid.z covers W > 32 in groups of 32, each group
+// expanding the subtrees again. At W = 9 (36-byte records with a checksum
+// column) that is one group of 16 accumulators, as at W = 16. <32, true>
+// and <32, false> both take 78 registers on sm_90a (3 blocks per SM), so at
+// 2^23 rows and clog 11 the 512 blocks of a batch of 32 run in two waves;
+// the vector loads alone took 128-byte rows from 10.67 to 8.93 ms on an
+// H100 80GB HBM3 at 700 W (PERF.md).
 #include "common.cuh"
 
 namespace {
@@ -198,6 +204,7 @@ extern "C" int repro_fused_scan_xor(const uint32_t* db, const uint32_t* roots,
     break;
   switch (words) {
     REPRO_EXACT(1) REPRO_EXACT(2) REPRO_EXACT(4) REPRO_EXACT(8) REPRO_EXACT(16)
+    REPRO_EXACT(32)
     default: break;
   }
 #undef REPRO_EXACT

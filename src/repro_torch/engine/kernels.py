@@ -438,7 +438,7 @@ def _fused_add_instance(s: ProblemShape) -> str:
 
 def _lwe_gemm_instance(s: ProblemShape) -> str:
     from repro_torch.kernels import lwe_matmul
-    return lwe_matmul.instance(s.bucket)
+    return lwe_matmul.instance(s.bucket, s.item_bytes)
 
 
 def _pair(name, kind, scan, library, footprint, nbytes, ops, instance=None):

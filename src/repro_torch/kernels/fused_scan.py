@@ -17,7 +17,7 @@ state in registers — see ``csrc/fused_scan_xor.cu`` and
 do not reach the kernel; ``ops.fused_tile`` still legalizes ``chunk_log``
 against ``tile_r`` exactly as the reference does. Both kernels take any
 record width (a multiple of 4 bytes): the widths of their exact instances
-read rows in vector loads. Past them the XOR kernel reads 4-byte words in
+(the XOR kernel's up to 128 bytes) read rows in vector loads. Past them the XOR kernel reads 4-byte words in
 column groups (grid.z), each group expanding the subtrees again; the add
 kernel reads one group of at most 64 bytes, and wider rows split each
 chunk's subtree over P lanes of 32 columns each that trade their leaves'
@@ -36,7 +36,6 @@ import torch
 from repro_torch.crypto.chacha import chacha_block, prg_bits
 from repro_torch.kernels import build
 from repro_torch.kernels.dpxor import xor_fold
-from repro_torch.kernels.dpxor import VECTOR_WIDTHS
 from repro_torch.kernels.pir_matmul import VECTOR_BYTES, pir_gemm_plain, \
     wrap_int32
 
@@ -46,6 +45,10 @@ count_add = build.KernelCount()
 #: leaves per step of the plain version (bounds its expansion temporaries)
 _PLAIN_LEAVES = 1 << 24
 
+#: record widths (words) with an exact instance of the XOR kernel
+#: (``fused_scan_xor_kernel<W, true>``, vector row loads)
+XOR_VECTOR_WIDTHS = (1, 2, 4, 8, 16, 32)
+
 #: accumulators per thread of the column-group instances: words of the XOR
 #: kernel, bytes of the add kernel (``csrc/fused_scan_*.cu``); records wider
 #: than the last add group take the add kernel's split instance
@@ -53,13 +56,16 @@ XOR_GROUPS = (8, 16, 32)
 ADD_GROUPS = (16, 48, 64)
 
 
-def instance_xor(words: int) -> str:
+def instance_xor(words: int, align: int = 16) -> str:
     """The template instance ``csrc/fused_scan_xor.cu`` launches for
-    records of ``words`` words in a DB aligned as an allocation is: the
-    exact one (``<W, true>``) or the column group that holds them
+    records of ``words`` words in a DB whose base is ``align``-byte aligned
+    (16: an allocation; 4: a row slice of odd-word records): the exact one
+    (``<W, true>``) where the base is aligned for its vector loads
+    (``common.cuh row_align``), else the column group that holds them
     (``<G, false>``, the last group repeated over grid.z), as the stem of
     its mangled name."""
-    if words in VECTOR_WIDTHS:
+    row_align = 16 if words % 4 == 0 else 8 if words % 2 == 0 else 4
+    if words in XOR_VECTOR_WIDTHS and align % row_align == 0:
         return build.mangled("fused_scan_xor_kernel", words, True)
     g = next((g for g in XOR_GROUPS if words <= g), XOR_GROUPS[-1])
     return build.mangled("fused_scan_xor_kernel", g, False)

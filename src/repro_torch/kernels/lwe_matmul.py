@@ -33,11 +33,19 @@ _PLAIN_ELEMS = 1 << 24
 _LOW32 = 0xFFFFFFFF
 
 
-def instance(m: int) -> str:
+def instance(m: int, p: int = 32) -> str:
     """The template instance ``csrc/lwe_gemm.cu`` launches for ``m`` rows
-    of ``a`` (BM, the least power of two >= m, at most 32), as the stem of
-    its mangled name."""
+    of ``a`` and ``p`` columns of ``b``, as the stem of its mangled name.
+    BM is the least power of two >= m up to 32, 32 past 40; 32 < m <= 40
+    takes one 40-row tile (``lwe_gemm_tall_kernel<40>``), and 33 to 40
+    columns a block that holds all of them (``lwe_gemm_wide_kernel<BM,
+    RW>``, RW = 4 or 8 remainder columns beside the first 32, BM at most
+    32)."""
     bm = next(b for b in (1, 2, 4, 8, 16, 32) if m <= b or b == 32)
+    if 32 < p <= 40:
+        return build.mangled("lwe_gemm_wide_kernel", bm, 4 if p <= 36 else 8)
+    if 32 < m <= 40:
+        return build.mangled("lwe_gemm_tall_kernel", 40)
     return build.mangled("lwe_gemm_kernel", bm)
 
 

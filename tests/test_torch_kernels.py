@@ -343,7 +343,8 @@ def test_instances_follow_each_kernels_dispatch():
     assert kf.instance_xor(8) == "21fused_scan_xor_kernelILi8ELb1EE"
     assert kf.instance_xor(3) == "21fused_scan_xor_kernelILi8ELb0EE"
     assert kf.instance_xor(9) == "21fused_scan_xor_kernelILi16ELb0EE"
-    assert kf.instance_xor(32) == "21fused_scan_xor_kernelILi32ELb0EE"
+    # 128-byte records: the exact instance (eight 16-byte loads per row)
+    assert kf.instance_xor(32) == "21fused_scan_xor_kernelILi32ELb1EE"
     assert kf.instance_xor(40) == "21fused_scan_xor_kernelILi32ELb0EE"
     assert kf.instance_add(32) == "21fused_scan_add_kernelILi32ELb1EE"
     assert kf.instance_add(12) == "21fused_scan_add_kernelILi16ELb0EE"
@@ -360,7 +361,56 @@ def test_instances_follow_each_kernels_dispatch():
     assert km.instance(32, 5) == "15pir_gemm_kernelILi32ELi8EE"
     assert km.instance(36, 2) == "19pir_gemm_any_kernelILi2EE"
     assert kl.instance(1) == "15lwe_gemm_kernelILi1EE"
-    assert kl.instance(36) == "15lwe_gemm_kernelILi32EE"
+    # the checksum hint (M = 36): one 40-row tile, so A streams once
+    assert kl.instance(36) == "20lwe_gemm_tall_kernelILi40EE"
+
+
+@pytest.mark.parametrize("words,align,want", [
+    (32, 16, "21fused_scan_xor_kernelILi32ELb1EE"),   # an allocation
+    (32, 4, "21fused_scan_xor_kernelILi32ELb0EE"),    # a row slice
+    (40, 16, "21fused_scan_xor_kernelILi32ELb0EE"),
+    (16, 8, "21fused_scan_xor_kernelILi16ELb0EE"),
+    (2, 8, "21fused_scan_xor_kernelILi2ELb1EE"),
+    (1, 4, "21fused_scan_xor_kernelILi1ELb1EE"),
+])
+def test_fused_xor_instance_follows_width_and_alignment(words, align, want):
+    """The exact instance where the DB base is aligned for its vector
+    loads (``common.cuh row_align``), the word-read group otherwise."""
+    assert kf.instance_xor(words, align) == want
+
+
+@pytest.mark.parametrize("m,p,want", [
+    (32, 32, "15lwe_gemm_kernelILi32EE"),              # the answer at L = 32
+    (33, 1024, "20lwe_gemm_tall_kernelILi40EE"),       # hints of 33..40 rows
+    (36, 1024, "20lwe_gemm_tall_kernelILi40EE"),
+    (40, 1024, "20lwe_gemm_tall_kernelILi40EE"),
+    (41, 1024, "15lwe_gemm_kernelILi32EE"),            # 32-row tiles past 40
+    (32, 33, "20lwe_gemm_wide_kernelILi32ELi4EE"),     # answers at 33..40
+    (32, 36, "20lwe_gemm_wide_kernelILi32ELi4EE"),
+    (1, 36, "20lwe_gemm_wide_kernelILi1ELi4EE"),
+    (32, 40, "20lwe_gemm_wide_kernelILi32ELi8EE"),
+    (36, 36, "20lwe_gemm_wide_kernelILi32ELi4EE"),
+    (1 << 22, 36, "20lwe_gemm_wide_kernelILi32ELi4EE"),  # A.S^T, 36 queries
+    (1 << 22, 40, "20lwe_gemm_wide_kernelILi32ELi8EE"),
+    (1 << 22, 32, "15lwe_gemm_kernelILi32EE"),
+    (32, 41, "15lwe_gemm_kernelILi32EE"),              # column tiles past 40
+])
+def test_lwe_gemm_instance_follows_rows_and_columns(m, p, want):
+    from repro_torch.kernels import lwe_matmul as kl
+    assert kl.instance(m, p) == want
+
+
+def test_lwe_gemm_plan_reads_the_instance_its_shape_selects():
+    """The LWE plan's launch check looks up the instance of its bucket
+    (M) and stored record width (P): the wide one at 36 columns."""
+    from repro_torch import engine
+    from repro_torch.engine.kernels import ProblemShape
+    from repro_torch.kernels import lwe_matmul as kl
+    desc = engine.get_kernel("lwe-gemm-cuda")
+    for q, item_bytes in ((32, 36), (1, 36), (32, 32), (8, 40)):
+        assert desc.instance_fn(ProblemShape(q, 1 << 10, item_bytes)) == \
+            kl.instance(q, item_bytes)
+    assert "wide" in desc.instance_fn(ProblemShape(32, 1 << 10, 36))
 
 
 #: ptxas's report as the build records it (-Xptxas -v), for two instances
@@ -534,6 +584,21 @@ def test_fused_xor_kernel_any_width_on_the_card(card, item_bytes, q, clog,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q,clog,offset", [(1, 0, 0), (32, 1, 0), (5, 7, 0),
+                                           (1, 0, 1), (32, 1, 1)])
+def test_fused_xor_kernel_at_128_bytes_on_the_card(card, q, clog, offset):
+    """128-byte records: offset 0 takes the exact instance (16-byte row
+    loads), offset 1 (a 4-byte-aligned base) the word-read group; clog 0
+    and 1 are the smallest subtrees."""
+    keys, inputs = _card_fused_inputs(card, q, 12, clog)
+    db = _card_db(card, 1 << 12, 128, clog + 1, offset)
+    assert (db.data_ptr() % 16 == 0) == (offset == 0)
+    assert torch.equal(kf.fused_scan_xor(db, *inputs, rounds=keys.rounds),
+                       kf.fused_scan_xor_plain(db, *inputs,
+                                               rounds=keys.rounds))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("item_bytes",
                          CARD_WIDTHS + [96, 256, 512, 1056, 2048])
 @pytest.mark.parametrize("q,clog,party,offset", [
@@ -558,10 +623,18 @@ def test_fused_add_kernel_any_width_on_the_card(card, item_bytes, q, clog,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,p", [(1, 4096, 36), (32, 4096, 36),
-                                   (36, 4096, 1024)])
+                                   (36, 4096, 1024), (32, 4096, 33),
+                                   (32, 4096, 40), (33, 4096, 1024),
+                                   (40, 4096, 1024), (41, 4096, 1024),
+                                   (36, 4096, 36), (69, 4096, 33),
+                                   (4096, 1024, 36), (4096, 1024, 40)])
 def test_lwe_gemm_kernel_at_the_checksum_width_on_the_card(card, m, k, p):
     """B5 at the checksum database's answer shapes ([Q, N] x [N, 36]) and
-    its hint shape ([36, N] x A), full-range operands so every sum wraps."""
+    its hint shape ([36, N] x A), full-range operands so every sum wraps;
+    33 and 40 columns (the wide instance's 4 and 8 remainder columns), 33
+    and 40 hint rows (one 40-row tile) and 41 (32-row tiles again); the
+    wide instance over several 32-row M tiles, the last one partial, and at
+    the client's A.S^T for a batch of 36 or 40 queries."""
     from repro_torch.kernels import lwe_matmul as kl
     gen = torch.Generator(device=card).manual_seed(m + p)
     a = torch.randint(-(1 << 31), (1 << 31) - 1, (m, k), generator=gen,

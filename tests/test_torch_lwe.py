@@ -222,7 +222,8 @@ def test_database_bytes32_view_is_built_once_and_counted():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("m,k,p", [(1, 256, 32), (4, 1024, 32), (3, 512, 8),
-                                   (32, 256, 16)])
+                                   (32, 256, 16), (36, 256, 32),
+                                   (32, 256, 36), (33, 256, 40)])
 def test_lwe_gemm_plain_matches_reference_kernel(m, k, p):
     """Full-range int32 operands, so every sum wraps past 2^32."""
     a = RNG.integers(-(1 << 31), 1 << 31, size=(m, k)).astype(np.int32)
