@@ -68,27 +68,52 @@ reconstruction:
               width on the path's kernels
   serve_w128  TwoServerPIR over the 128-byte records, XOR and additive:
               batches of 32 and 1 and a session exact
-The XOR/additive databases are then freed, and the single-server LWE scheme
-runs at PIR_128M_LWE (2^22 records x 32 B; A is 2^22 x 1024 int32 = 16 GiB):
+  updates     online updates on the resident PIR_1G database: for 1, 64 and
+              4096 fresh rows, stage and publish (seconds, bytes host to
+              device, device bytes cloned), then XOR and additive batches of
+              32 and 1 exact and tagged with the new epoch; a snapshot read
+              before the publish serves the old rows with the old tag;
+              batches of 32 right after a publish and without one, in turns;
+              the dispatch wait (snapshot() on the scheduler thread) while a
+              session serves and another thread publishes 20 times
+The XOR/additive databases are then freed.
+  batch       BatchPIR at PIR_1G_BATCH (2^25 records, m = 256, B = 512
+              buckets, xor-dpf-2) alone on the card: the cuckoo layout and
+              the BucketedDatabase built and timed, three rounds (two of 256
+              distinct indices, one with duplicates) exact and 512 wide,
+              then 64 global rows published into every candidate bucket and
+              a round serving them with the new epoch
+Then the single-server LWE scheme runs at PIR_128M_LWE (2^22 records x
+32 B; A is 2^22 x 1024 int32 = 16 GiB):
   database_lwe  its own records from a seed, the int32 byte view, and A
               drawn on the host threads and placed on the card (timed)
   check_lwe   the int32 GEMM kernel against its plain version with full-
               range int32 operands (every sum wraps): the answer at 1, 8 and
-              32 queries, the hint and the client's A.S at 1 and 32 queries
+              32 queries, the hint and the client's A.S at 1, 32 and 40
+              queries
   serve_lwe   SingleServerPIR: batches of 32 and 1, then a session;
               records exact, the GEMM kernel launched, no plain call, and
               one hint fetch
   timing_lwe  the kernel at 1 and 32 queries beside its bound and the plain
               version, the hint build, and batches of 1 and 32 end to end
               with host keygen, A.S on the card, the answer and host decode
-              apart; peak device memory
+              apart; peak device memory; the client's A.S at 33, 36 and 40
+              queries beside 32 and beside two 32-wide tiles, in turns
+  updates_lwe  publishes of 1, 3, 64 and 4096 rows: each delta-updated hint
+              equal to a full rebuild, B5 at each delta shape ([32, R4] x
+              [R4, 1024]) exact and timed; SingleServerPIR serves the
+              updated records, and a batch answered from a snapshot read
+              before a publish decodes with the retired epoch's hint
   serve_chk (LWE)  the same records with checksum=True (36 bytes): B5 exact
               against its plain version at the answer shapes (1 and 32
               queries x 36) and the hint shape ([36, N] x A), timed at 36
               and 32 columns in turns; an answer word's top byte flipped
               and an answer shifted by Delta, which the noise check passes,
               must each raise IntegrityError naming the query; batches of
-              32 and 1 and a session exact at the logical width
+              32 and 1 and a session exact at the logical width; a publish
+              of 64 rows whose hint delta ([36, 64] x [64, 1024], B5's
+              40-row tile) equals a rebuild, and the updated records served
+  twins       python -m repro_torch.db_updates and .batch_query on the card
 Then the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
 line. Without a CUDA card the script exits 1 at once.
@@ -102,6 +127,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from dataclasses import replace
 
@@ -433,12 +459,12 @@ def serve_phase(phase: str, config: str, system, host_db, *, sizes, kernels,
                     "exact": check_records(
                         recs, expected_records(system, host_db, idx))})
     counts = ops.counts()
-    launches = {k: v["launches"] for k, v in counts.items()}
     plain = {k: v["plain_calls"] for k, v in counts.items()}
     info = {"phase": phase, "config": config, "protocol": cfg.protocol,
             "parties": system.n_parties, "plans": plans,
             "provenance": origin, "batches": batches,
-            "launches": launches, "plain_calls": plain,
+            "launches": {k: v["launches"] for k, v in counts.items()},
+            "plain_calls": plain,
             "db_resident_bytes": system.db.resident_bytes,
             "peak_device_bytes": torch.cuda.max_memory_allocated(),
             "seconds": time.perf_counter() - t_phase}
@@ -446,10 +472,7 @@ def serve_phase(phase: str, config: str, system, host_db, *, sizes, kernels,
     if not all(b["exact"] for b in batches):
         raise AssertionError(f"{phase}: a served record differs from the "
                              f"database")
-    if any(launches[k] < 1 for k in kernels) or any(plain.values()):
-        raise AssertionError(f"{phase}: main path did not run on the "
-                             f"kernels {kernels}: launches {launches}, "
-                             f"plain calls {plain}")
+    launches = main_path_launches(phase, kernels)
     if set(origin.values()) != {provenance}:
         raise AssertionError(f"{phase}: plan provenance {origin}, expected "
                              f"{provenance!r} for every bucket")
@@ -992,7 +1015,7 @@ LWE_TILES = ((32, 4096, 33), (32, 4096, 36), (32, 4096, 40), (1, 4096, 36),
 
 
 def phase_check_lwe(database, a, device, *, answer_qs=(1, 8, 32),
-                    client_qs=(1, 32), tiles=()) -> tuple:
+                    client_qs=(1, 32, 40), tiles=()) -> tuple:
     """The int32 GEMM kernel against its plain version at the path's three
     shapes (the answer at ``answer_qs`` queries, the hint, the client's
     A.S^T at ``client_qs``), full size, with full-range int32 operands so
@@ -1122,6 +1145,39 @@ def phase_timing_lwe(host_db, database, a, cfg, card, device, plain_ms):
         "gemm_ms": cuda_time_ms(lambda: kl.lwe_gemm(d_t, a), reps=3),
         "bound_ms": h_bound, "bound_by": h_by}
     del d_t
+
+    # the client's A.S^T past 32 queries (the wide instance at 33, 36 and 40
+    # columns) beside 32 columns and beside two 32-wide tiles (the route
+    # before the wide instance), in turns
+    gen = torch.Generator(device=device).manual_seed(SEED + 26)
+    s_t = torch.randint(-(1 << 31), (1 << 31) - 1, (params.n, 40),
+                        generator=gen, device=device, dtype=torch.int32)
+    cols_by_q = {q: s_t[:, :q].contiguous() for q in (32, 33, 36, 40)}
+    s_hi = s_t[:, 8:].contiguous()
+    fns = {str(q): (lambda x=x: kl.lwe_gemm(a, x))
+           for q, x in cols_by_q.items()}
+    fns["2x32"] = lambda: (kl.lwe_gemm(a, cols_by_q[32]),
+                           kl.lwe_gemm(a, s_hi))
+    runs = {k: [] for k in fns}
+    for _ in range(2):
+        for k in ("32", "33", "36", "40", "2x32", "2x32", "40", "36", "33",
+                  "32"):
+            runs[k].append(cuda_time_ms(fns[k], reps=3))
+    client = {}
+    for k, t in runs.items():
+        q = 32 if k == "2x32" else int(k)
+        bound, by = lwe_gemm_bound(rows, params.n, q)
+        if k == "2x32":
+            bound *= 2
+        client[k] = {"ms": float(np.median(t)), "runs": t,
+                     "spread_ms": max(t) - min(t), "bound_ms": bound,
+                     "bound_by": by, "share_of_bound": bound / np.median(t),
+                     "instance": kl.instance(rows, q)}
+    two = client["2x32"]["ms"]
+    for q in ("33", "36", "40"):
+        client[q]["slower_than_two_tiles"] = client[q]["ms"] > two
+    out["client_gemm_wide"] = client
+    del s_t, cols_by_q, s_hi, fns
     for q in (1, 32):
         r = out[f"lwe_gemm_q{q}"]
         r["beats_bound"] = r["ms"] < r["bound_ms"]
@@ -1571,10 +1627,509 @@ def phase_serve_chk_lwe(host_db, cfg, a, card, device) -> tuple:
     if got != (bad,):
         raise AssertionError(f"serve_chk LWE: shifted query {bad}, "
                              f"IntegrityError named {got}")
+    # one publish of 64 rows: the hint delta at L = 36 (B5's 40-row tile),
+    # then the updated records served at the logical width
+    from repro_torch.crypto.packing import np_words_to_bytes
+    from repro_torch.kernels import ops
+    info, rows = lwe_publish(system, database, cfg, rng, 64, host_db, device,
+                             phase="serve_chk_lwe")
+    ops.reset_counts()
+    idx = np.concatenate([rows[:4], rng.integers(0, cfg.n_items, size=4)])
+    exact = check_records(system.query(idx), np_words_to_bytes(host_db[idx]))
+    served = main_path_launches("serve_chk_lwe", ("lwe_gemm",))["lwe_gemm"]
+    emit({"phase": "serve_chk_lwe_updated", "n": len(idx), "exact": exact})
+    if not exact:
+        raise AssertionError("serve_chk LWE: an updated record differs")
     launches = serve_phase("serve_chk", "pir-128m-lwe+chk", system, host_db,
                            sizes=(32, 1), kernels=("lwe_gemm",), rng=rng)
+    launches["lwe_gemm"] += info["delta_launches"] + served
     del system, database
-    return worst["lwe_gemm"], launches
+    return max(worst["lwe_gemm"], info["max_abs_err"]), launches
+
+
+# ---------------------------------------------------------------------------
+# Online updates, and the batch plane
+# ---------------------------------------------------------------------------
+
+#: rows published per step of the updates phase at PIR_1G
+UPDATE_ROWS = (1, 64, 4096)
+#: rows published per step of updates_lwe (K = 4, 4, 64, 4096 on B5)
+LWE_UPDATE_ROWS = (1, 3, 64, 4096)
+#: publishes made while a session serves (the dispatch-wait measurement)
+WAIT_PUBLISHES = 20
+
+
+def fresh_rows(rng, n_items: int, n_rows: int, words: int, low: int = 0):
+    """``n_rows`` distinct row indices in ``[low, n_items)`` and fresh random
+    u32 words for them."""
+    rows = low + rng.choice(n_items - low, size=n_rows, replace=False)
+    return rows, rng.integers(0, 1 << 32, size=(n_rows, words),
+                              dtype=np.uint32)
+
+
+def served_with_tags(system, idx) -> tuple:
+    """Serve ``idx`` as one call through the scheduler (keys for the call
+    made in one batch, as ``query()`` makes them): the records and each
+    future's epoch tag."""
+    with system._lock:
+        items = system._query_items([int(i) for i in idx])
+    futs = [system.scheduler.submit(it) for it in items]
+    if not system.scheduler.running:
+        system.scheduler.pump()
+    recs = np.stack([f.result(timeout=600) for f in futs])
+    return recs, [f.epoch for f in futs]
+
+
+def main_path_launches(phase: str, kernels) -> dict:
+    """The counters' launches since their reset; fails where a plain
+    version ran or one of ``kernels`` never launched."""
+    from repro_torch.kernels import ops
+    counts = ops.counts()
+    launches = {k: v["launches"] for k, v in counts.items()}
+    plain = {k: v["plain_calls"] for k, v in counts.items()}
+    if any(plain.values()) or any(launches[k] < 1 for k in kernels):
+        raise AssertionError(f"{phase}: main path did not run on the "
+                             f"kernels {kernels}: launches {launches}, "
+                             f"plain calls {plain}")
+    return launches
+
+
+def dispatch_wait(system, database, host_db, rng, cfg) -> dict:
+    """How long ``snapshot()`` takes on the scheduler thread while a session
+    serves batches of 8 continuously and a second thread publishes
+    WAIT_PUBLISHES times (64 rows each, in the upper half of the rows; the
+    served queries read the lower half, so their records stay known).
+    Each publish is started as a dispatch is about to read its snapshot
+    (the dispatch signals, then waits up to 0.1 s for the publish to
+    start, untimed), so that every publish overlaps one timed snapshot."""
+    n, words = cfg.n_items, cfg.item_bytes // 4
+    served = rng.choice(n // 2, size=1024, replace=False)
+    times = []                               # (start, seconds) per snapshot
+    orig = database.snapshot
+    # publishes still to make; 0 while serving before and after them
+    ready, started, left = threading.Event(), threading.Event(), [0]
+
+    def timed(*args, **kwargs):
+        if left[0]:
+            ready.set()
+            started.wait(timeout=0.1)
+            started.clear()
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        times.append((t0, time.perf_counter() - t0))
+        return out
+
+    spans, deltas, errors = [], [], []      # spans: (start, end) per publish
+
+    def publisher():
+        try:
+            prng = np.random.default_rng(SEED + 210)
+            while left[0]:
+                rows, vals = fresh_rows(prng, n, 64, words, low=n // 2)
+                if not ready.wait(timeout=60):
+                    raise TimeoutError("no dispatch within 60 s")
+                ready.clear()
+                t0 = time.perf_counter()
+                started.set()
+                system.update(rows, vals)
+                system.publish()
+                spans.append((t0, time.perf_counter()))
+                deltas.append((rows, vals))
+                left[0] -= 1
+        except BaseException as e:        # re-raised on the main thread
+            left[0] = 0
+            errors.append(e)
+
+    served_ok = []
+
+    def serve_one():
+        idx = rng.choice(served, size=8)
+        recs, _ = served_with_tags(system, idx)
+        served_ok.append(check_records(recs, host_db[idx]))
+
+    database.snapshot = timed                # the dispatch reads it per batch
+    try:
+        with system:
+            for _ in range(4):               # before the first publish
+                serve_one()
+            left[0] = WAIT_PUBLISHES
+            pub = threading.Thread(target=publisher)
+            pub.start()
+            while pub.is_alive():
+                serve_one()
+            pub.join()
+            for _ in range(4):               # after the last publish
+                serve_one()
+    finally:
+        del database.snapshot
+    if errors:
+        raise errors[0]
+    for rows, vals in deltas:
+        host_db[rows] = vals
+    across = [dt for t0, dt in times
+              if any(a <= t0 + dt and t0 <= b for a, b in spans)]
+    apart = [dt for t0, dt in times
+             if not any(a <= t0 + dt and t0 <= b for a, b in spans)]
+    return {"publishes": len(deltas), "batches": len(served_ok),
+            "publish_s": [b - a for a, b in spans],
+            "snapshots_across_a_publish": len(across),
+            "wait_across_max_s": max(across) if across else None,
+            "wait_across_median_s": (float(np.median(across)) if across
+                                     else None),
+            "snapshots_apart": len(apart),
+            "wait_apart_max_s": max(apart) if apart else None,
+            "wait_apart_median_s": (float(np.median(apart)) if apart
+                                    else None),
+            "exact": all(served_ok)}
+
+
+def phase_updates(host_db, cfg, cfg_add, database, card, device) -> dict:
+    """Online updates on the resident PIR_1G database (the phase is
+    ``host_db``'s last reader, so the published rows are written into it).
+    For R = 1, 64 and 4096 fresh rows: stage and publish (host clock,
+    synchronized), then XOR batches of 32 and 1 and additive batches of 32
+    and 1, each exact with every tag the published epoch; a snapshot taken
+    before the publish serves the old rows with the old tag. Then batches
+    of 32 right after a publish and without one, in turns, and the
+    dispatch wait across publishes. Returns the launches."""
+    from repro_torch.crypto.packing import records_to_host
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.serve_loop import TwoServerPIR
+    rng = np.random.default_rng(SEED + 200)
+    xor = TwoServerPIR(database, cfg, device=device, n_queries=32,
+                       client_rng=np.random.default_rng(SEED + 201))
+    add = TwoServerPIR(database, cfg_add, device=device, n_queries=32,
+                       client_rng=np.random.default_rng(SEED + 202))
+    words, stats = cfg.item_bytes // 4, database.stats
+    out = {"phase": "updates", "card": card, "config": "pir-1g",
+           "publishes": []}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    for r in UPDATE_ROWS:
+        rows, vals = fresh_rows(rng, cfg.n_items, r, words)
+        probe = rows[:min(r, 8)]
+        old_rows = host_db[probe].copy()
+        old_epoch, old_views = database.snapshot(("words",))
+        h2d0, clone0 = stats.update_h2d_bytes, stats.clone_device_bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xor.update(rows, vals)
+        epoch = xor.publish()
+        torch.cuda.synchronize()
+        pub_s = time.perf_counter() - t0
+        host_db[rows] = vals
+        row = {"rows": r, "epoch": epoch, "publish_s": pub_s,
+               "h2d_bytes": stats.update_h2d_bytes - h2d0,
+               "clone_device_bytes": stats.clone_device_bytes - clone0,
+               "batches": []}
+        for system, n in ((xor, 32), (xor, 1), (add, 32), (add, 1)):
+            k = min(r, max(n // 2, 1))
+            idx = np.concatenate([rows[:k], rng.integers(0, cfg.n_items,
+                                                         size=n - k)])
+            t0 = time.perf_counter()
+            recs, tags = served_with_tags(system, idx)
+            row["batches"].append({
+                "protocol": system.cfg.protocol, "n": n, "updated": k,
+                "seconds": time.perf_counter() - t0, "tags": sorted(set(tags)),
+                "exact": check_records(
+                    recs, expected_records(system, host_db, idx))})
+        # the snapshot read before the publish: old rows, old tag
+        keys = xor.protocol.query_gen_batch(xor.rng, probe, cfg)
+        old = records_to_host(xor.protocol.reconstruct(
+            [s.bucketed.answer(old_views["words"], k.to(device))
+             for s, k in zip(xor.servers, keys)]))
+        row["old_snapshot"] = {"epoch": old_epoch,
+                               "exact": check_records(old, old_rows)}
+        del old_views
+        out["publishes"].append(row)
+        emit({"phase": "updates_publish", "card": card, **row})
+        if not (all(b["exact"] and b["tags"] == [epoch]
+                    for b in row["batches"])
+                and row["old_snapshot"]["exact"] and old_epoch == epoch - 1):
+            raise AssertionError(f"updates: R={r}: a record or tag is wrong "
+                                 f"after publishing epoch {epoch}")
+
+    # a batch of 32 right after a publish of 64 rows, and one without a
+    # publish, in turns
+    lat = {"after_publish": [], "no_publish": []}
+    for _ in range(3):
+        for kind in lat:
+            if kind == "after_publish":
+                rows, vals = fresh_rows(rng, cfg.n_items, 64, words)
+                xor.update(rows, vals)
+                xor.publish()
+                host_db[rows] = vals
+            idx = rng.integers(0, cfg.n_items, size=32)
+            dt, recs = host_time_s(lambda: xor.query(idx), sync=False)
+            if not check_records(recs, host_db[idx]):
+                raise AssertionError("updates: a batch after a publish "
+                                     "differs from the database")
+            lat[kind].append(dt)
+    out["batch_32_latency_s"] = {
+        k: {"runs": v, "median_s": float(np.median(v))}
+        for k, v in lat.items()}
+    out["dispatch_wait"] = dispatch_wait(xor, database, host_db, rng, cfg)
+    if not out["dispatch_wait"]["exact"]:
+        raise AssertionError("updates: a record served across the "
+                             "publishes differs from the database")
+    out["launches"] = main_path_launches(
+        "updates", ("dpxor", "fused_scan_xor", "pir_gemm", "fused_scan_add"))
+    out["stats"] = vars(stats).copy()
+    out["db_resident_bytes"] = database.resident_bytes
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    emit(out)
+    return out["launches"]
+
+
+def lwe_publish(system, database, cfg, rng, r, host, device,
+                phase: str = "updates_lwe") -> tuple:
+    """One publish of ``r`` fresh rows into an LWE deployment's database
+    (``host`` takes the rows too): its time and the hint delta's B5
+    launches, counted from zero; then, uncounted, the delta-updated hint
+    against a full rebuild (``torch.equal``) and B5 at the delta's shape
+    against its plain version, timed beside its bound."""
+    from repro_torch.core import lwe
+    from repro_torch.kernels import lwe_matmul as kl, ops
+    proto = system.protocol
+    rows, vals = fresh_rows(rng, cfg.n_items, r, cfg.item_bytes // 4)
+    idx = torch.as_tensor(rows, device=device)
+    old_words = database.view("words")[idx]
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system.update(rows, vals)
+    epoch = system.publish()
+    hint = database.hint(proto.name)
+    torch.cuda.synchronize()
+    pub_s = time.perf_counter() - t0
+    launches = main_path_launches(phase, ("lwe_gemm",))
+    host[rows] = vals
+    full = proto.hint_builder(cfg)(database.view("words"))
+    d_t, a_rows = lwe.hint_delta_operands(
+        lwe.params_for(cfg.n_items), cfg.n_items, rows, old_words,
+        database.view("words")[idx])
+    got, want = kl.lwe_gemm(d_t, a_rows), kl.lwe_gemm_plain(d_t, a_rows)
+    bound, by = lwe_gemm_bound(*d_t.shape, a_rows.shape[1])
+    out = {"rows": r, "epoch": epoch, "publish_s": pub_s,
+           "hint_equals_rebuild": bool(torch.equal(hint, full)),
+           "m": d_t.shape[0], "k": d_t.shape[1], "p": a_rows.shape[1],
+           "instance": kl.instance(d_t.shape[0], a_rows.shape[1]),
+           "max_abs_err": max_abs_err(got, want),
+           "ms": cuda_time_ms(lambda: kl.lwe_gemm(d_t, a_rows), reps=20),
+           "plain_ms": cuda_time_ms(lambda: kl.lwe_gemm_plain(d_t, a_rows),
+                                    reps=1, warmup=0),
+           "bound_ms": bound, "bound_by": by,
+           "delta_launches": launches["lwe_gemm"],
+           "hint_deltas": database.stats.n_hint_deltas,
+           "hint_builds": database.stats.n_hint_builds}
+    emit({"phase": f"{phase}_publish", **out})
+    if not out["hint_equals_rebuild"] or out["max_abs_err"]:
+        raise AssertionError(f"{phase}: R={r}: the delta-updated hint "
+                             f"or B5 at the delta shape differs")
+    return out, rows
+
+
+def phase_updates_lwe(host_lwe, database, cfg, card, device) -> tuple:
+    """Online updates of the single-server scheme at PIR_128M_LWE with A
+    resident: for R = 1, 3, 64 and 4096 a publish whose hint delta must
+    equal a full rebuild, with B5 at each delta shape exact and timed;
+    then SingleServerPIR serves the updated records exactly, and a batch
+    answered from a snapshot taken before a publish decodes with the
+    retired epoch's hint. Returns B5's largest error and its launches."""
+    from repro_torch.crypto.packing import np_words_to_bytes
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.serve_loop import SingleServerPIR
+    rng = np.random.default_rng(SEED + 220)
+    system = SingleServerPIR(database, cfg, device=device, n_queries=32,
+                             client_rng=np.random.default_rng(SEED + 221))
+    proto = system.protocol
+    database.hint(proto.name)
+    out = {"phase": "updates_lwe", "card": card, "config": "pir-128m-lwe",
+           "publishes": []}
+    updated = []
+    for r in LWE_UPDATE_ROWS:
+        info, rows = lwe_publish(system, database, cfg, rng, r, host_lwe,
+                                 device)
+        out["publishes"].append(info)
+        updated.append(rows[:8])
+    launches = sum(p["delta_launches"] for p in out["publishes"])
+    if database.stats.n_hint_builds != 1:
+        raise AssertionError("updates_lwe: a publish rebuilt the hint")
+
+    # the updated records, served; then a batch from a snapshot read before
+    # a publish, decoded with the retired epoch's hint
+    ops.reset_counts()
+    fetches0 = system.hint_fetches
+    idx = np.concatenate(updated + [rng.integers(0, cfg.n_items, size=8)])
+    t0 = time.perf_counter()
+    recs = system.query(idx)
+    served = {"n": len(idx), "seconds": time.perf_counter() - t0,
+              "exact": check_records(recs, np_words_to_bytes(host_lwe[idx])),
+              "hint_fetches": system.hint_fetches - fetches0}
+    probe, new_vals = fresh_rows(rng, cfg.n_items, 8, cfg.item_bytes // 4)
+    old_vals = host_lwe[probe].copy()
+    old_epoch, old_views = database.snapshot(("bytes32",))
+    (ct,), states = proto.query_gen_batch_full(system.rng, probe, cfg,
+                                               device=device)
+    system.update(probe, new_vals)
+    epoch = system.publish()
+    host_lwe[probe] = new_vals
+    server = system.servers[0].bucketed
+    rec_old = proto.reconstruct_with(
+        [server.answer(old_views["bytes32"], ct)], states, cfg=cfg,
+        hint=system._client_hint(old_epoch))
+    rec_new = proto.reconstruct_with(
+        [server.answer(database.view("bytes32"), ct)], states, cfg=cfg,
+        hint=system._client_hint(epoch))
+    served["retired_epoch"] = {
+        "epoch": old_epoch, "exact": check_records(
+            rec_old, np_words_to_bytes(old_vals))}
+    served["current_epoch"] = {
+        "epoch": epoch, "exact": check_records(
+            rec_new, np_words_to_bytes(new_vals))}
+    launches += main_path_launches("updates_lwe", ("lwe_gemm",))["lwe_gemm"]
+    del old_views
+    out["served"] = served
+    out["launches"] = launches
+    out["stats"] = vars(database.stats).copy()
+    emit(out)
+    if not (served["exact"] and served["retired_epoch"]["exact"]
+            and served["current_epoch"]["exact"]
+            and old_epoch == epoch - 1):
+        raise AssertionError("updates_lwe: a served record differs after a "
+                             "publish")
+    return max(p["max_abs_err"] for p in out["publishes"]), launches
+
+
+def batch_round(system, idx) -> tuple:
+    """One round of ``idx`` through ``submit_batch``: the records, the
+    future's epoch tag, the dispatches it took and the seconds of the
+    client's plan (cuckoo walk and B keygens). A placement that fails
+    (probability O(1/B)) is planned again with the generator moved on."""
+    from repro_torch.core.batch import CuckooFailure
+    log0 = len(system.dispatch_log)
+    t0 = time.perf_counter()
+    for attempt in range(3):
+        try:
+            fut = system.submit_batch(idx)
+            break
+        except CuckooFailure:
+            if attempt == 2:
+                raise
+    plan_s = time.perf_counter() - t0
+    system.scheduler.pump()
+    return (fut.result(timeout=600), fut.epoch, system.dispatch_log[log0:],
+            plan_s)
+
+
+def phase_batch(cfg, card, device) -> dict:
+    """The batch plane at PIR_1G_BATCH (2^25 records x 32 B, xor-dpf-2,
+    m = 256, B = 512 buckets), with no other database on the card: the
+    layout and the BucketedDatabase built and timed, three rounds (two of
+    256 distinct random indices, one with duplicates) exact and 512 wide,
+    then 64 global rows staged and published into every candidate bucket
+    and a fourth round serving them with the new outer epoch. Returns the
+    launches."""
+    import resource
+    from repro_torch.core import pir
+    from repro_torch.core.batch import CuckooLayout, CuckooParams
+    from repro_torch.crypto.packing import tensor_to_words
+    from repro_torch.db import BucketedDatabase
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.batch import BatchPIR
+    out = {"phase": "batch", "card": card, "config": "pir-1g-batch"}
+    t0 = time.perf_counter()
+    host = pir.make_database(np.random.default_rng(SEED + 300), cfg.n_items,
+                             cfg.item_bytes)
+    out["host_db_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    layout = CuckooLayout.build(cfg.n_items, CuckooParams.from_config(cfg))
+    out["layout_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bdb = BucketedDatabase(host, cfg, device, layout=layout)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    loads = layout.loads
+    out.update({"n_buckets": bdb.n_buckets, "capacity": bdb.capacity,
+                "load_min": int(loads.min()), "load_max": int(loads.max()),
+                "load_mean": float(loads.mean()),
+                "expansion": bdb.expansion,
+                "resident_bytes": bdb.resident_bytes,
+                "host_peak_rss_bytes": resource.getrusage(
+                    resource.RUSAGE_SELF).ru_maxrss * 1024})
+    system = BatchPIR(bdb, cfg, device=device,
+                      client_rng=np.random.default_rng(SEED + 301))
+    out["plan"] = system.serve[0].plan_for_bucket(1).name
+    rng = np.random.default_rng(SEED + 302)
+    m = cfg.batch_m
+    rounds = []
+    ops.reset_counts()
+
+    def serve_round(kind, idx, want_epoch):
+        b1 = ops.counts()["dpxor"]["launches"]
+        t0 = time.perf_counter()
+        recs, epoch, log, plan_s = batch_round(system, idx)
+        dt = time.perf_counter() - t0
+        rounds.append({
+            "kind": kind, "n": len(idx), "unique": len(set(idx.tolist())),
+            "seconds": dt, "plan_s": plan_s, "records_per_s": len(idx) / dt,
+            "dispatch_log": log, "epoch": epoch,
+            "dpxor_launches": ops.counts()["dpxor"]["launches"] - b1,
+            "exact": check_records(recs, host[idx])})
+        if not (rounds[-1]["exact"] and epoch == want_epoch
+                and log and all(w == bdb.n_buckets for _, w in log)):
+            raise AssertionError(f"batch: round {rounds[-1]} is wrong")
+
+    for _ in range(2):
+        serve_round("distinct", rng.choice(cfg.n_items, size=m,
+                                           replace=False), 0)
+    dup = rng.choice(cfg.n_items, size=m // 2, replace=False)
+    serve_round("duplicates", rng.choice(dup, size=m), 0)
+
+    rows, vals = fresh_rows(rng, cfg.n_items, 64, cfg.item_bytes // 4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system.update(rows, vals)
+    epoch = system.publish()
+    torch.cuda.synchronize()
+    out["publish"] = {"rows": 64, "epoch": epoch,
+                      "seconds": time.perf_counter() - t0,
+                      "buckets_published": bdb.stats.n_publishes,
+                      "h2d_bytes": bdb.stats.update_h2d_bytes,
+                      "clone_device_bytes": bdb.stats.clone_device_bytes}
+    host[rows] = vals
+    landed = all(
+        np.array_equal(tensor_to_words(bdb.buckets[b].view("words")[slot]), v)
+        for r, v in zip(rows, vals) for b, slot in layout.occurrences(int(r)))
+    out["publish"]["landed_in_every_candidate"] = landed
+    if not landed or epoch != 1:
+        raise AssertionError("batch: a published row is missing from one "
+                             "of its candidate buckets")
+    serve_round("after_publish", np.concatenate(
+        [rows[:m], rng.choice(cfg.n_items, size=max(m - len(rows), 0),
+                              replace=False)]), 1)
+    out["rounds"] = rounds
+    out["launches"] = main_path_launches("batch", ("dpxor",))
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    emit(out)
+    return out["launches"]
+
+
+def phase_twins(device) -> dict:
+    """The db_updates and batch_query twins on the card at their smoke
+    configs (batch_query's has checksums on). Returns the launches."""
+    from repro_torch import batch_query, db_updates
+    from repro_torch.kernels import ops
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    upd = db_updates.run(device=str(device), verbose=False)
+    t1 = time.perf_counter()
+    bq = batch_query.run(device=str(device), verbose=False)
+    launches = main_path_launches("twins", ("dpxor",))
+    emit({"phase": "twins", "db_updates": upd, "db_updates_s": t1 - t0,
+          "batch_query": bq, "batch_query_s": time.perf_counter() - t1,
+          "launches": launches})
+    return launches
 
 
 def main() -> int:
@@ -1588,8 +2143,8 @@ def main() -> int:
     # the port must import before anything is printed: a copy of this
     # script without the repo fails here, with no result
     from repro_torch import quickstart
-    from repro_torch.configs.pir import (PIR_1G, PIR_1G_ADD, PIR_1G_K3,
-                                         PIR_128M_LWE)
+    from repro_torch.configs.pir import (PIR_1G, PIR_1G_ADD, PIR_1G_BATCH,
+                                         PIR_1G_K3, PIR_128M_LWE)
     from repro_torch.core import lwe
     from repro_torch.core import pir
     from repro_torch.db import Database
@@ -1658,10 +2213,17 @@ def main() -> int:
         ("pir-1g-128b", cfg128, xor_k),
         ("pir-1g-128b-add", replace(cfg128, protocol=PIR_1G_ADD.protocol),
          add_k)), database_w128, device)
+    # online updates on the 1 GiB database (the last phase to read host_db)
+    launches_upd = phase_updates(host_db, cfg, PIR_1G_ADD, database,
+                                 info["card"], device)
 
-    # the single-server LWE scheme on its own database: the 1 GiB ones and
-    # the multi-server phases' temporaries go first, A takes 16 GiB
+    # the batch plane on its own (4 GiB of buckets), then the single-server
+    # LWE scheme on its own database: the 1 GiB ones and the multi-server
+    # phases' temporaries go first, A takes 16 GiB
     del database, db, host_db, kept, database_chk, database_w128, host128
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_batch = phase_batch(PIR_1G_BATCH, info["card"], device)
     gc.collect()
     torch.cuda.empty_cache()
     host_lwe, database_lwe, a = phase_database_lwe(PIR_128M_LWE, device)
@@ -1671,6 +2233,9 @@ def main() -> int:
                                    device)
     timing_lwe = phase_timing_lwe(host_lwe, database_lwe, a, PIR_128M_LWE,
                                   info["card"], device, plain_lwe)
+    err_upd, launches_upd_lwe = phase_updates_lwe(
+        host_lwe, database_lwe, PIR_128M_LWE, info["card"], device)
+    worst["lwe_gemm"] = max(worst["lwe_gemm"], err_upd)
     del database_lwe
     gc.collect()
     torch.cuda.empty_cache()
@@ -1681,6 +2246,7 @@ def main() -> int:
     del a
     lwe.clear_matrix_cache()
     timing_lwe["lwe_gemm"] = timing_lwe["lwe_gemm_q32"]
+    launches_twins = phase_twins(device)
 
     def total(*runs):               # each path's launches, read after it
         return {k: sum(r.get(k, 0) for r in runs) for k in worst}
@@ -1689,19 +2255,24 @@ def main() -> int:
     for name, source, replaces, path_launches, times in (
             ("dpxor", "src/repro_torch/csrc/dpxor.cu",
              "src/repro/kernels/dpxor.py:56",
-             total(launches, launches_chk, launches_w128), timing),
+             total(launches, launches_chk, launches_w128, launches_upd,
+                   launches_batch, launches_twins), timing),
             ("fused_scan_xor", "src/repro_torch/csrc/fused_scan_xor.cu",
              "src/repro/kernels/fused_scan.py:94",
-             total(launches, launches_chk, launches_w128), timing),
+             total(launches, launches_chk, launches_w128, launches_upd),
+             timing),
             ("pir_gemm", "src/repro_torch/csrc/pir_gemm.cu",
              "src/repro/kernels/pir_matmul.py:35",
-             total(launches_add, launches_chk, launches_w128), timing_add),
+             total(launches_add, launches_chk, launches_w128, launches_upd),
+             timing_add),
             ("fused_scan_add", "src/repro_torch/csrc/fused_scan_add.cu",
              "src/repro/kernels/fused_scan.py:131",
-             total(launches_add, launches_chk, launches_w128), timing_add),
+             total(launches_add, launches_chk, launches_w128, launches_upd),
+             timing_add),
             ("lwe_gemm", "src/repro_torch/csrc/lwe_gemm.cu",
              "src/repro/kernels/pir_matmul.py:35",
-             total(launches_lwe, launches_lwe_chk), timing_lwe),
+             total(launches_lwe, launches_lwe_chk,
+                   {"lwe_gemm": launches_upd_lwe}), timing_lwe),
             ("ggm_expand", "src/repro_torch/csrc/ggm_expand.cu",
              "src/repro/kernels/ggm_expand.py:90", launches_ggm,
              {"ggm_expand": ggm_row})):

@@ -20,13 +20,19 @@ for Hopper (``csrc/``):
 
 The engine plane (``engine/``) picks each batch bucket's plan: a measured
 tuner on the card and a plan cache keyed by the card's name, falling back
-to ``core.protocol.plan_for``.
+to ``core.protocol.plan_for``. The database plane (``db/``) takes online
+updates (``stage`` / ``publish``: epochs, copy-on-publish, the LWE hint's
+exact delta on the int32 GEMM), and the batch plane (``core/batch.py``,
+``db/bucketed.py``, ``runtime/batch.BatchPIR``) serves m records per
+round over cuckoo buckets.
 
 Entry points (``runtime.serve_loop.TwoServerPIR``, ``MultiServerPIR``,
-``SingleServerPIR``, ``core.server.PIRServer``, ``kernels.ops``) run on
+``SingleServerPIR``, ``runtime.batch.BatchPIR``, ``core.server.PIRServer``,
+``kernels.ops``) run on
 the card unless the caller passes ``device="cpu"``;
 without a card they raise instead of falling back. Run the quickstart twin
-with ``python -m repro_torch.quickstart``.
+with ``python -m repro_torch.quickstart`` (and the updates and batch twins
+with ``python -m repro_torch.db_updates`` / ``.batch_query``).
 
 Integer words: torch has no CPU arithmetic for ``uint32``, so every u32
 quantity of the reference (DB words, seeds, bits) is carried as ``int32``

@@ -38,7 +38,7 @@ class PIRConfig:
     prf: str = "chacha12"          # chacha12 | chacha8 | chacha20
     fused_kernel: bool = False     # fused GGM-expand + dpXOR (beyond paper)
     checksum: bool = False         # verified reconstruction (row checksum)
-    batch_m: int = 0               # batch PIR (not ported yet)
+    batch_m: int = 0               # batch PIR: m records per round (BatchPIR)
     cuckoo_c: float = 2.0
     cuckoo_hashes: int = 3
     cuckoo_seed: int = 0x5EEDBA11

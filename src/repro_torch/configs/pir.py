@@ -53,6 +53,19 @@ PIR_SMOKE_LWE = PIRConfig(n_items=1 << 14, item_bytes=32,
 PIR_SMOKE_CHK = PIRConfig(n_items=1 << 12, item_bytes=32,
                           protocol="lwe-simple-1", n_servers=1,
                           batch_queries=4, checksum=True)
+# online-update smoke (the db_updates twin): three-server updates at
+# 2^10 records, batches of 2
+PIR_SMOKE_UPD = PIRConfig(n_items=1 << 10, item_bytes=32,
+                          protocol="xor-dpf-k", n_servers=3,
+                          batch_queries=2)
+# batch-PIR smoke (the batch_query twin, tests): m = 4 indices per round
+# cuckoo-hashed into B = 8 buckets; checksums on, so verified
+# reconstruction rides through reassembly
+PIR_SMOKE_BATCH = PIRConfig(n_items=1 << 10, item_bytes=32,
+                            batch_m=4, batch_queries=1, checksum=True)
+# the batch plane at the 1 GiB point: 256-record rounds over B = 512
+# buckets (the reference's PIR_1G_BATCH)
+PIR_1G_BATCH = PIRConfig(n_items=1 << 25, item_bytes=32, batch_m=256)
 
 PIR_CONFIGS = {
     "pir-512m": PIR_512M,
@@ -66,6 +79,9 @@ PIR_CONFIGS = {
     "pir-smoke": PIR_SMOKE,
     "pir-smoke-add": PIR_SMOKE_ADD,
     "pir-smoke-k3": PIR_SMOKE_K3,
+    "pir-smoke-upd": PIR_SMOKE_UPD,
     "pir-smoke-lwe": PIR_SMOKE_LWE,
     "pir-smoke-chk": PIR_SMOKE_CHK,
+    "pir-smoke-batch": PIR_SMOKE_BATCH,
+    "pir-1g-batch": PIR_1G_BATCH,
 }

@@ -331,3 +331,46 @@ def hint_build_fn(params: LWEParams, n_items: int):
         return ops.lwe_gemm(d_t, a).t().contiguous()          # [n, L]
 
     return build
+
+
+def hint_delta_operands(params: LWEParams, n_items: int, rows,
+                        old_words: torch.Tensor, new_words: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two operands of a hint delta's int32 GEMM: ``Delta^T [L, R4]``
+    (the byte changes of the published rows, zero rows up to R4, the next
+    multiple of 4, which the kernel needs for K) and ``A[rows] [R4, n]``
+    (zero rows past R), on the words' device."""
+    from repro_torch.crypto.packing import words_to_bytes_i32
+    dev = new_words.device
+    a = matrix_a_device(params, n_items, dev)                    # [N, n]
+    d = words_to_bytes_i32(new_words) - words_to_bytes_i32(old_words)
+    r = d.shape[0]
+    r4 = -(-r // 4) * 4
+    d_t = torch.zeros((d.shape[1], r4), dtype=torch.int32, device=dev)
+    d_t[:, :r] = d.t()
+    a_rows = torch.zeros((r4, a.shape[1]), dtype=torch.int32, device=dev)
+    a_rows[:r] = a[torch.as_tensor(np.asarray(rows, np.int64), device=dev)]
+    return d_t, a_rows
+
+
+def hint_delta_fn(params: LWEParams, n_items: int):
+    """Device hint delta (``lwe.py:264-286`` upstream): ``H += A[rows]^T.
+    (D_new - D_old)`` mod q, into a new tensor (the retired epoch keeps its
+    hint: a batch tagged with it decodes with it).
+
+    Exact: int32 wraparound keeps every term in Z_q, so the result equals
+    a full rebuild byte for byte. ``rows`` must be deduplicated: a repeated
+    row would subtract its old value twice. In the hint's transposed form
+    the update is ``Delta^T . A[rows]`` (``[L, R] x [R, n]``), one call of
+    the int32 GEMM, whose kernel needs K = R to be a multiple of 4: Delta
+    takes zero rows up to R4, paired with zero rows of A, which add
+    nothing (:func:`hint_delta_operands`).
+    """
+    def delta(hint: torch.Tensor, rows, old_words: torch.Tensor,
+              new_words: torch.Tensor) -> torch.Tensor:
+        from repro_torch.kernels import ops
+        d_t, a_rows = hint_delta_operands(params, n_items, rows, old_words,
+                                          new_words)
+        return hint + ops.lwe_gemm(d_t, a_rows).t()              # [n, L]
+
+    return delta

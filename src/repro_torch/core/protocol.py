@@ -232,6 +232,25 @@ class PIRProtocol:
         shard holds leaves ``[start_block * 2^log_local, ...)``."""
         raise NotImplementedError
 
+    def expand_local(self, keys_local, start_block: int, log_local: int,
+                     plan: ExecutionPlan) -> torch.Tensor:
+        """The first half of a ``materialize`` answer: the ``[Q, rows]``
+        per-row operand of the scan (selection bits, Z_256 shares or the
+        ciphertext slice) for the shard's leaves."""
+        raise NotImplementedError
+
+    def scan_local(self, db_local: torch.Tensor, selection: torch.Tensor,
+                   plan: ExecutionPlan) -> torch.Tensor:
+        """The second half of a ``materialize`` answer: ``[Q, rows]`` from
+        :meth:`expand_local` against the shard -> ``[Q, cols]``."""
+        raise NotImplementedError
+
+    # -- hint lifecycle (hint protocols only) ---------------------------
+    def hint_delta(self, cfg: PIRConfig):
+        """``(hint, rows, old_words, new_words) -> new hint``, exact; None
+        where the hint can only be rebuilt (``protocol.py:310`` upstream)."""
+        return None
+
     # -- batching -------------------------------------------------------
     def pad(self, keys, n_total: int):
         return dpf.pad_keys(keys, n_total)
@@ -279,6 +298,9 @@ class _XorProtocol(PIRProtocol):
 
     share_kind = "xor"
 
+    def scan_local(self, db_local, selection, plan):
+        return _xor_scan(db_local, selection, plan)
+
     def reconstruct(self, answers):
         out = answers[0]
         for a in answers[1:]:
@@ -301,11 +323,14 @@ class XorDpf2(_XorProtocol):
         return dpf.gen_keys_batch(rng, indices, cfg.log_n,
                                   rounds=PRG_ROUNDS[cfg.prf])
 
+    def expand_local(self, keys_local, start_block, log_local, plan):
+        return dpf.eval_bits_batch(keys_local, start_block, log_local)
+
     def answer_local(self, db_local, keys_local, start_block, log_local,
                      plan):
         if plan.expand == "materialize":
-            bits = dpf.eval_bits_batch(keys_local, start_block, log_local)
-            return _xor_scan(db_local, bits, plan)
+            return self.scan_local(db_local, self.expand_local(
+                keys_local, start_block, log_local, plan), plan)
         if plan.expand == "fused":
             return _fused_xor_answer(db_local, keys_local, start_block,
                                      log_local, plan)
@@ -398,6 +423,15 @@ class AdditiveDpf2(PIRProtocol):
                                   payload=PAYLOAD_ONE,
                                   rounds=PRG_ROUNDS[cfg.prf])
 
+    def expand_local(self, keys_local, start_block, log_local, plan):
+        return dpf.eval_bytes_batch(keys_local, start_block, log_local)
+
+    def scan_local(self, db_local, selection, plan):
+        if plan.scan == "cuda":
+            from repro_torch.kernels import ops
+            return ops.pir_gemm(selection.view(torch.int8), db_local)
+        return pir.answer_additive_matmul(db_local, selection)
+
     def answer_local(self, db_local, keys_local, start_block, log_local,
                      plan):
         # db_local is the int8 byte view [rows_local, item_bytes]
@@ -406,11 +440,8 @@ class AdditiveDpf2(PIRProtocol):
                                           log_local, plan)
         if plan.expand not in ("materialize", "fused"):
             raise ValueError(f"unknown expand {plan.expand!r}")
-        shares = dpf.eval_bytes_batch(keys_local, start_block, log_local)
-        if plan.scan == "cuda":
-            from repro_torch.kernels import ops
-            return ops.pir_gemm(shares.view(torch.int8), db_local)
-        return pir.answer_additive_matmul(db_local, shares)
+        return self.scan_local(db_local, self.expand_local(
+            keys_local, start_block, log_local, plan), plan)
 
     def reconstruct(self, answers):
         return pir.reconstruct_additive(*answers)
@@ -502,11 +533,14 @@ class XorDpfK(_XorProtocol):
                                    rounds=PRG_ROUNDS[cfg.prf]))
         return tuple(keys)
 
+    def expand_local(self, keys_local, start_block, log_local, plan):
+        return _component_bits_batch(keys_local, start_block, log_local)
+
     def answer_local(self, db_local, keys_local, start_block, log_local,
                      plan):
         if plan.expand == "materialize":
-            bits = _component_bits_batch(keys_local, start_block, log_local)
-            return _xor_scan(db_local, bits, plan)
+            return self.scan_local(db_local, self.expand_local(
+                keys_local, start_block, log_local, plan), plan)
         if plan.expand == "fused":
             return _fused_xor_answer(db_local, keys_local, start_block,
                                      log_local, plan, _component_bits_batch)
@@ -649,16 +683,26 @@ class LweSimple1(PIRProtocol):
         version (there is no expansion, so ``plan.expand`` is not read)."""
         rows_local = db_local.shape[0]
         start = start_block * rows_local
-        ct_local = keys_local.ct[:, start:start + rows_local]
+        return self.scan_local(
+            db_local, keys_local.ct[:, start:start + rows_local], plan)
+
+    def expand_local(self, keys_local, start_block, log_local, plan):
+        rows = 1 << log_local
+        return keys_local.ct[:, start_block * rows:(start_block + 1) * rows]
+
+    def scan_local(self, db_local, selection, plan):
         if plan.scan == "cuda":
             from repro_torch.kernels import ops
-            return ops.lwe_gemm(ct_local, db_local)
+            return ops.lwe_gemm(selection, db_local)
         from repro_torch.kernels.lwe_matmul import lwe_gemm_plain
-        return lwe_gemm_plain(ct_local, db_local)
+        return lwe_gemm_plain(selection, db_local)
 
     # -- hint lifecycle -------------------------------------------------
     def hint_builder(self, cfg: PIRConfig):
         return lwe.hint_build_fn(self._params(cfg), cfg.n_items)
+
+    def hint_delta(self, cfg: PIRConfig):
+        return lwe.hint_delta_fn(self._params(cfg), cfg.n_items)
 
     # -- batching: LWECiphertext is not a DPFKey ------------------------
     def pad(self, keys, n_total: int):

@@ -26,6 +26,10 @@ from repro_torch.engine.backend import Device, backend_of
 
 Keys = Union[dpf.DPFKey, LWECiphertext]
 
+#: leaves expanded together by ``BucketedServeFns.answer_views``: one
+#: PIR_1G query's worth, which bounds the plain expansion's temporaries
+EXPAND_LEAVES = 1 << 25
+
 
 def map_keys(keys: Keys, fn) -> Keys:
     """Apply ``fn`` to every tensor of a key batch (DPF keys or LWE
@@ -116,6 +120,39 @@ class BucketedServeFns:
                      db, map_keys(keys, lambda x: x[lo:lo + max_b]))
                  for lo in range(0, q, max_b)]
         return torch.cat(parts, dim=0)
+
+    def answer_views(self, views: Sequence[torch.Tensor], keys: Keys
+                     ) -> torch.Tensor:
+        """Answer a batch spread over same-shape views (the batch plane's
+        buckets): queries ``[b*R, (b+1)*R)`` of ``keys`` against
+        ``views[b]``, as ``[B, R, cols]`` (async on the card).
+
+        Under a ``materialize`` plan the views' queries share the leaf
+        expansion (``expand_local``), one pass per ``EXPAND_LEAVES``
+        leaves instead of one per view; the scan (``scan_local``) runs per
+        view. Other plans answer view by view, as :meth:`answer` does.
+        """
+        n_views = len(views)
+        q = self.protocol.n_queries(keys)
+        if q % n_views:
+            raise ValueError(f"{q} queries do not split over {n_views} views")
+        r = q // n_views
+        keys = keys.to(views[0].device)
+        part = lambda lo, hi: map_keys(keys, lambda x: x[lo * r:hi * r])
+        plan = self.plan_for_bucket(self.bucket_for(r))
+        if plan.expand != "materialize":
+            return torch.stack([self.answer(v, part(b, b + 1))
+                                for b, v in enumerate(views)])
+        per = max(1, EXPAND_LEAVES // (r * views[0].shape[0]))
+        out = []
+        for lo in range(0, n_views, per):
+            hi = min(lo + per, n_views)
+            sel = self.protocol.expand_local(part(lo, hi), 0, self.log_local,
+                                             plan)
+            out.extend(self.protocol.scan_local(
+                views[b], sel[(b - lo) * r:(b - lo + 1) * r], plan)
+                for b in range(lo, hi))
+        return torch.stack(out)
 
     def _answer_one(self, db: torch.Tensor, keys: Keys) -> torch.Tensor:
         q = self.protocol.n_queries(keys)

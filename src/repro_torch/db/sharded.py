@@ -1,29 +1,52 @@
-"""``Database``: the device-resident PIR database of one device.
+"""``Database``: the device-resident PIR database of one device, versioned
+by epochs.
 
-Single-device counterpart of ``repro/db/sharded.py ShardedDatabase``: it
-owns the ``words`` view, resident once on the device as a row-major
-``[R, W]`` int32 tensor (each record contiguous; the kernels read it as
-stored, with no per-batch transpose), and the epoch tag that answers are
-stamped with. With ``cfg.checksum`` the rows are stored with their checksum
-word, attached once on the host at construction, so every view is at the
-stored width (``W = item_words + 1``). The ``bytes`` view is not a second
-copy: it is the same memory reinterpreted as ``[R, 4W]`` int8
-(``words.view(torch.int8)``), whose byte order is little-endian on the
-host and on the card, as the reference's ``words_to_bytes_i8`` packs it.
-The ``bytes32`` view (the LWE GEMM's operand, 4x the records) is a real
-copy, so it is built on the device the first time it is asked for and
-kept for the epoch.
+Single-device counterpart of ``repro/db/sharded.py ShardedDatabase``. It
+owns the ``words`` view, resident on the device as a row-major ``[R, W]``
+int32 tensor (each record contiguous; the kernels read it as stored), and
+the epoch tag that answers are stamped with. With ``cfg.checksum`` the rows
+are stored with their checksum word, attached on the host, so every view is
+at the stored width (``W = item_words + 1``). The ``bytes`` view is not a
+second copy: it is the same memory reinterpreted as ``[R, 4W]`` int8
+(``words.view(torch.int8)``), little-endian as the reference's
+``words_to_bytes_i8`` packs it, so it follows every publish for free. The
+``bytes32`` view (the LWE GEMM's operand, 4x the records) is a real copy,
+built on the device the first time it is asked for (``stats.n_view_packs``)
+and then maintained by each publish like the words.
 
 Hints (single-server preprocessing, ``H = A^T.D`` for ``lwe-simple-1``) are
-registered by name with a builder and built lazily per epoch, as upstream
-(``repro/db/sharded.py:244-270``). All parties of a deployment share one
-``Database``: the contents are public in the PIR model. Online updates
-(``stage`` / ``publish``) are not ported yet, so the epoch stays 0.
+registered by name with a builder and an optional exact delta, built
+lazily per epoch and delta-updated on publish (dropped and rebuilt lazily
+when no delta is registered), as upstream (``sharded.py:244-276``).
+
+Online updates (``sharded.py:278-403`` upstream): ``stage`` appends public
+row writes to a host log and touches nothing on the device; ``publish``
+applies the deduplicated (last-write-wins) delta and bumps the epoch. JAX
+arrays are immutable, so upstream's retired epoch costs nothing; torch
+tensors are not, and a batch already dispatched may still be reading the
+old rows on the card. So a publish is **copy-on-publish**: on the
+publishing thread, outside the database lock, each resident view of the
+current epoch is cloned on the device (O(N) device traffic) and the
+delta's rows are scattered into the clone (O(rows) host-to-device
+traffic), and the hint deltas are computed into new tensors. The lock is
+then taken only to swap the epochs. The previous epoch's views and hints
+stay pinned until the next publish (``view(..., epoch=)``), so the
+database holds two copies after its first publish (``resident_bytes``).
+Everything is enqueued on the current CUDA stream, which the serving
+threads share, so a dispatch that reads the new epoch is ordered after the
+scatter that produced it, and the retired tensors are released on the
+stream that last read them. A second lock serializes publishers without
+blocking readers.
+
+All parties of a deployment share one ``Database``: the contents are
+public in the PIR model, and replicas stay equal by applying the same
+published deltas (``subscribe``).
 """
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,79 +57,290 @@ from repro_torch.db.spec import DatabaseSpec
 from repro_torch.engine.backend import Device, resolve_device
 
 
+@dataclass
+class TransferStats:
+    """Byte and event accounting of one database (``sharded.py:66``)."""
+    preload_h2d_bytes: int = 0     # the placement at construction
+    update_h2d_bytes: int = 0      # published deltas: int32 indices + rows
+    clone_device_bytes: int = 0    # device bytes copied by copy-on-publish
+    n_full_placements: int = 0     # host -> device placements of all rows
+    n_view_packs: int = 0          # device builds of a whole bytes32 view
+    n_publishes: int = 0
+    n_hint_builds: int = 0         # full hint builds (lazy, per epoch)
+    n_hint_deltas: int = 0         # O(rows) hint updates on publish
+
+
+@dataclass(frozen=True)
+class _HintSpec:
+    """One registered hint: ``build(words) -> hint`` and an optional exact
+    ``delta(hint, rows, old_words, new_words) -> new hint`` (rows: the
+    deduplicated published indices; old/new: their ``[R, W]`` stored word
+    rows before and after)."""
+    build: Callable
+    delta: Optional[Callable] = None
+
+
+@dataclass
+class PublishedDelta:
+    """Public metadata of one published epoch (``sharded.py:93``):
+    replaying ``stage(rows, vals); publish()`` against a replica of the
+    previous epoch reproduces this one. ``vals`` are the deduplicated
+    logical rows (a checksummed replica attaches its own column)."""
+    epoch: int                     # the epoch the delta produced
+    rows: np.ndarray               # deduplicated row indices written
+    n_staged: int                  # staged entries folded into it
+    vals: Optional[np.ndarray] = None   # [R, item_words] u32
+
+
+@dataclass
+class _Epoch:
+    """One database version: its device views and its built hints."""
+    epoch: int
+    views: Dict[str, torch.Tensor] = field(default_factory=dict)
+    hints: Dict[str, torch.Tensor] = field(default_factory=dict)
+
+
+@dataclass
+class _Pending:
+    """A prepared publish, not yet visible: the epoch it was built from,
+    the new epoch, and its delta."""
+    base: _Epoch
+    new: _Epoch
+    delta: PublishedDelta
+
+
 class Database:
-    """The PIR database on one device (``device=None`` means CUDA)."""
+    """The PIR database on one device (``device=None`` means CUDA).
+
+    Thread-safe: the scheduler reads ``snapshot()`` on its thread while
+    clients ``stage`` / ``publish`` on theirs. Callers re-read the views
+    per dispatch; a batch keeps the tensors of the epoch it read.
+    """
 
     def __init__(self, db_words: np.ndarray, cfg: PIRConfig,
                  device: Device = None):
         self.spec = DatabaseSpec.from_config(cfg)
         self.device = resolve_device(device)
+        self.stats = TransferStats()
+        self._lock = threading.RLock()          # epochs, staging, hints
+        self._publish_lock = threading.RLock()  # one publisher at a time
+        self._staged_rows: List[np.ndarray] = []
+        self._staged_vals: List[np.ndarray] = []
+        #: every published delta, in epoch order
+        self.published: List[PublishedDelta] = []
+        self._hint_specs: Dict[str, _HintSpec] = {}
+        self._subscribers: List[Callable[[PublishedDelta], None]] = []
         # payload rows take their checksum column here, once (rows already
         # at the stored width pass through)
         host = self.spec.validate_words(self.spec.attach_checksums(db_words))
-        self._words = words_to_tensor(host, self.device)
-        self._epoch = 0
-        self._lock = threading.RLock()
-        self._bytes32: Optional[torch.Tensor] = None
-        self._hint_builders: Dict[str, Callable] = {}
-        self._hints: Dict[str, torch.Tensor] = {}
-        #: hint builds so far (tests assert one per epoch)
-        self.n_hint_builds = 0
+        words = words_to_tensor(host, self.device)
+        if words.device.type == "cpu":
+            # from_numpy shares the caller's array; an epoch's rows are the
+            # database's own, as the card's copy is
+            words = words.clone()
+        self.stats.n_full_placements += 1
+        self.stats.preload_h2d_bytes += host.nbytes
+        self._current = _Epoch(epoch=0, views={"words": words})
+        self._retired: Optional[_Epoch] = None
 
     @property
     def epoch(self) -> int:
-        return self._epoch
+        with self._lock:
+            return self._current.epoch
+
+    @property
+    def n_staged(self) -> int:
+        with self._lock:
+            return sum(len(r) for r in self._staged_rows)
+
+    @property
+    def n_hint_builds(self) -> int:
+        """Full hint builds so far (``stats.n_hint_builds``)."""
+        return self.stats.n_hint_builds
 
     @property
     def resident_bytes(self) -> int:
-        """Device bytes the database holds: the words once (the ``bytes``
-        view aliases them), plus the ``bytes32`` view once it exists."""
-        views = [self._words] + ([] if self._bytes32 is None
-                                 else [self._bytes32])
-        return sum(t.numel() * t.element_size() for t in views)
+        """Device bytes the views of the current and the retired epoch
+        hold: the words (the ``bytes`` view aliases them) and ``bytes32``
+        where built; hints are not counted."""
+        with self._lock:
+            held = [self._current] + ([self._retired] if self._retired
+                                      else [])
+            return sum(t.numel() * t.element_size()
+                       for e in held for t in e.views.values())
 
-    def view(self, name: str = "words") -> torch.Tensor:
-        """The device tensor of one view at the current epoch; ``KeyError``
-        for a view the spec does not know."""
+    # -- views ----------------------------------------------------------
+
+    def _holder(self, epoch: Optional[int]) -> _Epoch:
+        """The resident epoch ``epoch`` names (lock held by the caller)."""
+        if epoch is None or epoch == self._current.epoch:
+            return self._current
+        if self._retired is None or epoch != self._retired.epoch:
+            raise KeyError(
+                f"epoch {epoch} is not resident (current="
+                f"{self._current.epoch}, retired="
+                f"{None if self._retired is None else self._retired.epoch})")
+        return self._retired
+
+    def view(self, name: str = "words", *,
+             epoch: Optional[int] = None) -> torch.Tensor:
+        """The device tensor of one view at the current epoch, or at the
+        epoch just retired; ``KeyError`` for a view the spec does not know
+        or an older epoch."""
         self.spec.view_dtype(name)
-        if name == "bytes":
-            return self._words.view(torch.int8)
-        if name == "bytes32":
-            with self._lock:
-                if self._bytes32 is None:
-                    self._bytes32 = words_to_bytes_i32(self._words)
-                return self._bytes32
-        return self._words
+        with self._lock:
+            holder = self._holder(epoch)
+            if name == "bytes":
+                return holder.views["words"].view(torch.int8)
+            if name not in holder.views:          # bytes32, once per epoch
+                holder.views[name] = words_to_bytes_i32(
+                    holder.views["words"])
+                self.stats.n_view_packs += 1
+            return holder.views[name]
 
     def snapshot(self, views: Sequence[str] = ("words",)
                  ) -> Tuple[int, Dict[str, torch.Tensor]]:
-        """``(epoch, {view: tensor})`` read together, for one dispatch."""
+        """``(epoch, {view: tensor})`` read together, for one dispatch: a
+        batch answered from these tensors and tagged with this epoch is
+        never mislabelled, whatever publish lands meanwhile."""
         with self._lock:
-            return self._epoch, {v: self.view(v) for v in views}
+            return self._current.epoch, {v: self.view(v) for v in views}
 
     # -- hints (single-server preprocessing) ----------------------------
 
     def register_hint(self, name: str, build: Callable,
                       delta: Optional[Callable] = None) -> None:
-        """Register a per-epoch hint: ``build(words) -> hint``. ``delta``
-        (the exact update on ``publish``) is accepted for the reference's
-        signature; it has nothing to do until updates are ported.
-        Re-registering a name replaces the builder and keeps a built hint."""
+        """Register a per-epoch hint: ``build(words) -> hint`` and an
+        optional exact ``delta(hint, rows, old_words, new_words)``.
+        Re-registering a name replaces the spec and keeps built hints."""
         with self._lock:
-            self._hint_builders[name] = build
+            self._hint_specs[name] = _HintSpec(build=build, delta=delta)
 
     def hint(self, name: str, *, epoch: Optional[int] = None
              ) -> torch.Tensor:
-        """The device-resident hint of one epoch, built on first use;
-        ``KeyError`` for an unregistered name or an epoch not resident."""
+        """The device-resident hint of one epoch (current or retired),
+        built on first use; ``KeyError`` for an unregistered name or an
+        epoch not resident."""
         with self._lock:
-            if name not in self._hint_builders:
+            if name not in self._hint_specs:
                 raise KeyError(f"unknown hint {name!r}; registered: "
-                               f"{sorted(self._hint_builders)}")
-            if epoch is not None and epoch != self._epoch:
-                raise KeyError(f"epoch {epoch} is not resident (current="
-                               f"{self._epoch})")
-            if name not in self._hints:
-                self._hints[name] = self._hint_builders[name](self._words)
-                self.n_hint_builds += 1
-            return self._hints[name]
+                               f"{sorted(self._hint_specs)}")
+            holder = self._holder(epoch)
+            if name not in holder.hints:
+                holder.hints[name] = self._hint_specs[name].build(
+                    holder.views["words"])
+                self.stats.n_hint_builds += 1
+            return holder.hints[name]
+
+    # -- epoched online updates -----------------------------------------
+
+    def stage(self, rows, values) -> int:
+        """Append row writes to the pending (public) delta log.
+
+        ``rows``: ``[R]`` indices; ``values``: ``[R, item_words]`` u32 or
+        ``[R, item_bytes]`` u8. Nothing touches the device until
+        :meth:`publish`. Returns the total staged entry count.
+        """
+        idx = np.atleast_1d(np.asarray(rows, np.int64))
+        vals = self.spec.coerce_rows_to_words(values)
+        if idx.ndim != 1 or len(idx) != len(vals):
+            raise ValueError(
+                f"rows/values length mismatch: {idx.shape} vs {vals.shape}")
+        if len(idx) and (idx.min() < 0 or idx.max() >= self.spec.n_items):
+            raise ValueError(
+                f"row indices out of range [0, {self.spec.n_items})")
+        with self._lock:
+            self._staged_rows.append(idx)
+            self._staged_vals.append(np.array(vals, np.uint32, copy=True))
+            return sum(len(r) for r in self._staged_rows)
+
+    def subscribe(self, fn: Callable[[PublishedDelta], None]
+                  ) -> Callable[[], None]:
+        """Call ``fn(delta)`` after every publish that made a new epoch;
+        returns an unsubscribe callable. Callbacks run on the publishing
+        thread after the swap, outside the database lock (a subscriber may
+        stage and publish into another database), in epoch order."""
+        self._subscribers.append(fn)
+
+        def _unsubscribe(fn=fn):
+            if fn in self._subscribers:
+                self._subscribers.remove(fn)
+        return _unsubscribe
+
+    def publish(self) -> int:
+        """Apply the staged delta as the next epoch and return the current
+        epoch; nothing staged is a no-op (no new epoch).
+
+        The copy and the scatter run outside the database lock, which is
+        held only for the swap; the previous epoch stays readable until
+        the next publish. Subscribers are notified after the swap.
+        """
+        with self._publish_lock:
+            pending = self._prepare_publish()
+            if pending is None:
+                return self.epoch
+            self._commit_publish(pending)
+            for fn in tuple(self._subscribers):
+                fn(pending.delta)
+            return pending.delta.epoch
+
+    def _prepare_publish(self) -> Optional[_Pending]:
+        """The first half of :meth:`publish` (the publish lock held): take
+        the staged log, and build the next epoch's views and hints from
+        the current one's on the device, outside the database lock.
+        ``None`` when nothing is staged."""
+        with self._lock:
+            rows = (np.concatenate(self._staged_rows) if self._staged_rows
+                    else np.zeros((0,), np.int64))
+            vals = (np.concatenate(self._staged_vals) if self._staged_vals
+                    else None)
+            self._staged_rows.clear()
+            self._staged_vals.clear()
+            base = self._current
+            views = dict(base.views)
+            delta_hints = {n: (h, self._hint_specs[n].delta)
+                           for n, h in base.hints.items()
+                           if self._hint_specs[n].delta is not None}
+        if not len(rows):
+            return None
+        n_staged = len(rows)
+        # last write wins: a scatter's order for repeated indices is not
+        # defined, so collisions are resolved here
+        _, first_of_rev = np.unique(rows[::-1], return_index=True)
+        keep = np.sort(len(rows) - 1 - first_of_rev)
+        rows, vals = rows[keep], vals[keep]
+        stored = self.spec.attach_checksums(vals)     # device rows: stored
+        idx32 = np.ascontiguousarray(rows, np.int32)
+        idx = torch.from_numpy(idx32).to(self.device).long()
+        new_words = words_to_tensor(stored, self.device)
+        self.stats.update_h2d_bytes += idx32.nbytes + stored.nbytes
+        old_words = base.views["words"][idx] if delta_hints else None
+        new_views = {}
+        for name, tensor in views.items():
+            rows_v = (new_words if name == "words"
+                      else words_to_bytes_i32(new_words))
+            new_views[name] = tensor.clone().index_copy_(0, idx, rows_v)
+            self.stats.clone_device_bytes += \
+                tensor.numel() * tensor.element_size()
+        new_hints = {}
+        for name, (h, delta) in delta_hints.items():
+            new_hints[name] = delta(h, rows, old_words, new_words)
+            self.stats.n_hint_deltas += 1
+        epoch = base.epoch + 1
+        return _Pending(base=base,
+                        new=_Epoch(epoch=epoch, views=new_views,
+                                   hints=new_hints),
+                        delta=PublishedDelta(epoch=epoch, rows=rows,
+                                             n_staged=n_staged, vals=vals))
+
+    def _commit_publish(self, pending: _Pending) -> None:
+        """The second half of :meth:`publish`: swap the epochs under the
+        database lock (the publish lock held since the first half)."""
+        with self._lock:
+            if self._current is not pending.base:
+                raise RuntimeError("the current epoch moved under a "
+                                   "prepared publish")
+            self._retired = self._current
+            self._current = pending.new
+            self.stats.n_publishes += 1
+            self.published.append(pending.delta)

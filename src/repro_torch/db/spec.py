@@ -191,6 +191,21 @@ class DatabaseSpec:
         col = row_checksum(arr)[:, None]
         return np.concatenate([arr, col], axis=1)
 
+    def coerce_rows_to_words(self, values) -> np.ndarray:
+        """Update payloads as ``[R, item_words]`` u32 rows (``spec.py:281``
+        upstream): the word form passes through, the byte form ``[R,
+        item_bytes]`` u8 is packed little-endian on the host (O(R))."""
+        arr = np.asarray(values)
+        if arr.ndim != 2:
+            raise ValueError(f"row values must be 2-D, got shape {arr.shape}")
+        if arr.shape[1] == self.item_bytes and arr.dtype == np.uint8:
+            return np_bytes_to_words(arr)
+        if arr.shape[1] == self.item_words:
+            return arr.astype(np.uint32, copy=False)
+        raise ValueError(
+            f"row values must be [R, {self.item_words}] u32 words or "
+            f"[R, {self.item_bytes}] u8 bytes, got {arr.shape} {arr.dtype}")
+
     def verify_stored_rows(self, rows: np.ndarray) -> np.ndarray:
         """Check stored-width word rows against their checksum column and
         return the payload (``[R, W + 1] -> [R, W]``); the identity without

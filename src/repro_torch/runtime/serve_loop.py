@@ -15,8 +15,11 @@ client state and a client hint cache) on one device and one dispatch
 lane, with verified reconstruction (``cfg.checksum``): records come back
 at the logical width, and a batch whose records fail their checksum fails
 its own futures with ``IntegrityError`` (``bad_queries`` are indices in
-that batch) while the scheduler goes on with the next. Chaos seams,
-straggler shedding, online updates and replica hooks are not ported yet.
+that batch) while the scheduler goes on with the next. Online updates
+(``update`` / ``publish``) swap in a new database epoch; every answer is
+tagged with the epoch its own dispatch read. Per-query deadlines ride on
+the futures (``QueryTimeout``). Chaos seams, straggler shedding, cluster
+lanes and replica hooks are not ported yet.
 """
 from __future__ import annotations
 
@@ -52,25 +55,59 @@ class ServeStats:
     padded: int = 0              # pad slots computed and discarded
 
 
+class QueryTimeout(TimeoutError):
+    """``AnswerFuture.result`` ran out of time; the message names what is
+    known of the query (bucket, epoch, elapsed time, how far past its
+    deadline), as ``serve_loop.py:87`` upstream."""
+
+    def __init__(self, fut: Optional["AnswerFuture"] = None,
+                 timeout: Optional[float] = None):
+        parts = []
+        if fut is not None:
+            now = time.monotonic()
+            for key in ("session", "replica", "bucket"):
+                if fut.context.get(key) is not None:
+                    parts.append(f"{key}={fut.context[key]}")
+            if fut.epoch is not None:
+                parts.append(f"epoch={fut.epoch}")
+            parts.append(f"elapsed={now - fut.created:.3f}s")
+            if fut.deadline is not None:
+                parts.append(f"deadline_over_by={now - fut.deadline:+.3f}s")
+        if timeout is not None:
+            parts.append(f"timeout={timeout:.3f}s")
+        detail = f" ({', '.join(parts)})" if parts else ""
+        super().__init__(f"answer not ready{detail}")
+
+
 class AnswerFuture:
     """Per-query result handle; completion is first-wins and thread-safe.
 
     ``epoch`` is the database epoch the answer was computed at.
+    ``deadline`` is an absolute ``time.monotonic()`` instant or ``None``:
+    ``result()`` without a timeout waits until it and then raises
+    :class:`QueryTimeout`. ``context`` holds attribution for that message.
     """
 
-    def __init__(self):
+    def __init__(self, *, deadline: Optional[float] = None):
         self._ev = threading.Event()
         self._lock = threading.Lock()
         self._value: Any = None
         self._exc: Optional[BaseException] = None
+        self._callbacks: List[Callable[["AnswerFuture"], None]] = []
         self.epoch: Optional[int] = None
+        self.deadline = deadline
+        self.context: Dict[str, Any] = {}
+        self.created = time.monotonic()
 
     def _resolve(self, value: Any, exc: Optional[BaseException]) -> bool:
         with self._lock:
             if self._ev.is_set():
                 return False
             self._value, self._exc = value, exc
+            callbacks, self._callbacks = self._callbacks, []
             self._ev.set()
+        for cb in callbacks:        # outside the lock: a callback may block
+            cb(self)
         return True
 
     def set_result(self, value: Any) -> bool:
@@ -79,6 +116,15 @@ class AnswerFuture:
     def set_exception(self, exc: BaseException) -> bool:
         return self._resolve(None, exc)
 
+    def add_done_callback(self, fn: Callable[["AnswerFuture"], None]):
+        """Call ``fn(self)`` when the future resolves (at once if it has),
+        on the resolving thread."""
+        with self._lock:
+            if not self._ev.is_set():
+                self._callbacks.append(fn)
+                return
+        fn(self)
+
     def done(self) -> bool:
         return self._ev.is_set()
 
@@ -86,8 +132,10 @@ class AnswerFuture:
         return self._exc
 
     def result(self, timeout: Optional[float] = None) -> Any:
+        if timeout is None and self.deadline is not None:
+            timeout = max(self.deadline - time.monotonic(), 0.0)
         if not self._ev.wait(timeout):
-            raise TimeoutError(f"answer not ready after {timeout} s")
+            raise QueryTimeout(self, timeout=timeout)
         if self._exc is not None:
             raise self._exc
         return self._value
@@ -112,8 +160,11 @@ class QueryScheduler:
       finalize(raw, n)  wait and convert the first n real answers
 
     ``epoch_of(raw)`` reads the database epoch a batch was answered at from
-    its own dispatch result. Batches are cut when a full largest bucket is
-    pending or when the oldest query has waited ``max_wait_s``. Drive it
+    its own dispatch result, so across a publish a batch already
+    dispatched keeps the old epoch's tag and data, while a batch still
+    queued is tagged with the epoch it reads when it is dispatched.
+    Batches are cut when a full largest bucket is pending or when the
+    oldest query has waited ``max_wait_s``. Drive it
     with :meth:`pump` or as a background session (:meth:`start` /
     :meth:`stop`). An ``IntegrityError`` from ``finalize`` fails that
     batch's futures only; any other error fails them and is raised.
@@ -142,10 +193,12 @@ class QueryScheduler:
 
     # -- intake ----------------------------------------------------------
 
-    def submit(self, item: Any) -> AnswerFuture:
-        """Enqueue one query payload; returns its future. Raises
+    def submit(self, item: Any, *, future: Optional[AnswerFuture] = None
+               ) -> AnswerFuture:
+        """Enqueue one query payload; returns its future (``future``, when
+        given, so that a caller can set its deadline). Raises
         ``RuntimeError`` once a session was stopped or died."""
-        fut = AnswerFuture()
+        fut = future if future is not None else AnswerFuture()
         with self._cv:
             if self._closed:
                 raise RuntimeError(
@@ -324,6 +377,12 @@ class MultiServerPIR:
                       generated in one batch; pumps the scheduler unless a
                       session is running)
       submit(index)   streaming form: returns an :class:`AnswerFuture`
+      update(rows, values) / publish()
+                      online updates: stage public row writes, then swap
+                      them in as the next epoch (``Database.publish``)
+
+    ``default_deadline_s`` (default 120 s per party, upstream's) becomes
+    each future's deadline.
     """
 
     #: hint protocols (``PIRProtocol.needs_hint``) carry per-query client
@@ -336,9 +395,8 @@ class MultiServerPIR:
                  buckets: Optional[Sequence[int]] = None,
                  max_wait_s: float = DEFAULT_MAX_WAIT_S,
                  protocol: Optional[PIRProtocol] = None,
-                 client_rng: Optional[np.random.Generator] = None):
-        if cfg.batch_m:
-            raise ValueError("batch PIR (batch_m > 0) is not ported yet")
+                 client_rng: Optional[np.random.Generator] = None,
+                 default_deadline_s: Optional[float] = None):
         self.cfg = cfg
         self.protocol = (protocol if protocol is not None
                          else protocol_mod.for_config(cfg))
@@ -360,6 +418,9 @@ class MultiServerPIR:
         self.rng = (client_rng if client_rng is not None
                     else np.random.default_rng())
         self._lock = threading.Lock()
+        self.default_deadline_s = (default_deadline_s
+                                   if default_deadline_s is not None
+                                   else 120.0 * self.n_parties)
         self.scheduler = self._make_scheduler(max_wait_s)
 
     def _make_scheduler(self, max_wait_s: float) -> QueryScheduler:
@@ -409,13 +470,40 @@ class MultiServerPIR:
     def __exit__(self, *exc):
         self.close()
 
-    def submit(self, index: int) -> AnswerFuture:
+    def _deadline_future(self, deadline_s: Optional[float]) -> AnswerFuture:
+        """A fresh future carrying this query's absolute deadline."""
+        d = self.default_deadline_s if deadline_s is None else deadline_s
+        return AnswerFuture(
+            deadline=None if d is None else time.monotonic() + d)
+
+    def submit(self, index: int, *,
+               deadline_s: Optional[float] = None) -> AnswerFuture:
         """Private retrieval of ``db[index]``; resolves to one record
         (``PIRProtocol.record_struct``: ``[W]`` uint32 words for XOR
         schemes, ``[L]`` uint8 bytes for the additive one)."""
+        fut = self._deadline_future(deadline_s)
         with self._lock:         # client-side keygen shares one rng
             keys = self.protocol.query_gen(self.rng, index, self.cfg)
-        return self.scheduler.submit(keys)
+        return self.scheduler.submit(keys, future=fut)
+
+    # -- online updates (public metadata) -------------------------------
+
+    @property
+    def epoch(self) -> int:
+        """The database's current epoch (bumped by :meth:`publish`)."""
+        return self.db.epoch
+
+    def update(self, rows, values) -> int:
+        """Stage public row writes (``[R, item_words]`` u32 or ``[R,
+        item_bytes]`` u8); nothing is served from them until
+        :meth:`publish`. Returns the staged entry count."""
+        return self.db.stage(rows, values)
+
+    def publish(self) -> int:
+        """Swap the staged writes in as the next epoch and return it.
+        Batches already dispatched finish on the previous epoch and stay
+        tagged with it; later batches read the new one."""
+        return self.db.publish()
 
     # -- synchronous batch API ------------------------------------------
 
@@ -428,10 +516,17 @@ class MultiServerPIR:
             return np.empty((0,) + tail, dtype)
         with self._lock:
             items = self._query_items(indices)
-        futs = [self.scheduler.submit(it) for it in items]
+        futs = [self.scheduler.submit(it, future=self._deadline_future(None))
+                for it in items]
         if not self.scheduler.running:
             self.scheduler.pump()
         return np.stack([f.result() for f in futs])
+
+    def query_batch(self, indices: Sequence[int]) -> np.ndarray:
+        """Multi-query retrieval, the same as :meth:`query` here: each
+        index is a full-database query. ``BatchPIR`` overrides it with the
+        cuckoo-bucketed rounds."""
+        return self.query(indices)
 
     def _query_items(self, indices: List[int]) -> List[Any]:
         """The scheduler's per-query items for a whole call, generated in
@@ -455,6 +550,10 @@ class SingleServerPIR(MultiServerPIR):
       * a client-side hint cache keyed by the epoch each batch's answers
         are tagged with; a miss fetches the epoch's hint from the database
         (``hint_fetches`` counts the fetches) and two epochs are kept.
+        The server keeps the hint itself up to date: a publish applies
+        the registered exact delta (``lwe.hint_delta_fn``, one call of
+        the int32 GEMM) into a new tensor, so a batch tagged with the
+        retired epoch still decodes with that epoch's hint.
 
     The client encrypts on the database's device: ``A.s`` is one int32
     GEMM through ``ops.lwe_gemm``.
@@ -493,7 +592,8 @@ class SingleServerPIR(MultiServerPIR):
     def _make_scheduler(self, max_wait_s: float) -> QueryScheduler:
         server, proto, db, cfg = (self.servers[0], self.protocol, self.db,
                                   self.cfg)
-        db.register_hint(proto.name, proto.hint_builder(cfg))
+        db.register_hint(proto.name, proto.hint_builder(cfg),
+                         proto.hint_delta(cfg))
 
         def collate(items):
             # items: ((ct,), state) per query -> one [Q, N] batch and the
@@ -522,14 +622,16 @@ class SingleServerPIR(MultiServerPIR):
             finalize=finalize, buckets=server.buckets,
             max_wait_s=max_wait_s, epoch_of=lambda raw: raw[1])
 
-    def submit(self, index: int) -> AnswerFuture:
+    def submit(self, index: int, *,
+               deadline_s: Optional[float] = None) -> AnswerFuture:
         """Private retrieval of ``db[index]``; resolves to one record
         (``[L]`` uint8). The secret stays with the client: only the
         ciphertext reaches the device path."""
+        fut = self._deadline_future(deadline_s)
         with self._lock:         # client-side keygen shares one rng
             keys, state = self.protocol.query_gen_full(
                 self.rng, index, self.cfg, device=self.db.device)
-        return self.scheduler.submit((keys, state))
+        return self.scheduler.submit((keys, state), future=fut)
 
     def _query_items(self, indices: List[int]) -> List[Any]:
         """``((ct,), state)`` per query, the whole call encrypted in one
