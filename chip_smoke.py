@@ -114,6 +114,21 @@ Then the single-server LWE scheme runs at PIR_128M_LWE (2^22 records x
               of 64 rows whose hint delta ([36, 64] x [64, 1024], B5's
               40-row tile) equals a rebuild, and the updated records served
   twins       python -m repro_torch.db_updates and .batch_query on the card
+  serve_runtime  the serving runtime at PIR_1G on the 1 GiB and checksum
+              databases (kept resident for it): PIRServeLoop per party
+              (n_clusters 2; 8 batches of 32, one of 5, one of 1 from
+              pir.batch_queries) drained serially and pipelined in turns,
+              equal shares that XOR to the rows; TwoServerPIR sessions with
+              256 queries from 4 client threads at n_clusters 2 and 1 in
+              turns, exact, queue_depth 0; a seeded StragglerMonitor that
+              sheds cluster1's queued batches onto cluster0; kill() and
+              drain_handoff() under load (every future resolves, none is
+              lost); a flipped share with checksum=True killing a session
+              (every outstanding future fails with the IntegrityError naming
+              the query) and failing a pump (launched batches fail, the rest
+              stays queued); the multi_server, single_server and
+              serving_session twins as subprocesses. B1 and B2 (and B5 in
+              the single_server twin) launched, no plain call
 Then the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
 line. Without a CUDA card the script exits 1 at once.
@@ -1469,20 +1484,34 @@ def phase_check_widths(dbs, cfg, card, device) -> dict:
     return worst
 
 
-def corrupt_batch(system, idx, edit) -> tuple:
-    """Serve ``idx`` with ``edit`` applied to the batch's raw answers
-    between the scheduler's dispatch and its finalize; returns the
-    ``bad_queries`` of the IntegrityError the batch must raise."""
-    from repro_torch.db import IntegrityError
+def first_dispatch_edited(system, edit):
+    """Apply ``edit`` to the raw answers of the scheduler's next dispatch
+    only, between its dispatch and its finalize; returns the callable that
+    restores the dispatch."""
     sched = system.scheduler
-    orig = sched._dispatch
-    sched._dispatch = lambda staged: edit(orig(staged))
+    orig, calls = sched._dispatch, []
+
+    def dispatch(staged):
+        raw = orig(staged)
+        calls.append(1)
+        return edit(raw) if len(calls) == 1 else raw
+
+    sched._dispatch = dispatch
+    return lambda: setattr(sched, "_dispatch", orig)
+
+
+def corrupt_batch(system, idx, edit) -> tuple:
+    """Serve ``idx`` (one batch) with ``edit`` applied to its raw answers;
+    returns the ``bad_queries`` of the IntegrityError the batch must
+    raise."""
+    from repro_torch.db import IntegrityError
+    restore = first_dispatch_edited(system, edit)
     try:
         system.query(idx)
     except IntegrityError as e:
         return e.bad_queries
     finally:
-        sched._dispatch = orig
+        restore()
     raise AssertionError("a corrupted batch reconstructed without an "
                          "IntegrityError")
 
@@ -2132,6 +2161,429 @@ def phase_twins(device) -> dict:
     return launches
 
 
+#: the serve_runtime phase: PIRServeLoop's batches (8 of 32, one of 5, one
+#: of 1), the lanes' sessions (n_clusters in turns) and their load
+RUNTIME_LOOP_BATCHES = (32,) * 8 + (5, 1)
+RUNTIME_LANE_TURNS = (2, 1, 2, 1)
+RUNTIME_CLIENTS = 4
+RUNTIME_QUERIES = 256
+RUNTIME_TWINS = ("multi_server", "single_server", "serving_session")
+
+
+def wait_stopped(scheduler, timeout: float = 60.0) -> bool:
+    deadline = time.monotonic() + timeout
+    while scheduler.running and time.monotonic() < deadline:
+        time.sleep(0.005)
+    return not scheduler.running
+
+
+def drain_stats(stats, seconds: float) -> dict:
+    return {"answered": stats.answered, "batches": stats.batches,
+            "wall_s": stats.wall_s, "qps": stats.qps,
+            "median_latency_s": float(np.median(stats.latencies)),
+            "seconds": seconds}
+
+
+def runtime_serve_loop(host_db, cfg, database, rng) -> dict:
+    """PIRServeLoop, one per party, n_clusters=2, over the shared database:
+    RUNTIME_LOOP_BATCHES of keys from pir.batch_queries, drained serially
+    and pipelined in turns (serial, pipelined, pipelined, serial); every
+    drain gives the first one's shares, and the parties' shares XOR to the
+    host rows."""
+    from repro_torch.core import pir
+    from repro_torch.core.server import PIRServer
+    from repro_torch.crypto.packing import tensor_to_words
+    from repro_torch.runtime.serve_loop import PIRServeLoop
+    idx = [rng.integers(0, cfg.n_items, size=n) for n in RUNTIME_LOOP_BATCHES]
+    t0 = time.perf_counter()
+    keys = [pir.batch_queries(rng, i, cfg) for i in idx]
+    out = {"batches": list(RUNTIME_LOOP_BATCHES),
+           "keygen_s": time.perf_counter() - t0}
+    shares, equal = [], True
+    for party in (0, 1):
+        server = PIRServer(party, database=database, cfg=cfg, n_queries=32)
+        drains, first = [], None
+        for kind in ("drain", "drain_pipelined", "drain_pipelined", "drain"):
+            loop = PIRServeLoop(server, n_clusters=2)
+            for k in keys:
+                loop.submit(k[party])
+            t0 = time.perf_counter()
+            answers = getattr(loop, kind)()
+            drains.append(dict(kind=kind, **drain_stats(
+                loop.stats, time.perf_counter() - t0)))
+            first = answers if first is None else first
+            equal &= all(torch.equal(a, b) for a, b in zip(answers, first))
+            equal &= [a.shape[0] for a in answers] == [len(i) for i in idx]
+        shares.append(first)
+        out[f"party{party}"] = drains
+    out["equal"] = bool(equal)
+    out["exact"] = all(check_records(tensor_to_words(a ^ b), host_db[i])
+                       for a, b, i in zip(shares[0], shares[1], idx))
+    return out
+
+
+def runtime_lanes(host_db, cfg, database, device, rng) -> list:
+    """RUNTIME_QUERIES queries from RUNTIME_CLIENTS client threads through a
+    TwoServerPIR session, for each n_clusters of RUNTIME_LANE_TURNS in
+    turns: every record exact, queue_depth 0 at the end. The lanes share
+    the card, so the turns are expected within the host clock's spread."""
+    from repro_torch.runtime.serve_loop import TwoServerPIR
+    turns = []
+    for turn, n_clusters in enumerate(RUNTIME_LANE_TURNS):
+        system = TwoServerPIR(database, cfg, device=device, n_queries=32,
+                              n_clusters=n_clusters,
+                              client_rng=np.random.default_rng(SEED + 210
+                                                               + turn))
+        idx = rng.integers(0, cfg.n_items, size=RUNTIME_QUERIES)
+        recs, errors = [None] * RUNTIME_QUERIES, []
+
+        def client(c):
+            # each client makes its keys in one batch (as query() does),
+            # so that the sessions measure serving rather than keygen
+            mine = list(range(c, RUNTIME_QUERIES, RUNTIME_CLIENTS))
+            try:
+                with system._lock:
+                    items = system._query_items([int(idx[i]) for i in mine])
+                futs = [system.scheduler.submit(
+                    it, future=system._deadline_future(None)) for it in items]
+                for i, f in zip(mine, futs):
+                    recs[i] = f.result(timeout=600)
+            except Exception as e:       # noqa: BLE001 - reported, then fails
+                errors.append(repr(e))
+
+        t0 = time.perf_counter()
+        with system:
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(RUNTIME_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+        seconds = time.perf_counter() - t0
+        stats = system.scheduler.stats
+        exact = (not errors and not any(t.is_alive() for t in threads)
+                 and all(r is not None for r in recs)
+                 and check_records(np.stack(recs), host_db[idx]))
+        turns.append({"n_clusters": n_clusters, "seconds": seconds,
+                      "answered": stats.answered, "batches": stats.batches,
+                      "qps": stats.qps, "wall_s": stats.wall_s,
+                      "pad_fraction": stats.pad_fraction,
+                      "bucket_counts": {str(b): n for b, n in
+                                        sorted(stats.bucket_counts.items())},
+                      "reassignments": stats.reassignments,
+                      "queue_depth": system.scheduler.queue_depth,
+                      "exact": exact, "errors": errors[:3]})
+        if not exact or turns[-1]["queue_depth"]:
+            raise AssertionError(f"serve_runtime lanes: {turns[-1]}")
+    return turns
+
+
+def runtime_shedding(host_db, cfg, database, device, rng) -> dict:
+    """A StragglerMonitor seeded so that cluster1 is flagged (alpha=1.0;
+    factor 1.5, since of two lanes the median is their mean), then a pump
+    of four batches of 32 cut onto both lanes: the first completion sheds
+    cluster1's queued batches, every batch runs on cluster0, every record
+    exact."""
+    from repro_torch.runtime.fault import StragglerMonitor
+    from repro_torch.runtime.serve_loop import TwoServerPIR
+    system = TwoServerPIR(database, cfg, device=device, n_queries=32,
+                          n_clusters=2,
+                          client_rng=np.random.default_rng(SEED + 220))
+    monitor = StragglerMonitor(factor=1.5, alpha=1.0)
+    monitor.record("cluster0", 0.001)
+    monitor.record("cluster1", 10.0)
+    ran, record = [], monitor.record
+
+    def logged(lane, dt):
+        ran.append(lane)
+        record(lane, dt)
+
+    monitor.record = logged
+    system.scheduler.monitor = monitor
+    idx = rng.integers(0, cfg.n_items, size=4 * 32)
+    futs = [system.scheduler.submit(it)
+            for it in system._query_items([int(i) for i in idx])]
+    queued = {lane: len(q) for lane, q in system.scheduler.queues.items()}
+    t0 = time.perf_counter()
+    system.scheduler.pump()
+    out = {"queued": queued, "ran_on": ran,
+           "reassignments": system.scheduler.stats.reassignments,
+           "stragglers": monitor.stragglers(),
+           "seconds": time.perf_counter() - t0,
+           "exact": check_records(np.stack([f.result(timeout=600)
+                                            for f in futs]), host_db[idx])}
+    if (queued != {"cluster0": 2, "cluster1": 2} or not out["exact"]
+            or out["reassignments"] < 1 or ran != ["cluster0"] * 4):
+        raise AssertionError(f"serve_runtime shedding: {out}")
+    return out
+
+
+def runtime_kill(host_db, cfg, database, device, rng) -> dict:
+    """64 queries submitted by a client to a running session (n_clusters
+    2), then kill() once the first batch completes: every future resolves
+    within a timeout, exactly or with the kill's exception; submit then
+    raises and queue_depth is 0."""
+    from repro_torch.runtime.serve_loop import TwoServerPIR
+    system = TwoServerPIR(database, cfg, device=device, n_queries=32,
+                          n_clusters=2,
+                          client_rng=np.random.default_rng(SEED + 230))
+    idx = rng.integers(0, cfg.n_items, size=64)
+    resolved_at = [None] * len(idx)
+    first = threading.Event()
+    system.start()
+    futs = []
+    for i, index in enumerate(idx):
+        f = system.submit(int(index))
+        f.add_done_callback(
+            lambda f, i=i: resolved_at.__setitem__(i, time.perf_counter()))
+        futs.append(f)
+    futs[0].add_done_callback(lambda f: first.set())
+    if not first.wait(timeout=600):
+        raise AssertionError("serve_runtime kill: no batch completed")
+    killed = RuntimeError("serve_runtime: killed under load")
+    t_kill = time.perf_counter()
+    system.scheduler.kill(killed)
+    exact = failed = 0
+    for i, f in zip(idx, futs):
+        try:
+            rec = f.result(timeout=60)
+        except RuntimeError as e:
+            if e is not killed:
+                raise
+            failed += 1
+            continue
+        if not check_records(rec, host_db[i]):
+            raise AssertionError(f"serve_runtime kill: D[{i}] wrong")
+        exact += 1
+    stopped = wait_stopped(system.scheduler)
+    try:
+        system.submit(0)
+        rejected = False
+    except RuntimeError:
+        rejected = True
+    after = [t - t_kill for t in resolved_at if t is not None and t >= t_kill]
+    out = {"queries": len(idx), "exact": exact, "failed_with_kill": failed,
+           "resolved_after_kill": len(after),
+           "max_resolve_after_kill_s": max(after) if after else 0.0,
+           "stopped": stopped, "submit_rejected": rejected,
+           "queue_depth": system.scheduler.queue_depth}
+    if (exact + failed != len(idx) or not stopped or not rejected
+            or out["queue_depth"]):
+        raise AssertionError(f"serve_runtime kill: {out}")
+    return out
+
+
+def runtime_handoff(host_db, cfg, database, device, rng) -> dict:
+    """128 queries (four batches of 32) on a running session; once the
+    first batch completes, drain_handoff returns the undispatched pairs,
+    which a second TwoServerPIR over the same Database serves under their
+    own futures: every future exact, none lost."""
+    from repro_torch.runtime.serve_loop import TwoServerPIR
+    src = TwoServerPIR(database, cfg, device=device, n_queries=32,
+                       n_clusters=2,
+                       client_rng=np.random.default_rng(SEED + 240))
+    dst = TwoServerPIR(database, cfg, device=device, n_queries=32,
+                       client_rng=np.random.default_rng(SEED + 241))
+    idx = rng.integers(0, cfg.n_items, size=4 * 32)
+    items = src._query_items([int(i) for i in idx])
+    first = threading.Event()
+    src.start()
+    futs = [src.scheduler.submit(it, future=src._deadline_future(None))
+            for it in items]
+    futs[0].add_done_callback(lambda f: first.set())
+    if not first.wait(timeout=600):
+        raise AssertionError("serve_runtime handoff: no batch completed")
+    pairs = src.scheduler.drain_handoff()
+    for item, fut in pairs:
+        if dst.scheduler.submit(item, future=fut) is not fut:
+            raise AssertionError("a handed-off query got a new future")
+    dst.scheduler.pump()
+    recs = np.stack([f.result(timeout=600) for f in futs])
+    out = {"queries": len(idx), "handed_off": len(pairs),
+           "answered_here": src.scheduler.stats.answered,
+           "answered_there": dst.scheduler.stats.answered,
+           "stopped": wait_stopped(src.scheduler),
+           "exact": check_records(recs, host_db[idx])}
+    if (not out["exact"] or not out["stopped"] or not pairs
+            or out["answered_here"] + out["answered_there"] != len(idx)):
+        raise AssertionError(f"serve_runtime handoff: {out}")
+    return out
+
+
+def runtime_integrity(host_chk, cfg, database, device, rng) -> dict:
+    """checksum=True at PIR_1G: one word of one party's share of the first
+    batch flipped. Session mode: the batch's futures carry bad_queries
+    naming the flipped query, every outstanding future fails with the same
+    exception, submit raises until start() reopens the session, and a
+    fresh batch is exact. pump mode: pump raises, the batch launched behind
+    the corrupted one fails with the same exception, the one not launched
+    stays queued and the next pump serves it exactly."""
+    from repro_torch.db import IntegrityError
+    from repro_torch.runtime.serve_loop import TwoServerPIR
+
+    def deployment(seed):
+        return TwoServerPIR(database, cfg, device=device, n_queries=32,
+                            n_clusters=2,
+                            client_rng=np.random.default_rng(seed))
+
+    system = deployment(SEED + 250)
+    bad = int(rng.integers(32))
+    idx = rng.integers(0, cfg.n_items, size=32 + 8)
+    items = system._query_items([int(i) for i in idx])
+    restore = first_dispatch_edited(system, flip_share(1, bad, 3, 0x5A))
+    try:
+        futs = [system.scheduler.submit(it,
+                                        future=system._deadline_future(None))
+                for it in items]
+        system.start()
+        errors = []
+        for f in futs:
+            try:
+                f.result(timeout=600)
+                errors.append(None)
+            except IntegrityError as e:
+                errors.append(e)
+        stopped = wait_stopped(system.scheduler)
+        try:
+            system.submit(0)
+            rejected = False
+        except RuntimeError:
+            rejected = True
+    finally:
+        restore()
+    system.start()
+    fresh_idx = rng.integers(0, cfg.n_items, size=8)
+    try:
+        fresh = check_records(system.query(fresh_idx), host_chk[fresh_idx])
+    finally:
+        system.close()
+    session = {"flipped_query": bad, "futures": len(futs),
+               "failed": sum(e is not None for e in errors),
+               "one_exception": all(e is errors[0] for e in errors),
+               "bad_queries": list(errors[0].bad_queries) if errors[0]
+               else None, "stopped": stopped, "submit_rejected": rejected,
+               "fresh_exact": fresh,
+               "queue_depth": system.scheduler.queue_depth}
+    if (session["failed"] != len(futs) or not session["one_exception"]
+            or session["bad_queries"] != [bad] or not stopped
+            or not rejected or not fresh or session["queue_depth"]):
+        raise AssertionError(f"serve_runtime integrity (session): {session}")
+
+    system = deployment(SEED + 251)
+    bad = int(rng.integers(32))
+    idx = rng.integers(0, cfg.n_items, size=32 + 32 + 8)
+    items = system._query_items([int(i) for i in idx])
+    restore = first_dispatch_edited(system, flip_share(0, bad, 5, 0x01))
+    try:
+        futs = [system.scheduler.submit(it,
+                                        future=system._deadline_future(None))
+                for it in items]
+        try:
+            system.scheduler.pump()
+            raised = None
+        except IntegrityError as e:
+            raised = e
+    finally:
+        restore()
+    launched, queued = futs[:64], futs[64:]
+    pump = {"flipped_query": bad,
+            "bad_queries": list(raised.bad_queries) if raised else None,
+            "launched_resolved": sum(f.done() for f in launched),
+            "launched_failed_with_it": sum(f.exception() is raised
+                                           for f in launched),
+            "queued_pending": sum(not f.done() for f in queued),
+            "queue_depth": system.scheduler.queue_depth}
+    system.scheduler.pump()
+    pump["queued_exact"] = check_records(
+        np.stack([f.result(timeout=600) for f in queued]), host_chk[idx[64:]])
+    if (pump["bad_queries"] != [bad] or pump["launched_resolved"] != 64
+            or pump["launched_failed_with_it"] != 64
+            or pump["queued_pending"] != 8 or pump["queue_depth"] != 8
+            or not pump["queued_exact"]):
+        raise AssertionError(f"serve_runtime integrity (pump): {pump}")
+    return {"session": session, "pump": pump}
+
+
+def runtime_twins() -> dict:
+    """The multi_server, single_server and serving_session twins as
+    subprocesses on the card, started together; each must exit with 0 and
+    report, on its last line, its kernels' launches and plain calls."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (src, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.{name}"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=os.path.dirname(src)) for name in RUNTIME_TWINS}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"twin {name} exited {proc.returncode}:"
+                                     f"\n{stdout[-2000:]}\n{stderr[-4000:]}")
+            summary = json.loads(stdout.strip().splitlines()[-1])
+            out[name] = {"seconds": time.perf_counter() - t0,
+                         "launches": summary["launches"],
+                         "plain_calls": summary["plain_calls"]}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def phase_serve_runtime(host_db, cfg, database, host_chk, cfg_chk,
+                        database_chk, card, device) -> dict:
+    """The serving runtime at PIR_1G on the resident databases: the
+    PIRServeLoop per party, lanes under load (n_clusters 2 and 1 in turns),
+    shedding off a flagged lane, kill and drain_handoff under load, a
+    corrupted share with checksum=True in session and pump mode, and the
+    three serving twins as subprocesses. The counters are zeroed before it
+    and read after: B1 and B2 launched here, B5 in the single_server twin,
+    no plain call anywhere. Returns the launches by kernel."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(SEED + 200)
+    t_phase = time.perf_counter()
+    ops.reset_counts()
+    loop = runtime_serve_loop(host_db, cfg, database, rng)
+    emit({"phase": "serve_runtime_loop", "config": "pir-1g", "card": card,
+          **loop})
+    if not loop["equal"] or not loop["exact"]:
+        raise AssertionError("serve_runtime: PIRServeLoop's drains differ "
+                             "or its shares do not XOR to the rows")
+    lanes = runtime_lanes(host_db, cfg, database, device, rng)
+    emit({"phase": "serve_runtime_lanes", "config": "pir-1g", "card": card,
+          "clients": RUNTIME_CLIENTS, "queries": RUNTIME_QUERIES,
+          "turns": lanes})
+    shedding = runtime_shedding(host_db, cfg, database, device, rng)
+    emit({"phase": "serve_runtime_shedding", **shedding})
+    kill = runtime_kill(host_db, cfg, database, device, rng)
+    emit({"phase": "serve_runtime_kill", "card": card, **kill})
+    handoff = runtime_handoff(host_db, cfg, database, device, rng)
+    emit({"phase": "serve_runtime_handoff", **handoff})
+    integrity = runtime_integrity(host_chk, cfg_chk, database_chk, device,
+                                  rng)
+    emit({"phase": "serve_runtime_integrity", "config": "pir-1g+chk",
+          **integrity})
+    launches = main_path_launches("serve_runtime",
+                                  ("dpxor", "fused_scan_xor"))
+    twins = runtime_twins()
+    for name, twin in twins.items():
+        if any(twin["plain_calls"].values()):
+            raise AssertionError(f"twin {name} ran plain versions: {twin}")
+        for k, n in twin["launches"].items():
+            launches[k] += n
+    if twins["single_server"]["launches"]["lwe_gemm"] < 1:
+        raise AssertionError("the single_server twin did not launch B5")
+    emit({"phase": "serve_runtime", "card": card, "twins": twins,
+          "launches": launches, "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2198,6 +2650,7 @@ def main() -> int:
     # stored with their checksum word (36 bytes), and 128-byte records
     database_chk, host128, database_w128 = phase_database_widths(
         host_db, cfg, device)
+    host_chk = host_db.copy()       # the checksum database's records
     widths = phase_check_widths(
         {32: db, 36: database_chk.view("words"),
          128: database_w128.view("words")}, cfg, info["card"], device)
@@ -2218,9 +2671,10 @@ def main() -> int:
                                  info["card"], device)
 
     # the batch plane on its own (4 GiB of buckets), then the single-server
-    # LWE scheme on its own database: the 1 GiB ones and the multi-server
-    # phases' temporaries go first, A takes 16 GiB
-    del database, db, host_db, kept, database_chk, database_w128, host128
+    # LWE scheme on its own database: the 128-byte one and the multi-server
+    # phases' temporaries go first, A takes 16 GiB; the 1 GiB and checksum
+    # databases stay for serve_runtime
+    del db, kept, database_w128, host128
     gc.collect()
     torch.cuda.empty_cache()
     launches_batch = phase_batch(PIR_1G_BATCH, info["card"], device)
@@ -2247,6 +2701,10 @@ def main() -> int:
     lwe.clear_matrix_cache()
     timing_lwe["lwe_gemm"] = timing_lwe["lwe_gemm_q32"]
     launches_twins = phase_twins(device)
+    launches_runtime = phase_serve_runtime(
+        host_db, cfg, database, host_chk, replace(cfg, checksum=True),
+        database_chk, info["card"], device)
+    del database, database_chk, host_db, host_chk
 
     def total(*runs):               # each path's launches, read after it
         return {k: sum(r.get(k, 0) for r in runs) for k in worst}
@@ -2256,11 +2714,11 @@ def main() -> int:
             ("dpxor", "src/repro_torch/csrc/dpxor.cu",
              "src/repro/kernels/dpxor.py:56",
              total(launches, launches_chk, launches_w128, launches_upd,
-                   launches_batch, launches_twins), timing),
+                   launches_batch, launches_twins, launches_runtime), timing),
             ("fused_scan_xor", "src/repro_torch/csrc/fused_scan_xor.cu",
              "src/repro/kernels/fused_scan.py:94",
-             total(launches, launches_chk, launches_w128, launches_upd),
-             timing),
+             total(launches, launches_chk, launches_w128, launches_upd,
+                   launches_runtime), timing),
             ("pir_gemm", "src/repro_torch/csrc/pir_gemm.cu",
              "src/repro/kernels/pir_matmul.py:35",
              total(launches_add, launches_chk, launches_w128, launches_upd),
@@ -2272,7 +2730,8 @@ def main() -> int:
             ("lwe_gemm", "src/repro_torch/csrc/lwe_gemm.cu",
              "src/repro/kernels/pir_matmul.py:35",
              total(launches_lwe, launches_lwe_chk,
-                   {"lwe_gemm": launches_upd_lwe}), timing_lwe),
+                   {"lwe_gemm": launches_upd_lwe}, launches_runtime),
+             timing_lwe),
             ("ggm_expand", "src/repro_torch/csrc/ggm_expand.cu",
              "src/repro/kernels/ggm_expand.py:90", launches_ggm,
              {"ggm_expand": ggm_row})):

@@ -1,6 +1,7 @@
 """Client + reference-server PIR primitives (port of ``repro/core/pir.py``).
 
 Client:  ``query_gen`` (key generation through the protocol registry),
+         ``batch_queries`` (one stacked key batch per party),
          ``reconstruct_xor`` (r1 XOR r2, Algorithm 1 ⑦) and
          ``reconstruct_additive`` ((r1 + r2) mod 256).
 Server:  ``dpxor`` — the plain select-XOR scan — and
@@ -11,7 +12,7 @@ Server:  ``dpxor`` — the plain select-XOR scan — and
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,8 +24,8 @@ from repro_torch.db.spec import row_checksum
 from repro_torch.kernels.dpxor import dpxor_plain, xor_fold
 from repro_torch.kernels.pir_matmul import pir_gemm_plain
 
-__all__ = ["Query", "answer_additive_matmul", "db_as_bytes", "dpxor",
-           "make_database", "query_gen", "reconstruct_additive",
+__all__ = ["Query", "answer_additive_matmul", "batch_queries", "db_as_bytes",
+           "dpxor", "make_database", "query_gen", "reconstruct_additive",
            "reconstruct_xor", "xor_fold"]
 
 
@@ -65,6 +66,16 @@ def query_gen(rng: np.random.Generator, index: int, cfg: PIRConfig) -> Query:
     from repro_torch.core import protocol as protocol_mod
     proto = protocol_mod.for_config(cfg)
     return Query(index=index, keys=proto.query_gen(rng, index, cfg))
+
+
+def batch_queries(rng: np.random.Generator, indices: Sequence[int],
+                  cfg: PIRConfig) -> Tuple[dpf.DPFKey, ...]:
+    """One stacked key batch per party for ``indices`` (``pir.py:102``
+    upstream): the same rng draws, and so the same keys, as one
+    ``query_gen`` per index in order."""
+    from repro_torch.core import protocol as protocol_mod
+    return protocol_mod.for_config(cfg).query_gen_batch(
+        rng, [int(i) for i in indices], cfg)
 
 
 def reconstruct_xor(r0: torch.Tensor, r1: torch.Tensor) -> torch.Tensor:

@@ -66,6 +66,16 @@ class BucketedServeFns:
     device served on: its tuned plan on a plan-cache hit, else ``plan_for``
     for the backend, so small and large buckets may take different kernel
     paths; plans are resolved once per bucket and cached.
+
+    ``n_compiles`` counts the per-bucket serve steps built, the analogue
+    of the reference's jit-cache misses: a bucket's step is built at its
+    first dispatch (its plan resolved and bound), or by ``PIRServer`` for
+    its ``n_queries`` bucket at construction as upstream, and reused by
+    every later batch of that bucket and across publishes. On the card
+    this compiles nothing per bucket: the kernels' libraries are built
+    once per process (``kernels/build.py``), so the count is of steps
+    bound, not of nvcc runs. Resolving a plan alone (``plan_for_bucket``,
+    ``plan_report``) builds no step.
     """
 
     def __init__(self, cfg: PIRConfig, *, buckets: Sequence[int],
@@ -84,6 +94,7 @@ class BucketedServeFns:
         self.buckets = tuple(sorted(set(buckets)))
         self.log_local = cfg.log_n
         self._plans: Dict[int, ExecutionPlan] = {}
+        self._steps: set = set()       # buckets whose step was built
 
     def bucket_for(self, n: int) -> int:
         return bucket_for(self.buckets, n)
@@ -94,6 +105,16 @@ class BucketedServeFns:
                 self.path, self.cfg, bucket, backend=self.backend,
                 chunk_log=self.chunk_log, device=self.device)
         return self._plans[bucket]
+
+    @property
+    def n_compiles(self) -> int:
+        return len(self._steps)
+
+    def step_for(self, bucket: int) -> ExecutionPlan:
+        """The plan a batch of ``bucket`` is answered with, building the
+        bucket's step at its first dispatch (counted in ``n_compiles``)."""
+        self._steps.add(bucket)
+        return self.plan_for_bucket(bucket)
 
     def stage(self, keys: Keys, device: torch.device) -> Keys:
         """Copy a batch to ``device`` ahead of dispatch (``answer`` pads);
@@ -139,7 +160,7 @@ class BucketedServeFns:
         r = q // n_views
         keys = keys.to(views[0].device)
         part = lambda lo, hi: map_keys(keys, lambda x: x[lo * r:hi * r])
-        plan = self.plan_for_bucket(self.bucket_for(r))
+        plan = self.step_for(self.bucket_for(r))
         if plan.expand != "materialize":
             return torch.stack([self.answer(v, part(b, b + 1))
                                 for b, v in enumerate(views)])
@@ -159,7 +180,7 @@ class BucketedServeFns:
         bucket = self.bucket_for(q)
         keys = self.protocol.pad(keys, bucket)
         return self.protocol.answer_local(
-            db, keys, 0, self.log_local, self.plan_for_bucket(bucket))[:q]
+            db, keys, 0, self.log_local, self.step_for(bucket))[:q]
 
 
 class PIRServer:
@@ -202,10 +223,21 @@ class PIRServer:
             cfg, buckets=buckets, backend=backend_of(self.device), path=path,
             protocol=protocol, device=self.device)
         self.protocol = self.bucketed.protocol
+        self.bucketed.step_for(n_queries)
+
+    @property
+    def n_compiles(self) -> int:
+        """Per-bucket serve steps built (``BucketedServeFns.n_compiles``)."""
+        return self.bucketed.n_compiles
 
     @property
     def buckets(self) -> Tuple[int, ...]:
         return self.bucketed.buckets
+
+    @property
+    def db_epoch(self) -> int:
+        """Current epoch of the (possibly shared) database."""
+        return self.db.epoch
 
     def plan_report(self) -> Dict[int, str]:
         """``{bucket: plan name}`` for every bucket."""

@@ -3,33 +3,42 @@
 Pipeline (paper Figure 8, §3.4):
   ① client keys arrive per query                        -> pending queue
   ② the scheduler coalesces them into padded batches of a few bucket sizes
-  ③ a depth-2 dispatch loop stages batch k+1's keys (pad, pinned upload)
+  ③ batches are spread round-robin over ``n_clusters`` lanes; a lane whose
+     latency EWMA flags it a straggler has its queued batches shed onto
+     healthy lanes (``StragglerMonitor.shed_stragglers`` via
+     ``QueryScheduler.rebalance``)
+  ④ a depth-2 dispatch loop stages batch k+1's keys (pad, pinned upload)
      and launches its answer step while batch k still runs on the card
-  ④ answers return through per-query futures; all parties' shares are
+  ⑤ answers return through per-query futures; all parties' shares are
      reconciled (``PIRProtocol.reconstruct_with``) when a batch completes
 
-The port keeps ``AnswerFuture``, ``QueryScheduler``, ``MultiServerPIR``
-(k parties, e.g. ``xor-dpf-k``), ``TwoServerPIR`` (``xor-dpf-2``,
-``additive-dpf-2``) and ``SingleServerPIR`` (``lwe-simple-1``: per-query
-client state and a client hint cache) on one device and one dispatch
-lane, with verified reconstruction (``cfg.checksum``): records come back
-at the logical width, and a batch whose records fail their checksum fails
-its own futures with ``IntegrityError`` (``bad_queries`` are indices in
-that batch) while the scheduler goes on with the next. Online updates
-(``update`` / ``publish``) swap in a new database epoch; every answer is
-tagged with the epoch its own dispatch read. Per-query deadlines ride on
-the futures (``QueryTimeout``). Chaos seams, straggler shedding, cluster
-lanes and replica hooks are not ported yet.
+The port keeps ``AnswerFuture``, ``QueryScheduler``, ``PIRServeLoop``
+(one party, batches of stacked keys), ``MultiServerPIR`` (k parties, e.g.
+``xor-dpf-k``), ``TwoServerPIR`` (``xor-dpf-2``, ``additive-dpf-2``) and
+``SingleServerPIR`` (``lwe-simple-1``: per-query client state and a client
+hint cache) on one device. The lanes are logical: they share the device
+and its stream. With verified reconstruction (``cfg.checksum``) records
+come back at the logical width, and a corrupted share raises
+``IntegrityError`` (``bad_queries`` are indices in its batch) out of the
+batch's finalize; as upstream, that ends a session, which fails every
+outstanding future with the same exception. Online updates (``update`` /
+``publish``) swap in a new database epoch; every answer is tagged with the
+epoch its own dispatch read. Per-query deadlines ride on the futures
+(``QueryTimeout``). The replica plane's hooks are ``queue_depth``,
+``drain_handoff``, ``kill`` and ``heartbeat``. The chaos seams are not
+ported yet.
 """
 from __future__ import annotations
 
+import queue
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.config import PIRConfig
 from repro_torch.core import dpf, lwe
@@ -37,8 +46,9 @@ from repro_torch.core import protocol as protocol_mod
 from repro_torch.core.protocol import PIRProtocol
 from repro_torch.core.server import PIRServer, bucket_for
 from repro_torch.crypto.packing import records_to_host
-from repro_torch.db import Database, IntegrityError
+from repro_torch.db import Database
 from repro_torch.engine.backend import Device
+from repro_torch.runtime.fault import StragglerMonitor
 
 #: dispatch depth: one batch running on the card, one being staged
 PIPELINE_DEPTH = 2
@@ -53,6 +63,33 @@ class ServeStats:
     answered: int = 0
     batches: int = 0
     padded: int = 0              # pad slots computed and discarded
+    reassignments: int = 0       # queued batches moved off stragglers
+    latencies: List[float] = field(default_factory=list)
+    bucket_counts: Dict[int, int] = field(default_factory=dict)
+    # serving window, earliest dispatch .. latest completion: pipelined
+    # batches overlap, so QPS is taken over it, never over the latency sum
+    t_first: Optional[float] = None
+    t_last: Optional[float] = None
+
+    def observe_window(self, t0: float, t1: float):
+        self.t_first = t0 if self.t_first is None else min(self.t_first, t0)
+        self.t_last = t1 if self.t_last is None else max(self.t_last, t1)
+
+    @property
+    def wall_s(self) -> float:
+        if self.t_first is None or self.t_last is None:
+            return 0.0
+        return self.t_last - self.t_first
+
+    @property
+    def qps(self) -> float:
+        wall = self.wall_s
+        return self.answered / wall if wall > 0 else 0.0
+
+    @property
+    def pad_fraction(self) -> float:
+        slots = self.answered + self.padded
+        return self.padded / slots if slots else 0.0
 
 
 class QueryTimeout(TimeoutError):
@@ -143,14 +180,16 @@ class AnswerFuture:
 
 @dataclass
 class _Batch:
-    items: List[Any]
+    """One cut (not yet padded) batch bound for a cluster lane."""
+    items: List[Any]                  # per-query payloads
     futures: List[AnswerFuture]
+    cluster: str
     bucket: int = 0
-    epoch: Optional[int] = None
+    epoch: Optional[int] = None       # database epoch read at dispatch
 
 
 class QueryScheduler:
-    """Dynamic batcher + depth-2 dispatcher.
+    """Dynamic batcher + depth-2 dispatcher over cluster lanes.
 
     Parameterized by four callables:
 
@@ -164,47 +203,73 @@ class QueryScheduler:
     dispatched keeps the old epoch's tag and data, while a batch still
     queued is tagged with the epoch it reads when it is dispatched.
     Batches are cut when a full largest bucket is pending or when the
-    oldest query has waited ``max_wait_s``. Drive it
-    with :meth:`pump` or as a background session (:meth:`start` /
-    :meth:`stop`). An ``IntegrityError`` from ``finalize`` fails that
-    batch's futures only; any other error fails them and is raised.
+    oldest query has waited ``max_wait_s``, and spread round-robin over
+    ``n_clusters`` lanes (``cluster0``, ...); after each completion
+    :meth:`rebalance` sheds a flagged straggler lane's queued batches onto
+    healthy lanes (``monitor``, a ``StragglerMonitor``). ``clock`` is read
+    for every timestamp the scheduler keeps.
+
+    Drive it with :meth:`pump` or as a background session (:meth:`start` /
+    :meth:`stop`). A failure in finalize (an ``IntegrityError`` of a
+    corrupted share included) fails the batch's futures and is raised, as
+    upstream: a session dies and fails every outstanding future with it;
+    :meth:`pump` fails the batches it had launched and re-raises, leaving
+    the batches it had not launched queued. The replica plane reads
+    :attr:`queue_depth` and calls :meth:`drain_handoff` (graceful leave)
+    and :meth:`kill` (hard death); ``heartbeat`` is called once per pump
+    and once per turn of the session loop.
     """
 
     def __init__(self, *, collate: Callable[[List[Any]], Any],
                  stage: Callable[[Any], Any], dispatch: Callable[[Any], Any],
                  finalize: Callable[[Any, int], Sequence[Any]],
-                 buckets: Sequence[int],
+                 buckets: Sequence[int], n_clusters: int = 1,
                  max_wait_s: float = DEFAULT_MAX_WAIT_S,
-                 epoch_of: Optional[Callable[[Any], Optional[int]]] = None):
+                 monitor: Optional[StragglerMonitor] = None,
+                 depth: int = PIPELINE_DEPTH,
+                 clock: Callable[[], float] = time.monotonic,
+                 epoch_of: Optional[Callable[[Any], Optional[int]]] = None,
+                 heartbeat: Optional[Callable[[], None]] = None):
         self._collate = collate
         self._stage = stage
         self._dispatch = dispatch
         self._finalize = finalize
         self._epoch_of = epoch_of
         self.buckets = tuple(sorted(set(buckets)))
+        self.n_clusters = max(n_clusters, 1)
         self.max_wait_s = max_wait_s
+        self.monitor = monitor if monitor is not None else StragglerMonitor()
+        self.depth = max(depth, 1)
+        self.clock = clock
+        #: liveness hook: silence means the session thread stopped turning
+        self.heartbeat = heartbeat
         self.stats = ServeStats()
         self._cv = threading.Condition()
         self._pending: deque = deque()        # (item, future, t_submit)
-        self._queue: deque = deque()          # cut batches, FIFO
+        self.queues: Dict[str, List[_Batch]] = {
+            f"cluster{i}": [] for i in range(self.n_clusters)}
+        self._rr = 0                          # round-robin lane counter
+        self._n_inflight = 0                  # real queries dispatched
         self._thread: Optional[threading.Thread] = None
         self._stopping = False
-        self._closed = False
+        self._closed = False                  # set by stop(), death, kill()
+        self._abort_exc: Optional[BaseException] = None   # set by kill()
 
     # -- intake ----------------------------------------------------------
 
     def submit(self, item: Any, *, future: Optional[AnswerFuture] = None
                ) -> AnswerFuture:
         """Enqueue one query payload; returns its future (``future``, when
-        given, so that a caller can set its deadline). Raises
-        ``RuntimeError`` once a session was stopped or died."""
+        given: a caller's deadline, or a handed-off query moving with its
+        future). Raises ``RuntimeError`` once a session was stopped, died
+        or was killed."""
         fut = future if future is not None else AnswerFuture()
         with self._cv:
             if self._closed:
                 raise RuntimeError(
                     "QueryScheduler is stopped; submit() after stop() would "
                     "never be answered")
-            self._pending.append((item, fut, time.monotonic()))
+            self._pending.append((item, fut, self.clock()))
             if len(self._pending) >= self.buckets[-1]:
                 self._cut_locked(self.buckets[-1])
             self._cv.notify()
@@ -212,6 +277,57 @@ class QueryScheduler:
 
     def bucket_for(self, n: int) -> int:
         return bucket_for(self.buckets, n)
+
+    @property
+    def queue_depth(self) -> int:
+        """Real queries accepted and not yet resolved: pending, cut into
+        lanes and dispatched (pad slots excluded)."""
+        with self._cv:
+            return (len(self._pending) + self._n_inflight
+                    + sum(len(b.items) for lane in self.queues.values()
+                          for b in lane))
+
+    def drain_handoff(self) -> List[Tuple[Any, AnswerFuture]]:
+        """Graceful leave: close intake and return every query not yet
+        dispatched as FIFO ``(item, future)`` pairs, to be resubmitted
+        elsewhere with ``submit(item, future=fut)``. Batches already
+        dispatched complete here; a running session finishes them and
+        exits."""
+        out: List[Tuple[Any, AnswerFuture]] = []
+        with self._cv:
+            self._closed = True
+            self._stopping = True
+            for lane in self.queues.values():
+                for batch in lane:
+                    out.extend(zip(batch.items, batch.futures))
+                lane.clear()
+            while self._pending:
+                item, fut, _ = self._pending.popleft()
+                out.append((item, fut))
+            self._cv.notify_all()
+        return out
+
+    def kill(self, exc: BaseException):
+        """Hard death: fail every outstanding future with ``exc`` and stop
+        without draining. Queued and pending futures fail on the calling
+        thread (outside the lock: their callbacks may resubmit); a running
+        session fails its in-flight batches the same way and exits.
+        Futures resolve first-wins, so a batch that beats the kill keeps
+        its answers."""
+        victims: List[AnswerFuture] = []
+        with self._cv:
+            self._closed = True
+            self._stopping = True
+            self._abort_exc = exc
+            for lane in self.queues.values():
+                for batch in lane:
+                    victims.extend(batch.futures)
+                lane.clear()
+            while self._pending:
+                victims.append(self._pending.popleft()[1])
+            self._cv.notify_all()
+        for fut in victims:
+            fut.set_exception(exc)
 
     def flush(self):
         """Cut every pending query into batches now."""
@@ -221,68 +337,125 @@ class QueryScheduler:
             self._cv.notify()
 
     def _cut_locked(self, n: int):
+        """Form one batch of ``n`` pending queries onto the next lane."""
         taken = [self._pending.popleft() for _ in range(n)]
-        self._queue.append(_Batch(items=[t[0] for t in taken],
-                                  futures=[t[1] for t in taken],
-                                  bucket=self.bucket_for(n)))
+        lane = f"cluster{self._rr % self.n_clusters}"
+        self._rr += 1
+        batch = _Batch(items=[t[0] for t in taken],
+                       futures=[t[1] for t in taken], cluster=lane,
+                       bucket=self.bucket_for(n))
+        for fut in batch.futures:          # for a timeout's message
+            fut.context.setdefault("bucket", batch.bucket)
+        self.queues[lane].append(batch)
 
     def _cut_ripe_locked(self):
         while self._pending and \
-                time.monotonic() - self._pending[0][2] >= self.max_wait_s:
+                self.clock() - self._pending[0][2] >= self.max_wait_s:
             self._cut_locked(min(len(self._pending), self.buckets[-1]))
 
-    def _pop_locked(self) -> Optional[_Batch]:
-        return self._queue.popleft() if self._queue else None
+    # -- straggler shedding ----------------------------------------------
+
+    def rebalance(self) -> int:
+        """Move queued batches off flagged straggler lanes; returns how
+        many moved."""
+        with self._cv:
+            new_queues, moved = self.monitor.shed_stragglers(self.queues)
+            if moved:
+                for lane, batches in new_queues.items():
+                    for b in batches:
+                        b.cluster = lane
+                self.queues = new_queues
+                self.stats.reassignments += moved
+        return moved
+
+    def _pop_batch_locked(self) -> Optional[_Batch]:
+        for i in range(self.n_clusters):
+            lane = f"cluster{(self._rr + i) % self.n_clusters}"
+            if self.queues[lane]:
+                return self.queues[lane].pop(0)
+        return None
 
     # -- dispatch engine -------------------------------------------------
 
-    def _launch(self, batch: _Batch) -> Tuple[_Batch, Any]:
-        """Collate + stage + dispatch one batch; the card runs it async."""
+    def _launch(self, batch: _Batch) -> Tuple[_Batch, Any, float]:
+        """Collate + stage + dispatch one batch; the card runs it async. A
+        failure fails the batch's futures before it propagates: the batch
+        has left the lanes already."""
         try:
-            raw = self._dispatch(self._stage(self._collate(batch.items)))
+            staged = self._stage(self._collate(batch.items))
+            t0 = self.clock()
+            raw = self._dispatch(staged)
             if self._epoch_of is not None:
                 batch.epoch = self._epoch_of(raw)
         except BaseException as e:
             for fut in batch.futures:
                 fut.set_exception(e)
             raise
-        return batch, raw
+        with self._cv:
+            self._n_inflight += len(batch.items)
+        return batch, raw, t0
 
-    def _complete(self, batch: _Batch, raw: Any):
+    def _complete(self, batch: _Batch, raw: Any, t0: float):
         try:
             answers = self._finalize(raw, len(batch.items))
+            dt = self.clock() - t0
             for fut, ans in zip(batch.futures, answers):
-                fut.epoch = batch.epoch
+                fut.epoch = batch.epoch      # before the result event fires
                 fut.set_result(ans)
-        except IntegrityError as e:      # this batch's records, not the loop
-            for fut in batch.futures:
-                fut.set_exception(e)
-            return
         except BaseException as e:
             for fut in batch.futures:
                 fut.set_exception(e)
             raise
+        finally:
+            with self._cv:
+                self._n_inflight -= len(batch.items)
+        self.monitor.record(batch.cluster, dt)
+        self.stats.observe_window(t0, t0 + dt)
+        self.stats.latencies.append(dt)
         self.stats.batches += 1
         self.stats.answered += len(batch.items)
         self.stats.padded += batch.bucket - len(batch.items)
+        self.stats.bucket_counts[batch.bucket] = \
+            self.stats.bucket_counts.get(batch.bucket, 0) + 1
+        self.rebalance()
+
+    def _fail_inflight(self, inflight: deque, exc: BaseException):
+        """Fail the futures of batches launched and not completed."""
+        victims: List[AnswerFuture] = []
+        with self._cv:
+            for batch, _, _ in inflight:
+                victims.extend(batch.futures)
+                self._n_inflight -= len(batch.items)
+        inflight.clear()
+        for fut in victims:          # outside the lock: callbacks may
+            fut.set_exception(exc)   # resubmit into other schedulers
 
     def pump(self) -> int:
-        """Synchronously answer everything pending, depth-2 pipelined:
-        batch k+1 is staged and launched before batch k is waited on.
-        Returns the number of queries answered."""
+        """Synchronously answer everything pending, depth-pipelined: batch
+        k+1 is staged and launched before batch k is waited on. Returns the
+        number of queries answered. On a failure the batches this pump
+        launched and has not completed fail with it before it is raised
+        (upstream leaves them unresolved); batches not launched stay
+        queued."""
+        if self.heartbeat is not None:
+            self.heartbeat()
         self.flush()
         answered0 = self.stats.answered
         inflight: deque = deque()
-        while True:
-            with self._cv:
-                batch = self._pop_locked()
-            if batch is None and not inflight:
-                break
-            if batch is not None:
-                inflight.append(self._launch(batch))
-            while inflight and (len(inflight) >= PIPELINE_DEPTH
-                                or batch is None):
-                self._complete(*inflight.popleft())
+        try:
+            while True:
+                with self._cv:
+                    batch = self._pop_batch_locked()
+                if batch is None and not inflight:
+                    break
+                if batch is not None:
+                    inflight.append(self._launch(batch))
+                while inflight and (len(inflight) >= self.depth
+                                    or batch is None):
+                    self._complete(*inflight.popleft())
+        except BaseException as e:
+            self._fail_inflight(inflight, e)
+            raise
         return self.stats.answered - answered0
 
     # -- background session ----------------------------------------------
@@ -292,13 +465,14 @@ class QueryScheduler:
         return self._thread is not None and self._thread.is_alive()
 
     def start(self):
-        """Run the dispatch loop on a background thread (reopens a stopped
-        session)."""
+        """Run the dispatch loop on a background thread (reopens a stopped,
+        dead or killed session)."""
         if self.running:
             return
         with self._cv:
             self._closed = False
             self._stopping = False
+            self._abort_exc = None
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="pir-scheduler")
         self._thread.start()
@@ -322,20 +496,24 @@ class QueryScheduler:
         try:
             while True:
                 batch = None
+                if self.heartbeat is not None:
+                    self.heartbeat()
                 with self._cv:
+                    if self._abort_exc is not None:   # kill(): no draining
+                        raise self._abort_exc
                     self._cut_ripe_locked()
                     if self._stopping:
                         while self._pending:
                             self._cut_locked(
                                 min(len(self._pending), self.buckets[-1]))
-                    if len(inflight) < PIPELINE_DEPTH:
-                        batch = self._pop_locked()
+                    if len(inflight) < self.depth:
+                        batch = self._pop_batch_locked()
                     if batch is None and not inflight:
                         if self._stopping:
                             return
                         wait = None
                         if self._pending:
-                            age = time.monotonic() - self._pending[0][2]
+                            age = self.clock() - self._pending[0][2]
                             wait = max(self.max_wait_s - age, 0.0)
                         self._cv.wait(timeout=wait)
                         continue
@@ -346,20 +524,98 @@ class QueryScheduler:
         except BaseException as e:
             self._fail_outstanding(inflight, e)
 
-    def _fail_outstanding(self, inflight, exc: BaseException):
-        """A dead session resolves every outstanding future with ``exc``."""
+    def _fail_outstanding(self, inflight: deque, exc: BaseException):
+        """A dead session resolves every outstanding future with ``exc``
+        and rejects later submits."""
         victims: List[AnswerFuture] = []
-        for batch, _ in inflight:
-            victims.extend(batch.futures)
         with self._cv:
             self._closed = True
-            for batch in self._queue:
-                victims.extend(batch.futures)
-            self._queue.clear()
+            for lane in self.queues.values():
+                for batch in lane:
+                    victims.extend(batch.futures)
+                lane.clear()
             while self._pending:
                 victims.append(self._pending.popleft()[1])
+        self._fail_inflight(inflight, exc)
         for fut in victims:
             fut.set_exception(exc)
+
+
+class _Ready:
+    """Marks the point in the device's stream where an answer is complete,
+    so that waiting for it does not wait for batches launched after it
+    (the port's ``block_until_ready``); on the CPU the tensor is already
+    complete."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.is_cuda:
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(t.device))
+
+    def wait(self):
+        if self._event is not None:
+            self._event.synchronize()
+
+
+class PIRServeLoop:
+    """Single-party serve loop over a :class:`PIRServer`: batches of
+    stacked keys in, answer shares out (``serve_loop.py:637`` upstream)."""
+
+    def __init__(self, server: PIRServer, *, n_clusters: int = 1):
+        self.server = server
+        self.n_clusters = n_clusters
+        self.task_q: "queue.Queue" = queue.Queue()
+        self.straggler = StragglerMonitor()
+        self.stats = ServeStats()
+
+    def submit(self, keys):
+        """Enqueue a batch of stacked keys (one cluster step of work)."""
+        self.task_q.put(keys)
+
+    def drain(self) -> List[torch.Tensor]:
+        """Serial baseline: answer every queued batch, waiting for each
+        (the paper's strictly synchronous Figure 8 loop); the comparison
+        point of :meth:`drain_pipelined`."""
+        out = []
+        while not self.task_q.empty():
+            keys = self.task_q.get()
+            t0 = time.monotonic()
+            ans = self.server.answer(keys)
+            _Ready(ans).wait()
+            self._record(keys, t0, time.monotonic() - t0)
+            out.append(ans)
+        return out
+
+    def drain_pipelined(self, depth: int = PIPELINE_DEPTH
+                        ) -> List[torch.Tensor]:
+        """Depth-``depth`` drain: batch k+1 is staged and launched before
+        batch k is waited on. The same answers as :meth:`drain`: pad-slot
+        answers are dropped here."""
+        out: List[torch.Tensor] = []
+        inflight: deque = deque()
+        while not self.task_q.empty() or inflight:
+            if not self.task_q.empty() and len(inflight) < depth:
+                keys = self.task_q.get()
+                staged = self.server.stage_keys(keys)
+                t0 = time.monotonic()
+                ans = self.server.answer(staged)
+                inflight.append((keys, ans, _Ready(ans), t0))
+                continue
+            keys, ans, ready, t0 = inflight.popleft()
+            ans = ans[:self.server.protocol.n_queries(keys)]
+            ready.wait()
+            self._record(keys, t0, time.monotonic() - t0)
+            out.append(ans)
+        return out
+
+    def _record(self, keys, t0: float, dt: float):
+        self.stats.observe_window(t0, t0 + dt)
+        self.stats.latencies.append(dt)
+        self.stats.batches += 1
+        self.stats.answered += self.server.protocol.n_queries(keys)
+        self.straggler.record(
+            f"cluster{self.stats.batches % max(self.n_clusters, 1)}", dt)
 
 
 class MultiServerPIR:
@@ -382,7 +638,8 @@ class MultiServerPIR:
                       them in as the next epoch (``Database.publish``)
 
     ``default_deadline_s`` (default 120 s per party, upstream's) becomes
-    each future's deadline.
+    each future's deadline. ``n_clusters`` is the scheduler's lane count;
+    the lanes share the one device.
     """
 
     #: hint protocols (``PIRProtocol.needs_hint``) carry per-query client
@@ -396,7 +653,8 @@ class MultiServerPIR:
                  max_wait_s: float = DEFAULT_MAX_WAIT_S,
                  protocol: Optional[PIRProtocol] = None,
                  client_rng: Optional[np.random.Generator] = None,
-                 default_deadline_s: Optional[float] = None):
+                 default_deadline_s: Optional[float] = None,
+                 n_clusters: int = 1):
         self.cfg = cfg
         self.protocol = (protocol if protocol is not None
                          else protocol_mod.for_config(cfg))
@@ -421,9 +679,10 @@ class MultiServerPIR:
         self.default_deadline_s = (default_deadline_s
                                    if default_deadline_s is not None
                                    else 120.0 * self.n_parties)
-        self.scheduler = self._make_scheduler(max_wait_s)
+        self.scheduler = self._make_scheduler(max_wait_s, n_clusters)
 
-    def _make_scheduler(self, max_wait_s: float) -> QueryScheduler:
+    def _make_scheduler(self, max_wait_s: float, n_clusters: int
+                        ) -> QueryScheduler:
         servers, proto, db = self.servers, self.protocol, self.db
         parties = range(self.n_parties)
 
@@ -453,7 +712,8 @@ class MultiServerPIR:
         return QueryScheduler(
             collate=collate, stage=stage, dispatch=dispatch,
             finalize=finalize, buckets=servers[0].buckets,
-            max_wait_s=max_wait_s, epoch_of=lambda raw: raw[1])
+            n_clusters=n_clusters, max_wait_s=max_wait_s,
+            epoch_of=lambda raw: raw[1])
 
     # -- streaming session API ------------------------------------------
 
@@ -589,7 +849,8 @@ class SingleServerPIR(MultiServerPIR):
                     del self._hint_cache[e]
             return self._hint_cache[epoch]
 
-    def _make_scheduler(self, max_wait_s: float) -> QueryScheduler:
+    def _make_scheduler(self, max_wait_s: float, n_clusters: int
+                        ) -> QueryScheduler:
         server, proto, db, cfg = (self.servers[0], self.protocol, self.db,
                                   self.cfg)
         db.register_hint(proto.name, proto.hint_builder(cfg),
@@ -620,7 +881,8 @@ class SingleServerPIR(MultiServerPIR):
         return QueryScheduler(
             collate=collate, stage=stage, dispatch=dispatch,
             finalize=finalize, buckets=server.buckets,
-            max_wait_s=max_wait_s, epoch_of=lambda raw: raw[1])
+            n_clusters=n_clusters, max_wait_s=max_wait_s,
+            epoch_of=lambda raw: raw[1])
 
     def submit(self, index: int, *,
                deadline_s: Optional[float] = None) -> AnswerFuture:

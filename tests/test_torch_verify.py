@@ -10,12 +10,16 @@ the port's facades on the CPU, at ``PIR_SMOKE`` with ``checksum=True``,
 ``PIR_SMOKE_CHK`` and ``xor-dpf-k``: the port's answers go through both
 packages' ``reconstruct_with``, whose records must be equal, and a
 corrupted share must raise ``IntegrityError`` on both sides with equal
-``bad_queries``; an LWE answer shifted by Delta passes the noise check and
-the checksum catches it. Last, the private embedding lookup of
+``bad_queries``, and a served batch with a corrupted share fails the
+same futures as the reference's ``MultiServerPIR`` (a session dies with
+every outstanding future; ``pump`` fails the batches it launched); an LWE
+answer shifted by Delta passes the noise check and the checksum catches
+it. Last, the private embedding lookup of
 ``tests/test_system.py`` (128-byte bf16 rows) served by the port. Exact
 equality throughout.
 """
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -32,6 +36,8 @@ from repro.db import IntegrityError as RefIntegrityError
 from repro.db import row_checksum as ref_row_checksum
 from repro.db import verify_records as ref_verify_records
 from repro.engine.cache import spec_signature as ref_spec_signature
+from repro.launch.mesh import make_local_mesh
+from repro.runtime.serve_loop import MultiServerPIR as RefMultiServerPIR
 from repro_torch.config import PIRConfig
 from repro_torch.configs import pir as configs
 from repro_torch.core import lwe, pir
@@ -246,40 +252,129 @@ def test_dpf_corrupted_share_raises_on_both_sides(dpf_system, bad):
     assert got.value.bad_queries == want.value.bad_queries == tuple(bad)
 
 
-def test_served_batch_with_a_corrupted_share_fails_only_its_futures(
-        dpf_system):
-    """A flipped share in a served batch fails that batch's futures with
-    IntegrityError naming the query in the batch; the next batch of the
-    same pump and later queries are served."""
-    cfg, host, system = dpf_system
-    sched = system.scheduler
+def _corrupt_first_dispatch(sched, flip):
+    """Wrap ``sched._dispatch`` so that the first batch's party-0 share has
+    query 2's first word flipped (``flip`` edits one answer array);
+    returns the restore callable."""
     orig, calls = sched._dispatch, []
 
     def corrupt(staged):
         answers, epoch = orig(staged)
         calls.append(1)
-        if len(calls) == 1:                   # the first batch only
-            a0 = answers[0].clone()
-            a0[2, 0] ^= 1
-            answers = (a0,) + tuple(answers[1:])
+        if len(calls) == 1:
+            answers = (flip(answers[0]),) + tuple(answers[1:])
         return answers, epoch
 
     sched._dispatch = corrupt
+    return lambda: setattr(sched, "_dispatch", orig)
+
+
+def _flip_port(a):
+    a = a.clone()
+    a[2, 0] ^= 1
+    return a
+
+
+def _flip_ref(a):
+    return a.at[2, 0].set(a[2, 0] ^ 1)
+
+
+def _outcome(fut, timeout=120.0):
+    """``(exception class name, bad_queries, exception)`` of a failed
+    future, ``("ok", None, None)`` of an answered one."""
     try:
-        first = [system.submit(i) for i in (3, 4, 5, 6)]      # a full batch
-        second = [system.submit(i) for i in (7, 8)]
-        sched.pump()
+        fut.result(timeout=timeout)
+    except Exception as e:          # noqa: BLE001 - the outcome is the point
+        return type(e).__name__, getattr(e, "bad_queries", None), e
+    return "ok", None, None
+
+
+def _session_outcomes(system, flip):
+    """Session mode: a batch of 4 with a corrupted share and a batch of 2
+    behind it, submitted before the session starts. Returns the futures'
+    outcomes, whether submit raised once the session died, and the records
+    of a fresh batch after ``start()`` reopened it."""
+    sched = system.scheduler
+    restore = _corrupt_first_dispatch(sched, flip)
+    try:
+        futs = [system.submit(i) for i in (3, 4, 5, 6, 7, 8)]
+        sched.start()
+        outcomes = [_outcome(f) for f in futs]
+        deadline = time.monotonic() + 60.0
+        while sched.running and time.monotonic() < deadline:
+            time.sleep(0.01)
+        with pytest.raises(RuntimeError, match="stop"):
+            system.submit(9)
     finally:
-        sched._dispatch = orig
-    errors = [f.exception() for f in first]
-    assert all(isinstance(e, IntegrityError) for e in errors)
-    assert errors[0].bad_queries == (2,)
-    np.testing.assert_array_equal(np.stack([f.result() for f in second]),
-                                  _expected(system, host, [7, 8]))
-    with pytest.raises(IntegrityError):
-        first[0].result()
-    np.testing.assert_array_equal(system.query([3, 4, 5]),
-                                  _expected(system, host, [3, 4, 5]))
+        restore()
+    sched.start()
+    try:
+        fresh = system.query([3, 4, 5])
+    finally:
+        system.close()
+    return outcomes, fresh
+
+
+def _pump_outcomes(system, flip):
+    """``pump`` mode: batches of 4 (corrupted), 4 and 1; depth 2 launches
+    the first two before the first fails. Returns the futures of each
+    batch and the error ``pump`` raised."""
+    sched = system.scheduler
+    restore = _corrupt_first_dispatch(sched, flip)
+    try:
+        futs = [system.submit(i) for i in (3, 4, 5, 6, 7, 8, 10, 11, 9)]
+        with pytest.raises(Exception) as raised:
+            sched.pump()
+    finally:
+        restore()
+    return futs[:4], futs[4:8], futs[8:], raised.value
+
+
+def test_served_batch_with_a_corrupted_share_fails_every_outstanding_future(
+        dpf_system):
+    """A flipped share in a served batch raises IntegrityError out of its
+    finalize, as the reference's does. In a session that kills the
+    session: every outstanding future fails with the same exception
+    (``bad_queries`` naming the flipped query of the corrupted batch),
+    exactly as the reference's ``MultiServerPIR`` fails them; submit raises
+    until ``start()`` reopens the session, and then a fresh batch is exact.
+    In ``pump`` mode the corrupted batch's futures fail as the reference's
+    do, and the batch launched behind it fails with the same exception
+    (the reference leaves it unresolved); the batch not yet launched stays
+    queued for the next pump."""
+    cfg, host, _ = dpf_system
+    system = MultiServerPIR(host, cfg, device="cpu", n_queries=4,
+                            client_rng=np.random.default_rng(75))
+    ref = RefMultiServerPIR(host, _ref_cfg(cfg), make_local_mesh(),
+                            path="fused", n_queries=4, buckets=(4,),
+                            client_rng=np.random.default_rng(75))
+
+    first, second, third, err = _pump_outcomes(system, _flip_port)
+    r_first, r_second, r_third, r_err = _pump_outcomes(ref, _flip_ref)
+    assert (type(err).__name__, err.bad_queries) \
+        == (type(r_err).__name__, r_err.bad_queries) \
+        == ("IntegrityError", (2,))
+    assert [_outcome(f, 0)[:2] for f in first] \
+        == [_outcome(f, 0)[:2] for f in r_first]
+    assert all(f.exception() is err for f in first + second)
+    assert not any(f.done() for f in r_second)          # the reference's hang
+    assert not any(f.done() for f in third + r_third)   # still queued
+    assert system.scheduler.queue_depth == 1
+    system.scheduler.pump()
+    ref.scheduler.pump()
+    np.testing.assert_array_equal(third[0].result(0),
+                                  _expected(system, host, [9])[0])
+    np.testing.assert_array_equal(r_third[0].result(0), third[0].result(0))
+    assert system.scheduler.queue_depth == 0
+
+    mine, fresh = _session_outcomes(system, _flip_port)
+    theirs, ref_fresh = _session_outcomes(ref, _flip_ref)
+    assert [o[:2] for o in mine] == [o[:2] for o in theirs] \
+        == [("IntegrityError", (2,))] * 6
+    assert all(o[2] is mine[0][2] for o in mine)        # one exception
+    assert all(o[2] is theirs[0][2] for o in theirs)
+    np.testing.assert_array_equal(fresh, _expected(system, host, [3, 4, 5]))
+    np.testing.assert_array_equal(ref_fresh, fresh)
 
 
 @pytest.fixture(scope="module")
