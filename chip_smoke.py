@@ -126,9 +126,29 @@ Then the single-server LWE scheme runs at PIR_128M_LWE (2^22 records x
               lost); a flipped share with checksum=True killing a session
               (every outstanding future fails with the IntegrityError naming
               the query) and failing a pump (launched batches fail, the rest
-              stays queued); the multi_server, single_server and
-              serving_session twins as subprocesses. B1 and B2 (and B5 in
-              the single_server twin) launched, no plain call
+              stays queued); the multi_server, single_server,
+              serving_session and replicas twins as subprocesses, started
+              together. B1 and B2 (and B5 in the single_server and replicas
+              twins) launched, no plain call
+  replicas    the replica plane at PIR_1G, last (its warm plan-cache entries
+              reach no other phase), once the resident databases are freed:
+              two ServeReplicas on carve_submeshes(2, model_axis=1) (both
+              on cuda:0 on one card), each placing its own 1 GiB Database,
+              behind a seeded Router; join (build and attach seconds, the
+              first exact answer), a 64-row publish fanned out to epoch 1,
+              256 queries from 4 client threads through the fleet and
+              through r1 alone (sessions pinned), four turns (records/s,
+              the split, each replica's batches and pad fraction, the
+              metrics snapshot), the same four turns with the keys made
+              before the window (serving alone), 32 single-query keygens
+              one after another and over 4 threads, r0 killed under 64 pinned
+              queries (every future exact at epoch 1; seconds from the kill
+              to the last future), a flipped share on one of two checksum
+              replicas (every pinned query exact from the peer, the bad
+              one quarantined), a warm rejoin (epoch 1 from the delta log,
+              no heuristic plan), a detach under 128 queries (handed off,
+              all exact); peak device memory. B1 and B2 launched, no plain
+              call
 Then the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
 line. Without a CUDA card the script exits 1 at once.
@@ -449,7 +469,8 @@ def serve_phase(phase: str, config: str, system, host_db, *, sizes, kernels,
     launches of this run."""
     from repro_torch.kernels import ops
     cfg = system.cfg
-    plans = system.servers[0].plan_report()
+    plans = {b: r["plan"]
+             for b, r in system.servers[0].plan_report().items()}
     origin = {b: s.bucketed.plan_for_bucket(b).provenance
               for s in system.servers for b in s.buckets}
     torch.cuda.reset_peak_memory_stats()
@@ -721,7 +742,8 @@ def phase_timing_add(database, cfg, cfg_k3, card, device, kept):
     k3 = MultiServerPIR(database, cfg_k3, device=device, n_queries=32,
                         client_rng=np.random.default_rng(SEED + 19))
     out["k3"] = {"config": "pir-1g-k3", "parties": k3.n_parties,
-                 "plans": k3.servers[0].plan_report(),
+                 "plans": {b: r["plan"] for b, r in
+                           k3.servers[0].plan_report().items()},
                  **e2e(k3, cfg_k3, rng, ((1, 2), (32, 3)))}
     out["peak_device_bytes_run"] = torch.cuda.max_memory_allocated()
     emit(out)
@@ -1146,7 +1168,8 @@ def phase_timing_lwe(host_db, database, a, cfg, card, device, plain_ms):
             "keygen_s": kg_s, "encrypt_s": enc_s,
             "client_gemm_ms": client_ms, "client_gemm_bound_ms": c_bound,
             "client_gemm_bound_by": c_by, "answer_ms": ans_ms,
-            "decode_s": dec_s, "plan": system.servers[0].plan_report()[q]}
+            "decode_s": dec_s,
+            "plan": system.servers[0].plan_report()[q]["plan"]}
     out["library_note"] = ("no PyTorch call computes a wrapping int32 "
                            "product on CUDA: torch.matmul has no int32 CUDA "
                            "kernel and torch._int_mm takes int8 operands")
@@ -2167,7 +2190,8 @@ RUNTIME_LOOP_BATCHES = (32,) * 8 + (5, 1)
 RUNTIME_LANE_TURNS = (2, 1, 2, 1)
 RUNTIME_CLIENTS = 4
 RUNTIME_QUERIES = 256
-RUNTIME_TWINS = ("multi_server", "single_server", "serving_session")
+RUNTIME_TWINS = ("multi_server", "single_server", "serving_session",
+                 "replicas")
 
 
 def wait_stopped(scheduler, timeout: float = 60.0) -> bool:
@@ -2505,9 +2529,9 @@ def runtime_integrity(host_chk, cfg, database, device, rng) -> dict:
 
 
 def runtime_twins() -> dict:
-    """The multi_server, single_server and serving_session twins as
-    subprocesses on the card, started together; each must exit with 0 and
-    report, on its last line, its kernels' launches and plain calls."""
+    """The multi_server, single_server, serving_session and replicas twins
+    as subprocesses on the card, started together; each must exit with 0
+    and report, on its last line, its kernels' launches and plain calls."""
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -2542,9 +2566,10 @@ def phase_serve_runtime(host_db, cfg, database, host_chk, cfg_chk,
     PIRServeLoop per party, lanes under load (n_clusters 2 and 1 in turns),
     shedding off a flagged lane, kill and drain_handoff under load, a
     corrupted share with checksum=True in session and pump mode, and the
-    three serving twins as subprocesses. The counters are zeroed before it
-    and read after: B1 and B2 launched here, B5 in the single_server twin,
-    no plain call anywhere. Returns the launches by kernel."""
+    four twins (three serving, one replica plane) as subprocesses. The
+    counters are zeroed before it and read after: B1 and B2 launched here,
+    B5 in the single_server and replicas twins, no plain call anywhere.
+    Returns the launches by kernel."""
     from repro_torch.kernels import ops
     rng = np.random.default_rng(SEED + 200)
     t_phase = time.perf_counter()
@@ -2577,10 +2602,491 @@ def phase_serve_runtime(host_db, cfg, database, host_chk, cfg_chk,
             raise AssertionError(f"twin {name} ran plain versions: {twin}")
         for k, n in twin["launches"].items():
             launches[k] += n
-    if twins["single_server"]["launches"]["lwe_gemm"] < 1:
-        raise AssertionError("the single_server twin did not launch B5")
+    for name in ("single_server", "replicas"):
+        if twins[name]["launches"]["lwe_gemm"] < 1:
+            raise AssertionError(f"the {name} twin did not launch B5")
     emit({"phase": "serve_runtime", "card": card, "twins": twins,
           "launches": launches, "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+#: the replicas phase: two PIR_1G replicas on carve_submeshes(2) (both on
+#: cuda:0 on one card), buckets 1 and 32; a replica cuts an under-full
+#: batch after REPL_MAX_WAIT_S, so that the query submitted last before a
+#: kill or a leave is still queued when it comes
+REPL_BUCKETS = (1, 32)
+REPL_MAX_WAIT_S = 0.05
+REPL_UPDATE_ROWS = 64
+REPL_CLIENTS = 4
+#: queries per load turn, from REPL_CLIENTS client threads: through the
+#: fleet's router (P2C) or through the same router with every client's
+#: session pinned to r1 (one replica), in turns
+REPL_QUERIES = 256
+REPL_LOAD_TURNS = ("fleet", "one", "one", "fleet")
+#: single-query keygens timed one after another and over REPL_CLIENTS
+#: threads, the host work the router's load puts on its client threads
+REPL_KEYGEN_KEYS = 32
+REPL_KILL_QUERIES = 64
+REPL_CORRUPT_QUERIES = 8
+REPL_LEAVE_QUERIES = 128
+#: a session thread beats once per turn of its loop and not while it waits
+#: idle (as in the reference), and r0 idles while r1 alone serves a turn:
+#: the registry's silence timeout outlasts the phase, so that only an
+#: observed failure (a kill, an IntegrityError) quarantines a replica here
+REPL_HEARTBEAT_TIMEOUT_S = 900.0
+
+
+def repl_replica(rid, host, cfg, device, seed, **kw):
+    from repro_torch.replica import ServeReplica
+    return ServeReplica(rid, host, cfg, device, n_queries=32,
+                        buckets=REPL_BUCKETS, max_wait_s=REPL_MAX_WAIT_S,
+                        client_rng=np.random.default_rng(seed), **kw)
+
+
+def repl_router(seed):
+    from repro_torch.replica import ReplicaRegistry, Router
+    return Router(registry=ReplicaRegistry(timeout=REPL_HEARTBEAT_TIMEOUT_S),
+                  rng=np.random.default_rng(seed), base_delay=0.01,
+                  max_delay=0.5)
+
+
+def release() -> None:
+    """Give the memory of the databases no one holds any more back to the
+    card (called once a replica has left and its holders are gone)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class Oracle:
+    """The fleet's records: the host words with the published rows
+    applied (a dict of the updated rows, not a second 1 GiB copy)."""
+
+    def __init__(self, host_db):
+        self.host_db, self.rows = host_db, {}
+
+    def update(self, rows, vals):
+        self.rows.update((int(r), v) for r, v in zip(rows, vals))
+
+    def __call__(self, idx) -> np.ndarray:
+        want = self.host_db[np.asarray(idx)].copy()
+        for j, i in enumerate(idx):
+            if int(i) in self.rows:
+                want[j] = self.rows[int(i)]
+        return want
+
+
+def routed(router, idx, *, sessions=None, clients: int = 1) -> tuple:
+    """Submit ``idx`` through ``router`` from ``clients`` threads (client
+    c takes indices c, c + clients, ...; ``sessions[c]`` pins it) and wait
+    for every future: the futures, in ``idx`` order, and the seconds from
+    the first submit to the last answer."""
+    futs, errors = [None] * len(idx), []
+
+    def client(c):
+        session = sessions[c] if sessions else None
+        try:
+            mine = range(c, len(idx), clients)
+            for i in mine:
+                futs[i] = router.submit(int(idx[i]), session=session)
+            for i in mine:
+                futs[i].result(timeout=600)
+        except Exception as e:       # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    seconds = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"replicas: a client failed: {errors[:3]}")
+    return futs, seconds
+
+
+def check_routed(step: str, futs, want, epoch: int) -> dict:
+    """Every future exact and tagged ``epoch``; returns the split of the
+    answers by the replica that gave them."""
+    recs = np.stack([f.result(timeout=600) for f in futs])
+    tags = {f.epoch for f in futs}
+    if not check_records(recs, want) or tags != {epoch}:
+        raise AssertionError(f"replicas {step}: records exact "
+                             f"{check_records(recs, want)}, epochs {tags}")
+    split = {}
+    for f in futs:
+        split[f.context["rid"]] = split.get(f.context["rid"], 0) + 1
+    return dict(sorted(split.items()))
+
+
+def replicas_join(router, host_db, cfg, groups, rng, oracle, card) -> dict:
+    """Build and attach r0 and r1, each with its own 1 GiB Database; the
+    seconds of each build and attach, and to the first exact answer."""
+    t_start = time.perf_counter()
+    out = {"phase": "replicas_join", "config": "pir-1g", "card": card,
+           "devices": [str(g[0]) for g in groups], "replicas": {}}
+    for i, group in enumerate(groups):
+        t0 = time.perf_counter()
+        rep = repl_replica(f"r{i}", host_db, cfg, group[0], SEED + 310 + i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        router.attach(rep)
+        out["replicas"][rep.id] = {
+            "build_s": t1 - t0, "attach_s": time.perf_counter() - t1,
+            "db_resident_bytes": rep.db.resident_bytes,
+            "plans": {b: r["label"] for b, r in rep.plan_report().items()}}
+    idx = [int(rng.integers(cfg.n_items))]
+    t0 = time.perf_counter()
+    futs, _ = routed(router, idx)
+    check_routed("join", futs, oracle(idx), 0)
+    now = time.perf_counter()
+    out.update(first_query_s=now - t0, first_answer_s=now - t_start)
+    emit(out)
+    return out
+
+
+def serve_counts(router) -> dict:
+    return {rid: (r.stats.answered, r.stats.padded, r.stats.batches)
+            for rid, r in router.replicas.items()}
+
+
+def serve_delta(router, before) -> dict:
+    """Each replica's answered queries, batches and pad fraction since
+    ``before`` (``serve_counts``)."""
+    out = {}
+    for rid, (answered, padded, batches) in serve_counts(router).items():
+        a, p, b = (x - y for x, y in zip((answered, padded, batches),
+                                          before[rid]))
+        if b:
+            out[rid] = {"answered": a, "batches": b,
+                        "pad_fraction": p / (a + p)}
+    return out
+
+
+def one_sessions(router, tag: str) -> list:
+    """REPL_CLIENTS sessions of ``router`` pinned to r1: the load of a
+    one-replica fleet, on the same router and the same replica."""
+    sessions = [router.session(f"{tag}{c}") for c in range(REPL_CLIENTS)]
+    for s in sessions:
+        s.replica = "r1"
+    return sessions
+
+
+def replicas_load(router, oracle, rng, cfg, card) -> dict:
+    """REPL_QUERIES queries from REPL_CLIENTS threads through the fleet's
+    router and through r1 alone, in turns: records/s from the first submit
+    to the last answer (each query keyed on its client thread, as a client
+    of the fleet pays), the split between replicas, each replica's batches
+    and pad fraction, the fleet's metrics snapshot."""
+    from repro_torch.replica import metrics
+    turns = []
+    for turn, which in enumerate(REPL_LOAD_TURNS):
+        idx = rng.integers(0, cfg.n_items, size=REPL_QUERIES)
+        idx[:8] = list(oracle.rows)[:8]             # published rows
+        sessions = one_sessions(router, f"one{turn}.") if which == "one" \
+            else None
+        before = serve_counts(router)
+        futs, seconds = routed(router, idx, sessions=sessions,
+                               clients=REPL_CLIENTS)
+        split = check_routed(f"load turn {turn}", futs, oracle(idx), 1)
+        turns.append({"router": which, "seconds": seconds,
+                      "records_per_s": REPL_QUERIES / seconds,
+                      "split": split,
+                      "served": serve_delta(router, before)})
+    rate = {w: [t["records_per_s"] for t in turns if t["router"] == w]
+            for w in ("fleet", "one")}
+    out = {"phase": "replicas_load", "card": card, "clients": REPL_CLIENTS,
+           "queries": REPL_QUERIES, "turns": turns,
+           "fleet_over_one": float(np.mean(rate["fleet"])
+                                   / np.mean(rate["one"])),
+           "snapshot": metrics.snapshot(router)}
+    emit(out)
+    return out
+
+
+def replicas_prekeyed(router, oracle, rng, cfg, card) -> dict:
+    """The load turns' serving alone: REPL_QUERIES keys made before the
+    window, then submitted straight to the replicas (``resubmit``, the
+    hand-off path) round-robin over r0 and r1, or all to r1, in turns;
+    records/s from the first submit to the last answer, every record
+    exact at epoch 1."""
+    from repro_torch.core import protocol as protocol_mod
+    from repro_torch.runtime.serve_loop import AnswerFuture
+    proto = protocol_mod.for_config(cfg)
+    turns = []
+    for turn, which in enumerate(REPL_LOAD_TURNS):
+        idx = rng.integers(0, cfg.n_items, size=REPL_QUERIES)
+        t0 = time.perf_counter()
+        keys = [proto.query_gen(rng, int(i), cfg) for i in idx]
+        keygen_s = time.perf_counter() - t0
+        targets = ([router.replicas["r0"], router.replicas["r1"]]
+                   if which == "fleet" else [router.replicas["r1"]])
+        before = serve_counts(router)
+        t0 = time.perf_counter()
+        futs = [targets[i % len(targets)].resubmit(k, AnswerFuture())
+                for i, k in enumerate(keys)]
+        recs = np.stack([f.result(timeout=600) for f in futs])
+        seconds = time.perf_counter() - t0
+        tags = {f.epoch for f in futs}
+        if not check_records(recs, oracle(idx)) or tags != {1}:
+            raise AssertionError(f"replicas prekeyed turn {turn}: records "
+                                 f"exact {check_records(recs, oracle(idx))}"
+                                 f", epochs {tags}")
+        turns.append({"replicas": which, "keygen_s": keygen_s,
+                      "seconds": seconds,
+                      "records_per_s": REPL_QUERIES / seconds,
+                      "served": serve_delta(router, before)})
+    rate = {w: [t["records_per_s"] for t in turns if t["replicas"] == w]
+            for w in ("fleet", "one")}
+    out = {"phase": "replicas_prekeyed", "card": card,
+           "queries": REPL_QUERIES, "turns": turns,
+           "fleet_over_one": float(np.mean(rate["fleet"])
+                                   / np.mean(rate["one"]))}
+    emit(out)
+    return out
+
+
+def replicas_keygen(cfg, card) -> dict:
+    """REPL_KEYGEN_KEYS single-query DPF keygens (``query_gen``, as
+    ``Router.submit`` makes them through a replica) one after another,
+    then the same number split over REPL_CLIENTS threads."""
+    from repro_torch.core import protocol as protocol_mod
+    proto = protocol_mod.for_config(cfg)
+
+    def keygens(n, seed):
+        rng = np.random.default_rng(seed)
+        for _ in range(n):
+            proto.query_gen(rng, int(rng.integers(cfg.n_items)), cfg)
+
+    t0 = time.perf_counter()
+    keygens(REPL_KEYGEN_KEYS, SEED + 350)
+    serial_s = time.perf_counter() - t0
+    per = REPL_KEYGEN_KEYS // REPL_CLIENTS
+    threads = [threading.Thread(target=keygens, args=(per, SEED + 351 + c))
+               for c in range(REPL_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    threaded_s = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("replicas keygen: a thread did not finish")
+    out = {"phase": "replicas_keygen", "card": card,
+           "keys": REPL_KEYGEN_KEYS, "serial_s": serial_s,
+           "threads": REPL_CLIENTS, "threaded_s": threaded_s,
+           "threaded_over_serial": threaded_s / serial_s}
+    emit(out)
+    return out
+
+
+def replicas_kill(router, oracle, rng, cfg, card) -> dict:
+    """REPL_KILL_QUERIES queries of a session pinned to r0, then r0.kill():
+    every future exact at epoch 1 (the failed ones answered by r1), r0 a
+    suspect, failovers >= 1; the seconds from the kill to the last
+    future."""
+    r0 = router.replicas["r0"]
+    s = router.session("victim")
+    s.replica = "r0"
+    idx = rng.integers(0, cfg.n_items, size=REPL_KILL_QUERIES)
+    resolved = []
+    failovers0 = router.failovers
+    futs = []
+    for i in idx:
+        f = router.submit(int(i), session=s)
+        f.add_done_callback(lambda f: resolved.append(time.perf_counter()))
+        futs.append(f)
+    t_kill = time.perf_counter()
+    r0.kill("chip_smoke: killed under load")
+    kill_call_s = time.perf_counter() - t_kill
+    split = check_routed("kill", futs, oracle(idx), 1)
+    suspects = router.registry.suspects()
+    out = {"phase": "replicas_kill", "card": card,
+           "queries": REPL_KILL_QUERIES, "split": split,
+           "failovers": router.failovers - failovers0,
+           "kill_call_s": kill_call_s,
+           "kill_to_last_future_s": max(resolved) - t_kill,
+           "suspects": suspects, "lost": 0}
+    emit(out)
+    if "r0" not in suspects or out["failovers"] < 1:
+        raise AssertionError(f"replicas kill: {out}")
+    return out
+
+
+def replicas_corrupt(host_chk, cfg_chk, groups, rng, card) -> dict:
+    """Two replicas on the checksum database (PIR_1G, checksum=True);
+    party 1's share of query 0 of c0's first batch flipped: every query of
+    a session pinned to c0 comes back exact from c1, integrity_failures
+    >= 1, c0 a suspect."""
+    router = repl_router(SEED + 330)
+    c0 = router.attach(repl_replica("c0", host_chk, cfg_chk, groups[0][0],
+                                    SEED + 331))
+    c1 = router.attach(repl_replica("c1", host_chk, cfg_chk, groups[1][0],
+                                    SEED + 332))
+    restore = first_dispatch_edited(c0, flip_share(1, 0, 3, 0x5A))
+    s = router.session("pinned")
+    s.replica = "c0"
+    idx = rng.integers(0, cfg_chk.n_items, size=REPL_CORRUPT_QUERIES)
+    t0 = time.perf_counter()
+    try:
+        futs, _ = routed(router, idx, sessions=[s])
+    finally:
+        restore()
+    split = check_routed("corrupt", futs, host_chk[idx], 0)
+    out = {"phase": "replicas_corrupt", "config": "pir-1g+chk", "card": card,
+           "queries": REPL_CORRUPT_QUERIES, "split": split,
+           "integrity_failures": router.integrity_failures,
+           "failovers": router.failovers,
+           "suspects": router.registry.suspects(),
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    if (out["integrity_failures"] < 1 or out["suspects"] != ["c0"]
+            or split != {"c1": REPL_CORRUPT_QUERIES}):
+        raise AssertionError(f"replicas corrupt: {out}")
+    router.detach("c0")
+    router.detach("c1")
+    return out
+
+
+def replicas_rejoin(router, host_db, cfg, groups, oracle, rng, card) -> dict:
+    """detach("r0") (the killed replica; its database freed), then a fresh
+    r0 built with r1's exported plans and attached: epoch 1 by the delta
+    log's replay, no heuristic plan, the first query exact."""
+    t0 = time.perf_counter()
+    moved = router.detach("r0")
+    release()
+    peer = router.replicas["r1"]
+    r0b = repl_replica("r0", host_db, cfg, groups[0][0], SEED + 340,
+                       warm_plans=peer.export_plans())
+    router.attach(r0b)
+    torch.cuda.synchronize()
+    rejoin_s = time.perf_counter() - t0
+    provenance = {b: r["provenance"] for b, r in r0b.plan_report().items()}
+    s = router.session("rejoined")
+    s.replica = "r0"
+    idx = [int(rng.integers(cfg.n_items))]
+    t1 = time.perf_counter()
+    futs, _ = routed(router, idx, sessions=[s])
+    split = check_routed("rejoin", futs, oracle(idx), 1)
+    out = {"phase": "replicas_rejoin", "card": card, "handed_off": moved,
+           "rejoin_s": rejoin_s, "first_query_s": time.perf_counter() - t1,
+           "epoch": r0b.epoch, "provenance": provenance, "split": split}
+    emit(out)
+    if (r0b.epoch != 1 or split != {"r0": 1}
+            or not set(provenance.values()) <= {"warm", "tuned"}):
+        raise AssertionError(f"replicas rejoin: {out}")
+    return out
+
+
+def replicas_leave(router, oracle, rng, cfg, card) -> dict:
+    """REPL_LEAVE_QUERIES queries from REPL_CLIENTS sessions pinned to r1,
+    then detach("r1") as soon as the last one is submitted: the queries
+    r1 had not dispatched are handed off (futures and all), every future
+    exact at epoch 1."""
+    leaver = router.replicas["r1"]
+    answered0 = leaver.stats.answered
+    sessions = [router.session(f"leave{c}") for c in range(REPL_CLIENTS)]
+    for s in sessions:
+        s.replica = "r1"
+    idx = rng.integers(0, cfg.n_items, size=REPL_LEAVE_QUERIES)
+    futs = [None] * len(idx)
+
+    def client(c):
+        for i in range(c, len(idx), REPL_CLIENTS):
+            futs[i] = router.submit(int(idx[i]), session=sessions[c])
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(REPL_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if any(t.is_alive() for t in threads) or any(f is None for f in futs):
+        raise AssertionError("replicas leave: a client did not submit")
+    t_detach = time.perf_counter()
+    moved = router.detach("r1")
+    detach_s = time.perf_counter() - t_detach
+    split = check_routed("leave", futs, oracle(idx), 1)
+    out = {"phase": "replicas_leave", "card": card,
+           "queries": REPL_LEAVE_QUERIES, "submit_s": t_detach - t0,
+           "handed_off": moved, "detach_s": detach_s,
+           "answered_by_leaver": leaver.stats.answered - answered0,
+           "routed_to": split, "resubmitted": router.resubmitted,
+           "seconds": time.perf_counter() - t0, "lost": 0}
+    emit(out)
+    return out
+
+
+def phase_replicas(host_db, cfg, host_chk, cfg_chk, card) -> dict:
+    """The replica plane at PIR_1G: two ServeReplicas (each its own 1 GiB
+    Database) behind a Router on carve_submeshes(2, model_axis=1) — join,
+    a 64-row publish fanned out, load through the fleet and through r1
+    alone in turns (keyed on the client threads, then keyed before the
+    window), the host's single-query keygen alone and over threads, a kill
+    under load, a corrupted share on the checksum
+    database, a warm rejoin, a graceful leave under load.
+    The counters are zeroed before it and read after: B1 and B2 launched,
+    no plain call. The warm plan-cache entries it records stay in memory
+    (the cache file is off) and are dropped after it. Returns the
+    launches."""
+    from repro_torch import engine
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.elastic import carve_submeshes
+    rng = np.random.default_rng(SEED + 300)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    engine.plan_cache(reload=True)
+    ops.reset_counts()
+    groups = carve_submeshes(2, model_axis=1)
+    oracle = Oracle(host_db)
+    router = repl_router(SEED + 301)
+    try:
+        join = replicas_join(router, host_db, cfg, groups, rng, oracle, card)
+
+        rows, vals = fresh_rows(rng, cfg.n_items, REPL_UPDATE_ROWS,
+                                cfg.item_bytes // 4)
+        router.update(rows, vals)
+        t0 = time.perf_counter()
+        epoch = router.publish()
+        torch.cuda.synchronize()
+        publish_s = time.perf_counter() - t0
+        oracle.update(rows, vals)
+        epochs = {rid: r.epoch for rid, r in router.replicas.items()}
+        emit({"phase": "replicas_publish", "card": card,
+              "rows": REPL_UPDATE_ROWS, "epoch": epoch, "epochs": epochs,
+              "publish_s": publish_s})
+        if epoch != 1 or set(epochs.values()) != {1}:
+            raise AssertionError(f"replicas publish: epochs {epochs}")
+
+        load = replicas_load(router, oracle, rng, cfg, card)
+        prekeyed = replicas_prekeyed(router, oracle, rng, cfg, card)
+        keygen = replicas_keygen(cfg, card)
+
+        kill = replicas_kill(router, oracle, rng, cfg, card)
+        corrupt = replicas_corrupt(host_chk, cfg_chk, groups, rng, card)
+        release()
+        rejoin = replicas_rejoin(router, host_db, cfg, groups, oracle, rng,
+                                 card)
+        leave = replicas_leave(router, oracle, rng, cfg, card)
+        release()
+    finally:
+        for rep in list(router.replicas.values()):
+            rep.close()
+        engine.plan_cache(reload=True)
+    launches = main_path_launches("replicas", ("dpxor", "fused_scan_xor"))
+    out = {"phase": "replicas", "card": card, "launches": launches,
+           "fleet_over_one": load["fleet_over_one"],
+           "prekeyed_fleet_over_one": prekeyed["fleet_over_one"],
+           "keygen_threaded_over_serial": keygen["threaded_over_serial"],
+           "first_answer_s": join["first_answer_s"],
+           "kill_to_last_future_s": kill["kill_to_last_future_s"],
+           "rejoin_s": rejoin["rejoin_s"], "handed_off": leave["handed_off"],
+           "integrity_failures": corrupt["integrity_failures"],
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
     return launches
 
 
@@ -2704,7 +3210,13 @@ def main() -> int:
     launches_runtime = phase_serve_runtime(
         host_db, cfg, database, host_chk, replace(cfg, checksum=True),
         database_chk, info["card"], device)
-    del database, database_chk, host_db, host_chk
+    # the replica plane last, so that its warm plan-cache entries reach no
+    # other phase; every replica places its own copy of the records
+    del database, database_chk
+    release()
+    launches_replicas = phase_replicas(
+        host_db, cfg, host_chk, replace(cfg, checksum=True), info["card"])
+    del host_db, host_chk
 
     def total(*runs):               # each path's launches, read after it
         return {k: sum(r.get(k, 0) for r in runs) for k in worst}
@@ -2714,11 +3226,12 @@ def main() -> int:
             ("dpxor", "src/repro_torch/csrc/dpxor.cu",
              "src/repro/kernels/dpxor.py:56",
              total(launches, launches_chk, launches_w128, launches_upd,
-                   launches_batch, launches_twins, launches_runtime), timing),
+                   launches_batch, launches_twins, launches_runtime,
+                   launches_replicas), timing),
             ("fused_scan_xor", "src/repro_torch/csrc/fused_scan_xor.cu",
              "src/repro/kernels/fused_scan.py:94",
              total(launches, launches_chk, launches_w128, launches_upd,
-                   launches_runtime), timing),
+                   launches_runtime, launches_replicas), timing),
             ("pir_gemm", "src/repro_torch/csrc/pir_gemm.cu",
              "src/repro/kernels/pir_matmul.py:35",
              total(launches_add, launches_chk, launches_w128, launches_upd),

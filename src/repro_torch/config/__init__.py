@@ -1,4 +1,4 @@
-"""Configuration dataclasses of the port (only ``PIRConfig`` so far)."""
-from repro_torch.config.base import PIRConfig
+"""Configuration dataclasses of the port (``PIRConfig``, ``MeshConfig``)."""
+from repro_torch.config.base import MeshConfig, PIRConfig
 
-__all__ = ["PIRConfig"]
+__all__ = ["MeshConfig", "PIRConfig"]

@@ -1,13 +1,17 @@
-"""``PIRConfig``: the port's copy of ``repro.config.base.PIRConfig``.
+"""``PIRConfig`` and ``MeshConfig``: the port's copies of
+``repro.config.base``'s.
 
 The reference resolves ``share_kind`` through its own protocol registry,
 which imports JAX, so the port keeps its own dataclass with the same field
 names and defaults: one spec (``dataclasses.asdict`` of either) builds
 both sides. ``share_kind`` resolves against ``repro_torch``'s registry.
+``MeshConfig`` is the grid ``runtime/elastic.plan_mesh`` returns.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import asdict, dataclass
+from typing import Tuple
 
 
 def _implied_share_kind(protocol_name: str) -> str:
@@ -68,6 +72,21 @@ class PIRConfig:
     @property
     def db_bytes(self) -> int:
         return self.n_items * self.item_bytes
+
+    def to_dict(self) -> dict:
+        return asdict(self)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A device grid: axis sizes and names (``("data", "model")``, with a
+    leading ``"pod"`` axis for several pods)."""
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def n_devices(self) -> int:
+        return math.prod(self.shape)
 
     def to_dict(self) -> dict:
         return asdict(self)

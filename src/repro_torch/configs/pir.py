@@ -47,6 +47,12 @@ PIR_SMOKE_K3 = PIRConfig(n_items=1 << 12, item_bytes=32,
 PIR_SMOKE_LWE = PIRConfig(n_items=1 << 14, item_bytes=32,
                           protocol="lwe-simple-1", n_servers=1,
                           batch_queries=4)
+# replica-plane smoke (the replicas twin): every replica holds its own
+# database and plans, so the fleet demo runs the cheap LWE step at 2^12
+# records
+PIR_SMOKE_REPL = PIRConfig(n_items=1 << 12, item_bytes=32,
+                           protocol="lwe-simple-1", n_servers=1,
+                           batch_queries=4)
 # verified reconstruction (the reference's chaos smoke): the per-row
 # checksum column on the single-server scheme, so that a corrupted answer
 # raises IntegrityError instead of decoding to garbage
@@ -81,6 +87,7 @@ PIR_CONFIGS = {
     "pir-smoke-k3": PIR_SMOKE_K3,
     "pir-smoke-upd": PIR_SMOKE_UPD,
     "pir-smoke-lwe": PIR_SMOKE_LWE,
+    "pir-smoke-repl": PIR_SMOKE_REPL,
     "pir-smoke-chk": PIR_SMOKE_CHK,
     "pir-smoke-batch": PIR_SMOKE_BATCH,
     "pir-1g-batch": PIR_1G_BATCH,

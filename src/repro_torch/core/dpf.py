@@ -25,7 +25,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.crypto.chacha import ggm_double, prg_bits
+from repro_torch.crypto.chacha import (ggm_double, ggm_double_np, prg_bits,
+                                      prg_bits_np)
 
 
 @dataclass
@@ -107,45 +108,48 @@ def keys_from_roots(roots: np.ndarray, alphas: Sequence[int], log_n: int, *,
 
     The level loop of the reference's ``gen_keys`` (``dpf.py:96-120``) on a
     leading Q axis. With ``payload`` (``[W]`` u32, the reference's ``beta``)
-    it adds ``cw_final`` as ``dpf.py:122-131`` does, from ``prg_bits`` of
+    it adds ``cw_final`` as ``dpf.py:122-131`` does, from ``prg_bits_np`` of
     each party's final seed, in u32 wraparound and negated where party 1's
     final t is 1. That draws nothing more from any generator.
     """
     alphas = [int(a) for a in alphas]
     check_alphas(alphas, log_n)
     q = len(alphas)
-    s = torch.from_numpy(np.ascontiguousarray(roots, np.uint32)
-                         .reshape(q, 2, 4).view(np.int32))     # [Q, 2, 4]
-    root = s.clone()
-    t = torch.tensor([[0, 1]] * q, dtype=torch.int32).reshape(q, 2)
-    alpha_t = torch.tensor(alphas, dtype=torch.int64)
+    # the level loop runs in numpy on the host (``chacha.ggm_double_np``):
+    # u32 words, and the key tensors are made from the results at the end
+    s = np.ascontiguousarray(roots, np.uint32).reshape(q, 2, 4)  # [Q, 2, 4]
+    root = s.copy()
+    t = np.tile(np.array([0, 1], np.uint32), (q, 1))             # [Q, 2]
+    alpha = np.asarray(alphas, np.int64)
     cw_seeds, cw_ts = [], []
     for level in range(log_n):
-        bit = ((alpha_t >> (log_n - 1 - level)) & 1).to(torch.int32)  # [Q]
-        s_l, t_l, s_r, t_r = ggm_double(s, rounds=rounds)
-        right = bit.bool()
-        s_cw = torch.where(right[:, None], s_l[:, 0] ^ s_l[:, 1],
-                           s_r[:, 0] ^ s_r[:, 1])                     # [Q, 4]
-        t_cw_l = t_l[:, 0] ^ t_l[:, 1] ^ bit ^ 1
+        bit = ((alpha >> (log_n - 1 - level)) & 1).astype(np.uint32)  # [Q]
+        s_l, t_l, s_r, t_r = ggm_double_np(s, rounds=rounds)
+        right = bit.astype(bool)
+        s_cw = np.where(right[:, None], s_l[:, 0] ^ s_l[:, 1],
+                        s_r[:, 0] ^ s_r[:, 1])                     # [Q, 4]
+        t_cw_l = t_l[:, 0] ^ t_l[:, 1] ^ bit ^ np.uint32(1)
         t_cw_r = t_r[:, 0] ^ t_r[:, 1] ^ bit
         cw_seeds.append(s_cw)
-        cw_ts.append(torch.stack([t_cw_l, t_cw_r], dim=-1))
-        keep_s = torch.where(right[:, None, None], s_r, s_l)         # [Q, 2, 4]
-        keep_t = torch.where(right[:, None], t_r, t_l)              # [Q, 2]
-        keep_t_cw = torch.where(right, t_cw_r, t_cw_l)              # [Q]
+        cw_ts.append(np.stack([t_cw_l, t_cw_r], axis=-1))
+        keep_s = np.where(right[:, None, None], s_r, s_l)         # [Q, 2, 4]
+        keep_t = np.where(right[:, None], t_r, t_l)              # [Q, 2]
+        keep_t_cw = np.where(right, t_cw_r, t_cw_l)              # [Q]
         s = keep_s ^ (t[..., None] * s_cw[:, None, :])
         t = keep_t ^ (t & keep_t_cw[:, None])
-    cw_seed = (torch.stack(cw_seeds, dim=1) if log_n
-               else torch.zeros((q, 0, 4), dtype=torch.int32))
-    cw_t = (torch.stack(cw_ts, dim=1) if log_n
-            else torch.zeros((q, 0, 2), dtype=torch.int32))
+    words = lambda x: torch.from_numpy(
+        np.ascontiguousarray(x, np.uint32).view(np.int32))
+    cw_seed = words(np.stack(cw_seeds, axis=1) if log_n
+                    else np.zeros((q, 0, 4), np.uint32))
+    cw_t = words(np.stack(cw_ts, axis=1) if log_n
+                 else np.zeros((q, 0, 2), np.uint32))
     cw_final = None
     if payload is not None:
         beta = np.asarray(payload, dtype=np.uint32)
-        beta = torch.from_numpy(np.ascontiguousarray(beta).view(np.int32))
-        conv = prg_bits(s, int(beta.shape[-1]), rounds=rounds)  # [Q, 2, W]
-        diff = beta - conv[:, 0] + conv[:, 1]                    # u32 wrap
-        cw_final = torch.where(t[:, 1:2] == 1, -diff, diff)
+        conv = prg_bits_np(s, int(beta.shape[-1]), rounds=rounds)  # [Q, 2, W]
+        diff = beta - conv[:, 0] + conv[:, 1]                      # u32 wrap
+        cw_final = words(np.where(t[:, 1:2] == 1, np.uint32(0) - diff, diff))
+    root = words(root)
     return tuple(DPFKey(party=b, log_n=log_n, root_seed=root[:, b].clone(),
                         cw_seed=cw_seed, cw_t=cw_t, cw_final=cw_final,
                         rounds=rounds)

@@ -239,9 +239,14 @@ class PIRServer:
         """Current epoch of the (possibly shared) database."""
         return self.db.epoch
 
-    def plan_report(self) -> Dict[int, str]:
-        """``{bucket: plan name}`` for every bucket."""
-        return {b: self.bucketed.plan_for_bucket(b).name
+    def plan_report(self) -> Dict[int, dict]:
+        """``{bucket: engine.plan_report row}`` for every bucket: the plan,
+        its provenance and its modeled bytes, resolved without building a
+        step."""
+        from repro_torch import engine
+        return {b: engine.plan_report(self.cfg,
+                                      self.bucketed.plan_for_bucket(b), b,
+                                      backend=self.bucketed.backend)
                 for b in self.buckets}
 
     def stage_keys(self, keys: Keys) -> Keys:

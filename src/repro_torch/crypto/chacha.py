@@ -96,3 +96,67 @@ def prg_bits(seeds: torch.Tensor, n_words: int, *,
         blk = chacha_block(seeds, counter=1 + i // 16, rounds=rounds)
         outs.append(blk[..., :min(16, n_words - i)])
     return torch.cat(outs, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# The same PRG on numpy u32 arrays, for the client's keygen on the host
+# ---------------------------------------------------------------------------
+#
+# Keygen runs one tiny block per level for each query. In torch each of its
+# few thousand elementwise calls costs several microseconds of dispatch and
+# gives up the interpreter lock, so client threads keying at once convoy on
+# that lock with each other and with the serving threads. numpy's calls on
+# arrays this small cost about a microsecond and keep the lock.
+
+_ROW_SHIFT = [np.array([(i + k) % 4 for i in range(4)]) for k in range(4)]
+
+
+def _rotl32_np(x: np.ndarray, n: int) -> np.ndarray:
+    return (x << np.uint32(n)) | (x >> np.uint32(32 - n))
+
+
+def _quarter_np(a, b, c, d):
+    a = a + b
+    d = _rotl32_np(d ^ a, 16)
+    c = c + d
+    b = _rotl32_np(b ^ c, 12)
+    a = a + b
+    d = _rotl32_np(d ^ a, 8)
+    c = c + d
+    b = _rotl32_np(b ^ c, 7)
+    return a, b, c, d
+
+
+def chacha_block_np(key4: np.ndarray, *, counter: int = 0,
+                    rounds: int = 12) -> np.ndarray:
+    """:func:`chacha_block` on u32 arrays: ``[..., 4] -> [..., 16]``."""
+    if rounds % 2:
+        raise ValueError("rounds must be even")
+    key4 = np.asarray(key4, np.uint32)
+    const = np.broadcast_to(SIGMA, key4.shape)
+    ctr = np.broadcast_to(np.concatenate(
+        [np.array([counter & 0xFFFFFFFF], np.uint32), NONCE]), key4.shape)
+    a, b, c, d = const, key4, key4, ctr
+    s1, s2, s3 = _ROW_SHIFT[1], _ROW_SHIFT[2], _ROW_SHIFT[3]
+    for _ in range(rounds // 2):
+        a, b, c, d = _quarter_np(a, b, c, d)              # column round
+        b, c, d = b[..., s1], c[..., s2], d[..., s3]
+        a, b, c, d = _quarter_np(a, b, c, d)              # diagonal round
+        b, c, d = b[..., s3], c[..., s2], d[..., s1]
+    return np.concatenate([a + const, b + key4, c + key4, d + ctr], axis=-1)
+
+
+def ggm_double_np(seeds: np.ndarray, *, rounds: int = 12):
+    """:func:`ggm_double` on u32 arrays."""
+    blk = chacha_block_np(seeds, counter=0, rounds=rounds)
+    return blk[..., 0:4], blk[..., 8] & 1, blk[..., 4:8], blk[..., 9] & 1
+
+
+def prg_bits_np(seeds: np.ndarray, n_words: int, *,
+                rounds: int = 12) -> np.ndarray:
+    """:func:`prg_bits` on u32 arrays."""
+    outs = []
+    for i in range(0, n_words, 16):
+        blk = chacha_block_np(seeds, counter=1 + i // 16, rounds=rounds)
+        outs.append(blk[..., :min(16, n_words - i)])
+    return np.concatenate(outs, axis=-1)

@@ -58,6 +58,35 @@ def test_prg_bits_matches_reference(n_words):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("rounds", [8, 12, 20])
+@pytest.mark.parametrize("counter", [0, 1, 0xFFFFFFFF])
+def test_chacha_block_np_matches_reference(rounds, counter):
+    """The host PRG of the client's keygen, on u32 arrays."""
+    want = np.asarray(ref_chacha.chacha_block(KEYS, counter=counter,
+                                              rounds=rounds))
+    got = chacha.chacha_block_np(KEYS, counter=counter, rounds=rounds)
+    assert got.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_chacha_np_odd_rounds_rejected():
+    with pytest.raises(ValueError):
+        chacha.chacha_block_np(KEYS, rounds=7)
+
+
+def test_ggm_double_np_matches_reference():
+    want = [np.asarray(x) for x in ref_chacha.ggm_double(KEYS[0])]
+    got = chacha.ggm_double_np(KEYS[0])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("n_words", [1, 16, 20])
+def test_prg_bits_np_matches_reference(n_words):
+    want = np.asarray(ref_chacha.prg_bits(KEYS[1], n_words))
+    np.testing.assert_array_equal(chacha.prg_bits_np(KEYS[1], n_words), want)
+
+
 def test_constants_match_reference():
     np.testing.assert_array_equal(chacha.SIGMA, ref_chacha.SIGMA)
     assert chacha.PRG_ROUNDS == ref_chacha.PRG_ROUNDS

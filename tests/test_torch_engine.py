@@ -406,7 +406,8 @@ def test_the_card_caches_and_resolves_kernel_plans_only(tmp_path,
 
 def test_servers_resolve_tuned_plans_and_serve_them(tmp_path, plan_cache_at):
     """A server built with path=None serves the cached plan for its device
-    (provenance "tuned"); plan_report keeps its {bucket: name} form."""
+    (provenance "tuned"); plan_report's rows name each bucket's plan and
+    its provenance."""
     cfg = _cfg("xor-dpf-2", 1 << 8)
     sig = spec_signature(cfg)
     cache = plan_cache_at(str(tmp_path / "p.json"))
@@ -418,8 +419,11 @@ def test_servers_resolve_tuned_plans_and_serve_them(tmp_path, plan_cache_at):
     system = TwoServerPIR(db, cfg, device="cpu", n_queries=2,
                           buckets=(1, 2), client_rng=np.random.default_rng(4))
     server = system.servers[0]
-    assert server.plan_report() == {1: "materialize/torch",
-                                    2: "fused-cuda/cuda"}
+    report = server.plan_report()
+    assert {b: r["plan"] for b, r in report.items()} == {
+        1: "materialize/torch", 2: "fused-cuda/cuda"}
+    assert {b: r["provenance"] for b, r in report.items()} == {
+        1: "heuristic", 2: "tuned"}
     assert server.bucketed.plan_for_bucket(2).provenance == "tuned"
     assert server.bucketed.plan_for_bucket(1).provenance == "heuristic"
     np.testing.assert_array_equal(system.query([7, 200]), db[[7, 200]])

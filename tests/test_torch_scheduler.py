@@ -12,8 +12,8 @@ are twins of ``tests/test_serving.py:88, 200, 255, 265, 284, 299, 316``.
 Then ``PIRServeLoop`` (twin of ``tests/test_system.py:41``) answers keys
 from ``pir.batch_queries`` with the reference's shares, ``n_compiles``
 (twin of ``tests/test_serving.py:373``) builds no step for a repeated
-bucket or across a publish, and the three serving twins run as
-``python -m repro_torch.<name> --device cpu``. Cases marked ``cuda`` serve
+bucket or across a publish, and the three serving twins (and the replica
+plane's) run as ``python -m repro_torch.<name> --device cpu``. Cases marked ``cuda`` serve
 the lanes, ``kill`` and a corrupted share's session on the card.
 """
 import dataclasses
@@ -532,7 +532,7 @@ def _twin_env():
 
 
 @pytest.mark.parametrize("name", ["multi_server", "single_server",
-                                  "serving_session"])
+                                  "serving_session", "replicas"])
 def test_serving_twin_runs_on_cpu(name):
     out = subprocess.run(
         [sys.executable, "-m", f"repro_torch.{name}", "--device", "cpu"],

@@ -133,8 +133,8 @@ def test_quickstart_twin_on_cpu():
 def test_server_plans_and_chunking(db):
     server = PIRServer(0, db, CFG, device="cpu", n_queries=2)
     # 2^10 rows <= 2^chunk_log: every bucket materializes (plan_for)
-    assert server.plan_report() == {1: "materialize/torch",
-                                    2: "materialize/torch"}
+    assert {b: r["plan"] for b, r in server.plan_report().items()} == {
+        1: "materialize/torch", 2: "materialize/torch"}
     k0, _ = dpf.gen_keys_batch(np.random.default_rng(6), [1, 2, 3, 4, 5],
                                CFG.log_n)
     assert server.answer(k0).shape == (5, 8)
