@@ -120,16 +120,24 @@ Then the single-server LWE scheme runs at PIR_128M_LWE (2^22 records x
               pir.batch_queries) drained serially and pipelined in turns,
               equal shares that XOR to the rows; TwoServerPIR sessions with
               256 queries from 4 client threads at n_clusters 2 and 1 in
-              turns, exact, queue_depth 0; a seeded StragglerMonitor that
+              turns, exact, queue_depth 0; the same sessions on the plain
+              and the checksum database in turns (plain, chk, chk, plain,
+              twice): 1 - plain/chk of the median per-batch latency, its
+              spread over the turns, and whether that spread lies within
+              the reference's 15 % budget, reported, not held; a seeded
+              StragglerMonitor that
               sheds cluster1's queued batches onto cluster0; kill() and
               drain_handoff() under load (every future resolves, none is
               lost); a flipped share with checksum=True killing a session
               (every outstanding future fails with the IntegrityError naming
               the query) and failing a pump (launched batches fail, the rest
               stays queued); the multi_server, single_server,
-              serving_session and replicas twins as subprocesses, started
-              together. B1 and B2 (and B5 in the single_server and replicas
-              twins) launched, no plain call
+              serving_session and replicas twins and the chaos smoke
+              (python -m repro_torch.chaos --smoke: a seeded kill and a
+              seeded share corruption through a two-replica LWE fleet) as
+              subprocesses, started together. B1 and B2 (and B5 in the
+              single_server, replicas and chaos twins) launched, no plain
+              call
   replicas    the replica plane at PIR_1G, last (its warm plan-cache entries
               reach no other phase), once the resident databases are freed:
               two ServeReplicas on carve_submeshes(2, model_axis=1) (both
@@ -143,12 +151,18 @@ Then the single-server LWE scheme runs at PIR_128M_LWE (2^22 records x
               before the window (serving alone), 32 single-query keygens
               one after another and over 4 threads, r0 killed under 64 pinned
               queries (every future exact at epoch 1; seconds from the kill
-              to the last future), a flipped share on one of two checksum
-              replicas (every pinned query exact from the peer, the bad
-              one quarantined), a warm rejoin (epoch 1 from the delta log,
-              no heuristic plan), a detach under 128 queries (handed off,
-              all exact); peak device memory. B1 and B2 launched, no plain
-              call
+              to the last future), a corrupt at replica.serve_step through
+              a ChaosInjector held by c0 (buckets of one, so no padding row
+              can absorb the flip) and the router, on one of two checksum
+              replicas (the one corrupt logged, every pinned query exact
+              from the peer, c0 the one suspect), two fresh replicas k0 and
+              k1 with a kill at k0's scheduler.dispatch seam under 64
+              pinned queries (the one kill logged, every future exact from
+              k1, k0's dead session rejecting new work, the seconds from the
+              first submit to the last future), a warm rejoin (epoch 1 from
+              the delta log, no heuristic plan), a detach under 128 queries
+              (handed off, all exact); peak device memory. B1 and B2
+              launched, no plain call
 Then the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
 line. Without a CUDA card the script exits 1 at once.
@@ -2190,8 +2204,15 @@ RUNTIME_LOOP_BATCHES = (32,) * 8 + (5, 1)
 RUNTIME_LANE_TURNS = (2, 1, 2, 1)
 RUNTIME_CLIENTS = 4
 RUNTIME_QUERIES = 256
-RUNTIME_TWINS = ("multi_server", "single_server", "serving_session",
-                 "replicas")
+#: the twins run as subprocesses, started together: module and arguments
+RUNTIME_TWINS = {"multi_server": (), "single_server": (),
+                 "serving_session": (), "replicas": (),
+                 "chaos": ("--smoke",)}
+#: the verification-cost turns: sessions on the plain and the checksum
+#: database, alternating, and the cost the reference allows
+#: (benchmarks/bench_chaos.py)
+RUNTIME_VERIFY_TURNS = ("plain", "chk", "chk", "plain") * 2
+VERIFY_BUDGET = 0.15
 
 
 def wait_stopped(scheduler, timeout: float = 60.0) -> bool:
@@ -2246,6 +2267,41 @@ def runtime_serve_loop(host_db, cfg, database, rng) -> dict:
     return out
 
 
+def session_load(system, idx, want) -> tuple:
+    """``idx`` from RUNTIME_CLIENTS client threads through ``system``'s
+    session, each client making its keys in one batch (as query() does),
+    so that the session measures serving rather than keygen: the seconds
+    from the start to the last record, whether every record equals
+    ``want``, and the first errors."""
+    recs, errors = [None] * len(idx), []
+
+    def client(c):
+        mine = list(range(c, len(idx), RUNTIME_CLIENTS))
+        try:
+            with system._lock:
+                items = system._query_items([int(idx[i]) for i in mine])
+            futs = [system.scheduler.submit(
+                it, future=system._deadline_future(None)) for it in items]
+            for i, f in zip(mine, futs):
+                recs[i] = f.result(timeout=600)
+        except Exception as e:       # noqa: BLE001 - reported, then fails
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    with system:
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(RUNTIME_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+    seconds = time.perf_counter() - t0
+    exact = (not errors and not any(t.is_alive() for t in threads)
+             and all(r is not None for r in recs)
+             and check_records(np.stack(recs), want))
+    return seconds, exact, errors[:3]
+
+
 def runtime_lanes(host_db, cfg, database, device, rng) -> list:
     """RUNTIME_QUERIES queries from RUNTIME_CLIENTS client threads through a
     TwoServerPIR session, for each n_clusters of RUNTIME_LANE_TURNS in
@@ -2259,35 +2315,8 @@ def runtime_lanes(host_db, cfg, database, device, rng) -> list:
                               client_rng=np.random.default_rng(SEED + 210
                                                                + turn))
         idx = rng.integers(0, cfg.n_items, size=RUNTIME_QUERIES)
-        recs, errors = [None] * RUNTIME_QUERIES, []
-
-        def client(c):
-            # each client makes its keys in one batch (as query() does),
-            # so that the sessions measure serving rather than keygen
-            mine = list(range(c, RUNTIME_QUERIES, RUNTIME_CLIENTS))
-            try:
-                with system._lock:
-                    items = system._query_items([int(idx[i]) for i in mine])
-                futs = [system.scheduler.submit(
-                    it, future=system._deadline_future(None)) for it in items]
-                for i, f in zip(mine, futs):
-                    recs[i] = f.result(timeout=600)
-            except Exception as e:       # noqa: BLE001 - reported, then fails
-                errors.append(repr(e))
-
-        t0 = time.perf_counter()
-        with system:
-            threads = [threading.Thread(target=client, args=(c,))
-                       for c in range(RUNTIME_CLIENTS)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=900)
-        seconds = time.perf_counter() - t0
+        seconds, exact, errors = session_load(system, idx, host_db[idx])
         stats = system.scheduler.stats
-        exact = (not errors and not any(t.is_alive() for t in threads)
-                 and all(r is not None for r in recs)
-                 and check_records(np.stack(recs), host_db[idx]))
         turns.append({"n_clusters": n_clusters, "seconds": seconds,
                       "answered": stats.answered, "batches": stats.batches,
                       "qps": stats.qps, "wall_s": stats.wall_s,
@@ -2296,10 +2325,66 @@ def runtime_lanes(host_db, cfg, database, device, rng) -> list:
                                         sorted(stats.bucket_counts.items())},
                       "reassignments": stats.reassignments,
                       "queue_depth": system.scheduler.queue_depth,
-                      "exact": exact, "errors": errors[:3]})
+                      "exact": exact, "errors": errors})
         if not exact or turns[-1]["queue_depth"]:
             raise AssertionError(f"serve_runtime lanes: {turns[-1]}")
     return turns
+
+
+def runtime_verify_cost(host_db, cfg, database, host_chk, cfg_chk,
+                        database_chk, device, rng) -> dict:
+    """What verified reconstruction costs a session: RUNTIME_QUERIES queries
+    from RUNTIME_CLIENTS client threads through TwoServerPIR on the plain
+    database and on the checksum one (the same records, 36 bytes stored),
+    in RUNTIME_VERIFY_TURNS, every record exact against its own
+    database's rows (``updates`` rewrote some of the plain database's and
+    ``host_db``'s, not the checksum database's). The cost is read from
+    the scheduler's per-batch dispatch-to-finalize latencies (ServeStats),
+    which hold neither keygen nor the session's start-up: 1 - plain/chk of
+    the pooled medians, and its spread over every pair of a plain turn's
+    median and a chk turn's. Against the reference's budget
+    (VERIFY_BUDGET) it is "within" or "over" only if the whole spread is,
+    else "unresolved"; it is reported, not held. Each session window's
+    records/s (keygen and start-up included) is reported beside it."""
+    from repro_torch.runtime.serve_loop import TwoServerPIR
+    turns, lat = [], {"plain": [], "chk": []}
+    for turn, which in enumerate(RUNTIME_VERIFY_TURNS):
+        c, db, host = ((cfg_chk, database_chk, host_chk) if which == "chk"
+                       else (cfg, database, host_db))
+        system = TwoServerPIR(db, c, device=device, n_queries=32,
+                              client_rng=np.random.default_rng(SEED + 240
+                                                               + turn))
+        idx = rng.integers(0, cfg.n_items, size=RUNTIME_QUERIES)
+        seconds, exact, errors = session_load(system, idx, host[idx])
+        stats = system.scheduler.stats
+        lat[which] += stats.latencies
+        turns.append({"database": which, "seconds": seconds,
+                      "records_per_s": RUNTIME_QUERIES / seconds,
+                      "batch_ms_median":
+                          1e3 * float(np.median(stats.latencies)),
+                      "batches": stats.batches,
+                      "bucket_counts": {str(b): n for b, n in
+                                        sorted(stats.bucket_counts.items())},
+                      "pad_fraction": stats.pad_fraction, "exact": exact,
+                      "errors": errors})
+        if not exact:
+            raise AssertionError(f"serve_runtime verify cost: {turns[-1]}")
+    med = {w: 1e3 * float(np.median(v)) for w, v in lat.items()}
+    per_turn = {w: [t["batch_ms_median"] for t in turns
+                    if t["database"] == w] for w in lat}
+    pairs = [1.0 - p / c for p in per_turn["plain"] for c in per_turn["chk"]]
+    spread = [min(pairs), max(pairs)]
+    verdict = ("within" if spread[1] < VERIFY_BUDGET else
+               "over" if spread[0] > VERIFY_BUDGET else "unresolved")
+    window = {w: [t["records_per_s"] for t in turns if t["database"] == w]
+              for w in lat}
+    return {"queries": RUNTIME_QUERIES, "clients": RUNTIME_CLIENTS,
+            "turns": turns, "batch_ms_median": med,
+            "cost": 1.0 - med["plain"] / med["chk"], "cost_spread": spread,
+            "budget": VERIFY_BUDGET, "verdict": verdict,
+            "window_records_per_s": window,
+            "window_cost": 1.0 - float(np.mean(window["chk"])
+                                       / np.mean(window["plain"]))}
 
 
 def runtime_shedding(host_db, cfg, database, device, rng) -> dict:
@@ -2530,17 +2615,18 @@ def runtime_integrity(host_chk, cfg, database, device, rng) -> dict:
 
 def runtime_twins() -> dict:
     """The multi_server, single_server, serving_session and replicas twins
-    as subprocesses on the card, started together; each must exit with 0
-    and report, on its last line, its kernels' launches and plain calls."""
+    and the chaos smoke (``python -m repro_torch.chaos --smoke``) as
+    subprocesses on the card, started together; each must exit with 0 and
+    report, on its last line, its kernels' launches and plain calls."""
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (src, env.get("PYTHONPATH")) if p)
     t0 = time.perf_counter()
     procs = {name: subprocess.Popen(
-        [sys.executable, "-m", f"repro_torch.{name}"],
+        [sys.executable, "-m", f"repro_torch.{name}", *args],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=os.path.dirname(src)) for name in RUNTIME_TWINS}
+        cwd=os.path.dirname(src)) for name, args in RUNTIME_TWINS.items()}
     out = {}
     try:
         for name, proc in procs.items():
@@ -2564,12 +2650,13 @@ def phase_serve_runtime(host_db, cfg, database, host_chk, cfg_chk,
                         database_chk, card, device) -> dict:
     """The serving runtime at PIR_1G on the resident databases: the
     PIRServeLoop per party, lanes under load (n_clusters 2 and 1 in turns),
-    shedding off a flagged lane, kill and drain_handoff under load, a
-    corrupted share with checksum=True in session and pump mode, and the
-    four twins (three serving, one replica plane) as subprocesses. The
-    counters are zeroed before it and read after: B1 and B2 launched here,
-    B5 in the single_server and replicas twins, no plain call anywhere.
-    Returns the launches by kernel."""
+    sessions on the plain and the checksum database in turns (the cost of
+    verification), shedding off a flagged lane, kill and drain_handoff
+    under load, a corrupted share with checksum=True in session and pump
+    mode, and the five twins (three serving, the replica plane, the chaos
+    smoke) as subprocesses. The counters are zeroed before it and read
+    after: B1 and B2 launched here, B5 in the single_server, replicas and
+    chaos twins, no plain call anywhere. Returns the launches by kernel."""
     from repro_torch.kernels import ops
     rng = np.random.default_rng(SEED + 200)
     t_phase = time.perf_counter()
@@ -2584,6 +2671,10 @@ def phase_serve_runtime(host_db, cfg, database, host_chk, cfg_chk,
     emit({"phase": "serve_runtime_lanes", "config": "pir-1g", "card": card,
           "clients": RUNTIME_CLIENTS, "queries": RUNTIME_QUERIES,
           "turns": lanes})
+    verify = runtime_verify_cost(host_db, cfg, database, host_chk, cfg_chk,
+                                 database_chk, device, rng)
+    emit({"phase": "serve_runtime_verify_cost", "config": "pir-1g",
+          "card": card, **verify})
     shedding = runtime_shedding(host_db, cfg, database, device, rng)
     emit({"phase": "serve_runtime_shedding", **shedding})
     kill = runtime_kill(host_db, cfg, database, device, rng)
@@ -2602,11 +2693,14 @@ def phase_serve_runtime(host_db, cfg, database, host_chk, cfg_chk,
             raise AssertionError(f"twin {name} ran plain versions: {twin}")
         for k, n in twin["launches"].items():
             launches[k] += n
-    for name in ("single_server", "replicas"):
+    for name in ("single_server", "replicas", "chaos"):
         if twins[name]["launches"]["lwe_gemm"] < 1:
             raise AssertionError(f"the {name} twin did not launch B5")
     emit({"phase": "serve_runtime", "card": card, "twins": twins,
-          "launches": launches, "seconds": time.perf_counter() - t_phase})
+          "verify_cost": verify["cost"],
+          "verify_cost_spread": verify["cost_spread"],
+          "verify_verdict": verify["verdict"], "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
     return launches
 
 
@@ -2636,18 +2730,22 @@ REPL_LEAVE_QUERIES = 128
 REPL_HEARTBEAT_TIMEOUT_S = 900.0
 
 
-def repl_replica(rid, host, cfg, device, seed, **kw):
+def repl_replica(rid, host, cfg, device, seed, buckets=REPL_BUCKETS, **kw):
     from repro_torch.replica import ServeReplica
-    return ServeReplica(rid, host, cfg, device, n_queries=32,
-                        buckets=REPL_BUCKETS, max_wait_s=REPL_MAX_WAIT_S,
+    return ServeReplica(rid, host, cfg, device, n_queries=buckets[-1],
+                        buckets=buckets, max_wait_s=REPL_MAX_WAIT_S,
                         client_rng=np.random.default_rng(seed), **kw)
 
 
-def repl_router(seed):
+def repl_router(seed, chaos=None):
     from repro_torch.replica import ReplicaRegistry, Router
     return Router(registry=ReplicaRegistry(timeout=REPL_HEARTBEAT_TIMEOUT_S),
                   rng=np.random.default_rng(seed), base_delay=0.01,
-                  max_delay=0.5)
+                  max_delay=0.5, chaos=chaos)
+
+
+def fired_log(injector) -> list:
+    return [(f.seam, f.target, f.action, f.visit) for f in injector.fired]
 
 
 def release() -> None:
@@ -2915,37 +3013,92 @@ def replicas_kill(router, oracle, rng, cfg, card) -> dict:
 
 
 def replicas_corrupt(host_chk, cfg_chk, groups, rng, card) -> dict:
-    """Two replicas on the checksum database (PIR_1G, checksum=True);
-    party 1's share of query 0 of c0's first batch flipped: every query of
-    a session pinned to c0 comes back exact from c1, integrity_failures
-    >= 1, c0 a suspect."""
-    router = repl_router(SEED + 330)
+    """Two replicas on the checksum database (PIR_1G, checksum=True), and
+    one ChaosInjector held by c0 and the router: a corrupt at c0's
+    replica.serve_step seam, visit 0. c0 serves buckets of one, so that
+    its first batch is one real query and the flip, drawn over the whole
+    share, cannot land in a padding row. Every query of a session pinned
+    to c0 comes back exact from c1, integrity_failures >= 1, c0 the one
+    suspect, and the injector's log the one corrupt."""
+    from repro_torch.chaos import ChaosInjector, FaultEvent, FaultPlan
+    injector = ChaosInjector(FaultPlan(seed=SEED + 333, events=(
+        FaultEvent("replica.serve_step", "corrupt", target="c0", at=0),)))
+    router = repl_router(SEED + 330, chaos=injector)
     c0 = router.attach(repl_replica("c0", host_chk, cfg_chk, groups[0][0],
-                                    SEED + 331))
-    c1 = router.attach(repl_replica("c1", host_chk, cfg_chk, groups[1][0],
-                                    SEED + 332))
-    restore = first_dispatch_edited(c0, flip_share(1, 0, 3, 0x5A))
+                                    SEED + 331, buckets=(1,),
+                                    chaos=injector))
+    router.attach(repl_replica("c1", host_chk, cfg_chk, groups[1][0],
+                               SEED + 332))
     s = router.session("pinned")
     s.replica = "c0"
     idx = rng.integers(0, cfg_chk.n_items, size=REPL_CORRUPT_QUERIES)
     t0 = time.perf_counter()
-    try:
-        futs, _ = routed(router, idx, sessions=[s])
-    finally:
-        restore()
+    futs, _ = routed(router, idx, sessions=[s])
     split = check_routed("corrupt", futs, host_chk[idx], 0)
     out = {"phase": "replicas_corrupt", "config": "pir-1g+chk", "card": card,
            "queries": REPL_CORRUPT_QUERIES, "split": split,
+           "c0_buckets": list(c0.pir.servers[0].buckets),
+           "fired": fired_log(injector),
            "integrity_failures": router.integrity_failures,
            "failovers": router.failovers,
            "suspects": router.registry.suspects(),
-           "seconds": time.perf_counter() - t0}
+           "seconds": time.perf_counter() - t0, "lost": 0}
     emit(out)
-    if (out["integrity_failures"] < 1 or out["suspects"] != ["c0"]
-            or split != {"c1": REPL_CORRUPT_QUERIES}):
+    if (out["fired"] != [("replica.serve_step", "c0", "corrupt", 0)]
+            or out["integrity_failures"] < 1 or out["suspects"] != ["c0"]
+            or split != {"c1": REPL_CORRUPT_QUERIES}
+            or out["c0_buckets"] != [1]):
         raise AssertionError(f"replicas corrupt: {out}")
     router.detach("c0")
     router.detach("c1")
+    return out
+
+
+def replicas_chaos_kill(host_db, cfg, groups, rng, card) -> dict:
+    """Two fresh PIR_1G replicas, k0 and k1 (each its own 1 GiB Database),
+    behind a router that holds one ChaosInjector, which k0 holds too: a
+    kill at k0's scheduler.dispatch seam, visit 0. REPL_KILL_QUERIES
+    queries of a session pinned to k0: every future exact from k1 at epoch
+    0, failovers >= 1, the injector's log the one kill, k0's dead session
+    rejecting new work; the seconds from the first submit to the last
+    future. Then both leave and their databases are freed."""
+    from repro_torch.chaos import ChaosInjector, FaultEvent, FaultPlan
+    injector = ChaosInjector(FaultPlan(seed=SEED + 363, events=(
+        FaultEvent("scheduler.dispatch", "kill", target="k0", at=0),)))
+    router = repl_router(SEED + 360, chaos=injector)
+    t0 = time.perf_counter()
+    k0 = router.attach(repl_replica("k0", host_db, cfg, groups[0][0],
+                                    SEED + 361, chaos=injector))
+    router.attach(repl_replica("k1", host_db, cfg, groups[1][0], SEED + 362))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    s = router.session("chaos-victim")
+    s.replica = "k0"
+    idx = rng.integers(0, cfg.n_items, size=REPL_KILL_QUERIES)
+    try:
+        futs, seconds = routed(router, idx, sessions=[s])
+        split = check_routed("chaos kill", futs, host_db[idx], 0)
+        try:
+            k0.submit(0)
+            rejected = False
+        except RuntimeError:
+            rejected = True
+        out = {"phase": "replicas_chaos_kill", "config": "pir-1g",
+               "card": card, "queries": REPL_KILL_QUERIES, "split": split,
+               "fired": fired_log(injector), "failovers": router.failovers,
+               "suspects": router.registry.suspects(),
+               "k0_rejects_new_work": rejected, "build_s": build_s,
+               "first_submit_to_last_future_s": seconds, "lost": 0}
+        emit(out)
+        if (out["fired"] != [("scheduler.dispatch", "k0", "kill", 0)]
+                or out["failovers"] < 1 or not rejected
+                or split != {"k1": REPL_KILL_QUERIES}):
+            raise AssertionError(f"replicas chaos kill: {out}")
+    finally:
+        for rid in list(router.replicas):
+            router.detach(rid)
+        del k0, router
+        release()
     return out
 
 
@@ -3025,8 +3178,9 @@ def phase_replicas(host_db, cfg, host_chk, cfg_chk, card) -> dict:
     a 64-row publish fanned out, load through the fleet and through r1
     alone in turns (keyed on the client threads, then keyed before the
     window), the host's single-query keygen alone and over threads, a kill
-    under load, a corrupted share on the checksum
-    database, a warm rejoin, a graceful leave under load.
+    under load, a corrupt through the replica.serve_step chaos seam on the
+    checksum database, a kill through a fresh replica's scheduler.dispatch
+    seam, a warm rejoin, a graceful leave under load.
     The counters are zeroed before it and read after: B1 and B2 launched,
     no plain call. The warm plan-cache entries it records stay in memory
     (the cache file is off) and are dropped after it. Returns the
@@ -3067,6 +3221,7 @@ def phase_replicas(host_db, cfg, host_chk, cfg_chk, card) -> dict:
         kill = replicas_kill(router, oracle, rng, cfg, card)
         corrupt = replicas_corrupt(host_chk, cfg_chk, groups, rng, card)
         release()
+        chaos_kill = replicas_chaos_kill(host_db, cfg, groups, rng, card)
         rejoin = replicas_rejoin(router, host_db, cfg, groups, oracle, rng,
                                  card)
         leave = replicas_leave(router, oracle, rng, cfg, card)
@@ -3084,6 +3239,7 @@ def phase_replicas(host_db, cfg, host_chk, cfg_chk, card) -> dict:
            "kill_to_last_future_s": kill["kill_to_last_future_s"],
            "rejoin_s": rejoin["rejoin_s"], "handed_off": leave["handed_off"],
            "integrity_failures": corrupt["integrity_failures"],
+           "chaos_kill_s": chaos_kill["first_submit_to_last_future_s"],
            "peak_device_bytes": torch.cuda.max_memory_allocated(),
            "seconds": time.perf_counter() - t_phase}
     emit(out)

@@ -130,6 +130,8 @@ class Database:
         self.published: List[PublishedDelta] = []
         self._hint_specs: Dict[str, _HintSpec] = {}
         self._subscribers: List[Callable[[PublishedDelta], None]] = []
+        #: optional ChaosInjector consulted at the "db.publish" seam
+        self.chaos = None
         # payload rows take their checksum column here, once (rows already
         # at the stored width pass through)
         host = self.spec.validate_words(self.spec.attach_checksums(db_words))
@@ -273,13 +275,19 @@ class Database:
 
         The copy and the scatter run outside the database lock, which is
         held only for the swap; the previous epoch stays readable until
-        the next publish. Subscribers are notified after the swap.
+        the next publish. Subscribers are notified after the swap, unless
+        ``chaos`` drops this publish's fan-out.
         """
         with self._publish_lock:
             pending = self._prepare_publish()
             if pending is None:
                 return self.epoch
             self._commit_publish(pending)
+            # chaos seam "db.publish" (no target): a drop swallows this
+            # epoch's fan-out; subscribers hear the next publish
+            chaos = self.chaos
+            if chaos is not None and chaos.should_drop("db.publish"):
+                return pending.delta.epoch
             for fn in tuple(self._subscribers):
                 fn(pending.delta)
             return pending.delta.epoch

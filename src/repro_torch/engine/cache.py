@@ -20,7 +20,8 @@ Location: ``REPRO_TORCH_PLAN_CACHE``; unset -> ``results/plan_cache_torch.json``
 relative to the working directory; ``off``/``none``/``0`` disable
 persistence. The name and the file are the port's own, so neither package
 reads the other's cache and a test that sets one never flips the other.
-The reference's ``chaos=`` load seam waits for the port's chaos plane.
+``PlanCache(path, chaos=)`` visits the ``plan_cache.load`` chaos seam: a
+kill or a drop there degrades the load like a torn file.
 """
 from __future__ import annotations
 
@@ -119,14 +120,28 @@ class PlanCache:
     wide instance for ``resolve``; tests and the tuner make their own.
     """
 
-    def __init__(self, path: Optional[str] = None):
+    def __init__(self, path: Optional[str] = None, *, chaos=None):
         self.path = path
         self.plans: Dict[str, Dict] = {}
         self.load_error: Optional[str] = None
+        #: optional ChaosInjector consulted at the plan_cache.load seam
+        self.chaos = chaos
         if path is not None:
             self._load(path)
 
     def _load(self, path: str) -> None:
+        if self.chaos is not None:
+            from repro_torch.chaos import InjectedFault
+            try:
+                hits = self.chaos.visit("plan_cache.load")  # raises on kill
+            except InjectedFault as e:
+                # the torn-file path: serving never dies on a tuning artifact
+                self.load_error = f"{type(e).__name__}: {e}"
+                return
+            if any(ev.action == "drop" for ev in hits):
+                self.load_error = ("InjectedFault: chaos drop at "
+                                   "plan_cache.load")
+                return
         if not os.path.exists(path):
             return
         try:

@@ -31,7 +31,7 @@ class ReplicaRegistry:
                  clock: Callable[[], float] = time.monotonic):
         self.heartbeats = HeartbeatRegistry(timeout=timeout, clock=clock)
         self._failed: Set[str] = set()
-        #: optional fault injector consulted at the heartbeat seam
+        #: optional ChaosInjector consulted at the heartbeat seam
         #: (``should_drop("heartbeat", rid)``): a dropped beat never reaches
         #: last_seen, so the replica ages toward suspicion like a wedged one
         self.chaos = None

@@ -17,8 +17,9 @@ needs — join (``start`` + plan-cache warm start), serve (``submit`` /
 ``resubmit``), leave (``drain_handoff``), die (``kill``), and observe
 (``queue_depth``, ``subscribe_epochs``, heartbeat hook). All query
 semantics (protocols, buckets, epoch tagging) stay in the layers below.
-The reference's ``chaos=`` keyword (forwarded as ``chaos_scope``) waits
-for the port's chaos plane.
+A ``chaos=`` keyword (a ``ChaosInjector``) goes on to the facade with
+``chaos_scope`` defaulting to the replica id, so that a plan aimed at
+``"r0"`` kills or corrupts r0's serve path only.
 """
 from __future__ import annotations
 
@@ -71,6 +72,8 @@ class ServeReplica:
         if warm_plans:
             from repro_torch import engine
             engine.record_plans(cfg, warm_plans, device=self.device)
+        if "chaos" in pir_kwargs:
+            pir_kwargs.setdefault("chaos_scope", replica_id)
         self.pir = make_pir(db_words, cfg, self.device, **pir_kwargs)
         self._lost: Optional[BaseException] = None
 

@@ -31,9 +31,10 @@ budget and expires it with ``QueryTimeout`` past it. Session affinity: a
 session sticks to the replica that last served it while that replica
 stays eligible, and re-pins transparently when it is not.
 
-``chaos`` (default ``None``) is a duck-typed fault injector visited at
-the ``router.resubmit`` and ``db.publish`` seams (``visit(seam)``,
-``should_drop(seam, target)``); the port's chaos plane is still to come.
+``chaos`` (default ``None``) is a ``repro_torch.chaos.ChaosInjector``
+visited at the ``router.resubmit`` seam (a kill rides the retry ladder)
+and at ``db.publish`` once per replica of a fan-out (a drop leaves that
+replica lagging until the next publish or rejoin replays the delta log).
 """
 from __future__ import annotations
 

@@ -25,8 +25,11 @@ outstanding future with the same exception. Online updates (``update`` /
 ``publish``) swap in a new database epoch; every answer is tagged with the
 epoch its own dispatch read. Per-query deadlines ride on the futures
 (``QueryTimeout``). The replica plane's hooks are ``queue_depth``,
-``drain_handoff``, ``kill`` and ``heartbeat``. The chaos seams are not
-ported yet.
+``drain_handoff``, ``kill`` and ``heartbeat``. Two chaos seams live here
+(``repro_torch.chaos``): ``scheduler.dispatch``, visited once per batch
+launch, and ``replica.serve_step``, where the facades hand each batch's
+answer shares to ``corrupt_shares``; as upstream, the facades stage keys
+padded to their bucket, so that those shares are ``[bucket, cols]``.
 """
 from __future__ import annotations
 
@@ -217,7 +220,11 @@ class QueryScheduler:
     the batches it had not launched queued. The replica plane reads
     :attr:`queue_depth` and calls :meth:`drain_handoff` (graceful leave)
     and :meth:`kill` (hard death); ``heartbeat`` is called once per pump
-    and once per turn of the session loop.
+    and once per turn of the session loop. ``chaos`` (a
+    ``ChaosInjector``, ``None`` in production) is visited at
+    ``"scheduler.dispatch"`` with ``chaos_target`` once per launch, before
+    the batch is collated: a kill there fails the batch and, in a session,
+    ends it like a dispatch crash.
     """
 
     def __init__(self, *, collate: Callable[[List[Any]], Any],
@@ -229,7 +236,8 @@ class QueryScheduler:
                  depth: int = PIPELINE_DEPTH,
                  clock: Callable[[], float] = time.monotonic,
                  epoch_of: Optional[Callable[[Any], Optional[int]]] = None,
-                 heartbeat: Optional[Callable[[], None]] = None):
+                 heartbeat: Optional[Callable[[], None]] = None,
+                 chaos=None, chaos_target: Optional[str] = None):
         self._collate = collate
         self._stage = stage
         self._dispatch = dispatch
@@ -243,6 +251,8 @@ class QueryScheduler:
         self.clock = clock
         #: liveness hook: silence means the session thread stopped turning
         self.heartbeat = heartbeat
+        self.chaos = chaos
+        self.chaos_target = chaos_target
         self.stats = ServeStats()
         self._cv = threading.Condition()
         self._pending: deque = deque()        # (item, future, t_submit)
@@ -382,6 +392,8 @@ class QueryScheduler:
         failure fails the batch's futures before it propagates: the batch
         has left the lanes already."""
         try:
+            if self.chaos is not None:
+                self.chaos.visit("scheduler.dispatch", self.chaos_target)
             staged = self._stage(self._collate(batch.items))
             t0 = self.clock()
             raw = self._dispatch(staged)
@@ -618,6 +630,15 @@ class PIRServeLoop:
             f"cluster{self.stats.batches % max(self.n_clusters, 1)}", dt)
 
 
+def _padded(server: PIRServer, keys):
+    """A scheduler batch's keys padded to its bucket, as upstream's stage
+    pads them: the answer shares at the ``replica.serve_step`` seam are
+    then ``[bucket, cols]`` in both packages, so one plan flips the same
+    element, and finalize keeps the first n rows."""
+    proto = server.protocol
+    return proto.pad(keys, server.bucketed.bucket_for(proto.n_queries(keys)))
+
+
 class MultiServerPIR:
     """End-to-end k-party deployment: client + k non-colluding servers.
 
@@ -639,7 +660,13 @@ class MultiServerPIR:
 
     ``default_deadline_s`` (default 120 s per party, upstream's) becomes
     each future's deadline. ``n_clusters`` is the scheduler's lane count;
-    the lanes share the one device.
+    the lanes share the one device. ``chaos`` (a ``ChaosInjector``, ``None``
+    in production) is consulted at ``"scheduler.dispatch"`` (each launch)
+    and ``"replica.serve_step"`` (each batch's answer shares, where a
+    ``corrupt`` flips bits), with ``chaos_scope`` as the target: the
+    replica plane passes its replica id. Both are held by the scheduler
+    (``scheduler.chaos``, ``scheduler.chaos_target``) and read on every
+    visit, so setting them on a built facade takes effect.
     """
 
     #: hint protocols (``PIRProtocol.needs_hint``) carry per-query client
@@ -654,7 +681,8 @@ class MultiServerPIR:
                  protocol: Optional[PIRProtocol] = None,
                  client_rng: Optional[np.random.Generator] = None,
                  default_deadline_s: Optional[float] = None,
-                 n_clusters: int = 1):
+                 n_clusters: int = 1, chaos=None,
+                 chaos_scope: Optional[str] = None):
         self.cfg = cfg
         self.protocol = (protocol if protocol is not None
                          else protocol_mod.for_config(cfg))
@@ -680,6 +708,23 @@ class MultiServerPIR:
                                    if default_deadline_s is not None
                                    else 120.0 * self.n_parties)
         self.scheduler = self._make_scheduler(max_wait_s, n_clusters)
+        self.scheduler.chaos = chaos
+        self.scheduler.chaos_target = chaos_scope
+
+    def _scheduler(self, **kwargs) -> QueryScheduler:
+        """The facade's scheduler over its closures, with its buckets."""
+        return QueryScheduler(buckets=self.servers[0].buckets,
+                              epoch_of=lambda raw: raw[1], **kwargs)
+
+    def _serve_step(self, answers: tuple) -> tuple:
+        """The ``replica.serve_step`` seam: the scheduler's injector, read
+        on every dispatch, may flip bits in one of the batch's answer
+        shares."""
+        chaos = self.scheduler.chaos
+        if chaos is None:
+            return answers
+        return chaos.corrupt_shares("replica.serve_step",
+                                    self.scheduler.chaos_target, answers)
 
     def _make_scheduler(self, max_wait_s: float, n_clusters: int
                         ) -> QueryScheduler:
@@ -691,13 +736,15 @@ class MultiServerPIR:
                          for p in parties)
 
         def stage(payload):
-            return tuple(servers[p].stage_keys(payload[p]) for p in parties)
+            return tuple(servers[p].stage_keys(_padded(servers[p], payload[p]))
+                         for p in parties)
 
         def dispatch(staged):
             epoch, views = db.snapshot((proto.db_view,))
             view = views[proto.db_view]
-            return tuple(servers[p].bucketed.answer(view, staged[p])
-                         for p in parties), epoch
+            return self._serve_step(tuple(
+                servers[p].bucketed.answer(view, staged[p])
+                for p in parties)), epoch
 
         cfg = self.cfg
 
@@ -709,11 +756,9 @@ class MultiServerPIR:
                                          cfg=cfg)
             return list(records_to_host(rec))
 
-        return QueryScheduler(
-            collate=collate, stage=stage, dispatch=dispatch,
-            finalize=finalize, buckets=servers[0].buckets,
-            n_clusters=n_clusters, max_wait_s=max_wait_s,
-            epoch_of=lambda raw: raw[1])
+        return self._scheduler(collate=collate, stage=stage,
+                               dispatch=dispatch, finalize=finalize,
+                               n_clusters=n_clusters, max_wait_s=max_wait_s)
 
     # -- streaming session API ------------------------------------------
 
@@ -864,12 +909,13 @@ class SingleServerPIR(MultiServerPIR):
 
         def stage(payload):
             keys, states = payload
-            return server.stage_keys(keys), states
+            return server.stage_keys(_padded(server, keys)), states
 
         def dispatch(staged):
             keys, states = staged
             epoch, views = db.snapshot((proto.db_view,))
-            ans = server.bucketed.answer(views[proto.db_view], keys)
+            (ans,) = self._serve_step(
+                (server.bucketed.answer(views[proto.db_view], keys),))
             return ans, epoch, states
 
         def finalize(raw, n):
@@ -878,11 +924,9 @@ class SingleServerPIR(MultiServerPIR):
                                          hint=self._client_hint(epoch))
             return list(rec)
 
-        return QueryScheduler(
-            collate=collate, stage=stage, dispatch=dispatch,
-            finalize=finalize, buckets=server.buckets,
-            n_clusters=n_clusters, max_wait_s=max_wait_s,
-            epoch_of=lambda raw: raw[1])
+        return self._scheduler(collate=collate, stage=stage,
+                               dispatch=dispatch, finalize=finalize,
+                               n_clusters=n_clusters, max_wait_s=max_wait_s)
 
     def submit(self, index: int, *,
                deadline_s: Optional[float] = None) -> AnswerFuture:
