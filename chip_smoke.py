@@ -132,7 +132,8 @@ Then the single-server LWE scheme runs at PIR_128M_LWE (2^22 records x
               (every outstanding future fails with the IntegrityError naming
               the query) and failing a pump (launched batches fail, the rest
               stays queued); the multi_server, single_server,
-              serving_session and replicas twins and the chaos smoke
+              serving_session, replicas and private_inference twins (the
+              last at the example's 2-layer model: B1) and the chaos smoke
               (python -m repro_torch.chaos --smoke: a seeded kill and a
               seeded share corruption through a two-replica LWE fleet) as
               subprocesses, started together. B1 and B2 (and B5 in the
@@ -163,6 +164,24 @@ Then the single-server LWE scheme runs at PIR_128M_LWE (2^22 records x
               the delta log, no heuristic plan), a detach under 128 queries
               (handed off, all exact); peak device memory. B1 and B2
               launched, no plain call
+  private_lm  the dense LM, once the fleets are released: qwen3-4b at full
+              width and depth (36 layers, d_model 2,560, vocab 151,936,
+              bf16, 8.8 GB of weights drawn from a seeded generator on the
+              card). make_serve_step's prefill on 4 streams x 2,048 tokens
+              (two attention chunks) and 32 decode steps with write=True
+              (prefill s, decode ms per token, tokens/s); the last decode's
+              logits against a forward over the same 2,080 tokens (within
+              LM_LOGIT_TOL, greedy tokens equal but for near-ties). Then the
+              private_inference twin on that model: 4 streams, a 16-token
+              prompt, 16 new tokens, every embedding retrieved through
+              TwoServerPIR (xor-dpf-2) over the table padded to 2^18 rows x
+              5,120 B = 1.25 GiB (the prompt in buckets of 32 and each step
+              in a bucket of 4: B2; one step for a stream alone: B1), rows
+              bit-exact, tokens equal to the loop on plain lookups; PIR s
+              per batch and its share of each token's time. B1 and B2
+              launched, no plain call. Then B1 (Q = 1) and B2 (Q = 4, 32)
+              at 1,280 words exact against their plain versions, timed
+              beside their bounds
 Then the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
 line. Without a CUDA card the script exits 1 at once.
@@ -2207,7 +2226,7 @@ RUNTIME_QUERIES = 256
 #: the twins run as subprocesses, started together: module and arguments
 RUNTIME_TWINS = {"multi_server": (), "single_server": (),
                  "serving_session": (), "replicas": (),
-                 "chaos": ("--smoke",)}
+                 "chaos": ("--smoke",), "private_inference": ()}
 #: the verification-cost turns: sessions on the plain and the checksum
 #: database, alternating, and the cost the reference allows
 #: (benchmarks/bench_chaos.py)
@@ -2614,10 +2633,11 @@ def runtime_integrity(host_chk, cfg, database, device, rng) -> dict:
 
 
 def runtime_twins() -> dict:
-    """The multi_server, single_server, serving_session and replicas twins
-    and the chaos smoke (``python -m repro_torch.chaos --smoke``) as
-    subprocesses on the card, started together; each must exit with 0 and
-    report, on its last line, its kernels' launches and plain calls."""
+    """The multi_server, single_server, serving_session, replicas and
+    private_inference twins and the chaos smoke (``python -m
+    repro_torch.chaos --smoke``) as subprocesses on the card, started
+    together; each must exit with 0 and report, on its last line, its
+    kernels' launches and plain calls."""
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -2653,10 +2673,11 @@ def phase_serve_runtime(host_db, cfg, database, host_chk, cfg_chk,
     sessions on the plain and the checksum database in turns (the cost of
     verification), shedding off a flagged lane, kill and drain_handoff
     under load, a corrupted share with checksum=True in session and pump
-    mode, and the five twins (three serving, the replica plane, the chaos
-    smoke) as subprocesses. The counters are zeroed before it and read
-    after: B1 and B2 launched here, B5 in the single_server, replicas and
-    chaos twins, no plain call anywhere. Returns the launches by kernel."""
+    mode, and the six twins (three serving, the replica plane, the chaos
+    smoke, the private-embedding LM) as subprocesses. The counters are
+    zeroed before it and read after: B1 and B2 launched here, B5 in the
+    single_server, replicas and chaos twins, B1 in the private_inference
+    twin, no plain call anywhere. Returns the launches by kernel."""
     from repro_torch.kernels import ops
     rng = np.random.default_rng(SEED + 200)
     t_phase = time.perf_counter()
@@ -2696,6 +2717,10 @@ def phase_serve_runtime(host_db, cfg, database, host_chk, cfg_chk,
     for name in ("single_server", "replicas", "chaos"):
         if twins[name]["launches"]["lwe_gemm"] < 1:
             raise AssertionError(f"the {name} twin did not launch B5")
+    # the private-embedding twin's 2^10-row table takes materialize + B1
+    # at every bucket (at most 2^chunk_log rows)
+    if twins["private_inference"]["launches"]["dpxor"] < 1:
+        raise AssertionError("the private_inference twin did not launch B1")
     emit({"phase": "serve_runtime", "card": card, "twins": twins,
           "verify_cost": verify["cost"],
           "verify_cost_spread": verify["cost_spread"],
@@ -3246,6 +3271,304 @@ def phase_replicas(host_db, cfg, host_chk, cfg_chk, card) -> dict:
     return launches
 
 
+#: the private_lm phase: qwen3-4b at full width and depth (PERF.md §4):
+#: the serve step's prefill (two attention chunks) and cached decodes, then
+#: private generation through xor-dpf-2 over the padded embedding table
+LM_ARCH = "qwen3-4b"
+LM_STREAMS = 4
+LM_PREFILL = 2048
+LM_DECODE = 32
+LM_PROMPT = 16
+LM_NEW = 16
+#: the last decode's float32 logits against a forward over the same tokens
+#: (a bf16 model; logits of std about 1.0): at most a quarter of that std.
+#: The same code at qwen3-4b's width on the CPU, 2 and 6 layers, differs
+#: by 0.031-0.038 (chunked attention rounds its probabilities to bf16
+#: before the value product, the decode path keeps them in float32). A
+#: stream whose forward top-2 gap is within twice the measured difference
+#: is a near-tie: its greedy token must be one of the forward's tokens
+#: within that margin of the top; every other stream's must be equal.
+LM_LOGIT_TOL = 0.25
+#: the kernels at the table's record width: B1 at the solo step's batch,
+#: B2 at the decode steps' and the prompt's
+LM_DPXOR_QS = (1,)
+LM_FUSED_QS = (4, 32)
+
+
+def fused_xor_bound(rows: int, words: int, queries: int, clog: int,
+                    rounds: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of the fused XOR scan: the DB
+    read once and the answers written once over HBM, or its ChaCha
+    operations (:func:`fused_bound_ms`), the larger."""
+    bytes_ms = (rows * words + queries * words) * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = fused_bound_ms(rows, queries, clog, rounds)
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def lm_serve_step(ss, cfg, card, device) -> dict:
+    """make_serve_step's prefill on LM_STREAMS x LM_PREFILL seeded tokens
+    (twice: the first call warms the card), LM_DECODE decode steps with
+    write=True (each timed to its synchronize), and the last decode's
+    logits against a forward over the same LM_PREFILL + LM_DECODE tokens."""
+    gen = torch.Generator(device).manual_seed(SEED + 401)
+    total = LM_PREFILL + LM_DECODE
+    tokens = torch.randint(0, cfg.vocab, (LM_STREAMS, total), generator=gen,
+                           device=device)
+    batch = {"tokens": tokens[:, :LM_PREFILL]}
+    prefill_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = ss.prefill(batch)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    first_ok = bool(torch.isfinite(logits[:, :cfg.vocab]).all())
+    decode_s = []
+    for i in range(LM_DECODE):
+        t0 = time.perf_counter()
+        logits, cache = ss.decode(cache, tokens[:, LM_PREFILL + i:
+                                                LM_PREFILL + i + 1])
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t0)
+    length = int(cache.length)
+    trace = lm_decode_trace(ss.model, cache, tokens[:, -1:])
+    del cache
+    t0 = time.perf_counter()
+    full, _ = ss.model.forward(tokens)
+    want = full[:, -1, :cfg.vocab].clone()
+    del full
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    got = logits[:, :cfg.vocab]
+    diff = float((got - want).abs().max())
+    top2 = want.topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    g_tok, w_tok = got.argmax(-1).tolist(), want.argmax(-1).tolist()
+    margin = 2 * diff
+    near = [i for i, g in enumerate(gaps) if g <= margin]
+    greedy_ok = all(
+        g_tok[i] == w_tok[i] if i not in near
+        else float(want[i, g_tok[i]]) >= float(top2[i, 0]) - margin
+        for i in range(LM_STREAMS))
+    dec = float(np.median(decode_s))
+    out = {"phase": "private_lm_serve", "card": card, "arch": cfg.name,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "streams": LM_STREAMS,
+           "prefill_tokens": LM_PREFILL, "decode_steps": LM_DECODE,
+           "prefill_s": prefill_s,
+           "prefill_tokens_per_s": LM_STREAMS * LM_PREFILL / prefill_s[-1],
+           "decode_ms_per_token": dec * 1e3,
+           "decode_ms_runs": [t * 1e3 for t in decode_s],
+           "decode_tokens_per_s": LM_STREAMS / dec, "forward_s": forward_s,
+           "cache_length": length, "logits_finite": first_ok and bool(
+               torch.isfinite(got).all()),
+           "max_abs_diff_vs_forward": diff, "tolerance": LM_LOGIT_TOL,
+           "logit_std": float(want.std()), "greedy_decode": g_tok,
+           "greedy_forward": w_tok, "top2_gaps": gaps, "near_ties": near,
+           "greedy_equal": sum(a == b for a, b in zip(g_tok, w_tok)),
+           "greedy_ok": greedy_ok, "decode_trace": trace}
+    emit(out)
+    if not (out["logits_finite"] and length == total
+            and diff <= LM_LOGIT_TOL and greedy_ok):
+        raise AssertionError(f"private_lm serve step: {out}")
+    return out
+
+
+def lm_decode_trace(model, cache, tokens) -> dict:
+    """One decode step (write=False, on the full cache) under
+    torch.profiler after an untraced one: wall, device busy time (the union
+    of CUDA kernel and copy intervals), the device's idle share, the
+    number of device events, and the kernels with the most device time.
+    The profiler's own host cost per op is inside the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis.serve_trace import _union_us
+    model.decode(cache, tokens, write=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.decode(cache, tokens, write=False)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_s = _union_us([(e.time_range.start, e.time_range.end)
+                        for e in dev]) / 1e6
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:6]
+    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_s * 1e3,
+            "device_idle_share": 1 - busy_s / wall_s if dev else None,
+            "device_events": len(dev),
+            "top_kernels": [{"name": n[:80], "device_ms": us / 1e3}
+                            for n, us in top]}
+
+
+def lm_private(model, cfg, card) -> tuple:
+    """The private_inference twin on the model: LM_STREAMS streams, an
+    LM_PROMPT-token prompt, LM_NEW new tokens, every embedding retrieved
+    through TwoServerPIR over the padded table (prompt lookups in buckets
+    of 32, each step's LM_STREAMS in a bucket of 4: B2; one step for a
+    stream alone: B1). Rows bit-exact and tokens equal to the same loop on
+    plain lookups (the twin raises otherwise). The counters are zeroed
+    inside (before the lookups) and read right after."""
+    from repro_torch import private_inference as pi
+    from repro_torch.core.protocol import plan_for
+    prompt = np.random.default_rng(SEED + 402).integers(
+        0, cfg.vocab, (LM_STREAMS, LM_PROMPT))
+    t0 = time.perf_counter()
+    res = pi.run(model=model, tokens=LM_NEW, streams=LM_STREAMS,
+                 prompt=prompt, seed=SEED + 403, verbose=False)
+    seconds = time.perf_counter() - t0
+    launches = main_path_launches("private_lm", ("dpxor", "fused_scan_xor"))
+    calls = res["pir_calls"]
+    steps = res["steps"][1:]            # the decode steps (prompt apart)
+    shares = [s["embed_s"] / (s["embed_s"] + s["trunk_s"]) for s in steps]
+    pir_cfg = lm_table_config(cfg)
+    plans = {}
+    for q in (1, LM_STREAMS, 32):
+        plan = plan_for(pir_cfg, q, backend="cuda")
+        plans[str(q)] = {"name": plan.name, "chunk_log": plan.chunk_log,
+                         "tile_r": plan.tile_r}
+    out = {"phase": "private_lm", "card": card, "arch": cfg.name,
+           "table_rows": pir_cfg.n_items, "record_bytes": pir_cfg.item_bytes,
+           "table_bytes": pir_cfg.db_bytes, "streams": LM_STREAMS,
+           "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+           "queries": res["queries"], "rows_exact": res["rows_exact"],
+           "plain_equal": res["plain_equal"],
+           "tokens": res["streams"], "solo_token": res["solo_token"],
+           "setup_s": res["setup_s"],
+           "pir_prompt_s": calls[0]["seconds"],
+           "pir_prompt_batches": -(-calls[0]["queries"] // 32),
+           "pir_step_s": [c["seconds"] for c in calls[1:-1]],
+           "pir_step_s_median": float(np.median(
+               [c["seconds"] for c in calls[1:-1]])),
+           "pir_solo_s": calls[-1]["seconds"],
+           "trunk_step_s_median": float(np.median(
+               [s["trunk_s"] for s in steps])),
+           "pir_share_per_token": shares,
+           "pir_share_median": float(np.median(shares)),
+           "plans": plans, "launches": launches, "seconds": seconds}
+    emit(out)
+    return out, launches
+
+
+def lm_table_config(cfg):
+    """The PIR database the private lookups serve: the padded table."""
+    from repro_torch import private_inference as pi
+    from repro_torch.config import PIRConfig
+    return PIRConfig(n_items=pi.padded_rows(cfg.vocab),
+                     item_bytes=cfg.d_model * 2, batch_queries=32)
+
+
+def lm_kernels(model, cfg, card, device) -> dict:
+    """B1 and B2 on the padded table's words ([2^18, 1280] at qwen3-4b) at
+    the path's batches, each against its plain version on the same inputs
+    (max_abs_err 0), then timed by CUDA events beside its bound and the
+    plain version (B2's plain version by the host clock over its one
+    checking run, seconds long). Returns each kernel's largest error and
+    timings."""
+    from repro_torch import private_inference as pi
+    from repro_torch.core import dpf
+    from repro_torch.core.protocol import plan_for
+    from repro_torch.kernels import dpxor as kd, fused_scan as kf, ops
+    db = pi.table_as_words(pi.padded_table(model))
+    rows, words = db.shape
+    lg = (rows - 1).bit_length()
+    pir_cfg = lm_table_config(cfg)
+    rng = np.random.default_rng(SEED + 404)
+    gen = torch.Generator(device=device).manual_seed(SEED + 405)
+    out = {"phase": "private_lm_kernels", "card": card, "rows": rows,
+           "words": words, "dpxor": {}, "fused_scan_xor": {}}
+    worst = {"dpxor": 0, "fused_scan_xor": 0}
+    for q in LM_DPXOR_QS:
+        bits = torch.randint(0, 2, (q, rows), generator=gen, device=device,
+                             dtype=torch.int32)
+        got, want = kd.dpxor(db, bits), kd.dpxor_plain(db, bits)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        worst["dpxor"] = max(worst["dpxor"], err)
+        bound = dpxor_bound_ms(rows, words, q)
+        ms = cuda_time_ms(lambda: kd.dpxor(db, bits), reps=20)
+        out["dpxor"][str(q)] = {
+            "max_abs_err": err, "ms": ms,
+            "plain_ms": cuda_time_ms(lambda: kd.dpxor_plain(db, bits), 3),
+            "bound_ms": bound, "bound_by": "bytes",
+            "share_of_bound": bound / ms}
+    for q in LM_FUSED_QS:
+        plan = plan_for(pir_cfg, q, backend="cuda")
+        _, clog = ops.fused_tile(rows, plan.tile_r, min(plan.chunk_log, lg))
+        keys = dpf.gen_keys_batch(rng, rng.integers(0, rows, size=q),
+                                  lg)[q % 2].to(device)
+        inputs = fused_inputs(keys, 0, lg, clog)
+        # the plain version takes seconds at Q = 32: its one run is timed
+        plain_s, want = host_time_s(lambda: kf.fused_scan_xor_plain(
+            db, *inputs, rounds=keys.rounds), sync=True)
+        got = kf.fused_scan_xor(db, *inputs, rounds=keys.rounds)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        worst["fused_scan_xor"] = max(worst["fused_scan_xor"], err)
+        bound, by = fused_xor_bound(rows, words, q, clog, keys.rounds)
+        ms = cuda_time_ms(lambda: kf.fused_scan_xor(
+            db, *inputs, rounds=keys.rounds), reps=5)
+        out["fused_scan_xor"][str(q)] = {
+            "clog": clog, "instance": kf.instance_xor(words),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
+            "bound_ms": bound, "bound_by": by, "share_of_bound": bound / ms}
+    out["worst"] = worst
+    emit(out)
+    if any(worst.values()):
+        raise AssertionError(f"private_lm kernels differ from their plain "
+                             f"versions at {words} words: {worst}")
+    return out
+
+
+def phase_private_lm(card, device) -> tuple:
+    """qwen3-4b FULL (36 layers, d_model 2,560, vocab 151,936) on the card,
+    its weights drawn from a seeded generator there: the serve step
+    (:func:`lm_serve_step`), private generation through xor-dpf-2 over the
+    1.25 GiB padded table (:func:`lm_private`; the counters zeroed before
+    and read after: B1 and B2 launched, no plain call), then B1 and B2 at
+    the table's width against their plain versions (:func:`lm_kernels`).
+    Everything is freed before it returns (worst errors, launches)."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_arch
+    from repro_torch.runtime.steps import make_serve_step
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(LM_ARCH)
+    shape = ShapeConfig(name="prefill_2k", seq_len=LM_PREFILL,
+                        global_batch=LM_STREAMS, kind="prefill")
+    t0 = time.perf_counter()
+    ss = make_serve_step(cfg, shape, device=device, decode_write=True,
+                         capacity=LM_PREFILL + LM_DECODE)
+    model = ss.model.init_params(torch.Generator(device).manual_seed(
+        SEED + 400))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    serve = lm_serve_step(ss, cfg, card, device)
+    private, launches = lm_private(model, cfg, card)
+    kernels = lm_kernels(model, cfg, card, device)
+    out = {"phase": "private_lm_done", "card": card, "init_s": init_s,
+           "params": n_params, "n_params_config": cfg.n_params(),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters()),
+           "prefill_s": serve["prefill_s"][-1],
+           "decode_ms_per_token": serve["decode_ms_per_token"],
+           "pir_share_median": private["pir_share_median"],
+           "launches": launches,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t_phase}
+    del ss, model
+    release()
+    emit(out)
+    return kernels["worst"], launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3373,6 +3696,11 @@ def main() -> int:
     launches_replicas = phase_replicas(
         host_db, cfg, host_chk, replace(cfg, checksum=True), info["card"])
     del host_db, host_chk
+    # the dense LM last, once the fleets are released: qwen3-4b's weights
+    # (8.8 GB) and its 1.25 GiB embedding table served through xor-dpf-2
+    worst_lm, launches_lm = phase_private_lm(info["card"], device)
+    for name, err in worst_lm.items():
+        worst[name] = max(worst[name], err)
 
     def total(*runs):               # each path's launches, read after it
         return {k: sum(r.get(k, 0) for r in runs) for k in worst}
@@ -3383,11 +3711,12 @@ def main() -> int:
              "src/repro/kernels/dpxor.py:56",
              total(launches, launches_chk, launches_w128, launches_upd,
                    launches_batch, launches_twins, launches_runtime,
-                   launches_replicas), timing),
+                   launches_replicas, launches_lm), timing),
             ("fused_scan_xor", "src/repro_torch/csrc/fused_scan_xor.cu",
              "src/repro/kernels/fused_scan.py:94",
              total(launches, launches_chk, launches_w128, launches_upd,
-                   launches_runtime, launches_replicas), timing),
+                   launches_runtime, launches_replicas, launches_lm),
+             timing),
             ("pir_gemm", "src/repro_torch/csrc/pir_gemm.cu",
              "src/repro/kernels/pir_matmul.py:35",
              total(launches_add, launches_chk, launches_w128, launches_upd),

@@ -1,1 +1,58 @@
-"""Named configurations of the port."""
+"""Named configurations of the port: the PIR databases (``configs.pir``)
+and the architectures, resolved by name as ``repro/configs/__init__.py``
+does (``--arch <id>``).
+
+Each architecture module defines FULL (the published configuration) and
+SMOKE (a reduced same-family configuration runnable on one CPU device).
+Only the dense family is served by the port so far; naming an
+architecture of another family raises ``NotImplementedError`` that says
+so, never a silent fallback.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.config import ModelConfig
+from repro_torch.configs import (
+    granite_3_2b,
+    qwen3_4b,
+    stablelm_3b,
+    starcoder2_3b,
+)
+from repro_torch.configs.shapes import SHAPES, get_shape
+
+_MODULES = {
+    "granite-3-2b": granite_3_2b,
+    "qwen3-4b": qwen3_4b,
+    "starcoder2-3b": starcoder2_3b,
+    "stablelm-3b": stablelm_3b,
+}
+
+ARCHS: Dict[str, ModelConfig] = {k: m.FULL for k, m in _MODULES.items()}
+SMOKES: Dict[str, ModelConfig] = {k: m.SMOKE for k, m in _MODULES.items()}
+
+#: the reference's other architectures, by family; their configs and
+#: models are not ported yet
+NOT_PORTED: Dict[str, str] = {
+    "whisper-small": "audio",
+    "xlstm-350m": "ssm",
+    "llava-next-34b": "vlm",
+    "grok-1-314b": "moe",
+    "deepseek-v3-671b": "moe",
+    "zamba2-7b": "hybrid",
+}
+
+
+def get_arch(name: str, *, smoke: bool = False) -> ModelConfig:
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} (family {NOT_PORTED[name]!r}) is not ported yet; "
+            f"the port serves the dense family: {sorted(ARCHS)}")
+    table = SMOKES if smoke else ARCHS
+    if name not in table:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(table)}")
+    return table[name]
+
+
+__all__ = ["ARCHS", "SMOKES", "NOT_PORTED", "SHAPES", "get_arch",
+           "get_shape"]

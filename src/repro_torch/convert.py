@@ -3,12 +3,13 @@
 Tests feed identical inputs to both packages: the reference's keys
 (``cw_final`` included, for the additive scheme) and database leave JAX
 as numpy ``uint32`` arrays, and its byte view as ``int8``; these functions
-turn them into the port's tensors with the same bits. Nothing here imports
-the reference.
+turn them into the port's tensors with the same bits. A model's parameter
+tree leaves as numpy (bf16 as ``ml_dtypes.bfloat16``) and becomes the
+port's module state. Nothing here imports the reference.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -44,3 +45,35 @@ def bytes_from_reference(db_bytes: np.ndarray) -> torch.Tensor:
     if arr.dtype not in (np.int8, np.uint8):
         raise TypeError(f"expected int8 or uint8 bytes, got {arr.dtype}")
     return torch.from_numpy(arr.copy())
+
+
+def tensor_from_reference(arr) -> torch.Tensor:
+    """A numpy (or array-like) leaf as a CPU tensor with the same bits;
+    bf16 (numpy's ``bfloat16`` extension dtype) is carried through int16."""
+    arr = np.ascontiguousarray(np.asarray(arr))
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def model_params_from_reference(params_np: Mapping, cfg
+                                ) -> Dict[str, torch.Tensor]:
+    """The reference ``TransformerLM``'s parameter tree (dense family:
+    ``embed``, ``dense_layers`` stacked ``[L, ...]`` by ``vmap``,
+    ``final_norm``, ``unembed``) as the state dict of the port's
+    ``models.transformer.TransformerLM`` (``load_state_dict``), unstacked
+    into ``layers.{i}.*``; same bits, on the CPU."""
+    t = tensor_from_reference
+    state = {"embed": t(params_np["embed"]),
+             "final_norm": t(params_np["final_norm"])}
+    if not cfg.tie_embeddings:
+        state["unembed"] = t(params_np["unembed"])
+    stacked = params_np["dense_layers"]
+    for i in range(cfg.n_layers):
+        for name in ("ln1", "ln2"):
+            state[f"layers.{i}.{name}"] = t(np.asarray(stacked[name])[i])
+        for group in ("attn", "ffn"):
+            for name, arr in stacked[group].items():
+                state[f"layers.{i}.{group}.{name}"] = t(np.asarray(arr)[i])
+    return state

@@ -112,13 +112,16 @@ class _Pending:
 class Database:
     """The PIR database on one device (``device=None`` means CUDA).
 
+    ``db_words`` is ``[N, W]`` u32 numpy (placed on the device) or an int32
+    words tensor at the stored width, taken over without a copy where it
+    already lies on the card (``_take_tensor``).
+
     Thread-safe: the scheduler reads ``snapshot()`` on its thread while
     clients ``stage`` / ``publish`` on theirs. Callers re-read the views
     per dispatch; a batch keeps the tensors of the epoch it read.
     """
 
-    def __init__(self, db_words: np.ndarray, cfg: PIRConfig,
-                 device: Device = None):
+    def __init__(self, db_words, cfg: PIRConfig, device: Device = None):
         self.spec = DatabaseSpec.from_config(cfg)
         self.device = resolve_device(device)
         self.stats = TransferStats()
@@ -132,18 +135,47 @@ class Database:
         self._subscribers: List[Callable[[PublishedDelta], None]] = []
         #: optional ChaosInjector consulted at the "db.publish" seam
         self.chaos = None
-        # payload rows take their checksum column here, once (rows already
-        # at the stored width pass through)
-        host = self.spec.validate_words(self.spec.attach_checksums(db_words))
-        words = words_to_tensor(host, self.device)
-        if words.device.type == "cpu":
-            # from_numpy shares the caller's array; an epoch's rows are the
-            # database's own, as the card's copy is
-            words = words.clone()
+        if isinstance(db_words, torch.Tensor):
+            words = self._take_tensor(db_words)
+        else:
+            # payload rows take their checksum column here, once (rows
+            # already at the stored width pass through)
+            host = self.spec.validate_words(
+                self.spec.attach_checksums(db_words))
+            words = words_to_tensor(host, self.device)
+            if words.device.type == "cpu":
+                # from_numpy shares the caller's array; an epoch's rows are
+                # the database's own, as the card's copy is
+                words = words.clone()
+            self.stats.preload_h2d_bytes += host.nbytes
         self.stats.n_full_placements += 1
-        self.stats.preload_h2d_bytes += host.nbytes
         self._current = _Epoch(epoch=0, views={"words": words})
         self._retired: Optional[_Epoch] = None
+
+    def _take_tensor(self, words: torch.Tensor) -> torch.Tensor:
+        """A ``[N, item_words]`` int32 words tensor (the u32 bits) as the
+        database's rows. On the card, a tensor already there is taken
+        over, not copied: ownership passes to the database (a table built
+        on the card never visits the host), and the caller keeps no
+        reference it writes to. On the CPU the rows are copied, as the
+        numpy path copies them: an epoch's rows are the database's own.
+        The checksum column is computed on the host, so a checksummed
+        database takes numpy rows and refuses a tensor."""
+        if self.spec.checksum:
+            raise ValueError(
+                "a checksummed database attaches its checksum column on the "
+                "host: pass the rows as a numpy array, not a tensor")
+        want = self.spec.view_shape("words")
+        if tuple(words.shape) != want or words.dtype != torch.int32:
+            raise ValueError(
+                f"a words tensor must be {want} int32 (the stored width), "
+                f"got {tuple(words.shape)} {words.dtype}")
+        placed = words.to(self.device).contiguous()
+        if words.device != placed.device:
+            self.stats.preload_h2d_bytes += placed.numel() * 4
+        if placed.device.type == "cpu":
+            placed = placed.clone()
+        return placed
 
     @property
     def epoch(self) -> int:

@@ -44,6 +44,9 @@ count_add = build.KernelCount()
 
 #: leaves per step of the plain version (bounds its expansion temporaries)
 _PLAIN_LEAVES = 1 << 24
+#: ... and int32 elements of its masked rows (512 MiB): at 5,120-byte
+#: records a block of 2^24 leaves would mask 86 GB
+_PLAIN_MASKED = 1 << 27
 
 #: record widths (words) with an exact instance of the XOR kernel
 #: (``fused_scan_xor_kernel<W, true>``, vector row loads)
@@ -120,7 +123,10 @@ def fused_scan_xor_plain(db_words, roots, t_roots, cw_seed_lv, cw_t_lv, *,
     if c << clog != r:
         raise ValueError(f"{c} chunk roots x 2^{clog} leaves != rows {r}")
     out = torch.zeros((q, w), dtype=torch.int32, device=db_words.device)
-    step = max(1, _PLAIN_LEAVES // (max(q, 1) << clog))
+    # bounded by the leaves expanded and by the masked rows [Q, leaves, W]
+    leaves = max(q, 1) << clog
+    step = max(1, min(_PLAIN_LEAVES // leaves,
+                      _PLAIN_MASKED // (leaves * max(w, 1))))
     for lo in range(0, c, step):
         _, bits = _expand(roots[:, lo:lo + step], t_roots[:, lo:lo + step],
                           cw_seed_lv, cw_t_lv, rounds)

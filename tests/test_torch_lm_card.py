@@ -1,0 +1,78 @@
+"""Port: the dense LM and the private-embedding twin on the card.
+
+Marked ``cuda``: they skip without a card (``pytest -m cuda
+tests/test_torch_lm_card.py`` on the card). The CPU's plain model is the
+reference here: the JAX package is compared in the CPU tests
+(``test_torch_models.py``, ``test_torch_private_inference.py``).
+``chip_smoke.py private_lm`` drives the same path at qwen3-4b's full size.
+"""
+from dataclasses import replace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import private_inference as pi
+from repro_torch.configs import SMOKES
+from repro_torch.models import build_model
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m cuda on the card; "
+                    "chip_smoke.py's private_lm holds the same path at "
+                    "full size)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_model_on_the_card_matches_the_cpu(card):
+    """float32 smoke qwen3: weights drawn on the CPU and copied over; the
+    card's forward and cached decode equal the CPU's within 1e-4."""
+    cfg = replace(SMOKES["qwen3-4b"], dtype="float32")
+    cpu = build_model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    dev = build_model(cfg, device=card)
+    dev.load_state_dict(cpu.state_dict())
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 35)))
+    want, _ = cpu.forward(tok)
+    got, _ = dev.forward(tok.to(card))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    _, cache = dev.prefill(tok[:, :32].to(card), capacity=35)
+    for i in range(3):
+        step, cache = dev.decode(cache, tok[:, 32 + i:33 + i].to(card))
+        torch.testing.assert_close(step.cpu(), want[:, 32 + i], atol=1e-4,
+                                   rtol=0)
+    assert cache.length.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vocab,kernel", [(1 << 10, "dpxor"),
+                                          (1 << 13, "fused_scan_xor")])
+def test_private_inference_on_the_kernels(card, vocab, kernel):
+    """The twin on the card: rows bit-exact, tokens equal to plain
+    lookups, the batches on the kernels and no plain call. A table of at
+    most 2^12 rows takes materialize + B1 at every bucket; 2^13 rows take
+    B2 at the 4-stream steps."""
+    cfg = replace(pi.PI_LM, vocab=vocab)
+    model = build_model(cfg, device=card).init_params(
+        torch.Generator(card).manual_seed(3))
+    out = pi.run(model=model, tokens=3, streams=4, seed=3, verbose=False)
+    assert out["rows_exact"] and out["plain_equal"]
+    assert out["launches"][kernel] >= 1 and out["launches"]["dpxor"] >= 1
+    assert not any(out["plain_calls"].values())
+
+
+@pytest.mark.cuda
+def test_database_takes_a_card_tensor_over(card):
+    """On the card a words tensor becomes the database's rows without a
+    copy (ownership passes to the database); nothing crosses from the
+    host."""
+    from repro_torch.config import PIRConfig
+    from repro_torch.db import Database
+    words = torch.arange(128, dtype=torch.int32, device=card).reshape(64, 2)
+    db = Database(words, PIRConfig(n_items=64, item_bytes=8), card)
+    assert db.view("words").data_ptr() == words.data_ptr()
+    assert db.stats.preload_h2d_bytes == 0
