@@ -182,6 +182,32 @@ Then the single-server LWE scheme runs at PIR_128M_LWE (2^22 records x
               launched, no plain call. Then B1 (Q = 1) and B2 (Q = 4, 32)
               at 1,280 words exact against their plain versions, timed
               beside their bounds
+Then the LM's training half, which launches none of the six kernels (its
+counters must stay 0):
+  train_step  granite-3-2b at full width and depth (40 layers, d_model
+              2,048, vocab 49,155, 2.63 B parameters in bf16 drawn from a
+              seeded generator on the card) through make_train_step at
+              train_4k's 4,096 tokens, the global batch of 256 cut to
+              TRAIN_BATCH sequences (one per microbatch), AdamW, remat
+              "block": one warm-up step, three timed ones and one under
+              torch.profiler, all on the pipeline's batch 0; every loss
+              finite, the first within 0.5 of ln(vocab), the last below the
+              first; seconds per step, tokens/s, the model-FLOPs share (6 N
+              tokens / step s / the bf16 dense peak,
+              analysis/roofline.PEAK_BF16_FLOPS_PER_S), peak device memory,
+              the traced step's device events and idle share
+  train_parity  granite-3-2b and qwen3-4b SMOKE in float32, the same
+              weights and batches on the card and on the CPU: three AdamW
+              steps, and three Adafactor steps with compress_grads and two
+              microbatches; losses and parameters within the PARITY_*
+              tolerances
+  train_loop  the train_lm twin's recipe (model_100m, 16 x 512, two
+              microbatches) through TrainLoop and CheckpointManager under a
+              temporary directory: run A, 40 steps with a checkpoint every
+              10; run B, 20 steps, then a fresh loop resumed to 40. A's last
+              loss below its first, three checkpoints kept, B's resumed
+              losses A's within LOOP_RESUME_TOL; checkpoint copy, write and
+              restore seconds, steps/s
 Then the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
 line. Without a CUDA card the script exits 1 at once.
@@ -3381,9 +3407,8 @@ def lm_decode_trace(model, cache, tokens) -> dict:
     of CUDA kernel and copy intervals), the device's idle share, the
     number of device events, and the kernels with the most device time.
     The profiler's own host cost per op is inside the wall."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.analysis.serve_trace import _union_us
+    from repro_torch.analysis.serve_trace import device_intervals, union_us
     model.decode(cache, tokens, write=False)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3392,13 +3417,11 @@ def lm_decode_trace(model, cache, tokens) -> dict:
         model.decode(cache, tokens, write=False)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_s = _union_us([(e.time_range.start, e.time_range.end)
-                        for e in dev]) / 1e6
+    dev = device_intervals(prof)
+    busy_s = union_us(dev) / 1e6
     by_name = {}
-    for e in dev:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (
-            e.time_range.end - e.time_range.start)
+    for a, b, name in dev:
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:6]
     return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_s * 1e3,
             "device_idle_share": 1 - busy_s / wall_s if dev else None,
@@ -3569,6 +3592,310 @@ def phase_private_lm(card, device) -> tuple:
     return kernels["worst"], launches
 
 
+# -- the training half ----------------------------------------------------------
+
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_SEQ = 4096            # train_4k's sequence length
+TRAIN_BATCH = 4             # train_4k's global batch of 256, cut to 4
+TRAIN_MICROBATCHES = 4      # one sequence per microbatch
+TRAIN_LR = 1e-4             # AdamW, warmup 0: one fixed batch must fall
+TRAIN_TIMED_STEPS = 3       # after one warm-up step
+TRAIN_FIRST_LOSS_TOL = 0.5  # the first loss within this of ln(vocab)
+PARITY_ARCHS = ("granite-3-2b", "qwen3-4b")
+PARITY_STEPS = 3
+PARITY_LR = 1e-3
+# card against CPU, float32: every loss within PARITY_LOSS_TOL; every
+# parameter within PARITY_PARAM_ATOL + PARITY_PARAM_RTOL x |p|, except,
+# with compress_grads, at most PARITY_FLIPS of the elements (an element
+# whose gradient lands one int8 quantum apart), which stay within
+# 2 x lr per step
+PARITY_LOSS_TOL = 1e-4
+PARITY_PARAM_ATOL = 1e-4
+PARITY_PARAM_RTOL = 1e-4
+PARITY_FLIPS = 2e-3
+LOOP_STEPS = 40
+LOOP_CKPT_EVERY = 10
+LOOP_SPLIT = 20
+# run B resumed against the uninterrupted run A, per logged loss: the two
+# runs are separate CUDA runs, whose atomic accumulations need not sum in
+# one order (on the H100 they have been equal bit for bit)
+LOOP_RESUME_TOL = 5e-3
+
+
+def one_card_run(model, shape, optimizer, **kw):
+    from repro_torch.config import RunConfig
+    from repro_torch.launch.train import ONE_DEVICE
+    return RunConfig(model=model, shape=shape, mesh=ONE_DEVICE,
+                     optimizer=optimizer, **kw)
+
+
+def train_trace(ts, params, opt, ef, batch) -> tuple:
+    """One train step under torch.profiler (device activity only: the
+    host's op records would add their cost to the wall): the wall to a
+    synchronize, the device's busy time (the union of kernel and copy
+    intervals), its idle share, the number of device events, the kernels
+    with the most device time, and the seconds it took to read the
+    events."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis.serve_trace import device_intervals, union_us
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, ef, m = ts.step(params, opt, ef, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev = device_intervals(prof)
+    busy_s = union_us(dev) / 1e6
+    by_name = {}
+    for a, b, name in dev:
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
+    out = {"wall_s": wall_s, "device_busy_s": busy_s,
+           "device_idle_share": 1 - busy_s / wall_s if dev else None,
+           "device_events": len(dev),
+           "top_kernels": [{"name": n[:80], "device_s": us / 1e6}
+                           for n, us in top],
+           "events_s": time.perf_counter() - t0}
+    return (params, opt, ef), loss, out
+
+
+def phase_train_step(card, device) -> dict:
+    """granite-3-2b FULL (40 layers, d_model 2,048, vocab 49,155, bf16,
+    its weights drawn from a seeded generator on the card) trained by
+    make_train_step at train_4k's sequence length with the global batch
+    cut to TRAIN_BATCH sequences in TRAIN_MICROBATCHES microbatches,
+    AdamW, remat="block": one warm-up step, TRAIN_TIMED_STEPS timed ones
+    (host clock to a synchronize) and one under torch.profiler, all on
+    the pipeline's batch 0. Fails unless every loss is finite, the first
+    is within TRAIN_FIRST_LOSS_TOL of ln(vocab) and the last is below the
+    first."""
+    from repro_torch.analysis.roofline import PEAK_BF16_FLOPS_PER_S
+    from repro_torch.config import OptimizerConfig, ShapeConfig
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.steps import make_train_step
+    t_phase = time.perf_counter()
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    cfg = get_arch(TRAIN_ARCH)
+    shape = ShapeConfig(name=f"train_4k_b{TRAIN_BATCH}", seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH, kind="train")
+    run = one_card_run(cfg, shape, OptimizerConfig(
+        name="adamw", lr=TRAIN_LR, warmup_steps=0, total_steps=100),
+        microbatches=TRAIN_MICROBATCHES, remat="block", seed=SEED)
+    t0 = time.perf_counter()
+    ts = make_train_step(run, device=device)
+    state = ts.init_state(torch.Generator(device).manual_seed(SEED + 500))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = torch.cuda.memory_allocated()
+    tokens = TokenPipeline(cfg, shape, seed=SEED).batch(0)["tokens"]
+    batch = {"tokens": torch.as_tensor(tokens.reshape(
+        ts.input_structs["tokens"].shape), device=device)}
+    losses, step_s = [], []
+    for _ in range(1 + TRAIN_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        *state, m = ts.step(*state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    state, loss, trace = train_trace(ts, *state, batch)
+    losses.append(loss)
+    n_params = sum(p.numel() for p in ts.model.parameters())
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    timed = float(np.median(step_s[1:]))
+    flops = 6 * n_params * tokens_per_step
+    launches = {k: v["launches"] + v["plain_calls"]
+                for k, v in ops.counts().items()}
+    first_want = float(np.log(cfg.vocab))
+    out = {"phase": "train_step", "card": card, "arch": cfg.name,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "params": n_params,
+           "n_params_config": cfg.n_params(), "seq_len": TRAIN_SEQ,
+           "global_batch": TRAIN_BATCH, "global_batch_config": 256,
+           "microbatches": TRAIN_MICROBATCHES, "remat": run.remat,
+           "optimizer": "adamw", "lr": TRAIN_LR, "init_s": init_s,
+           "losses": losses, "first_loss_want": first_want,
+           "warmup_step_s": step_s[0], "step_s": step_s[1:],
+           "step_s_median": timed,
+           "tokens_per_s": tokens_per_step / timed,
+           "model_flops_per_step": flops,
+           "model_flops_share": flops / timed / PEAK_BF16_FLOPS_PER_S["cuda"],
+           "peak_flops_per_s": PEAK_BF16_FLOPS_PER_S["cuda"],
+           "state_bytes": state_bytes, "peak_device_bytes": peak,
+           "trace": trace, "pir_kernel_calls": launches,
+           "seconds": time.perf_counter() - t_phase}
+    del ts, state, batch, m
+    release()
+    emit(out)
+    if not (all(np.isfinite(losses))
+            and abs(losses[0] - first_want) <= TRAIN_FIRST_LOSS_TOL
+            and losses[-1] < losses[0] and not any(launches.values())):
+        raise AssertionError(f"train_step: {out}")
+    return out
+
+
+def parity_case(arch, name, microbatches, compress, device) -> dict:
+    """PARITY_STEPS steps of one float32 smoke model on the card and on
+    the CPU from the same weights (drawn on the CPU) and batches."""
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import SMOKE_TRAIN
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.runtime.steps import make_train_step
+    run = one_card_run(
+        replace(get_arch(arch, smoke=True), dtype="float32"), SMOKE_TRAIN,
+        OptimizerConfig(name=name, lr=PARITY_LR, warmup_steps=1,
+                        total_steps=10, compress_grads=compress),
+        microbatches=microbatches)
+    sides = {"cpu": make_train_step(run, device="cpu"),
+             "cuda": make_train_step(run, device=device)}
+    sides["cpu"].model.init_params(torch.Generator().manual_seed(SEED + 510))
+    sides["cuda"].model.load_state_dict(sides["cpu"].model.state_dict())
+    states = {k: ts.init_state(None) for k, ts in sides.items()}
+    pipe = TokenPipeline(run.model, run.shape, seed=SEED)
+    losses = {"cpu": [], "cuda": []}
+    for step in range(PARITY_STEPS):
+        tokens = pipe.batch(step)["tokens"].reshape(
+            sides["cpu"].input_structs["tokens"].shape)
+        for k, ts in sides.items():
+            *states[k], m = ts.step(*states[k], {"tokens": tokens})
+            losses[k].append(float(m["loss"]))
+    worst, outliers, total = 0.0, 0, 0
+    bound = 2 * PARITY_LR * PARITY_STEPS
+    for pname, want in states["cpu"][0].items():
+        got = states["cuda"][0][pname].detach().cpu()
+        diff = (got - want.detach()).abs()
+        worst = max(worst, float(diff.max()))
+        outliers += int((diff > PARITY_PARAM_ATOL + PARITY_PARAM_RTOL
+                         * want.detach().abs()).sum())
+        total += diff.numel()
+    loss_diff = max(abs(a - b) for a, b in zip(losses["cuda"],
+                                               losses["cpu"]))
+    ok = (loss_diff <= PARITY_LOSS_TOL and worst <= bound
+          and outliers <= (PARITY_FLIPS * total if compress else 0))
+    return {"arch": arch, "optimizer": name, "microbatches": microbatches,
+            "compress_grads": compress, "losses_cuda": losses["cuda"],
+            "losses_cpu": losses["cpu"], "max_loss_diff": loss_diff,
+            "max_param_diff": worst, "param_outliers": outliers,
+            "params": total, "ok": ok}
+
+
+def phase_train_parity(card, device) -> dict:
+    """granite-3-2b and qwen3-4b SMOKE in float32: PARITY_STEPS AdamW
+    steps, and PARITY_STEPS Adafactor steps with compress_grads and two
+    microbatches, on the card against the same steps on the CPU."""
+    t_phase = time.perf_counter()
+    cases = [parity_case(arch, name, mb, compress, device)
+             for arch in PARITY_ARCHS
+             for name, mb, compress in (("adamw", 1, False),
+                                        ("adafactor", 2, True))]
+    out = {"phase": "train_parity", "card": card, "steps": PARITY_STEPS,
+           "lr": PARITY_LR, "loss_tol": PARITY_LOSS_TOL,
+           "param_atol": PARITY_PARAM_ATOL, "param_rtol": PARITY_PARAM_RTOL,
+           "flip_share": PARITY_FLIPS, "cases": cases,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    if not all(c["ok"] for c in cases):
+        raise AssertionError(f"train_parity: {out}")
+    return out
+
+
+def phase_train_loop(card, device) -> dict:
+    """The train_lm twin's recipe (model_100m, 16 x 512, two microbatches,
+    AdamW) through TrainLoop and CheckpointManager under a temporary
+    directory: run A, LOOP_STEPS steps with a checkpoint every
+    LOOP_CKPT_EVERY; run B, LOOP_SPLIT steps, then a fresh loop resumed to
+    LOOP_STEPS. A's last loss below its first, three checkpoints kept, B's
+    resumed losses A's within LOOP_RESUME_TOL; the seconds of A's host
+    copies and file writes, and of B's restore (the managers' timings)."""
+    from repro_torch import train_lm
+    from repro_torch.config import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.train_loop import TrainLoop, TrainLoopConfig
+    t_phase = time.perf_counter()
+    release()
+    ops.reset_counts()
+    model = train_lm.model_100m()
+    shape = ShapeConfig(name="example", seq_len=512, global_batch=16,
+                        kind="train")
+    run = train_lm.make_run(model, shape, LOOP_STEPS, seed=SEED)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    logs = []
+
+    def loop(name, total):
+        return TrainLoop(run, TrainLoopConfig(
+            total_steps=total, ckpt_every=LOOP_CKPT_EVERY, log_every=0,
+            ckpt_dir=os.path.join(root, name)), device=device,
+            log=logs.append)
+
+    try:
+        t0 = time.perf_counter()
+        a = loop("a", LOOP_STEPS)
+        res_a = a.run_loop()
+        torch.cuda.synchronize()
+        a_s = time.perf_counter() - t0
+        kept = a.ckpt.all_steps()
+        a_times = a.ckpt.timings
+        last = os.path.join(root, "a", f"step_{LOOP_STEPS:08d}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(last, f))
+                         for f in os.listdir(last))
+        del a
+        shutil.rmtree(os.path.join(root, "a"))
+        release()
+        t0 = time.perf_counter()
+        res_b1 = loop("b", LOOP_SPLIT).run_loop()
+        b1_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b2 = loop("b", LOOP_STEPS)
+        res_b2 = b2.run_loop(resume=True)
+        b2_s = time.perf_counter() - t0
+        restore_s = b2.ckpt.timings["restore_s"]
+        del b2
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    release()
+    diffs = [abs(x - y) for x, y in zip(res_b2.losses,
+                                        res_a.losses[LOOP_SPLIT:])]
+    launches = {k: v["launches"] + v["plain_calls"]
+                for k, v in ops.counts().items()}
+    out = {"phase": "train_loop", "card": card, "arch": model.name,
+           "params": model.n_params(), "batch": shape.global_batch,
+           "seq_len": shape.seq_len, "microbatches": run.microbatches,
+           "steps": LOOP_STEPS, "ckpt_every": LOOP_CKPT_EVERY,
+           "a_losses": res_a.losses, "a_final_step": res_a.final_step,
+           "a_seconds": a_s, "a_steps_per_s": LOOP_STEPS / a_s,
+           "kept_checkpoints": kept, "checkpoint_bytes": ckpt_bytes,
+           "checkpoint_snapshot_s": a_times["snapshot_s"],
+           "checkpoint_write_s": a_times["write_s"],
+           "checkpoint_write_s_median": float(np.median(a_times["write_s"])),
+           "checkpoint_restore_s": restore_s,
+           "b_split": LOOP_SPLIT, "b1_final_step": res_b1.final_step,
+           "b1_seconds": b1_s, "b2_losses": res_b2.losses,
+           "b2_final_step": res_b2.final_step, "b2_seconds": b2_s,
+           "b2_steps_per_s": (LOOP_STEPS - LOOP_SPLIT) / b2_s,
+           "resume_max_diff": max(diffs) if diffs else None,
+           "resume_tol": LOOP_RESUME_TOL, "logs": logs,
+           "pir_kernel_calls": launches,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    want_kept = [LOOP_STEPS - LOOP_CKPT_EVERY * i for i in (2, 1, 0)]
+    if not (res_a.final_step == LOOP_STEPS == res_b2.final_step
+            and res_a.losses[-1] < res_a.losses[0] and kept == want_kept
+            and len(diffs) == LOOP_STEPS - LOOP_SPLIT
+            and max(diffs) <= LOOP_RESUME_TOL
+            and res_b1.final_step == LOOP_SPLIT
+            and not any(launches.values())):
+        raise AssertionError(f"train_loop: {out}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3701,6 +4028,11 @@ def main() -> int:
     worst_lm, launches_lm = phase_private_lm(info["card"], device)
     for name, err in worst_lm.items():
         worst[name] = max(worst[name], err)
+    # the LM's training half, alone on the card: granite-3-2b at full
+    # width and depth, the card against the CPU, the train_lm twin
+    phase_train_step(info["card"], device)
+    phase_train_parity(info["card"], device)
+    phase_train_loop(info["card"], device)
 
     def total(*runs):               # each path's launches, read after it
         return {k: sum(r.get(k, 0) for r in runs) for k in worst}

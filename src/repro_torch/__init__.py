@@ -26,16 +26,23 @@ exact delta on the int32 GEMM), and the batch plane (``core/batch.py``,
 ``db/bucketed.py``, ``runtime/batch.BatchPIR``) serves m records per
 round over cuckoo buckets.
 
-The LM side serves the dense family: ``models/`` (``TransformerLM``, an
-``nn.Module`` with prefill and KV-cached decode; plain PyTorch, as the
+The LM side serves and trains the dense family: ``models/``
+(``TransformerLM``, an ``nn.Module`` with prefill, KV-cached decode and a
+next-token loss with per-block recomputation; plain PyTorch, as the
 reference computes it outside any Pallas kernel), ``configs/`` (the four
-dense architectures), ``runtime/steps.make_serve_step``, and
-``private_inference`` (the paper's ML-inference use case: every token's
-embedding retrieved through ``TwoServerPIR``).
+dense architectures), ``runtime/steps.make_serve_step`` and
+``make_train_step``, the train half's ``optim/`` (AdamW, Adafactor, int8
+gradient compression with error feedback), ``data/`` (the synthetic token
+pipeline), ``checkpoint/`` and ``runtime/train_loop.TrainLoop``
+(``python -m repro_torch.launch.train``, ``python -m
+repro_torch.train_lm``), and ``private_inference`` (the paper's
+ML-inference use case: every token's embedding retrieved through
+``TwoServerPIR``).
 
 Entry points (``runtime.serve_loop.TwoServerPIR``, ``MultiServerPIR``,
 ``SingleServerPIR``, ``runtime.batch.BatchPIR``, ``core.server.PIRServer``,
-``kernels.ops``, ``models.build_model``) run on
+``kernels.ops``, ``models.build_model``, ``runtime.steps.make_train_step``,
+``runtime.train_loop.TrainLoop``) run on
 the card unless the caller passes ``device="cpu"``;
 without a card they raise instead of falling back. Run the quickstart twin
 with ``python -m repro_torch.quickstart`` (and the updates and batch twins

@@ -8,6 +8,10 @@ reference's deliberately generous 1e11 B/s, so that the tuner's
 bandwidth-floor pruning (``engine/tuner.py``) never drops a plan on a CPU
 that a real machine might still win with. The reference's TPU constants
 and its HLO-based three-term model have no counterpart here.
+
+``PEAK_BF16_FLOPS_PER_S["cuda"]`` is the same data sheet's dense bf16
+tensor-core rate (989 TFLOP/s, without sparsity, at 700 W): the
+denominator of a training run's model-FLOPs share.
 """
 from __future__ import annotations
 
@@ -15,6 +19,13 @@ from __future__ import annotations
 PEAK_BYTES_PER_S = {
     "cuda": 3.35e12,      # H100 SXM data sheet, HBM3
     "cpu": 1.0e11,        # generous on purpose (see module docstring)
+}
+
+
+#: peak dense bf16 matrix rate per backend, FLOP/s (data sheet, not
+#: measured; no CPU figure)
+PEAK_BF16_FLOPS_PER_S = {
+    "cuda": 989e12,       # H100 SXM data sheet, bf16 tensor cores, dense
 }
 
 

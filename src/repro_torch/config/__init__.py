@@ -1,12 +1,15 @@
 """Configuration dataclasses of the port: ``PIRConfig`` and ``MeshConfig``,
-and the model side (``ModelConfig``, ``ShapeConfig``)."""
+the model side (``ModelConfig``, ``ShapeConfig``) and the train half
+(``OptimizerConfig``, ``RunConfig``)."""
 from repro_torch.config.base import (
     AttentionKind,
     MeshConfig,
     MLAConfig,
     ModelConfig,
     MoEConfig,
+    OptimizerConfig,
     PIRConfig,
+    RunConfig,
     ShapeConfig,
     SSMConfig,
 )
@@ -17,7 +20,9 @@ __all__ = [
     "MLAConfig",
     "ModelConfig",
     "MoEConfig",
+    "OptimizerConfig",
     "PIRConfig",
+    "RunConfig",
     "ShapeConfig",
     "SSMConfig",
 ]

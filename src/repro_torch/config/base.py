@@ -12,17 +12,21 @@ The model-side classes are data, copied field for field so that every
 architecture file of the reference can be read here (the MoE, MLA and SSM
 families are not served yet). ``ModelConfig.torch_dtype`` maps the
 ``dtype`` string (``"bfloat16"``, ``"float32"``) to the torch dtype;
-``to_dict`` gives the reference's dict (enums as their values). The
-reference's ``OptimizerConfig`` and ``RunConfig`` come with the code that
-reads them (the train half, the mesh, ``private_embed``): the serve step
-takes a ``ModelConfig`` and a ``ShapeConfig``.
+``to_dict`` gives the reference's dict (enums as their values).
+``OptimizerConfig`` and ``RunConfig`` are the train half's (the serve step
+takes a ``ModelConfig`` and a ``ShapeConfig``); ``RunConfig.to_dict`` goes
+into every checkpoint's manifest, so it keeps the reference's fields, the
+mesh and ``private_embed`` included. ``fsdp=True`` raises: sharding
+parameters over several cards is ROADMAP A6b. ``private_embed=True`` and
+a ``pir`` raise too: no step reads them (private embedding lookups run
+through ``repro_torch.private_inference``).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import math
-from dataclasses import asdict, dataclass
+from dataclasses import asdict, dataclass, field
 from typing import Any, Optional, Tuple
 
 import torch
@@ -275,6 +279,59 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                      # train | prefill | decode
+
+    def to_dict(self) -> dict:
+        return _asdict(self)
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"            # adamw | adafactor
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    # int8 gradient compression with error feedback (cross-pod in the
+    # reference; on one card the numerical hook alone)
+    compress_grads: bool = False
+
+    def to_dict(self) -> dict:
+        return _asdict(self)
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """One training or serving run (the reference's fields and defaults)."""
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    microbatches: int = 1          # gradient-accumulation microbatches
+    remat: str = "block"           # none | block (recompute each layer)
+    fsdp: bool = False             # parameters sharded over cards: A6b
+    private_embed: bool = False    # serve embeddings through PIR
+    pir: Optional[PIRConfig] = None
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.fsdp:
+            raise NotImplementedError(
+                "fsdp=True shards parameters over several cards, which the "
+                "port does not do yet (ROADMAP A6b); it trains on one card")
+        if self.private_embed or self.pir is not None:
+            raise NotImplementedError(
+                "private_embed / pir: no train or serve step reads them; "
+                "private embedding lookups run through "
+                "repro_torch.private_inference")
+        if self.microbatches < 1 or \
+                self.shape.global_batch % self.microbatches:
+            raise ValueError(
+                f"global batch {self.shape.global_batch} does not split "
+                f"into {self.microbatches} microbatches")
 
     def to_dict(self) -> dict:
         return _asdict(self)

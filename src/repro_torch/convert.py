@@ -5,11 +5,13 @@ Tests feed identical inputs to both packages: the reference's keys
 as numpy ``uint32`` arrays, and its byte view as ``int8``; these functions
 turn them into the port's tensors with the same bits. A model's parameter
 tree leaves as numpy (bf16 as ``ml_dtypes.bfloat16``) and becomes the
-port's module state. Nothing here imports the reference.
+port's module state; an optimizer state (``AdamWState`` /
+``AdafactorState``, numpy leaves) becomes the port's, laid out as
+``optim/optimizer.py`` keeps it. Nothing here imports the reference.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,3 +79,34 @@ def model_params_from_reference(params_np: Mapping, cfg
             for name, arr in stacked[group].items():
                 state[f"layers.{i}.{group}.{name}"] = t(np.asarray(arr)[i])
     return state
+
+
+def leaf_paths(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(``a/b/c`` path, leaf) of a nested mapping; ``()`` leaves (the
+    reference's empty subtrees) come out as ``None``."""
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            yield from leaf_paths(v, path)
+        else:
+            yield path, (None if isinstance(v, tuple) and not v else v)
+
+
+def opt_state_from_reference(state, cfg):
+    """A reference optimizer state with numpy leaves (``AdamWState(step,
+    m, v, master)`` or ``AdafactorState(step, vr, vc, v)``, by field
+    names) as the port's, on the CPU: AdamW's trees unstacked to the
+    port's parameter names, Adafactor's kept stacked per leaf path
+    (``dense_layers/attn/wq``, ``None`` for ``()``)."""
+    from repro_torch.optim.optimizer import AdafactorState, AdamWState
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32)
+    if hasattr(state, "master"):
+        return AdamWState(
+            step=step, m=model_params_from_reference(state.m, cfg),
+            v=model_params_from_reference(state.v, cfg),
+            master=model_params_from_reference(state.master, cfg))
+    conv = lambda tree: {
+        k: None if a is None else tensor_from_reference(a)
+        for k, a in leaf_paths(tree)}
+    return AdafactorState(step=step, vr=conv(state.vr), vc=conv(state.vc),
+                          v=conv(state.v))

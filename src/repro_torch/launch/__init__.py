@@ -1,1 +1,2 @@
-"""Device groups of the port (``launch/mesh.py``)."""
+"""Device groups of the port (``launch/mesh.py``) and the training
+launcher (``launch/train.py``)."""

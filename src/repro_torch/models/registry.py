@@ -2,8 +2,8 @@
 ``repro/models/registry.py`` for the dense family.
 
 A model is an ``nn.Module`` holding its weights (``init_params(generator)``
-draws them); its entry points are ``forward``, ``prefill``, ``decode`` and
-``init_cache`` (``models/transformer.py``). ``input_specs`` gives the step
+draws them); its entry points are ``forward``, ``loss``, ``prefill``,
+``decode`` and ``init_cache`` (``models/transformer.py``). ``input_specs`` gives the step
 inputs' shapes and dtypes; there is no mesh, so no PartitionSpecs.
 """
 from __future__ import annotations
@@ -37,11 +37,14 @@ def _check_family(cfg: ModelConfig) -> None:
             f"serves {PORTED_FAMILIES}")
 
 
-def build_model(cfg: ModelConfig, *, device: Device = None) -> TransformerLM:
+def build_model(cfg: ModelConfig, *, device: Device = None,
+                remat: str = "block") -> TransformerLM:
     """The model for ``cfg`` with its weights allocated on ``device``
-    (``None`` means the CUDA card; no card raises) and not yet drawn."""
+    (``None`` means the CUDA card; no card raises) and not yet drawn.
+    ``remat`` is the reference's: ``"block"`` recomputes each layer in the
+    backward pass of ``loss``, ``"none"`` keeps its activations."""
     _check_family(cfg)
-    return TransformerLM(cfg, device=resolve_device(device))
+    return TransformerLM(cfg, device=resolve_device(device), remat=remat)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig

@@ -12,12 +12,23 @@ this module's state.
 Entry points (as the reference's, with the weights held by the module):
   init_params(generator)         draw the weights (an explicit generator)
   forward(tokens)                full-sequence causal logits
+  loss(tokens)                   next-token cross-entropy, grad enabled
   prefill(tokens)                last-position logits + the filled cache
   init_cache(batch, capacity)    a preallocated, empty cache
   decode(cache, tokens)          one token against the cache
-Each also takes ``embeds=`` (``[B, S, d]``) in place of ``tokens``: a pass
-that starts from client-side embeddings (the private embedding lookup),
-as ``examples/private_inference.py`` runs the reference's layer stack.
+``forward``, ``prefill`` and ``decode`` also take ``embeds=`` (``[B, S,
+d]``) in place of ``tokens``: a pass that starts from client-side
+embeddings (the private embedding lookup), as
+``examples/private_inference.py`` runs the reference's layer stack.
+
+``forward``, ``prefill`` and ``decode`` run without autograd; ``loss``
+records it. Parameters are created with ``requires_grad=False``: the train
+step (``runtime/steps.make_train_step``) turns it on for its own model.
+With ``remat="block"`` (the reference's default) a pass that records
+autograd keeps only each block's input and recomputes the block in the
+backward pass (``torch.utils.checkpoint``), as the reference wraps its
+scanned layer body in ``jax.checkpoint``; ``remat="none"`` keeps every
+activation.
 
 The KV cache is ``[L, B, C, KV, hd]`` for k and v with ``length`` a 0-d
 int32 tensor on the device, read there (positions, masks, the write row)
@@ -30,8 +41,9 @@ a write past the capacity lands on the last row.
 ``decode`` updates the cache's tensors in place (the reference donates the
 cache to its decode step) and returns a cache with the new length.
 
-Not ported yet: ``loss`` / ``_mtp_loss`` (the train half), MoE layers,
-MLA, ``prefix_embeds`` (VLM) and the ``*_specs`` (mesh layout).
+Not ported yet: ``_mtp_loss`` (only deepseek-v3 sets ``mtp``; it comes
+with the MoE family), MoE layers, MLA, ``prefix_embeds`` (VLM) and the
+``*_specs`` (mesh layout).
 """
 from __future__ import annotations
 
@@ -39,6 +51,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import AttentionKind, ModelConfig
 from repro_torch.models import layers as L
@@ -105,8 +118,13 @@ class TransformerLM(nn.Module):
     """The dense decoder-only LM on one device (``device=None`` is the
     current default device; ``registry.build_model`` resolves it)."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 remat: str = "block"):
         super().__init__()
+        if remat not in ("none", "block"):
+            raise ValueError(f"unknown remat {remat!r}; expected 'none' or "
+                             "'block'")
+        self.remat = remat
         if cfg.family != "dense" or cfg.attention != AttentionKind.GQA:
             raise NotImplementedError(
                 f"TransformerLM serves the dense GQA family; {cfg.name!r} is "
@@ -153,7 +171,12 @@ class TransformerLM(nn.Module):
         """Run the blocks in order. Returns (x, per-layer (k, v) rows,
         empty when ``want_cache`` is False)."""
         rows = []
+        remat = self.remat == "block" and torch.is_grad_enabled()
         for i, block in enumerate(self.layers):
+            if remat and cache is None and not want_cache:
+                x = checkpoint(lambda h, b=block: b(h, positions)[0], x,
+                               use_reentrant=False)
+                continue
             layer_cache = None if cache is None else (cache.k[i], cache.v[i])
             x, kv_new = block(x, positions, kv_cache=layer_cache,
                               kv_len=kv_len)
@@ -183,10 +206,22 @@ class TransformerLM(nn.Module):
     def forward(self, tokens=None, *, embeds=None):
         """Full-sequence causal pass. Returns (logits [B,S,V_pad] f32, aux);
         aux is the reference's auxiliary loss, 0 for the dense family."""
+        return self._forward(tokens, embeds)
+
+    def _forward(self, tokens, embeds):
         x = self._embed(tokens, embeds)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x, _ = self._scan_stack(x, positions, want_cache=False)
         return self._logits(x), torch.zeros((), dtype=F32, device=x.device)
+
+    def loss(self, tokens, *, aux_weight: float = 0.01):
+        """Next-token cross-entropy in float32 over ``tokens`` [B, S] (+
+        ``aux_weight`` x the auxiliary loss, 0 here), recorded for autograd
+        where grad is enabled. Returns (total, {"ce", "aux"})."""
+        tokens = tokens.long()
+        logits, aux = self._forward(tokens, None)
+        ce = _xent(logits[:, :-1], tokens[:, 1:])
+        return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
     def prefill(self, tokens=None, *, embeds=None,
@@ -245,3 +280,11 @@ class TransformerLM(nn.Module):
         cache.k.index_copy_(2, pos.to(torch.int64), ks.to(cache.k.dtype))
         cache.v.index_copy_(2, pos.to(torch.int64), vs.to(cache.v.dtype))
         return cache._replace(length=cache.length + 1)
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy in float32. logits [B, S, V], targets [B, S]."""
+    logits = logits.to(F32)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return torch.mean(lse - picked)

@@ -1,7 +1,25 @@
-"""Serve step builder: prefill and decode for one model and input shape —
-the port of ``repro/runtime/steps.py``'s ``ServeStep`` / ``make_serve_step``.
+"""Step builders — the port of ``repro/runtime/steps.py``'s ``TrainStep`` /
+``make_train_step`` and ``ServeStep`` / ``make_serve_step``, on one device.
 
-Stated deviation: the reference takes a ``RunConfig`` and a mesh, lowers
+**Train step** (``make_train_step(run, device=)``): microbatches (the
+batch arrives pre-split ``[micro, B/micro, S]``, as the reference's) whose
+gradients are accumulated in float32 (with one microbatch they stay in the
+parameter dtype), then the EF-int8 compression hook when
+``run.optimizer.compress_grads``, then ``optim.opt_update`` (global-norm
+clip + AdamW or Adafactor). ``step(params, opt_state, ef, batch)``
+returns ``(params, opt_state, ef, metrics)``. Stated deviations: there
+are no shardings and no donation, so ``params`` are the model's own
+parameter tensors (``init_state`` returns them) and the update writes
+them, and the optimizer state, in place. The step is therefore also
+given as its two halves: ``grads(params, batch) -> (loss, grads)``,
+which writes nothing and may be retried, and ``apply(params, opt_state,
+ef, grads)``, which writes and may not (``TrainLoop`` retries the first
+and runs its poison policy between the two, where the reference retries
+and discards a functional step). Not ported:
+``_named``, ``_filter_axes``, ``_fix_divisibility`` and ``_apply_fsdp``
+(mesh layout; FSDP over several cards is ROADMAP A6b).
+
+**Serve step.** Stated deviation: the reference takes a ``RunConfig`` and a mesh, lowers
 ``jax.jit``s with explicit NamedShardings (parameters, cache, batch and
 logits laid out over ``data`` / ``model``) and donates the cache to decode.
 The port takes the two parts of the run it reads, the ``ModelConfig`` and
@@ -12,8 +30,7 @@ decode updates the cache in place. ``capacity`` is the prefill cache's row
 count (default the prompt length, as the reference's); give it room for
 the tokens to decode with ``decode_write=True``.
 
-Not ported yet: the train half (``TrainStep``, ``make_train_step``, FSDP;
-``steps.py:159-281``) and ``PIRStep`` (``:340``), whose role
+Not ported: ``PIRStep`` (``steps.py:340``), whose role
 ``core.server.PIRServer`` plays.
 """
 from __future__ import annotations
@@ -22,11 +39,110 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from repro_torch.config import ModelConfig, ShapeConfig
+from repro_torch.config import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.engine.backend import Device
 from repro_torch.models import build_model, input_specs
 from repro_torch.models.registry import InputSpec
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.optim import compression
+from repro_torch.optim.optimizer import opt_init, opt_update
+
+F32 = torch.float32
+
+
+class TrainStep(NamedTuple):
+    step: Callable            # (params, opt_state, ef, batch) -> (...)
+    grads: Callable           # (params, batch) -> (loss, grads)
+    apply: Callable           # (params, opt_state, ef, grads) -> (...)
+    init_state: Callable      # (generator) -> (params, opt_state, ef)
+    model: TransformerLM
+    device: torch.device
+    input_structs: Dict[str, InputSpec]
+
+
+def make_train_step(run: RunConfig, *, device: Device = None) -> TrainStep:
+    """The train step of ``run`` on ``device`` (``None`` means the CUDA
+    card; no card raises). Its model is built with ``run.remat`` and
+    records gradients; ``init_state(generator)`` draws its weights (a
+    ``None`` generator keeps the weights already loaded) and returns
+    ``(params, opt_state, ef)``: the model's parameters by name, the
+    optimizer state and the error-feedback buffers (``None`` without
+    compression)."""
+    model = build_model(run.model, device=device, remat=run.remat)
+    model.requires_grad_(True)
+    dev = model.device
+    structs = input_specs(run.model, run.shape)
+    n_micro = run.microbatches
+    if n_micro > 1:         # the microbatch axis leads
+        structs = {k: InputSpec((n_micro, s.shape[0] // n_micro)
+                                + s.shape[1:], s.dtype)
+                   for k, s in structs.items()}
+    named = dict(model.named_parameters())
+    names, plist = list(named), list(named.values())
+    compress = run.optimizer.compress_grads
+
+    def grads_of(tokens):
+        if n_micro == 1:
+            loss, _ = model.loss(tokens)
+            grads = torch.autograd.grad(loss, plist)
+            return loss.detach(), dict(zip(names, grads))
+        loss_acc = torch.zeros((), dtype=F32, device=dev)
+        acc = {n: torch.zeros(p.shape, dtype=F32, device=dev)
+               for n, p in named.items()}
+        for mb in tokens:
+            loss, _ = model.loss(mb)
+            grads = torch.autograd.grad(loss, plist)
+            with torch.no_grad():
+                for n, g in zip(names, grads):
+                    acc[n].add_(g / n_micro)
+                loss_acc += loss.detach() / n_micro
+            del grads
+        return loss_acc, acc
+
+    def grads(params, batch):
+        """The loss and the gradients at ``params``; writes nothing."""
+        if params.keys() != named.keys() or any(
+                params[n] is not p for n, p in named.items()):
+            raise ValueError("params must be the train step's own model "
+                             "parameters (as init_state returns them)")
+        extra = sorted(set(batch) - {"tokens"})
+        if extra:
+            raise NotImplementedError(
+                f"step inputs {extra} belong to families not ported yet")
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        want = structs["tokens"].shape
+        if tuple(tokens.shape) != want:
+            raise ValueError(f"tokens of shape {tuple(tokens.shape)}; the "
+                             f"step takes {want}")
+        return grads_of(tokens)
+
+    def apply(params, opt_state, ef, grads):
+        """The update, params and opt_state written in place: (params,
+        opt_state, ef, {"lr", "grad_norm"})."""
+        if compress:
+            # the EF-int8 hook: the numerical twin of the reference's
+            # compressed cross-pod all-reduce
+            q, s, ef = compression.compress_with_feedback(grads, ef)
+            grads = {n: compression.dequantize(q[n], s[n]) for n in q}
+        params, opt_state, om = opt_update(run.optimizer, grads, opt_state,
+                                           params)
+        return params, opt_state, ef, om
+
+    def step(params, opt_state, ef, batch):
+        loss, g = grads(params, batch)
+        params, opt_state, ef, om = apply(params, opt_state, ef, g)
+        return params, opt_state, ef, {"loss": loss, **om}
+
+    def init_state(generator: Optional[torch.Generator] = None):
+        if generator is not None:
+            model.init_params(generator)
+        opt_state = opt_init(run.optimizer, named)
+        ef = compression.ef_init(named) if compress else None
+        return named, opt_state, ef
+
+    return TrainStep(step=step, grads=grads, apply=apply,
+                     init_state=init_state, model=model,
+                     device=dev, input_structs=structs)
 
 
 class ServeStep(NamedTuple):
