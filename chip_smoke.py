@@ -182,6 +182,30 @@ Then the single-server LWE scheme runs at PIR_128M_LWE (2^22 records x
               launched, no plain call. Then B1 (Q = 1) and B2 (Q = 4, 32)
               at 1,280 words exact against their plain versions, timed
               beside their bounds
+Then the MoE family's serving path, each arch at full width with its depth
+cut (dataclasses.replace of FULL, PERF.md section 4):
+  moe_serve   grok-1-314b, 64 -> 4 layers (all MoE; 21.29 B parameters,
+              42.6 GB in bf16, drawn from a seeded generator on the card):
+              make_serve_step's prefill on 4 streams x 2,048 tokens (twice)
+              and 32 decode steps, which take the batch-global dispatch (4
+              streams x top-2 >= 8 experts); the prefill's last logits
+              against a forward over the same tokens (within
+              LM_LOGIT_TOL: an identity in the reference); at the first MoE
+              layer of one decode step the branch that ran against the
+              other on the same hidden states (MOE_BRANCH_TOL, no slot
+              dropped); the last decode against a forward over all 2,080
+              tokens and the slots the forwards' dispatch dropped,
+              reported, not held (a decode never drops a slot, the
+              forward's capacity may). No kernel of the six launched
+  private_moe  deepseek-v3-671b, 61 -> 5 layers (the 3 dense ones and 2
+              MoE; MLA with its latent cache, 26.62 B parameters and 0.69
+              B in the MTP head, 54.6 GB): the same serve checks (its
+              decode takes the per-token gather, 4 x 8 < 256), then the
+              private_inference twin over its table padded to 2^17 rows x
+              14,336 B = 1.75 GiB (B2 for the streams' batches, B1 alone;
+              rows bit-exact, tokens those of plain lookups), then B1 (Q =
+              1) and B2 (Q = 4, 32) at 3,584 words exact against their
+              plain versions, timed beside their bounds
 Then the LM's training half, which launches none of the six kernels (its
 counters must stay 0):
   train_step  granite-3-2b at full width and depth (40 layers, d_model
@@ -3321,6 +3345,22 @@ LM_DPXOR_QS = (1,)
 LM_FUSED_QS = (4, 32)
 
 
+#: the MoE phases (PERF.md section 4): (arch, layers), each at full width
+#: with its depth cut. grok-1-314b 64 -> 4 layers, all MoE, whose decode at
+#: LM_STREAMS streams takes the batch-global dispatch (4 x top-2 >= 8
+#: experts); deepseek-v3-671b 61 -> 5: the 3 dense layers and 2 MoE, whose
+#: decode takes the per-token gather (4 x 8 < 256 experts)
+MOE_SERVE = ("grok-1-314b", 4)
+MOE_PRIVATE = ("deepseek-v3-671b", 5)
+#: the first MoE layer of one decode step: the branch that ran against the
+#: other branch on the same bf16 hidden states, |ran - other| <= atol +
+#: rtol |other|: four bf16 ulps at the outputs' largest magnitudes (0.3 to
+#: 0.5 at these widths; on the CPU the two branches differ by at most
+#: 9.8e-4 at deepseek-v3's widths and 0 at grok-1's). No slot can drop:
+#: the capacity, 8, is at least the streams
+MOE_BRANCH_TOL = dict(atol=2 ** -6, rtol=2 ** -6)
+
+
 def fused_xor_bound(rows: int, words: int, queries: int, clog: int,
                     rounds: int) -> tuple:
     """(bound ms, "bytes" or "operations") of the fused XOR scan: the DB
@@ -3332,11 +3372,19 @@ def fused_xor_bound(rows: int, words: int, queries: int, clog: int,
                                                            "operations")
 
 
-def lm_serve_step(ss, cfg, card, device) -> dict:
+def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
     """make_serve_step's prefill on LM_STREAMS x LM_PREFILL seeded tokens
-    (twice: the first call warms the card), LM_DECODE decode steps with
-    write=True (each timed to its synchronize), and the last decode's
-    logits against a forward over the same LM_PREFILL + LM_DECODE tokens."""
+    (twice: the first call warms the card) and LM_DECODE decode steps with
+    write=True (each timed to its synchronize). Held: the prefill's last
+    logits against a forward over the same tokens (within LM_LOGIT_TOL:
+    an identity in the reference) and, for the dense family, the last
+    decode's logits against a forward over all LM_PREFILL + LM_DECODE
+    tokens (within LM_LOGIT_TOL, greedy tokens equal but for near-ties).
+    For MoE that second difference and the slots the forwards' dispatch
+    dropped are reported, not held (a decode step never drops a slot, the
+    forward's capacity may), and the first MoE layer's two branches are
+    held against each other (:func:`moe_branch_check`)."""
+    moe = cfg.moe is not None
     gen = torch.Generator(device).manual_seed(SEED + 401)
     total = LM_PREFILL + LM_DECODE
     tokens = torch.randint(0, cfg.vocab, (LM_STREAMS, total), generator=gen,
@@ -3349,7 +3397,8 @@ def lm_serve_step(ss, cfg, card, device) -> dict:
         logits, cache = ss.prefill(batch)
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t0)
-    first_ok = bool(torch.isfinite(logits[:, :cfg.vocab]).all())
+    pre_got = logits[:, :cfg.vocab].clone()
+    first_ok = bool(torch.isfinite(pre_got).all())
     decode_s = []
     for i in range(LM_DECODE):
         t0 = time.perf_counter()
@@ -3359,13 +3408,15 @@ def lm_serve_step(ss, cfg, card, device) -> dict:
         decode_s.append(time.perf_counter() - t0)
     length = int(cache.length)
     trace = lm_decode_trace(ss.model, cache, tokens[:, -1:])
+    branch = moe_branch_check(ss.model, cache, tokens[:, -1:]) if moe \
+        else None
     del cache
     t0 = time.perf_counter()
-    full, _ = ss.model.forward(tokens)
-    want = full[:, -1, :cfg.vocab].clone()
-    del full
+    pre_want, pre_dropped = last_logits(ss.model, batch["tokens"])
+    want, dropped = last_logits(ss.model, tokens, per_stream=True)
     torch.cuda.synchronize()
     forward_s = time.perf_counter() - t0
+    pre_diff = float((pre_got - pre_want).abs().max())
     got = logits[:, :cfg.vocab]
     diff = float((got - want).abs().max())
     top2 = want.topk(2, dim=-1).values
@@ -3378,7 +3429,7 @@ def lm_serve_step(ss, cfg, card, device) -> dict:
         else float(want[i, g_tok[i]]) >= float(top2[i, 0]) - margin
         for i in range(LM_STREAMS))
     dec = float(np.median(decode_s))
-    out = {"phase": "private_lm_serve", "card": card, "arch": cfg.name,
+    out = {"phase": phase, "card": card, "arch": cfg.name,
            "layers": cfg.n_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab, "streams": LM_STREAMS,
            "prefill_tokens": LM_PREFILL, "decode_steps": LM_DECODE,
@@ -3389,16 +3440,90 @@ def lm_serve_step(ss, cfg, card, device) -> dict:
            "decode_tokens_per_s": LM_STREAMS / dec, "forward_s": forward_s,
            "cache_length": length, "logits_finite": first_ok and bool(
                torch.isfinite(got).all()),
+           "prefill_max_abs_diff_vs_forward": pre_diff,
            "max_abs_diff_vs_forward": diff, "tolerance": LM_LOGIT_TOL,
+           "decode_vs_forward_held": not moe,
            "logit_std": float(want.std()), "greedy_decode": g_tok,
            "greedy_forward": w_tok, "top2_gaps": gaps, "near_ties": near,
            "greedy_equal": sum(a == b for a, b in zip(g_tok, w_tok)),
            "greedy_ok": greedy_ok, "decode_trace": trace}
+    if moe:
+        out.update(moe_branch=branch, dropped_slots_prefill=pre_dropped,
+                   dropped_slots_forward=dropped)
     emit(out)
-    if not (out["logits_finite"] and length == total
-            and diff <= LM_LOGIT_TOL and greedy_ok):
-        raise AssertionError(f"private_lm serve step: {out}")
+    held = (out["logits_finite"] and length == total
+            and pre_diff <= LM_LOGIT_TOL
+            and (branch["ok"] if moe else diff <= LM_LOGIT_TOL and greedy_ok))
+    if not held:
+        raise AssertionError(f"{phase}: {out}")
     return out
+
+
+def last_logits(model, tokens, *, per_stream: bool = False) -> tuple:
+    """The forward's last-position logits ``[B, vocab]`` over ``tokens``
+    and the slots its MoE layers' dispatch dropped (a pre-hook on each MoE
+    FFN counts them). ``per_stream`` runs one forward per stream: the same
+    function (attention and the MoE dispatch are per sequence) in a
+    quarter of the memory. At 2,080 tokens, not a multiple of the 1,024
+    attention chunk, one block spans the sequence: deepseek-v3's 128 heads
+    at 4 streams would make 8.25 GiB float32 score tensors."""
+    from repro_torch.models import moe as M
+    dropped = []
+    count = lambda mod, args: dropped.append(
+        M.dropped_slots(mod.params(), mod.cfg, args[0]))
+    hooks = [b.ffn.register_forward_pre_hook(count)
+             for b in model.moe_layers]
+    groups = tokens.split(1) if per_stream else (tokens,)
+    last = []
+    try:
+        for group in groups:
+            full, _ = model.forward(group)
+            last.append(full[:, -1, :model.cfg.vocab].clone())
+            del full
+    finally:
+        for h in hooks:
+            h.remove()
+    return torch.cat(last), sum(dropped)
+
+
+def moe_branch_check(model, cache, tokens) -> dict:
+    """One decode step (write=False, on the full cache) with the first MoE
+    layer's FFN input captured: the branch moe_apply ran there (batch-
+    global dispatch where streams x top_k >= experts, else the per-token
+    gather) against the other branch on the same hidden states, within
+    MOE_BRANCH_TOL, with no slot dropped."""
+    from repro_torch.models import moe as M
+    cfg = model.cfg
+    ffn = model.moe_layers[0].ffn
+    seen = []
+    hook = ffn.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].clone()))
+    try:
+        model.decode(cache, tokens, write=False)
+    finally:
+        hook.remove()
+    h = seen[0]                                             # [B, 1, d]
+    b, _, d = h.shape
+    params = ffn.params()
+    with torch.no_grad():
+        ran, _ = ffn(h)
+        via_dispatch = M.moe_apply_dispatch(params, cfg, h.reshape(
+            1, b, d))[0].reshape(b, 1, d)
+        via_gather, _ = M.moe_apply_gather(params, cfg, h)
+    branch = ("dispatch" if b * cfg.moe.top_k >= cfg.moe.n_experts
+              else "gather")
+    ran_as, other = ((via_dispatch, via_gather) if branch == "dispatch"
+                     else (via_gather, via_dispatch))
+    diff = (ran.float() - other.float()).abs()
+    tol = MOE_BRANCH_TOL
+    within = bool((diff <= tol["atol"] + tol["rtol"]
+                   * other.float().abs()).all())
+    dropped = M.dropped_slots(params, cfg, h.reshape(1, b, d))
+    return {"branch": branch, "ran_equals_branch": torch.equal(ran, ran_as),
+            "max_abs_diff": float(diff.max()),
+            "max_abs_out": float(other.float().abs().max()),
+            "tolerance": tol, "dropped": dropped,
+            "ok": within and dropped == 0}
 
 
 def lm_decode_trace(model, cache, tokens) -> dict:
@@ -3430,7 +3555,7 @@ def lm_decode_trace(model, cache, tokens) -> dict:
                             for n, us in top]}
 
 
-def lm_private(model, cfg, card) -> tuple:
+def lm_private(model, cfg, card, phase="private_lm") -> tuple:
     """The private_inference twin on the model: LM_STREAMS streams, an
     LM_PROMPT-token prompt, LM_NEW new tokens, every embedding retrieved
     through TwoServerPIR over the padded table (prompt lookups in buckets
@@ -3446,7 +3571,7 @@ def lm_private(model, cfg, card) -> tuple:
     res = pi.run(model=model, tokens=LM_NEW, streams=LM_STREAMS,
                  prompt=prompt, seed=SEED + 403, verbose=False)
     seconds = time.perf_counter() - t0
-    launches = main_path_launches("private_lm", ("dpxor", "fused_scan_xor"))
+    launches = main_path_launches(phase, ("dpxor", "fused_scan_xor"))
     calls = res["pir_calls"]
     steps = res["steps"][1:]            # the decode steps (prompt apart)
     shares = [s["embed_s"] / (s["embed_s"] + s["trunk_s"]) for s in steps]
@@ -3456,7 +3581,7 @@ def lm_private(model, cfg, card) -> tuple:
         plan = plan_for(pir_cfg, q, backend="cuda")
         plans[str(q)] = {"name": plan.name, "chunk_log": plan.chunk_log,
                          "tile_r": plan.tile_r}
-    out = {"phase": "private_lm", "card": card, "arch": cfg.name,
+    out = {"phase": phase, "card": card, "arch": cfg.name,
            "table_rows": pir_cfg.n_items, "record_bytes": pir_cfg.item_bytes,
            "table_bytes": pir_cfg.db_bytes, "streams": LM_STREAMS,
            "prompt": LM_PROMPT, "new_tokens": LM_NEW,
@@ -3487,10 +3612,12 @@ def lm_table_config(cfg):
                      item_bytes=cfg.d_model * 2, batch_queries=32)
 
 
-def lm_kernels(model, cfg, card, device) -> dict:
-    """B1 and B2 on the padded table's words ([2^18, 1280] at qwen3-4b) at
-    the path's batches, each against its plain version on the same inputs
-    (max_abs_err 0), then timed by CUDA events beside its bound and the
+def lm_kernels(model, cfg, card, device, phase="private_lm_kernels"
+               ) -> dict:
+    """B1 and B2 on the padded table's words ([2^18, 1280] at qwen3-4b,
+    [2^17, 3584] at deepseek-v3-671b) at the path's batches, each against
+    its plain version on the same inputs (max_abs_err 0), then timed by
+    CUDA events beside its bound and the
     plain version (B2's plain version by the host clock over its one
     checking run, seconds long). Returns each kernel's largest error and
     timings."""
@@ -3504,7 +3631,7 @@ def lm_kernels(model, cfg, card, device) -> dict:
     pir_cfg = lm_table_config(cfg)
     rng = np.random.default_rng(SEED + 404)
     gen = torch.Generator(device=device).manual_seed(SEED + 405)
-    out = {"phase": "private_lm_kernels", "card": card, "rows": rows,
+    out = {"phase": phase, "card": card, "rows": rows,
            "words": words, "dpxor": {}, "fused_scan_xor": {}}
     worst = {"dpxor": 0, "fused_scan_xor": 0}
     for q in LM_DPXOR_QS:
@@ -3544,25 +3671,33 @@ def lm_kernels(model, cfg, card, device) -> dict:
     out["worst"] = worst
     emit(out)
     if any(worst.values()):
-        raise AssertionError(f"private_lm kernels differ from their plain "
+        raise AssertionError(f"{phase}: kernels differ from their plain "
                              f"versions at {words} words: {worst}")
     return out
 
 
-def phase_private_lm(card, device) -> tuple:
-    """qwen3-4b FULL (36 layers, d_model 2,560, vocab 151,936) on the card,
-    its weights drawn from a seeded generator there: the serve step
-    (:func:`lm_serve_step`), private generation through xor-dpf-2 over the
-    1.25 GiB padded table (:func:`lm_private`; the counters zeroed before
-    and read after: B1 and B2 launched, no plain call), then B1 and B2 at
-    the table's width against their plain versions (:func:`lm_kernels`).
-    Everything is freed before it returns (worst errors, launches)."""
+def phase_lm(arch, card, device, *, phase="private_lm", layers=None,
+             private=True) -> tuple:
+    """``arch`` FULL on the card (``layers`` cuts its depth, every width
+    as published), its weights drawn from a seeded generator there: the
+    serve step (:func:`lm_serve_step`; the kernel counters zeroed before
+    it and read after: none of the six launched), then with ``private``
+    private generation through xor-dpf-2 over the padded table
+    (:func:`lm_private`; the counters zeroed before and read after: B1 and
+    B2 launched, no plain call) and B1 and B2 at the table's width against
+    their plain versions (:func:`lm_kernels`). Everything is freed before
+    it returns (worst errors, launches of the private lookups).
+    private_lm: qwen3-4b at full depth; moe_serve and private_moe: the
+    MoE archs at MOE_SERVE's and MOE_PRIVATE's depth."""
     from repro_torch.config import ShapeConfig
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
     from repro_torch.runtime.steps import make_serve_step
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_arch(LM_ARCH)
+    cfg = get_arch(arch)
+    if layers is not None:
+        cfg = replace(cfg, n_layers=layers)
     shape = ShapeConfig(name="prefill_2k", seq_len=LM_PREFILL,
                         global_batch=LM_STREAMS, kind="prefill")
     t0 = time.perf_counter()
@@ -3573,23 +3708,32 @@ def phase_private_lm(card, device) -> tuple:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    serve = lm_serve_step(ss, cfg, card, device)
-    private, launches = lm_private(model, cfg, card)
-    kernels = lm_kernels(model, cfg, card, device)
-    out = {"phase": "private_lm_done", "card": card, "init_s": init_s,
-           "params": n_params, "n_params_config": cfg.n_params(),
+    ops.reset_counts()
+    serve = lm_serve_step(ss, cfg, card, device, phase=f"{phase}_serve")
+    serve_counts = ops.counts()
+    if any(v["launches"] or v["plain_calls"] for v in serve_counts.values()):
+        raise AssertionError(f"{phase}: the serve step ran a PIR kernel or "
+                             f"its plain version: {serve_counts}")
+    out = {"phase": f"{phase}_done", "card": card, "arch": cfg.name,
+           "layers": cfg.n_layers, "init_s": init_s, "params": n_params,
+           "n_params_config": cfg.n_params(),
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in model.parameters()),
            "prefill_s": serve["prefill_s"][-1],
-           "decode_ms_per_token": serve["decode_ms_per_token"],
-           "pir_share_median": private["pir_share_median"],
-           "launches": launches,
-           "peak_device_bytes": torch.cuda.max_memory_allocated(),
-           "seconds": time.perf_counter() - t_phase}
+           "decode_ms_per_token": serve["decode_ms_per_token"]}
+    worst, launches = {}, {}
+    if private:
+        priv, launches = lm_private(model, cfg, card, phase)
+        worst = lm_kernels(model, cfg, card, device,
+                           phase=f"{phase}_kernels")["worst"]
+        out.update(pir_share_median=priv["pir_share_median"],
+                   launches=launches)
+    out.update(peak_device_bytes=torch.cuda.max_memory_allocated(),
+               seconds=time.perf_counter() - t_phase)
     del ss, model
     release()
     emit(out)
-    return kernels["worst"], launches
+    return worst, launches
 
 
 # -- the training half ----------------------------------------------------------
@@ -4025,8 +4169,16 @@ def main() -> int:
     del host_db, host_chk
     # the dense LM last, once the fleets are released: qwen3-4b's weights
     # (8.8 GB) and its 1.25 GiB embedding table served through xor-dpf-2
-    worst_lm, launches_lm = phase_private_lm(info["card"], device)
-    for name, err in worst_lm.items():
+    worst_lm, launches_lm = phase_lm(LM_ARCH, info["card"], device)
+    # the MoE family, each model alone on the card: grok-1 cut to 4 layers
+    # (42.6 GB), then deepseek-v3 cut to 5 (54.6 GB) with its 1.75 GiB
+    # table served through xor-dpf-2
+    phase_lm(MOE_SERVE[0], info["card"], device, phase="moe_serve",
+             layers=MOE_SERVE[1], private=False)
+    worst_moe, launches_moe = phase_lm(
+        MOE_PRIVATE[0], info["card"], device, phase="private_moe",
+        layers=MOE_PRIVATE[1])
+    for name, err in list(worst_lm.items()) + list(worst_moe.items()):
         worst[name] = max(worst[name], err)
     # the LM's training half, alone on the card: granite-3-2b at full
     # width and depth, the card against the CPU, the train_lm twin
@@ -4043,12 +4195,12 @@ def main() -> int:
              "src/repro/kernels/dpxor.py:56",
              total(launches, launches_chk, launches_w128, launches_upd,
                    launches_batch, launches_twins, launches_runtime,
-                   launches_replicas, launches_lm), timing),
+                   launches_replicas, launches_lm, launches_moe), timing),
             ("fused_scan_xor", "src/repro_torch/csrc/fused_scan_xor.cu",
              "src/repro/kernels/fused_scan.py:94",
              total(launches, launches_chk, launches_w128, launches_upd,
-                   launches_runtime, launches_replicas, launches_lm),
-             timing),
+                   launches_runtime, launches_replicas, launches_lm,
+                   launches_moe), timing),
             ("pir_gemm", "src/repro_torch/csrc/pir_gemm.cu",
              "src/repro/kernels/pir_matmul.py:35",
              total(launches_add, launches_chk, launches_w128, launches_upd),

@@ -4,9 +4,9 @@ does (``--arch <id>``).
 
 Each architecture module defines FULL (the published configuration) and
 SMOKE (a reduced same-family configuration runnable on one CPU device).
-Only the dense family is served by the port so far; naming an
-architecture of another family raises ``NotImplementedError`` that says
-so, never a silent fallback.
+The port serves the dense and MoE families so far; naming an architecture
+of another family raises ``NotImplementedError`` that says so, never a
+silent fallback.
 """
 from __future__ import annotations
 
@@ -14,7 +14,9 @@ from typing import Dict
 
 from repro_torch.config import ModelConfig
 from repro_torch.configs import (
+    deepseek_v3_671b,
     granite_3_2b,
+    grok_1_314b,
     qwen3_4b,
     stablelm_3b,
     starcoder2_3b,
@@ -26,6 +28,8 @@ _MODULES = {
     "qwen3-4b": qwen3_4b,
     "starcoder2-3b": starcoder2_3b,
     "stablelm-3b": stablelm_3b,
+    "grok-1-314b": grok_1_314b,
+    "deepseek-v3-671b": deepseek_v3_671b,
 }
 
 ARCHS: Dict[str, ModelConfig] = {k: m.FULL for k, m in _MODULES.items()}
@@ -37,8 +41,6 @@ NOT_PORTED: Dict[str, str] = {
     "whisper-small": "audio",
     "xlstm-350m": "ssm",
     "llava-next-34b": "vlm",
-    "grok-1-314b": "moe",
-    "deepseek-v3-671b": "moe",
     "zamba2-7b": "hybrid",
 }
 
@@ -47,7 +49,7 @@ def get_arch(name: str, *, smoke: bool = False) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} (family {NOT_PORTED[name]!r}) is not ported yet; "
-            f"the port serves the dense family: {sorted(ARCHS)}")
+            f"the port serves the dense and moe families: {sorted(ARCHS)}")
     table = SMOKES if smoke else ARCHS
     if name not in table:
         raise KeyError(f"unknown arch {name!r}; have {sorted(table)}")

@@ -61,23 +61,27 @@ def tensor_from_reference(arr) -> torch.Tensor:
 
 def model_params_from_reference(params_np: Mapping, cfg
                                 ) -> Dict[str, torch.Tensor]:
-    """The reference ``TransformerLM``'s parameter tree (dense family:
-    ``embed``, ``dense_layers`` stacked ``[L, ...]`` by ``vmap``,
-    ``final_norm``, ``unembed``) as the state dict of the port's
-    ``models.transformer.TransformerLM`` (``load_state_dict``), unstacked
-    into ``layers.{i}.*``; same bits, on the CPU."""
+    """The reference ``TransformerLM``'s parameter tree (``embed``, the
+    layer stacks ``dense_layers`` and ``moe_layers`` stacked ``[L, ...]``
+    by ``vmap``, ``final_norm``, ``unembed``, ``mtp``) as the state dict
+    of the port's ``models.transformer.TransformerLM``
+    (``load_state_dict``): ``dense_layers[i]`` -> ``layers.{i}.*``,
+    ``moe_layers[j]`` -> ``moe_layers.{j}.*`` (the experts kept ``[E, d,
+    f]``, the shared ones under ``ffn.shared``), ``mtp`` -> ``mtp.*``;
+    same bits, on the CPU."""
     t = tensor_from_reference
     state = {"embed": t(params_np["embed"]),
              "final_norm": t(params_np["final_norm"])}
     if not cfg.tie_embeddings:
         state["unembed"] = t(params_np["unembed"])
-    stacked = params_np["dense_layers"]
-    for i in range(cfg.n_layers):
-        for name in ("ln1", "ln2"):
-            state[f"layers.{i}.{name}"] = t(np.asarray(stacked[name])[i])
-        for group in ("attn", "ffn"):
-            for name, arr in stacked[group].items():
-                state[f"layers.{i}.{group}.{name}"] = t(np.asarray(arr)[i])
+    for ref_name, name in (("dense_layers", "layers"),
+                           ("moe_layers", "moe_layers")):
+        for path, arr in leaf_paths(params_np.get(ref_name, {})):
+            arr = np.asarray(arr)
+            for i in range(arr.shape[0]):
+                state[f"{name}.{i}.{path.replace('/', '.')}"] = t(arr[i])
+    for path, arr in leaf_paths(params_np.get("mtp", {})):
+        state[f"mtp.{path.replace('/', '.')}"] = t(arr)
     return state
 
 

@@ -1,5 +1,5 @@
-"""Shared model primitives of the dense LM: norms, RoPE, chunked attention,
-the GQA block, the SwiGLU MLP, embeddings — the port of
+"""Shared model primitives of the LM: norms, RoPE, chunked attention,
+the GQA and MLA blocks, the SwiGLU MLP, embeddings — the port of
 ``repro/models/layers.py``.
 
 Conventions, as the reference's:
@@ -14,9 +14,14 @@ Conventions, as the reference's:
   It is plain PyTorch (no fused attention kernel): the reference computes
   it outside any Pallas kernel.
 
+MLA (DeepSeek's multi-head latent attention) caches one compressed row
+per token, ``[kv_lora + rope]``; its prefill expands the latent to keys
+and values and runs :func:`chunked_attention`, its decode attends in the
+latent space ("absorbed": the query folded through ``wkv_b``'s key half,
+the output latent expanded through its value half).
+
 Left out: ``shard_hint`` and the ``*_specs`` functions (mesh layout, with
-no counterpart on one card) and MLA (``layers.py:338-446``), which comes
-with the MoE family.
+no counterpart on one card).
 """
 from __future__ import annotations
 
@@ -288,6 +293,99 @@ def gqa_attend(params: Params, cfg, x: torch.Tensor, positions, *,
                                 kv_chunk=cfg.attn_chunk)
     h, hd = cfg.n_heads, cfg.resolved_head_dim
     return out.reshape(b, s, h * hd) @ params["wo"], (k, v)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    dt = cfg.torch_dtype
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": dense_init(gen, d, m.q_lora_rank, dt),
+        "wq_b": dense_init(gen, m.q_lora_rank, h * qk_head, dt),
+        "wkv_a": dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim, dt),
+        "wkv_b": dense_init(gen, m.kv_lora_rank,
+                            h * (m.qk_nope_head_dim + m.v_head_dim), dt),
+        "wo": dense_init(gen, h * m.v_head_dim, d, dt),
+        "q_a_norm": torch.zeros((m.q_lora_rank,), dtype=dt,
+                                device=gen.device),
+        "kv_a_norm": torch.zeros((m.kv_lora_rank,), dtype=dt,
+                                 device=gen.device),
+    }
+
+
+def mla_attend(params: Params, cfg, x: torch.Tensor, positions, *,
+               causal: bool = True, q_offset: Length = 0,
+               kv_cache: Optional[torch.Tensor] = None,
+               kv_len: Optional[Length] = None):
+    """The MLA block. ``kv_cache`` ``[B, C, kv_lora + rope]`` (with S == 1)
+    runs the absorbed decode over the cache's first ``kv_len`` rows and the
+    token itself. Returns (out [B,S,d], cache_row [B, S, kv_lora + rope]):
+    the compressed latent and the rope key, the row the cache stores."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    lora = m.kv_lora_rank
+
+    q_lat = rmsnorm(x @ params["wq_a"], params["q_a_norm"], cfg.norm_eps)
+    q = (q_lat @ params["wq_b"]).reshape(b, s, h, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv_a = x @ params["wkv_a"]                         # [B,S,kv_lora+rope]
+    c_kv = rmsnorm(kv_a[..., :lora], params["kv_a_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv_a[..., None, lora:], positions,
+                        cfg.rope_theta)                # [B,S,1,rope]
+    cache_row = torch.cat([c_kv, k_rope[..., 0, :]], dim=-1)
+
+    scale = 1.0 / math.sqrt(nope + rope_d)
+
+    if kv_cache is not None:
+        # absorbed decode: the scores contract q_nope, folded through the
+        # key half of wkv_b, against the cached latents; the output latent
+        # goes through the value half. q_lat stays in the activation
+        # dtype, the scores are float32, out_lat is cast back.
+        if s != 1:
+            raise ValueError("cache path expects single-token decode")
+        c_all, kr_all = kv_cache[..., :lora], kv_cache[..., lora:]
+        wkv_b = params["wkv_b"].reshape(lora, h, nope + vd)
+        wk_b, wv_b = wkv_b[..., :nope], wkv_b[..., nope:]
+        q_lat = torch.einsum("bshn,lhn->bshl", q_nope, wk_b)    # [B,1,H,lora]
+        s_lat = torch.einsum("bshl,btl->bhst", q_lat.to(F32),
+                             c_all.to(F32))
+        s_rope = torch.einsum("bshr,btr->bhst", q_rope.to(F32),
+                              kr_all.to(F32))
+        s_cache = (s_lat + s_rope) * scale
+        pos = torch.arange(c_all.shape[1], device=x.device)
+        mask = pos[None, :] < _as_column(kv_len)
+        s_cache = torch.where(mask[:, None, None, :], s_cache, NEG_INF)
+        # the self term from the token's own cache row
+        c_new, kr_new = cache_row[..., :lora], cache_row[..., lora:]
+        s_self = (torch.einsum("bshl,bsl->bhs", q_lat.to(F32),
+                               c_new.to(F32))
+                  + torch.einsum("bshr,bsr->bhs", q_rope.to(F32),
+                                 kr_new.to(F32))) * scale
+        p = torch.softmax(torch.cat([s_cache, s_self[..., None]], dim=-1),
+                          dim=-1)
+        out_lat = torch.einsum("bhst,btl->bshl", p[..., :-1], c_all.to(F32))
+        out_lat = out_lat + p[..., -1].transpose(1, 2)[..., None] \
+            * c_new.to(F32)[:, :, None, :]
+        out = torch.einsum("bshl,lhv->bshv", out_lat.to(x.dtype), wv_b)
+    else:
+        kv = (c_kv @ params["wkv_b"]).reshape(b, s, h, nope + vd)
+        k_nope, v = kv[..., :nope], kv[..., nope:]
+        k = torch.cat([k_nope, k_rope.expand(b, s, h, rope_d)], dim=-1)
+        qfull = torch.cat([q_nope, q_rope], dim=-1)
+        out = chunked_attention(qfull, k, v, causal=causal,
+                                q_offset=q_offset, kv_len=kv_len,
+                                q_chunk=cfg.attn_chunk,
+                                kv_chunk=cfg.attn_chunk, scale=scale)
+    return out.reshape(b, s, h * vd) @ params["wo"], cache_row
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Model zoo dispatch: ``ModelConfig.family`` -> model — the port of
-``repro/models/registry.py`` for the dense family.
+``repro/models/registry.py`` for the dense and MoE families.
 
 A model is an ``nn.Module`` holding its weights (``init_params(generator)``
 draws them); its entry points are ``forward``, ``loss``, ``prefill``,
@@ -14,11 +14,9 @@ import torch
 
 from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.engine.backend import Device, resolve_device
-from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.transformer import PORTED_FAMILIES, TransformerLM
 
 FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
-#: families the port serves so far
-PORTED_FAMILIES = ("dense",)
 
 
 class InputSpec(NamedTuple):

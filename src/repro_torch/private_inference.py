@@ -21,7 +21,8 @@ bit for bit, that the same loop on plain lookups (``embed_lookup``) generates th
 same tokens, and serves one more step for stream 0 alone (one query).
 
 Run:  PYTHONPATH=src python -m repro_torch.private_inference [--device cpu]
-      [--tokens 8] [--streams 2] [--arch pi-lm | qwen3-4b [--smoke]]
+      [--tokens 8] [--streams 2]
+      [--arch pi-lm | qwen3-4b | deepseek-v3-671b | grok-1-314b [--smoke]]
 (the default device is the CUDA card; without one it raises). The last
 line printed is a JSON summary; a wrong row or token exits non-zero.
 """
@@ -270,7 +271,8 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--arch", default=PI_LM.name,
-                    help="pi-lm (the example's model) or a dense arch")
+                    help="pi-lm (the example's model) or a dense or "
+                    "moe arch")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced config")
     ap.add_argument("--tokens", type=int, default=8)

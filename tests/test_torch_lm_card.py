@@ -49,6 +49,36 @@ def test_model_on_the_card_matches_the_cpu(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "grok-1-314b"])
+def test_moe_model_on_the_card_matches_the_cpu(card, arch):
+    """float32 smoke MoE models (deepseek-v3: MLA, a dense layer, the MTP
+    head, the gather at decode; grok-1: the batch-global dispatch): the
+    card's forward, aux, loss, prefill and three cached decodes equal the
+    CPU's within 1e-4 (the MoE decode is compared with the CPU's decode,
+    not with the forward, whose dispatch may drop slots)."""
+    cfg = replace(SMOKES[arch], dtype="float32")
+    cpu = build_model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    dev = build_model(cfg, device=card)
+    dev.load_state_dict(cpu.state_dict())
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 35)))
+    close = lambda got, want: torch.testing.assert_close(
+        got.cpu(), want, atol=1e-4, rtol=0)
+    for got, want in zip(dev.forward(tok.to(card)), cpu.forward(tok)):
+        close(got, want)
+    close(dev.loss(tok.to(card))[0], cpu.loss(tok)[0])
+    caches = [m.prefill(tok[:, :32].to(m.device), capacity=35)[1]
+              for m in (dev, cpu)]
+    for i in range(3):
+        step = tok[:, 32 + i:33 + i]
+        got, caches[0] = dev.decode(caches[0], step.to(card))
+        want, caches[1] = cpu.decode(caches[1], step)
+        close(got, want)
+    close(caches[0].k, caches[1].k)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("vocab,kernel", [(1 << 10, "dpxor"),
                                           (1 << 13, "fused_scan_xor")])
 def test_private_inference_on_the_kernels(card, vocab, kernel):
