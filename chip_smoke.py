@@ -220,11 +220,19 @@ counters must stay 0):
               tokens / step s / the bf16 dense peak,
               analysis/roofline.PEAK_BF16_FLOPS_PER_S), peak device memory,
               the traced step's device events and idle share
-  train_parity  granite-3-2b and qwen3-4b SMOKE in float32, the same
-              weights and batches on the card and on the CPU: three AdamW
-              steps, and three Adafactor steps with compress_grads and two
-              microbatches; losses and parameters within the PARITY_*
-              tolerances
+  moe_train   the same for the MoE family: grok-1-314b, 64 -> 1 layer
+              (6.53 B parameters, 2.91 B active, 13.06 GB in bf16), 2
+              sequences of 4,096 tokens in one microbatch, Adafactor over
+              the moe_layers leaves (one expert slice at a time); the first
+              loss within 0.5 of ln V + s^2 / 2, s the logits' std on a
+              forward over the first sequence (whose dropped slots are
+              reported); the model-FLOPs share over the active parameters
+  train_parity  granite-3-2b, qwen3-4b, deepseek-v3-671b and grok-1-314b
+              SMOKE in float32, the same weights and batches on the card
+              and on the CPU: three AdamW steps, and three Adafactor steps
+              with compress_grads and two microbatches; losses and
+              parameters within the PARITY_* tolerances; for the MoE archs
+              the top-k routes that part at step 0, counted and reported
   train_loop  the train_lm twin's recipe (model_100m, 16 x 512, two
               microbatches) through TrainLoop and CheckpointManager under a
               temporary directory: run A, 40 steps with a checkpoint every
@@ -238,6 +246,7 @@ line. Without a CUDA card the script exits 1 at once.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -3468,22 +3477,30 @@ def last_logits(model, tokens, *, per_stream: bool = False) -> tuple:
     attention chunk, one block spans the sequence: deepseek-v3's 128 heads
     at 4 streams would make 8.25 GiB float32 score tensors."""
     from repro_torch.models import moe as M
-    dropped = []
-    count = lambda mod, args: dropped.append(
-        M.dropped_slots(mod.params(), mod.cfg, args[0]))
-    hooks = [b.ffn.register_forward_pre_hook(count)
-             for b in model.moe_layers]
     groups = tokens.split(1) if per_stream else (tokens,)
     last = []
-    try:
+    with at_moe_inputs(model, M.dropped_slots) as dropped:
         for group in groups:
             full, _ = model.forward(group)
             last.append(full[:, -1, :model.cfg.vocab].clone())
             del full
+    return torch.cat(last), sum(dropped)
+
+
+@contextlib.contextmanager
+def at_moe_inputs(model, fn):
+    """Yield a list that gets ``fn(params, cfg, x)`` of each MoE layer's
+    input ``x`` on every forward inside the ``with`` block (a pre-hook on
+    each MoE FFN, removed at its end)."""
+    seen = []
+    hooks = [b.ffn.register_forward_pre_hook(
+        lambda mod, args: seen.append(fn(mod.params(), mod.cfg, args[0])))
+        for b in model.moe_layers]
+    try:
+        yield seen
     finally:
         for h in hooks:
             h.remove()
-    return torch.cat(last), sum(dropped)
 
 
 def moe_branch_check(model, cache, tokens) -> dict:
@@ -3742,10 +3759,18 @@ TRAIN_ARCH = "granite-3-2b"
 TRAIN_SEQ = 4096            # train_4k's sequence length
 TRAIN_BATCH = 4             # train_4k's global batch of 256, cut to 4
 TRAIN_MICROBATCHES = 4      # one sequence per microbatch
-TRAIN_LR = 1e-4             # AdamW, warmup 0: one fixed batch must fall
+TRAIN_LR = 1e-4             # warmup 0: one fixed batch must fall
 TRAIN_TIMED_STEPS = 3       # after one warm-up step
-TRAIN_FIRST_LOSS_TOL = 0.5  # the first loss within this of ln(vocab)
-PARITY_ARCHS = ("granite-3-2b", "qwen3-4b")
+TRAIN_FIRST_LOSS_TOL = 0.5  # the first loss within this of its want
+# the MoE family's train step: grok-1-314b cut to one layer (6.53 B
+# parameters, 13.06 GB in bf16), 2 sequences of train_4k in one
+# microbatch (a second one's float32 accumulators would add 26 GB),
+# Adafactor (the reference's choice for the arch: AdamW's float32 state
+# would be 78 GB)
+MOE_TRAIN = ("grok-1-314b", 1)
+MOE_TRAIN_BATCH = 2
+PARITY_ARCHS = ("granite-3-2b", "qwen3-4b", "deepseek-v3-671b",
+                "grok-1-314b")
 PARITY_STEPS = 3
 PARITY_LR = 1e-3
 # card against CPU, float32: every loss within PARITY_LOSS_TOL; every
@@ -3805,32 +3830,43 @@ def train_trace(ts, params, opt, ef, batch) -> tuple:
     return (params, opt, ef), loss, out
 
 
-def phase_train_step(card, device) -> dict:
-    """granite-3-2b FULL (40 layers, d_model 2,048, vocab 49,155, bf16,
-    its weights drawn from a seeded generator on the card) trained by
+def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
+                     layers=None, optimizer="adamw", batch=TRAIN_BATCH,
+                     microbatches=TRAIN_MICROBATCHES) -> dict:
+    """``arch``'s FULL config (its depth cut to ``layers`` if given; its
+    weights drawn from a seeded generator on the card) trained by
     make_train_step at train_4k's sequence length with the global batch
-    cut to TRAIN_BATCH sequences in TRAIN_MICROBATCHES microbatches,
-    AdamW, remat="block": one warm-up step, TRAIN_TIMED_STEPS timed ones
-    (host clock to a synchronize) and one under torch.profiler, all on
-    the pipeline's batch 0. Fails unless every loss is finite, the first
-    is within TRAIN_FIRST_LOSS_TOL of ln(vocab) and the last is below the
-    first."""
+    cut to ``batch`` sequences in ``microbatches`` microbatches,
+    ``optimizer``, remat="block": one warm-up step, TRAIN_TIMED_STEPS
+    timed ones (host clock to a synchronize) and one under
+    torch.profiler, all on the pipeline's batch 0. Fails unless every
+    loss is finite, the first is within TRAIN_FIRST_LOSS_TOL of its want
+    and the last is below the first, and no PIR kernel ran. The want is
+    ln(vocab); for a MoE config, whose random logits spread wider, ln V +
+    s^2 / 2 (the cross-entropy of logits of std s), s measured on a
+    no-grad forward over the batch's first sequence, whose dropped slots
+    are reported. The model-FLOPs share counts the active parameters
+    (cfg.n_active_params(): the routed top-k experts) for a MoE, every
+    parameter for a dense model."""
     from repro_torch.analysis.roofline import PEAK_BF16_FLOPS_PER_S
     from repro_torch.config import OptimizerConfig, ShapeConfig
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.kernels import ops
+    from repro_torch.models import moe as M
     from repro_torch.runtime.steps import make_train_step
     t_phase = time.perf_counter()
     release()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
-    cfg = get_arch(TRAIN_ARCH)
-    shape = ShapeConfig(name=f"train_4k_b{TRAIN_BATCH}", seq_len=TRAIN_SEQ,
-                        global_batch=TRAIN_BATCH, kind="train")
+    full = get_arch(arch)
+    cfg = full if layers is None else replace(full, n_layers=layers)
+    moe = cfg.family == "moe"
+    shape = ShapeConfig(name=f"train_4k_b{batch}", seq_len=TRAIN_SEQ,
+                        global_batch=batch, kind="train")
     run = one_card_run(cfg, shape, OptimizerConfig(
-        name="adamw", lr=TRAIN_LR, warmup_steps=0, total_steps=100),
-        microbatches=TRAIN_MICROBATCHES, remat="block", seed=SEED)
+        name=optimizer, lr=TRAIN_LR, warmup_steps=0, total_steps=100),
+        microbatches=microbatches, remat="block", seed=SEED)
     t0 = time.perf_counter()
     ts = make_train_step(run, device=device)
     state = ts.init_state(torch.Generator(device).manual_seed(SEED + 500))
@@ -3838,35 +3874,47 @@ def phase_train_step(card, device) -> dict:
     init_s = time.perf_counter() - t0
     state_bytes = torch.cuda.memory_allocated()
     tokens = TokenPipeline(cfg, shape, seed=SEED).batch(0)["tokens"]
-    batch = {"tokens": torch.as_tensor(tokens.reshape(
+    batch_in = {"tokens": torch.as_tensor(tokens.reshape(
         ts.input_structs["tokens"].shape), device=device)}
+    first_want = float(np.log(cfg.vocab))
+    spread = {}
+    if moe:
+        with at_moe_inputs(ts.model, M.dropped_slots) as dropped:
+            logits, _ = ts.model.forward(batch_in["tokens"].reshape(
+                -1, TRAIN_SEQ)[:1])
+        std = float(logits[..., :cfg.vocab].std())
+        del logits
+        first_want += std ** 2 / 2
+        spread = {"logit_std": std, "dropped_slots_first_forward":
+                  sum(dropped), "slots_first_forward": cfg.moe.top_k
+                  * TRAIN_SEQ * (cfg.n_layers - cfg.moe.first_dense)}
     losses, step_s = [], []
     for _ in range(1 + TRAIN_TIMED_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        *state, m = ts.step(*state, batch)
+        *state, m = ts.step(*state, batch_in)
         losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
-    state, loss, trace = train_trace(ts, *state, batch)
+    state, loss, trace = train_trace(ts, *state, batch_in)
     losses.append(loss)
     n_params = sum(p.numel() for p in ts.model.parameters())
-    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    n_active = cfg.n_active_params() if moe else n_params
+    tokens_per_step = batch * TRAIN_SEQ
     timed = float(np.median(step_s[1:]))
-    flops = 6 * n_params * tokens_per_step
+    flops = 6 * n_active * tokens_per_step
     launches = {k: v["launches"] + v["plain_calls"]
                 for k, v in ops.counts().items()}
-    first_want = float(np.log(cfg.vocab))
-    out = {"phase": "train_step", "card": card, "arch": cfg.name,
-           "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "vocab": cfg.vocab, "params": n_params,
-           "n_params_config": cfg.n_params(), "seq_len": TRAIN_SEQ,
-           "global_batch": TRAIN_BATCH, "global_batch_config": 256,
-           "microbatches": TRAIN_MICROBATCHES, "remat": run.remat,
-           "optimizer": "adamw", "lr": TRAIN_LR, "init_s": init_s,
-           "losses": losses, "first_loss_want": first_want,
-           "warmup_step_s": step_s[0], "step_s": step_s[1:],
+    out = {"phase": phase, "card": card, "arch": cfg.name,
+           "layers": cfg.n_layers, "layers_config": full.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab, "params": n_params,
+           "n_params_config": cfg.n_params(), "n_active_params": n_active,
+           "seq_len": TRAIN_SEQ, "global_batch": batch,
+           "global_batch_config": 256, "microbatches": microbatches,
+           "remat": run.remat, "optimizer": optimizer, "lr": TRAIN_LR,
+           "init_s": init_s, "losses": losses, "first_loss_want": first_want,
+           **spread, "warmup_step_s": step_s[0], "step_s": step_s[1:],
            "step_s_median": timed,
            "tokens_per_s": tokens_per_step / timed,
            "model_flops_per_step": flops,
@@ -3875,19 +3923,36 @@ def phase_train_step(card, device) -> dict:
            "state_bytes": state_bytes, "peak_device_bytes": peak,
            "trace": trace, "pir_kernel_calls": launches,
            "seconds": time.perf_counter() - t_phase}
-    del ts, state, batch, m
+    del ts, state, batch_in, m
     release()
     emit(out)
     if not (all(np.isfinite(losses))
             and abs(losses[0] - first_want) <= TRAIN_FIRST_LOSS_TOL
             and losses[-1] < losses[0] and not any(launches.values())):
-        raise AssertionError(f"train_step: {out}")
+        raise AssertionError(f"{phase}: {out}")
     return out
+
+
+def route_diff(sides, tokens) -> dict:
+    """The top-k expert ids of every MoE layer on a no-grad forward over
+    ``tokens`` on each side: how many (token, k) slots the card's part
+    from the CPU's."""
+    from repro_torch.models import moe as M
+    ids = {}
+    for side, ts in sides.items():
+        with at_moe_inputs(ts.model, lambda params, cfg, x: M._route(
+                params, cfg, x)[1].cpu()) as seen:
+            ts.model.forward(torch.as_tensor(tokens, device=ts.device))
+        ids[side] = seen
+    return {"route_slots": sum(t.numel() for t in ids["cpu"]),
+            "routes_differ": sum(int((a != b).sum())
+                                 for a, b in zip(ids["cpu"], ids["cuda"]))}
 
 
 def parity_case(arch, name, microbatches, compress, device) -> dict:
     """PARITY_STEPS steps of one float32 smoke model on the card and on
-    the CPU from the same weights (drawn on the CPU) and batches."""
+    the CPU from the same weights (drawn on the CPU) and batches; for a
+    MoE model also the routes the two sides part on at step 0."""
     from repro_torch.config import OptimizerConfig
     from repro_torch.configs import get_arch
     from repro_torch.configs.shapes import SMOKE_TRAIN
@@ -3904,6 +3969,8 @@ def parity_case(arch, name, microbatches, compress, device) -> dict:
     sides["cuda"].model.load_state_dict(sides["cpu"].model.state_dict())
     states = {k: ts.init_state(None) for k, ts in sides.items()}
     pipe = TokenPipeline(run.model, run.shape, seed=SEED)
+    routes = (route_diff(sides, pipe.batch(0)["tokens"])
+              if run.model.family == "moe" else {})
     losses = {"cpu": [], "cuda": []}
     for step in range(PARITY_STEPS):
         tokens = pipe.batch(step)["tokens"].reshape(
@@ -3928,13 +3995,15 @@ def parity_case(arch, name, microbatches, compress, device) -> dict:
             "compress_grads": compress, "losses_cuda": losses["cuda"],
             "losses_cpu": losses["cpu"], "max_loss_diff": loss_diff,
             "max_param_diff": worst, "param_outliers": outliers,
-            "params": total, "ok": ok}
+            "params": total, **routes, "ok": ok}
 
 
 def phase_train_parity(card, device) -> dict:
-    """granite-3-2b and qwen3-4b SMOKE in float32: PARITY_STEPS AdamW
-    steps, and PARITY_STEPS Adafactor steps with compress_grads and two
-    microbatches, on the card against the same steps on the CPU."""
+    """The PARITY_ARCHS' SMOKE configs in float32 (the dense granite-3-2b
+    and qwen3-4b, the MoE deepseek-v3-671b and grok-1-314b): PARITY_STEPS
+    AdamW steps, and PARITY_STEPS Adafactor steps with compress_grads and
+    two microbatches, on the card against the same steps on the CPU; the
+    MoE cases' routes that part at step 0 are counted and reported."""
     t_phase = time.perf_counter()
     cases = [parity_case(arch, name, mb, compress, device)
              for arch in PARITY_ARCHS
@@ -3944,6 +4013,7 @@ def phase_train_parity(card, device) -> dict:
            "lr": PARITY_LR, "loss_tol": PARITY_LOSS_TOL,
            "param_atol": PARITY_PARAM_ATOL, "param_rtol": PARITY_PARAM_RTOL,
            "flip_share": PARITY_FLIPS, "cases": cases,
+           "routes_differ": sum(c.get("routes_differ", 0) for c in cases),
            "seconds": time.perf_counter() - t_phase}
     emit(out)
     if not all(c["ok"] for c in cases):
@@ -4183,6 +4253,12 @@ def main() -> int:
     # the LM's training half, alone on the card: granite-3-2b at full
     # width and depth, the card against the CPU, the train_lm twin
     phase_train_step(info["card"], device)
+    # the MoE family's train step at full width: grok-1-314b cut to one
+    # layer, Adafactor over its moe_layers leaves
+    phase_train_step(info["card"], device, phase="moe_train",
+                     arch=MOE_TRAIN[0], layers=MOE_TRAIN[1],
+                     optimizer="adafactor", batch=MOE_TRAIN_BATCH,
+                     microbatches=1)
     phase_train_parity(info["card"], device)
     phase_train_loop(info["card"], device)
 

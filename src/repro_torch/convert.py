@@ -101,7 +101,8 @@ def opt_state_from_reference(state, cfg):
     m, v, master)`` or ``AdafactorState(step, vr, vc, v)``, by field
     names) as the port's, on the CPU: AdamW's trees unstacked to the
     port's parameter names, Adafactor's kept stacked per leaf path
-    (``dense_layers/attn/wq``, ``None`` for ``()``)."""
+    (``dense_layers/attn/wq``, ``moe_layers/ffn/gate``, ``mtp/proj``;
+    ``None`` for ``()``): the keys of ``optimizer.leaf_groups``."""
     from repro_torch.optim.optimizer import AdafactorState, AdamWState
     step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32)
     if hasattr(state, "master"):

@@ -6,8 +6,9 @@
   run restored at step k needs no data-loader state.
 * **Host sharding** — each process draws only its ``[local_batch]`` slice.
 * **Modality stubs** — the VLM / audio families get their precomputed
-  frame or patch embeddings (the port trains the dense family; the stubs
-  keep the batches equal to the reference's for every config).
+  frame or patch embeddings (the port trains the dense and MoE
+  families; the stubs keep the batches equal to the reference's for every
+  config).
 
 Token statistics: Zipfian-ish via squaring a uniform. The batches are
 numpy arrays, bit for bit the reference's; the train step places them on

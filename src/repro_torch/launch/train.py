@@ -8,6 +8,8 @@ Examples:
   python -m repro_torch.launch.train --arch granite-3-2b --smoke --steps 200
   python -m repro_torch.launch.train --arch granite-3-2b --smoke \\
       --steps 20 --device cpu
+  python -m repro_torch.launch.train --arch grok-1-314b --smoke \\
+      --optimizer adafactor --steps 20 --device cpu
 """
 from __future__ import annotations
 

@@ -3,9 +3,12 @@
 
 Each leaf's gradient (plus the carried residual) is quantized to int8 at
 the scale max|g| / 127, and the quantization residual is carried to the
-next step (EF-SGD). A leaf is the reference's: a layer parameter's scale
-is the max over all L layers (``optimizer.leaf_groups``), so the port's
-per-layer tensors quantize exactly as the reference's stacked leaf. The
+next step (EF-SGD). A leaf is the reference's (``optimizer.leaf_groups``):
+a layer parameter's scale is the max over all L layers of its stack, the
+dense ``layers.{i}`` (``dense_layers/``) or the MoE trunk's
+``moe_layers.{j}`` (``moe_layers/``: an expert weight's over all L·E
+experts), so the port's per-layer tensors quantize exactly as the
+reference's stacked leaf. The
 returned scales are keyed by parameter name (a leaf's members share its
 0-d scale), so ``dequantize(q[name], scales[name])`` holds per tensor.
 

@@ -3,24 +3,41 @@ port of ``repro/optim/optimizer.py``.
 
 Parameters, gradients and AdamW's moments are dicts of tensors keyed by
 the model's parameter names (``TransformerLM.named_parameters()``:
-``embed``, ``layers.{i}.attn.wq``, ...). State is float32 on the
-parameters' device. ``opt_update`` writes the new parameters into the
-given tensors and updates the state's tensors in place (the reference
-donates both to its jitted step); it returns the dict it was given.
+``embed``, ``layers.{i}.attn.wq``, ``moe_layers.{j}.ffn.gate``, ...).
+State is float32 on the parameters' device. ``opt_update`` writes the new
+parameters into the given tensors and updates the state's tensors in
+place (the reference donates both to its jitted step); it returns the
+dict it was given.
 
-**Leaves.** The reference stacks each layer parameter of the L layers
+**Leaves.** The reference stacks each layer parameter of a layer stack
 into one ``[L, ...]`` leaf; the port keeps one tensor per layer.
-``leaf_groups`` maps the port's names onto the reference's leaves
-(``layers.{i}.attn.wq`` for every i is the leaf ``dense_layers/attn/wq``),
-and every statistic the reference takes over a whole leaf is taken over
-that group: Adafactor factors the stacked ``[L, ...]`` tensor (a norm
-scale ``[L, d]`` into ``vr [L]`` and ``vc [d]``, a weight ``[L, din,
-dout]`` per layer) and clips its update by the rms over all L layers; the
-gradient compression's int8 scale is the max over the group
+``leaf_groups`` maps the port's names onto the reference's leaves: the
+dense stack ``layers.{i}.<path>`` onto ``dense_layers/<path>``, the MoE
+trunk ``moe_layers.{j}.<path>`` onto ``moe_layers/<path>`` (an expert
+weight ``[E, d, f]`` a layer onto ``[L, E, d, f]``), and every other
+parameter (``embed``, ``mtp.proj``, ``mtp.layer.attn.wq``) onto its own
+unstacked leaf. Every statistic the reference takes over a whole leaf is
+taken over that group: Adafactor factors the stacked tensor over its last
+two axes (a norm scale ``[L, d]`` into ``vr [L]`` and ``vc [d]``, an
+expert weight into ``vr [L, E, d]`` and ``vc [L, E, f]``) and clips its
+update by the rms over the whole leaf (all L layers, all L·E experts);
+the gradient compression's int8 scale is the max over the group
 (``compression.py``). AdamW is elementwise, apart from the global norm,
 and keeps one moment tensor per parameter; Adafactor's ``vr`` / ``vc`` /
 ``v`` are keyed by leaf, stacked as the reference's (``None`` where the
 reference holds ``()``).
+
+**Adafactor one slice at a time.** A factored leaf's moments and
+preconditioner at one index of its leading axes (all but the last two:
+one layer's weight, one expert of one layer) depend on that slice alone;
+only the rms clip spans the leaf. So ``adafactor_update`` takes a leaf in
+two passes over its slices: the first updates ``vr`` / ``vc`` and sums
+the squared preconditioned update, the second recomputes each slice's
+update and writes its parameters. Its float32 temporaries are one
+slice's (0.8 GB for an expert of grok-1, where its whole leaf at one
+layer is 6.4 GB a copy). The sum over slices orders the rms's additions
+otherwise than one mean over the leaf: the same value to float32
+rounding.
 
 Schedules, bias corrections and Adafactor's decay are float32 tensor
 computations on the device, as in the reference. Not ported:
@@ -29,6 +46,7 @@ counterpart).
 """
 from __future__ import annotations
 
+import itertools
 import math
 import re
 from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
@@ -41,10 +59,13 @@ F32 = torch.float32
 
 Tensors = Dict[str, torch.Tensor]
 
-#: the reference's leaf of the stacked dense layers
-STACKED = "dense_layers/"
+#: the port's layer stacks -> the reference's stacked leaves
+STACKS = {"layers": "dense_layers", "moe_layers": "moe_layers"}
 
-_LAYER = re.compile(r"layers\.(\d+)\.(.+)")
+_LAYER = re.compile(r"(layers|moe_layers)\.(\d+)\.(.+)")
+
+# Adafactor's floor under the squared gradient and the moments
+_EPS = 1e-30
 
 
 class AdamWState(NamedTuple):
@@ -62,23 +83,30 @@ class AdafactorState(NamedTuple):
 
 
 def leaf_groups(names: Iterable[str]) -> Dict[str, List[str]]:
-    """The reference's leaf path (``dense_layers/attn/wq``, ``embed``) ->
-    the port's parameter names that make it up, layers in order."""
+    """The reference's leaf path (``dense_layers/attn/wq``,
+    ``moe_layers/ffn/gate``, ``embed``, ``mtp/proj``) -> the port's
+    parameter names that make it up, each stack's layers in order."""
     groups: Dict[str, List[Tuple[int, str]]] = {}
     for name in names:
         m = _LAYER.fullmatch(name)
         if m:
-            key = STACKED + m.group(2).replace(".", "/")
-            groups.setdefault(key, []).append((int(m.group(1)), name))
+            key = f"{STACKS[m.group(1)]}/{m.group(3).replace('.', '/')}"
+            groups.setdefault(key, []).append((int(m.group(2)), name))
         else:
             groups.setdefault(name.replace(".", "/"), []).append((0, name))
     return {k: [n for _, n in sorted(v)] for k, v in groups.items()}
 
 
+def is_stacked(key: str) -> bool:
+    """Whether the reference's leaf ``key`` stacks a layer parameter on a
+    leading ``[L, ...]`` axis."""
+    return key.split("/", 1)[0] in STACKS.values()
+
+
 def stack_leaf(tensors: Tensors, key: str, names: List[str]) -> torch.Tensor:
     """The reference's leaf ``key`` built from the port's tensors: the
     layers stacked on a leading axis, any other leaf as it is."""
-    if key.startswith(STACKED):
+    if is_stacked(key):
         return torch.stack([tensors[n] for n in names])
     return tensors[names[0]]
 
@@ -165,9 +193,56 @@ def _factored(shape) -> bool:
     return len(shape) >= 2
 
 
-def _leaf_shape(key: str, names: List[str], params: Tensors):
-    shape = tuple(params[names[0]].shape)
-    return (len(names),) + shape if key.startswith(STACKED) else shape
+def _leaf_shape(key: str, names: List[str], tensors: Tensors) -> tuple:
+    shape = tuple(tensors[names[0]].shape)
+    return (len(names),) + shape if is_stacked(key) else shape
+
+
+def _slice(tensors: Tensors, key: str, names: List[str], idx: tuple
+           ) -> torch.Tensor:
+    """The leaf's slice at ``idx``, an index of its leading axes (all but
+    the last two): a view of one layer's tensor, or for ``idx == ()`` the
+    whole leaf (``stack_leaf``)."""
+    if not idx:
+        return stack_leaf(tensors, key, names)
+    if is_stacked(key):
+        return tensors[names[idx[0]]][idx[1:]]
+    return tensors[names[0]][idx]
+
+
+def _write(tensors: Tensors, key: str, names: List[str], idx: tuple,
+           value: torch.Tensor) -> None:
+    """Write ``value`` into the leaf's slice at ``idx`` (in place; cast to
+    the tensors' dtype)."""
+    if not idx and is_stacked(key):
+        for n, v in zip(names, value):
+            tensors[n].copy_(v)
+    else:
+        _slice(tensors, key, names, idx).copy_(value)
+
+
+def _precond(state: AdafactorState, key: str, idx: tuple, g: torch.Tensor,
+             scale: torch.Tensor, decay: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+    """The preconditioned update of the leaf's slice at ``idx`` from its
+    gradient ``g`` (clipped by ``scale``, in its dtype, as the reference
+    clips); with ``decay``, the slice's squared gradient is first folded
+    into the second moments (in place)."""
+    gf = _clipped(g, scale).to(F32)
+    v = state.v[key]
+    if v is not None:                   # rank 1: the full second moment
+        if decay is not None:
+            v.copy_(decay * v + (1 - decay) * (gf * gf + _EPS))
+        return gf / (torch.sqrt(v) + 1e-9)
+    vr, vc = state.vr[key][idx], state.vc[key][idx]
+    if decay is not None:
+        g2 = gf * gf + _EPS
+        vr.copy_(decay * vr + (1 - decay) * torch.mean(g2, dim=-1))
+        vc.copy_(decay * vc + (1 - decay) * torch.mean(g2, dim=-2))
+        del g2
+    row = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=_EPS)
+    return gf / (torch.sqrt(row)[..., None] * torch.sqrt(vc)[..., None, :]
+                 + 1e-9)
 
 
 @torch.no_grad()
@@ -193,33 +268,25 @@ def adafactor_update(cfg: OptimizerConfig, grads: Tensors,
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     decay = 1.0 - (step.to(F32) + 1.0) ** -0.8
-    eps = 1e-30
     for key, names in leaf_groups(params).items():
-        gf = stack_leaf({n: _clipped(grads[n], scale) for n in names}, key,
-                        names).to(F32)
-        g2 = gf * gf + eps
-        if _factored(gf.shape):
-            vr, vc = state.vr[key], state.vc[key]
-            vr.copy_(decay * vr + (1 - decay) * torch.mean(g2, dim=-1))
-            vc.copy_(decay * vc + (1 - decay) * torch.mean(g2, dim=-2))
-            row = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
-                                   min=eps)
-            precond = gf / (torch.sqrt(row)[..., None]
-                            * torch.sqrt(vc)[..., None, :] + 1e-9)
-        else:
-            v = state.v[key]
-            v.copy_(decay * v + (1 - decay) * g2)
-            precond = gf / (torch.sqrt(v) + 1e-9)
+        shape = _leaf_shape(key, names, params)
+        index = list(itertools.product(*map(range, shape[:-2])))
+        # pass 1: the moments, and the squared update summed over the leaf
+        sq = torch.zeros((), dtype=F32, device=gnorm.device)
+        for idx in index:
+            sq += torch.sum(torch.square(_precond(
+                state, key, idx, _slice(grads, key, names, idx), scale,
+                decay)))
         # relative update clipping (Adafactor's d = 1.0), over the leaf
-        rms = torch.sqrt(torch.mean(precond * precond) + eps)
-        precond = precond / torch.clamp(rms, min=1.0)
-        pf = stack_leaf(params, key, names).to(F32)
-        p_new = pf - lr * precond - lr * cfg.weight_decay * pf
-        if key.startswith(STACKED):
-            for i, n in enumerate(names):
-                params[n].copy_(p_new[i])
-        else:
-            params[names[0]].copy_(p_new)
+        rms = torch.sqrt(sq / math.prod(shape) + _EPS)
+        clip = torch.clamp(rms, min=1.0)
+        # pass 2: each slice's update again, clipped, into the parameters
+        for idx in index:
+            precond = _precond(state, key, idx,
+                               _slice(grads, key, names, idx), scale) / clip
+            pf = _slice(params, key, names, idx).to(F32)
+            _write(params, key, names, idx,
+                   pf - lr * precond - lr * cfg.weight_decay * pf)
     return params, state._replace(step=step), {"lr": lr, "grad_norm": gnorm}
 
 

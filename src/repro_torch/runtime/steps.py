@@ -67,15 +67,10 @@ def make_train_step(run: RunConfig, *, device: Device = None) -> TrainStep:
     ``None`` generator keeps the weights already loaded) and returns
     ``(params, opt_state, ef)``: the model's parameters by name, the
     optimizer state and the error-feedback buffers (``None`` without
-    compression). The MoE family raises ``NotImplementedError``: its
-    train step (the optimizer's statistics over the ``moe_layers``
-    leaves) is not ported yet (ROADMAP, A20c's training half)."""
-    if run.model.family == "moe":
-        raise NotImplementedError(
-            f"the train step of the moe family ({run.model.name}) is not "
-            "ported yet: the optimizer's statistics over the moe_layers "
-            "leaves come with A20c's training half (ROADMAP); the port "
-            "serves the family (make_serve_step) and its loss")
+    compression). The loss is the model's own (``TransformerLM.loss``:
+    with the MoE family its aux term and DeepSeek-V3's MTP head); with
+    microbatches each one is a pass of its own, whose MoE dispatch and
+    aux loss see that microbatch alone, as the reference's scan."""
     model = build_model(run.model, device=device, remat=run.remat)
     model.requires_grad_(True)
     dev = model.device

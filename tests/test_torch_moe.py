@@ -35,15 +35,14 @@ from repro.models import layers as RL
 from repro.models import moe as RM
 from repro.models.transformer import KVCache as RefCache
 from repro_torch import private_inference as pi
-from repro_torch.config import MeshConfig, RunConfig
 from repro_torch.configs import SMOKES, get_arch
-from repro_torch.configs.shapes import SMOKE_PREFILL, SMOKE_TRAIN
+from repro_torch.configs.shapes import SMOKE_PREFILL
 from repro_torch.convert import (model_params_from_reference,
                                  tensor_from_reference)
 from repro_torch.models import build_model
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
-from repro_torch.runtime.steps import make_serve_step, make_train_step
+from repro_torch.runtime.steps import make_serve_step
 
 torch.set_num_threads(1)
 
@@ -452,14 +451,6 @@ def test_make_serve_step_moe():
     logits2, cache = ss.decode(cache, torch.from_numpy(tok[:, -1:]).long())
     want2, rc = dec[True](params, pad_cache(rc, 1, False), tok[:, -1:])
     close_logits(logits2, want2, cfg)
-
-
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_make_train_step_refuses_moe(arch):
-    run = RunConfig(model=SMOKES[arch], shape=SMOKE_TRAIN,
-                    mesh=MeshConfig(shape=(1, 1), axes=("data", "model")))
-    with pytest.raises(NotImplementedError, match="moe_layers"):
-        make_train_step(run, device="cpu")
 
 
 def test_private_twin_on_deepseek_smoke():

@@ -197,10 +197,18 @@ def test_unknown_optimizer_raises():
 @pytest.mark.parametrize("name", ["adamw", "adafactor"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_optimizer_steps_match_the_reference(arch, name, dtype):
+    check_optimizer_steps(arch, name, dtype)
+
+
+def check_optimizer_steps(arch, name, dtype, check_states=None):
     """Three updates from a zero state on a smoke model's tree (gradients
     large enough to clip on the first), then a fourth from a state carried
     across with opt_state_from_reference: parameters and state as the
-    reference's after each."""
+    reference's after each (``check_states(got, want, cfg)``, by default
+    ``check_state`` at F32_TOL)."""
+    if check_states is None:
+        check_states = lambda got, want, cfg: check_state(got, want, cfg,
+                                                          F32_TOL)
     params, params_np, cfg = ref_tree(arch, dtype)
     rcfg, pcfg = both_cfgs(name=name, lr=1e-2, warmup_steps=1,
                            total_steps=10, weight_decay=0.1)
@@ -218,7 +226,7 @@ def test_optimizer_steps_match_the_reference(arch, name, dtype):
         close(pm["grad_norm"], rm["grad_norm"], dict(rtol=1e-5, atol=0))
         close(pm["lr"], rm["lr"], dict(rtol=1e-6, atol=0))
         check_params(port, params, cfg, TOL[dtype])
-        check_state(pstate, rstate, cfg, F32_TOL)
+        check_states(pstate, rstate, cfg)
     # a fourth step from the reference's own state, carried across
     carried = opt_state_from_reference(
         jax.tree_util.tree_map(np.asarray, rstate), cfg)
@@ -231,7 +239,7 @@ def test_optimizer_steps_match_the_reference(arch, name, dtype):
     port, carried, _ = po.opt_update(pcfg, to_port(g_np, cfg), carried,
                                      port)
     check_params(port, params, cfg, TOL[dtype])
-    check_state(carried, rstate, cfg, F32_TOL)
+    check_states(carried, rstate, cfg)
 
 
 # -- leaves: statistics over the reference's stacked leaves ---------------------

@@ -249,8 +249,11 @@ def bf16_ulp(w: np.ndarray) -> np.ndarray:
     return np.exp2(np.floor(np.log2(a)) - 7)
 
 
-def param_check(got: dict, want: dict, *, dtype, compress, steps):
-    """(outliers, max |diff|) under the module docstring's tolerances."""
+def param_check(got: dict, want: dict, *, dtype, compress, steps,
+                flips=None):
+    """(outliers, max |diff|) under the module docstring's tolerances;
+    ``flips`` overrides the share of float32 elements that may lie outside
+    the tight tolerance (within the bound)."""
     worst, outliers, total = 0.0, 0, 0
     for k, w in want.items():
         g, w = to_np(got[k]), to_np(w)
@@ -265,6 +268,8 @@ def param_check(got: dict, want: dict, *, dtype, compress, steps):
         assert diff.max() <= 2 ** -8 * np.abs(w).max() + 2 * LR * steps, k
     if dtype == "bfloat16":
         assert outliers <= BF16_FLIPS * total, (outliers, total)
+    elif flips is not None:
+        assert outliers <= flips * total, (outliers, total)
     elif compress:
         assert outliers <= COMPRESS_FLIPS * total, (outliers, total)
     else:
@@ -293,6 +298,14 @@ def state_check(got, want, initial: dict, *, dtype):
 @pytest.mark.parametrize("case", STEP_CASES, ids=lambda c: "-".join(
     str(x) for x in c))
 def test_train_step_matches_the_reference(case):
+    check_train_step(case)
+
+
+def check_train_step(case, check_params=param_check):
+    """Three steps of ``case`` (arch, optimizer, microbatches, compress,
+    dtype) in both packages from the reference's weights: losses, the
+    schedule, parameters (``check_params``) and optimizer state under the
+    module docstring's tolerances."""
     arch, name, micro, compress, dtype = case
     ref_run, run = runs(arch, dtype, microbatches=micro, optimizer=dict(
         name=name, lr=LR, warmup_steps=1, total_steps=10,
@@ -332,13 +345,13 @@ def test_train_step_matches_the_reference(case):
     assert int(opt.step) == 3 == int(ropt.step)
     want = model_params_from_reference(
         jax.tree_util.tree_map(np.asarray, rparams), run.model)
-    param_check(params, want, dtype=dtype, compress=compress, steps=3)
+    check_params(params, want, dtype=dtype, compress=compress, steps=3)
     state_check(opt, opt_state_from_reference(
         jax.tree_util.tree_map(np.asarray, ropt), run.model),
         model_params_from_reference(ref_params(arch, dtype), run.model),
         dtype=dtype)
-    for p in params.values():
-        assert p.dtype == run.model.torch_dtype
+    for k, p in params.items():     # the model's dtype; a router float32
+        assert p.dtype == want[k].dtype, k
 
 
 def test_train_step_learns_with_compression():
@@ -392,11 +405,13 @@ def test_train_step_checks_its_inputs():
 
 # -- TrainLoop --------------------------------------------------------------------
 
-def loops(tmp_path, *, steps=6, ckpt_every=2, total_steps=None, tag=""):
-    """A reference and a port loop over granite SMOKE in float32 from the
-    same weights, each checkpointing under its own directory."""
-    ref_run, run = runs("granite-3-2b", "float32", optimizer=dict(
-        lr=1e-3, warmup_steps=1, total_steps=total_steps or steps))
+def loops(tmp_path, *, steps=6, ckpt_every=2, total_steps=None, tag="",
+          arch="granite-3-2b", optimizer="adamw"):
+    """A reference and a port loop over ``arch``'s SMOKE in float32 from
+    the same weights, each checkpointing under its own directory."""
+    ref_run, run = runs(arch, "float32", optimizer=dict(
+        name=optimizer, lr=1e-3, warmup_steps=1,
+        total_steps=total_steps or steps))
     quiet = lambda s: None
     ref = RefTrainLoop(ref_run, make_local_mesh(), RefLoopConfig(
         total_steps=steps, ckpt_every=ckpt_every, log_every=0,
@@ -407,7 +422,7 @@ def loops(tmp_path, *, steps=6, ckpt_every=2, total_steps=None, tag=""):
     init = port.ts.init_state
 
     def from_reference(generator):
-        load_reference_weights(port.ts.model, "granite-3-2b", "float32")
+        load_reference_weights(port.ts.model, arch, "float32")
         return init(None)
     port.ts = port.ts._replace(init_state=from_reference)
     return ref, port

@@ -4,8 +4,9 @@ Marked ``cuda``: they skip without a card (``pytest -m cuda
 tests/test_torch_train_card.py`` on the card). The CPU's plain step is the
 reference here: the JAX package is compared in the CPU tests
 (``test_torch_train.py``, ``test_torch_optim.py``,
-``test_torch_checkpoint.py``). ``chip_smoke.py train_step`` drives the
-same path at granite-3-2b's full size.
+``test_torch_checkpoint.py``, ``test_torch_moe_train.py``).
+``chip_smoke.py train_step`` and ``moe_train`` drive the same path at
+granite-3-2b's and grok-1-314b's full widths.
 """
 from dataclasses import replace
 
@@ -34,8 +35,8 @@ def card():
     return torch.device("cuda")
 
 
-def _run(name="adamw", **kw):
-    return RunConfig(model=replace(SMOKES["granite-3-2b"], dtype="float32"),
+def _run(name="adamw", arch="granite-3-2b", **kw):
+    return RunConfig(model=replace(SMOKES[arch], dtype="float32"),
                      shape=SMOKE_TRAIN,
                      mesh=MeshConfig(shape=(1, 1), axes=("data", "model")),
                      optimizer=OptimizerConfig(name=name, lr=1e-3,
@@ -49,7 +50,23 @@ def _run(name="adamw", **kw):
 def test_train_step_on_the_card_matches_the_cpu(card, name, kw):
     """granite SMOKE in float32: weights drawn on the CPU and copied over;
     two steps on the card equal the CPU's within LOSS_TOL / PARAM_TOL."""
-    run = _run(name, **kw)
+    two_steps_against_the_cpu(card, _run(name, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "grok-1-314b"])
+def test_moe_train_step_on_the_card_matches_the_cpu(card, arch):
+    """The MoE family's SMOKE models in float32 with Adafactor over its
+    ``moe_layers`` leaves and two microbatches: two steps on the card equal
+    the CPU's within LOSS_TOL / PARAM_TOL (``chip_smoke.py train_parity``
+    reports how many top-k routes the two sides part on)."""
+    two_steps_against_the_cpu(card, _run("adafactor", arch,
+                                         microbatches=2))
+
+
+def two_steps_against_the_cpu(card, run):
+    """Weights drawn on the CPU and copied to the card; two steps on each
+    side: every loss within LOSS_TOL, every parameter within PARAM_TOL."""
     cpu = make_train_step(run, device="cpu")
     dev = make_train_step(run, device=card)
     cpu.model.init_params(torch.Generator().manual_seed(0))
