@@ -206,6 +206,24 @@ cut (dataclasses.replace of FULL, PERF.md section 4):
               rows bit-exact, tokens those of plain lookups), then B1 (Q =
               1) and B2 (Q = 4, 32) at 3,584 words exact against their
               plain versions, timed beside their bounds
+Then the VLM family's serving path:
+  vlm_serve   llava-next-34b at full width, 60 -> 16 layers (9.84 B
+              parameters, 19.7 GB in bf16, drawn from a seeded generator on
+              the card): make_serve_step at 4 streams x 4,096 positions
+              (each 2,880 prefix rows of seeded patch embeddings + 1,216
+              text tokens) and 32 decode steps with write=True; the
+              prefill's last logits against a forward over the same prefix
+              and tokens, the last decode against a forward over all 4,128
+              positions (within LM_LOGIT_TOL, greedy tokens equal but for
+              near-ties); no kernel of the six launched. Then the
+              private_inference twin with each stream's image prefix kept
+              on the client: 4 streams, a 16-token text prompt, 16 new
+              tokens, the text tokens' rows through TwoServerPIR over the
+              table padded to 2^16 rows x 14,336 B (B2 for the streams'
+              batches, B1 alone; rows bit-exact, tokens those of plain
+              lookups, no plain call), then B1 (Q = 1) and B2 (Q = 4, 32) at
+              3,584 words over the 2^16 rows exact against their plain
+              versions, timed beside their bounds
 Then the LM's training half, which launches none of the six kernels (its
 counters must stay 0):
   train_step  granite-3-2b at full width and depth (40 layers, d_model
@@ -227,8 +245,15 @@ counters must stay 0):
               loss within 0.5 of ln V + s^2 / 2, s the logits' std on a
               forward over the first sequence (whose dropped slots are
               reported); the model-FLOPs share over the active parameters
-  train_parity  granite-3-2b, qwen3-4b, deepseek-v3-671b and grok-1-314b
-              SMOKE in float32, the same weights and batches on the card
+  vlm_train   the same for the VLM family: llava-next-34b, 60 -> 4 layers
+              (3.15 B parameters, 6.3 GB in bf16), 2 sequences of 2,880
+              prefix rows + 1,216 text tokens in 2 microbatches of 1 (each
+              its slice of prefix_embeds), Adafactor; the first loss within
+              0.5 of ln V + s^2 / 2; the model-FLOPs share counts all 4,096
+              positions, since the trunk runs the prefix too
+  train_parity  granite-3-2b, qwen3-4b, deepseek-v3-671b, grok-1-314b and
+              llava-next-34b SMOKE in float32 (llava with its prefix), the
+              same weights and batches on the card
               and on the CPU: three AdamW steps, and three Adafactor steps
               with compress_grads and two microbatches; losses and
               parameters within the PARITY_* tolerances; for the MoE archs
@@ -3368,6 +3393,17 @@ MOE_PRIVATE = ("deepseek-v3-671b", 5)
 #: 9.8e-4 at deepseek-v3's widths and 0 at grok-1's). No slot can drop:
 #: the capacity, 8, is at least the streams
 MOE_BRANCH_TOL = dict(atol=2 ** -6, rtol=2 ** -6)
+#: the VLM phases (PERF.md section 4): llava-next-34b at full width, each
+#: stream 2,880 prefix rows (its n_frontend_tokens) + 1,216 text tokens =
+#: train_4k's VLM_SEQ positions. Serving cuts the depth 60 -> 16 (9.84 B
+#: parameters, 19.7 GB in bf16); training 60 -> 4 (3.15 B, 6.3 GB), 2
+#: sequences in 2 microbatches of 1, so that each microbatch takes its
+#: slice of prefix_embeds, with Adafactor (the reference's choice for the
+#: arch, repro/launch/dryrun.py:52)
+VLM_SERVE = ("llava-next-34b", 16)
+VLM_TRAIN = ("llava-next-34b", 4)
+VLM_SEQ = 4096
+VLM_TRAIN_BATCH = 2
 
 
 def fused_xor_bound(rows: int, words: int, queries: int, clog: int,
@@ -3382,23 +3418,35 @@ def fused_xor_bound(rows: int, words: int, queries: int, clog: int,
 
 
 def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
-    """make_serve_step's prefill on LM_STREAMS x LM_PREFILL seeded tokens
-    (twice: the first call warms the card) and LM_DECODE decode steps with
-    write=True (each timed to its synchronize). Held: the prefill's last
-    logits against a forward over the same tokens (within LM_LOGIT_TOL:
-    an identity in the reference) and, for the dense family, the last
-    decode's logits against a forward over all LM_PREFILL + LM_DECODE
-    tokens (within LM_LOGIT_TOL, greedy tokens equal but for near-ties).
+    """make_serve_step's prefill on the batch its input_structs name, made
+    from a seed (LM_STREAMS x LM_PREFILL tokens at private_lm's shape; a
+    VLM's streams each a prefix of patch embeddings, normal x 0.02, ahead
+    of its text tokens), twice (the first call warms the card), and
+    LM_DECODE decode steps with write=True (each timed to its
+    synchronize). Held: the prefill's last logits against a forward over
+    the same prefix and tokens (within LM_LOGIT_TOL: an identity in the
+    reference) and, for the dense and VLM families, the last decode's
+    logits against a forward over every position, the decoded ones
+    included (within LM_LOGIT_TOL, greedy tokens equal but for near-ties).
     For MoE that second difference and the slots the forwards' dispatch
     dropped are reported, not held (a decode step never drops a slot, the
     forward's capacity may), and the first MoE layer's two branches are
     held against each other (:func:`moe_branch_check`)."""
     moe = cfg.moe is not None
+    structs = ss.input_structs
+    streams, text = structs["tokens"].shape
     gen = torch.Generator(device).manual_seed(SEED + 401)
-    total = LM_PREFILL + LM_DECODE
-    tokens = torch.randint(0, cfg.vocab, (LM_STREAMS, total), generator=gen,
-                           device=device)
-    batch = {"tokens": tokens[:, :LM_PREFILL]}
+    tokens = torch.randint(0, cfg.vocab, (streams, text + LM_DECODE),
+                           generator=gen, device=device)
+    batch = {"tokens": tokens[:, :text]}
+    prefix = None
+    if "prefix_embeds" in structs:
+        spec = structs["prefix_embeds"]
+        prefix = (torch.randn(spec.shape, generator=gen, device=device)
+                  * 0.02).to(spec.dtype)
+        batch["prefix_embeds"] = prefix
+    n_prefix = 0 if prefix is None else prefix.shape[1]
+    total = n_prefix + text + LM_DECODE
     prefill_s = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -3411,8 +3459,7 @@ def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
     decode_s = []
     for i in range(LM_DECODE):
         t0 = time.perf_counter()
-        logits, cache = ss.decode(cache, tokens[:, LM_PREFILL + i:
-                                                LM_PREFILL + i + 1])
+        logits, cache = ss.decode(cache, tokens[:, text + i:text + i + 1])
         torch.cuda.synchronize()
         decode_s.append(time.perf_counter() - t0)
     length = int(cache.length)
@@ -3421,8 +3468,8 @@ def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
         else None
     del cache
     t0 = time.perf_counter()
-    pre_want, pre_dropped = last_logits(ss.model, batch["tokens"])
-    want, dropped = last_logits(ss.model, tokens, per_stream=True)
+    pre_want, pre_dropped = last_logits(ss.model, batch["tokens"], prefix)
+    want, dropped = last_logits(ss.model, tokens, prefix, per_stream=True)
     torch.cuda.synchronize()
     forward_s = time.perf_counter() - t0
     pre_diff = float((pre_got - pre_want).abs().max())
@@ -3436,17 +3483,19 @@ def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
     greedy_ok = all(
         g_tok[i] == w_tok[i] if i not in near
         else float(want[i, g_tok[i]]) >= float(top2[i, 0]) - margin
-        for i in range(LM_STREAMS))
+        for i in range(streams))
     dec = float(np.median(decode_s))
     out = {"phase": phase, "card": card, "arch": cfg.name,
            "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "vocab": cfg.vocab, "streams": LM_STREAMS,
-           "prefill_tokens": LM_PREFILL, "decode_steps": LM_DECODE,
-           "prefill_s": prefill_s,
-           "prefill_tokens_per_s": LM_STREAMS * LM_PREFILL / prefill_s[-1],
+           "vocab": cfg.vocab, "streams": streams,
+           "prefill_tokens": text, "prefix_rows": n_prefix,
+           "decode_steps": LM_DECODE, "prefill_s": prefill_s,
+           # every position the prefill runs, a prefix row included
+           "prefill_tokens_per_s": streams * (n_prefix + text)
+           / prefill_s[-1],
            "decode_ms_per_token": dec * 1e3,
            "decode_ms_runs": [t * 1e3 for t in decode_s],
-           "decode_tokens_per_s": LM_STREAMS / dec, "forward_s": forward_s,
+           "decode_tokens_per_s": streams / dec, "forward_s": forward_s,
            "cache_length": length, "logits_finite": first_ok and bool(
                torch.isfinite(got).all()),
            "prefill_max_abs_diff_vs_forward": pre_diff,
@@ -3468,20 +3517,26 @@ def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
     return out
 
 
-def last_logits(model, tokens, *, per_stream: bool = False) -> tuple:
+def last_logits(model, tokens, prefix=None, *,
+                per_stream: bool = False) -> tuple:
     """The forward's last-position logits ``[B, vocab]`` over ``tokens``
-    and the slots its MoE layers' dispatch dropped (a pre-hook on each MoE
-    FFN counts them). ``per_stream`` runs one forward per stream: the same
-    function (attention and the MoE dispatch are per sequence) in a
-    quarter of the memory. At 2,080 tokens, not a multiple of the 1,024
+    behind ``prefix`` (a VLM's patch embeddings, or None) and the slots
+    its MoE layers' dispatch dropped (a pre-hook on each MoE FFN counts
+    them). ``per_stream`` runs one forward per stream: the same function
+    (attention and the MoE dispatch are per sequence) in a quarter of the
+    memory. At 2,080 or 4,128 positions, not a multiple of the 1,024
     attention chunk, one block spans the sequence: deepseek-v3's 128 heads
     at 4 streams would make 8.25 GiB float32 score tensors."""
     from repro_torch.models import moe as M
-    groups = tokens.split(1) if per_stream else (tokens,)
+    if per_stream:
+        groups = zip(tokens.split(1), (None,) * len(tokens) if prefix is None
+                     else prefix.split(1))
+    else:
+        groups = ((tokens, prefix),)
     last = []
     with at_moe_inputs(model, M.dropped_slots) as dropped:
-        for group in groups:
-            full, _ = model.forward(group)
+        for group, pre in groups:
+            full, _ = model.forward(group, prefix_embeds=pre)
             last.append(full[:, -1, :model.cfg.vocab].clone())
             del full
     return torch.cat(last), sum(dropped)
@@ -3602,7 +3657,8 @@ def lm_private(model, cfg, card, phase="private_lm") -> tuple:
            "table_rows": pir_cfg.n_items, "record_bytes": pir_cfg.item_bytes,
            "table_bytes": pir_cfg.db_bytes, "streams": LM_STREAMS,
            "prompt": LM_PROMPT, "new_tokens": LM_NEW,
-           "queries": res["queries"], "rows_exact": res["rows_exact"],
+           "queries": res["queries"], "prefix_rows": res["prefix_rows"],
+           "rows_exact": res["rows_exact"],
            "plain_equal": res["plain_equal"],
            "tokens": res["streams"], "solo_token": res["solo_token"],
            "setup_s": res["setup_s"],
@@ -3632,7 +3688,8 @@ def lm_table_config(cfg):
 def lm_kernels(model, cfg, card, device, phase="private_lm_kernels"
                ) -> dict:
     """B1 and B2 on the padded table's words ([2^18, 1280] at qwen3-4b,
-    [2^17, 3584] at deepseek-v3-671b) at the path's batches, each against
+    [2^17, 3584] at deepseek-v3-671b, [2^16, 3584] at llava-next-34b) at
+    the path's batches, each against
     its plain version on the same inputs (max_abs_err 0), then timed by
     CUDA events beside its bound and the
     plain version (B2's plain version by the host clock over its one
@@ -3694,18 +3751,20 @@ def lm_kernels(model, cfg, card, device, phase="private_lm_kernels"
 
 
 def phase_lm(arch, card, device, *, phase="private_lm", layers=None,
-             private=True) -> tuple:
+             private=True, seq_len=LM_PREFILL) -> tuple:
     """``arch`` FULL on the card (``layers`` cuts its depth, every width
     as published), its weights drawn from a seeded generator there: the
-    serve step (:func:`lm_serve_step`; the kernel counters zeroed before
-    it and read after: none of the six launched), then with ``private``
-    private generation through xor-dpf-2 over the padded table
+    serve step at LM_STREAMS x ``seq_len`` positions
+    (:func:`lm_serve_step`; the kernel counters zeroed before it and read
+    after: none of the six launched), then with ``private`` private
+    generation through xor-dpf-2 over the padded table
     (:func:`lm_private`; the counters zeroed before and read after: B1 and
     B2 launched, no plain call) and B1 and B2 at the table's width against
-    their plain versions (:func:`lm_kernels`). Everything is freed before
-    it returns (worst errors, launches of the private lookups).
-    private_lm: qwen3-4b at full depth; moe_serve and private_moe: the
-    MoE archs at MOE_SERVE's and MOE_PRIVATE's depth."""
+    their plain versions (:func:`lm_kernels`).
+    Everything is freed before it returns (worst errors, launches of the
+    private lookups). private_lm: qwen3-4b at full depth; moe_serve and
+    private_moe: the MoE archs at MOE_SERVE's and MOE_PRIVATE's depth;
+    vlm_serve: llava-next-34b at VLM_SERVE's depth and VLM_SEQ positions."""
     from repro_torch.config import ShapeConfig
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -3715,11 +3774,11 @@ def phase_lm(arch, card, device, *, phase="private_lm", layers=None,
     cfg = get_arch(arch)
     if layers is not None:
         cfg = replace(cfg, n_layers=layers)
-    shape = ShapeConfig(name="prefill_2k", seq_len=LM_PREFILL,
+    shape = ShapeConfig(name=f"prefill_{seq_len}", seq_len=seq_len,
                         global_batch=LM_STREAMS, kind="prefill")
     t0 = time.perf_counter()
     ss = make_serve_step(cfg, shape, device=device, decode_write=True,
-                         capacity=LM_PREFILL + LM_DECODE)
+                         capacity=seq_len + LM_DECODE)
     model = ss.model.init_params(torch.Generator(device).manual_seed(
         SEED + 400))
     torch.cuda.synchronize()
@@ -3770,7 +3829,7 @@ TRAIN_FIRST_LOSS_TOL = 0.5  # the first loss within this of its want
 MOE_TRAIN = ("grok-1-314b", 1)
 MOE_TRAIN_BATCH = 2
 PARITY_ARCHS = ("granite-3-2b", "qwen3-4b", "deepseek-v3-671b",
-                "grok-1-314b")
+                "grok-1-314b", "llava-next-34b")
 PARITY_STEPS = 3
 PARITY_LR = 1e-3
 # card against CPU, float32: every loss within PARITY_LOSS_TOL; every
@@ -3839,15 +3898,17 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
     cut to ``batch`` sequences in ``microbatches`` microbatches,
     ``optimizer``, remat="block": one warm-up step, TRAIN_TIMED_STEPS
     timed ones (host clock to a synchronize) and one under
-    torch.profiler, all on the pipeline's batch 0. Fails unless every
-    loss is finite, the first is within TRAIN_FIRST_LOSS_TOL of its want
-    and the last is below the first, and no PIR kernel ran. The want is
-    ln(vocab); for a MoE config, whose random logits spread wider, ln V +
-    s^2 / 2 (the cross-entropy of logits of std s), s measured on a
+    torch.profiler, all on the pipeline's batch 0 (a VLM's with its
+    prefix_embeds stub). Fails unless every loss is finite, the first is
+    within TRAIN_FIRST_LOSS_TOL of its want and the last is below the
+    first, and no PIR kernel ran. The want is ln(vocab); for a MoE or VLM
+    config, whose random logits spread wider (d_model 6,144 and 7,168), ln
+    V + s^2 / 2 (the cross-entropy of logits of std s), s measured on a
     no-grad forward over the batch's first sequence, whose dropped slots
-    are reported. The model-FLOPs share counts the active parameters
-    (cfg.n_active_params(): the routed top-k experts) for a MoE, every
-    parameter for a dense model."""
+    are reported for a MoE. The model-FLOPs share counts the active
+    parameters (cfg.n_active_params(): the routed top-k experts) for a
+    MoE, every parameter otherwise, times every position (a VLM's prefix
+    rows run the trunk too)."""
     from repro_torch.analysis.roofline import PEAK_BF16_FLOPS_PER_S
     from repro_torch.config import OptimizerConfig, ShapeConfig
     from repro_torch.configs import get_arch
@@ -3873,21 +3934,25 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     state_bytes = torch.cuda.memory_allocated()
-    tokens = TokenPipeline(cfg, shape, seed=SEED).batch(0)["tokens"]
-    batch_in = {"tokens": torch.as_tensor(tokens.reshape(
-        ts.input_structs["tokens"].shape), device=device)}
+    raw = TokenPipeline(cfg, shape, seed=SEED).batch(0)
+    batch_in = {k: torch.as_tensor(v.reshape(ts.input_structs[k].shape),
+                                   device=device) for k, v in raw.items()}
     first_want = float(np.log(cfg.vocab))
     spread = {}
-    if moe:
+    if cfg.family != "dense":
+        first = {k: torch.as_tensor(v[:1], device=device)
+                 for k, v in raw.items()}
         with at_moe_inputs(ts.model, M.dropped_slots) as dropped:
-            logits, _ = ts.model.forward(batch_in["tokens"].reshape(
-                -1, TRAIN_SEQ)[:1])
+            logits, _ = ts.model.forward(
+                first["tokens"], prefix_embeds=first.get("prefix_embeds"))
         std = float(logits[..., :cfg.vocab].std())
-        del logits
+        del logits, first
         first_want += std ** 2 / 2
-        spread = {"logit_std": std, "dropped_slots_first_forward":
-                  sum(dropped), "slots_first_forward": cfg.moe.top_k
-                  * TRAIN_SEQ * (cfg.n_layers - cfg.moe.first_dense)}
+        spread = {"logit_std": std}
+        if moe:
+            spread.update(dropped_slots_first_forward=sum(dropped),
+                          slots_first_forward=cfg.moe.top_k * TRAIN_SEQ
+                          * (cfg.n_layers - cfg.moe.first_dense))
     losses, step_s = [], []
     for _ in range(1 + TRAIN_TIMED_STEPS):
         torch.cuda.synchronize()
@@ -3911,11 +3976,13 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
            "d_model": cfg.d_model, "vocab": cfg.vocab, "params": n_params,
            "n_params_config": cfg.n_params(), "n_active_params": n_active,
            "seq_len": TRAIN_SEQ, "global_batch": batch,
+           "text_tokens_per_step": int(raw["tokens"].size),
            "global_batch_config": 256, "microbatches": microbatches,
            "remat": run.remat, "optimizer": optimizer, "lr": TRAIN_LR,
            "init_s": init_s, "losses": losses, "first_loss_want": first_want,
            **spread, "warmup_step_s": step_s[0], "step_s": step_s[1:],
            "step_s_median": timed,
+           # positions: a VLM's prefix rows included, as in the FLOPs
            "tokens_per_s": tokens_per_step / timed,
            "model_flops_per_step": flops,
            "model_flops_share": flops / timed / PEAK_BF16_FLOPS_PER_S["cuda"],
@@ -3971,12 +4038,13 @@ def parity_case(arch, name, microbatches, compress, device) -> dict:
     pipe = TokenPipeline(run.model, run.shape, seed=SEED)
     routes = (route_diff(sides, pipe.batch(0)["tokens"])
               if run.model.family == "moe" else {})
+    structs = sides["cpu"].input_structs
     losses = {"cpu": [], "cuda": []}
     for step in range(PARITY_STEPS):
-        tokens = pipe.batch(step)["tokens"].reshape(
-            sides["cpu"].input_structs["tokens"].shape)
+        batch = {k: v.reshape(structs[k].shape)
+                 for k, v in pipe.batch(step).items()}
         for k, ts in sides.items():
-            *states[k], m = ts.step(*states[k], {"tokens": tokens})
+            *states[k], m = ts.step(*states[k], batch)
             losses[k].append(float(m["loss"]))
     worst, outliers, total = 0.0, 0, 0
     bound = 2 * PARITY_LR * PARITY_STEPS
@@ -4000,7 +4068,8 @@ def parity_case(arch, name, microbatches, compress, device) -> dict:
 
 def phase_train_parity(card, device) -> dict:
     """The PARITY_ARCHS' SMOKE configs in float32 (the dense granite-3-2b
-    and qwen3-4b, the MoE deepseek-v3-671b and grok-1-314b): PARITY_STEPS
+    and qwen3-4b, the MoE deepseek-v3-671b and grok-1-314b, the VLM
+    llava-next-34b with its prefix_embeds stub): PARITY_STEPS
     AdamW steps, and PARITY_STEPS Adafactor steps with compress_grads and
     two microbatches, on the card against the same steps on the CPU; the
     MoE cases' routes that part at step 0 are counted and reported."""
@@ -4248,7 +4317,14 @@ def main() -> int:
     worst_moe, launches_moe = phase_lm(
         MOE_PRIVATE[0], info["card"], device, phase="private_moe",
         layers=MOE_PRIVATE[1])
-    for name, err in list(worst_lm.items()) + list(worst_moe.items()):
+    # the VLM family: llava-next-34b cut to 16 layers (19.7 GB), 2,880
+    # prefix rows + 1,216 text tokens a stream, private text-token lookups
+    # over its 0.94 GB table
+    worst_vlm, launches_vlm = phase_lm(
+        VLM_SERVE[0], info["card"], device, phase="vlm_serve",
+        layers=VLM_SERVE[1], seq_len=VLM_SEQ)
+    for name, err in (list(worst_lm.items()) + list(worst_moe.items())
+                      + list(worst_vlm.items())):
         worst[name] = max(worst[name], err)
     # the LM's training half, alone on the card: granite-3-2b at full
     # width and depth, the card against the CPU, the train_lm twin
@@ -4259,6 +4335,12 @@ def main() -> int:
                      arch=MOE_TRAIN[0], layers=MOE_TRAIN[1],
                      optimizer="adafactor", batch=MOE_TRAIN_BATCH,
                      microbatches=1)
+    # the VLM family's train step: llava-next-34b cut to four layers, the
+    # prefix split over two microbatches
+    phase_train_step(info["card"], device, phase="vlm_train",
+                     arch=VLM_TRAIN[0], layers=VLM_TRAIN[1],
+                     optimizer="adafactor", batch=VLM_TRAIN_BATCH,
+                     microbatches=VLM_TRAIN_BATCH)
     phase_train_parity(info["card"], device)
     phase_train_loop(info["card"], device)
 
@@ -4271,12 +4353,13 @@ def main() -> int:
              "src/repro/kernels/dpxor.py:56",
              total(launches, launches_chk, launches_w128, launches_upd,
                    launches_batch, launches_twins, launches_runtime,
-                   launches_replicas, launches_lm, launches_moe), timing),
+                   launches_replicas, launches_lm, launches_moe,
+                   launches_vlm), timing),
             ("fused_scan_xor", "src/repro_torch/csrc/fused_scan_xor.cu",
              "src/repro/kernels/fused_scan.py:94",
              total(launches, launches_chk, launches_w128, launches_upd,
                    launches_runtime, launches_replicas, launches_lm,
-                   launches_moe), timing),
+                   launches_moe, launches_vlm), timing),
             ("pir_gemm", "src/repro_torch/csrc/pir_gemm.cu",
              "src/repro/kernels/pir_matmul.py:35",
              total(launches_add, launches_chk, launches_w128, launches_upd),

@@ -4,9 +4,9 @@ does (``--arch <id>``).
 
 Each architecture module defines FULL (the published configuration) and
 SMOKE (a reduced same-family configuration runnable on one CPU device).
-The port serves the dense and MoE families so far; naming an architecture
-of another family raises ``NotImplementedError`` that says so, never a
-silent fallback.
+The port serves the dense, MoE and VLM families so far; naming an
+architecture of another family raises ``NotImplementedError`` that says
+so, never a silent fallback.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from repro_torch.configs import (
     deepseek_v3_671b,
     granite_3_2b,
     grok_1_314b,
+    llava_next_34b,
     qwen3_4b,
     stablelm_3b,
     starcoder2_3b,
@@ -30,6 +31,7 @@ _MODULES = {
     "stablelm-3b": stablelm_3b,
     "grok-1-314b": grok_1_314b,
     "deepseek-v3-671b": deepseek_v3_671b,
+    "llava-next-34b": llava_next_34b,
 }
 
 ARCHS: Dict[str, ModelConfig] = {k: m.FULL for k, m in _MODULES.items()}
@@ -40,7 +42,6 @@ SMOKES: Dict[str, ModelConfig] = {k: m.SMOKE for k, m in _MODULES.items()}
 NOT_PORTED: Dict[str, str] = {
     "whisper-small": "audio",
     "xlstm-350m": "ssm",
-    "llava-next-34b": "vlm",
     "zamba2-7b": "hybrid",
 }
 
@@ -49,7 +50,8 @@ def get_arch(name: str, *, smoke: bool = False) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} (family {NOT_PORTED[name]!r}) is not ported yet; "
-            f"the port serves the dense and moe families: {sorted(ARCHS)}")
+            f"the port serves the dense, moe and vlm families: "
+            f"{sorted(ARCHS)}")
     table = SMOKES if smoke else ARCHS
     if name not in table:
         raise KeyError(f"unknown arch {name!r}; have {sorted(table)}")

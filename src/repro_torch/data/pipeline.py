@@ -6,9 +6,9 @@
   run restored at step k needs no data-loader state.
 * **Host sharding** — each process draws only its ``[local_batch]`` slice.
 * **Modality stubs** — the VLM / audio families get their precomputed
-  frame or patch embeddings (the port trains the dense and MoE
-  families; the stubs keep the batches equal to the reference's for every
-  config).
+  patch or frame embeddings (the port trains the dense, MoE and VLM
+  families; the audio stub keeps the batches equal to the reference's for
+  every config).
 
 Token statistics: Zipfian-ish via squaring a uniform. The batches are
 numpy arrays, bit for bit the reference's; the train step places them on
@@ -51,18 +51,25 @@ class TokenPipeline:
         u = rng.random((self.local_batch, seq))
         return (u * u * (self.cfg.vocab - 1)).astype(np.int32)
 
+    def stub(self, step: int) -> np.ndarray:
+        """Batch ``step``'s modality stub: ``[local_batch, n, d_model]``
+        float32, normal x 0.02, with ``n`` a VLM's ``n_frontend_tokens``
+        (its patch embeddings) or an audio model's ``encoder_len`` (its
+        frame embeddings)."""
+        n = (self.cfg.n_frontend_tokens if self.cfg.family == "vlm"
+             else self.cfg.encoder_len)
+        rng = self._rng(step + (1 << 30))
+        return rng.standard_normal(
+            (self.local_batch, n, self.cfg.d_model)).astype(
+                np.float32) * 0.02
+
     def batch(self, step: int) -> Dict[str, np.ndarray]:
         """Full input dict for one local step (tokens + modality stubs)."""
         out: Dict[str, np.ndarray] = {"tokens": self.tokens(step)}
-        rng = self._rng(step + (1 << 30))
         if self.cfg.family == "vlm":
-            out["prefix_embeds"] = rng.standard_normal(
-                (self.local_batch, self.cfg.n_frontend_tokens,
-                 self.cfg.d_model)).astype(np.float32) * 0.02
+            out["prefix_embeds"] = self.stub(step)
         if self.cfg.family == "audio":
-            out["frame_embeds"] = rng.standard_normal(
-                (self.local_batch, self.cfg.encoder_len,
-                 self.cfg.d_model)).astype(np.float32) * 0.02
+            out["frame_embeds"] = self.stub(step)
         return out
 
 

@@ -10,6 +10,11 @@ Examples:
       --steps 20 --device cpu
   python -m repro_torch.launch.train --arch grok-1-314b --smoke \\
       --optimizer adafactor --steps 20 --device cpu
+  python -m repro_torch.launch.train --arch llava-next-34b --smoke \\
+      --optimizer adafactor --steps 20 --device cpu
+
+A VLM's batches carry the pipeline's patch-embedding stub
+(``prefix_embeds``) beside its text tokens.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Model zoo dispatch: ``ModelConfig.family`` -> model — the port of
-``repro/models/registry.py`` for the dense and MoE families.
+``repro/models/registry.py`` for the dense, MoE and VLM families.
 
 A model is an ``nn.Module`` holding its weights (``init_params(generator)``
 draws them); its entry points are ``forward``, ``loss``, ``prefill``,
@@ -48,7 +48,21 @@ def build_model(cfg: ModelConfig, *, device: Device = None,
 def input_specs(cfg: ModelConfig, shape: ShapeConfig
                 ) -> Dict[str, InputSpec]:
     """The step inputs: ``tokens`` ``[B, S]`` int32, or ``[B, 1]`` for a
-    ``decode`` shape."""
+    ``decode`` shape. A VLM's other shapes split the S positions: the
+    client's patch embeddings ``prefix_embeds`` ``[B, P, d]`` in the
+    config's dtype (P = ``n_frontend_tokens``) and ``tokens`` ``[B, S -
+    P]``."""
     _check_family(cfg)
-    seq = 1 if shape.kind == "decode" else shape.seq_len
-    return {"tokens": InputSpec((shape.global_batch, seq), torch.int32)}
+    b = shape.global_batch
+    if shape.kind == "decode":
+        return {"tokens": InputSpec((b, 1), torch.int32)}
+    if cfg.family != "vlm":
+        return {"tokens": InputSpec((b, shape.seq_len), torch.int32)}
+    n_front = cfg.n_frontend_tokens
+    if shape.seq_len <= n_front:
+        raise ValueError(
+            f"{shape.name}: {shape.seq_len} positions cannot hold "
+            f"{cfg.name}'s {n_front} prefix rows and a text token")
+    return {"tokens": InputSpec((b, shape.seq_len - n_front), torch.int32),
+            "prefix_embeds": InputSpec((b, n_front, cfg.d_model),
+                                       cfg.torch_dtype)}

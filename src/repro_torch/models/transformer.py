@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense and MoE families, GQA or MLA — the
-port of ``repro/models/transformer.py``.
+"""Decoder-only transformer LM, dense, MoE and VLM families, GQA or MLA —
+the port of ``repro/models/transformer.py``.
 
 ``TransformerLM`` is an ``nn.Module``: the token table, the layer stacks,
 the final norm, the (untied) unembedding table and, with ``cfg.mtp``,
@@ -25,6 +25,15 @@ Entry points (as the reference's, with the weights held by the module):
 d]``) in place of ``tokens``: a pass that starts from client-side
 embeddings (the private embedding lookup), as
 ``examples/private_inference.py`` runs the reference's layer stack.
+
+``forward``, ``loss`` and ``prefill`` take ``prefix_embeds=`` (``[B, P,
+d]``, the VLM's patch embeddings; any float dtype, cast to the model's):
+the rows are put ahead of the token (or given) embeddings, so positions
+start at 0 on the first prefix row. The logits cover prefix and tokens;
+``loss`` predicts ``tokens[:, 1:]`` from the logits at the token
+positions only, so no loss falls on a prefix position; the prefill's
+cache holds P + S rows and its ``length`` is P + S, from which ``decode``
+continues.
 
 ``forward``, ``prefill`` and ``decode`` run without autograd; ``loss``
 records it. Parameters are created with ``requires_grad=False``: the train
@@ -53,7 +62,7 @@ dispatch or the per-token gather), which never drops a slot, where the
 forward's per-sequence dispatch may: for MoE, a cached decode need not
 equal the forward, in the reference too.
 
-Not ported yet: ``prefix_embeds`` (VLM) and the ``*_specs`` (mesh layout).
+Not ported: the ``*_specs`` (mesh layout; ROADMAP A6b).
 """
 from __future__ import annotations
 
@@ -70,7 +79,7 @@ from repro_torch.models import moe as M
 F32 = torch.float32
 
 #: the families this module serves (``registry.build_model``'s)
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "vlm")
 
 
 class KVCache(NamedTuple):
@@ -335,12 +344,15 @@ class TransformerLM(nn.Module):
 
     # -- embeddings -----------------------------------------------------------
 
-    def _embed(self, tokens, embeds):
+    def _embed(self, tokens, embeds, prefix_embeds=None):
         if (tokens is None) == (embeds is None):
             raise ValueError("pass exactly one of tokens= and embeds=")
-        if embeds is not None:
-            return embeds.to(self.cfg.torch_dtype)
-        return L.embed_lookup(self.embed, tokens)
+        dt = self.cfg.torch_dtype
+        x = (embeds.to(dt) if embeds is not None
+             else L.embed_lookup(self.embed, tokens))
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(dt), x], dim=1)
+        return x
 
     def _unembed_table(self) -> torch.Tensor:
         return self.embed if self.unembed is None else self.unembed
@@ -352,25 +364,29 @@ class TransformerLM(nn.Module):
     # -- public entry points --------------------------------------------------
 
     @torch.no_grad()
-    def forward(self, tokens=None, *, embeds=None):
-        """Full-sequence causal pass. Returns (logits [B,S,V_pad] f32, aux):
-        aux is the MoE layers' summed load-balance loss (0 when dense)."""
-        return self._forward(tokens, embeds)
+    def forward(self, tokens=None, *, embeds=None, prefix_embeds=None):
+        """Full-sequence causal pass. Returns (logits [B,P+S,V_pad] f32,
+        aux): aux is the MoE layers' summed load-balance loss (0 when
+        dense)."""
+        return self._forward(tokens, embeds, prefix_embeds)
 
-    def _forward(self, tokens, embeds):
-        x = self._embed(tokens, embeds)
+    def _forward(self, tokens, embeds, prefix_embeds=None):
+        x = self._embed(tokens, embeds, prefix_embeds)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x, _, aux = self._scan_stack(x, positions, want_cache=False)
         return self._logits(x), aux
 
-    def loss(self, tokens, *, aux_weight: float = 0.01):
-        """Next-token cross-entropy in float32 over ``tokens`` [B, S] +
-        ``aux_weight`` x the aux loss (+ 0.3 x the MTP head's
-        cross-entropy with ``cfg.mtp``), recorded for autograd where grad
-        is enabled. Returns (total, {"ce", "aux"[, "mtp_ce"]})."""
+    def loss(self, tokens, *, prefix_embeds=None, aux_weight: float = 0.01):
+        """Next-token cross-entropy in float32 over ``tokens`` [B, S] (the
+        S - 1 predictions from the token positions; none from a
+        ``prefix_embeds`` row) + ``aux_weight`` x the aux loss (+ 0.3 x
+        the MTP head's cross-entropy with ``cfg.mtp``), recorded for
+        autograd where grad is enabled. Returns (total, {"ce", "aux"[,
+        "mtp_ce"]})."""
         tokens = tokens.long()
-        logits, aux = self._forward(tokens, None)
-        ce = _xent(logits[:, :-1], tokens[:, 1:])
+        logits, aux = self._forward(tokens, None, prefix_embeds)
+        n_prefix = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+        ce = _xent(logits[:, n_prefix:-1], tokens[:, 1:])
         total = ce + aux_weight * aux
         metrics = {"ce": ce, "aux": aux}
         if self.mtp is not None:
@@ -394,11 +410,12 @@ class TransformerLM(nn.Module):
         return _xent(mtp_logits[:, :-1], tokens[:, 2:])
 
     @torch.no_grad()
-    def prefill(self, tokens=None, *, embeds=None,
+    def prefill(self, tokens=None, *, embeds=None, prefix_embeds=None,
                 capacity: Optional[int] = None):
         """Causal pass returning last-position logits [B, V_pad] and the
-        filled cache (``capacity`` rows, default the sequence length)."""
-        x = self._embed(tokens, embeds)
+        filled cache (``capacity`` rows, default the sequence length, the
+        prefix's rows included)."""
+        x = self._embed(tokens, embeds, prefix_embeds)
         b, s = x.shape[:2]
         cap = s if capacity is None else capacity
         if cap < s:

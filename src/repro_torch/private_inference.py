@@ -20,9 +20,16 @@ It then checks that every retrieved row equals the model's embedding row
 bit for bit, that the same loop on plain lookups (``embed_lookup``) generates the
 same tokens, and serves one more step for stream 0 alone (one query).
 
+A VLM client (llava-next-34b) also holds each stream's image: its patch
+embeddings stay on the client, ahead of the prompt (``prefix_embeds``),
+and only the text tokens' rows are fetched through the servers. The twin
+draws that prefix from the seed as the training pipeline draws its stub
+(normal x 0.02, numpy).
+
 Run:  PYTHONPATH=src python -m repro_torch.private_inference [--device cpu]
       [--tokens 8] [--streams 2]
-      [--arch pi-lm | qwen3-4b | deepseek-v3-671b | grok-1-314b [--smoke]]
+      [--arch pi-lm | qwen3-4b | deepseek-v3-671b | grok-1-314b
+       | llava-next-34b [--smoke]]
 (the default device is the CUDA card; without one it raises). The last
 line printed is a JSON summary; a wrong row or token exits non-zero.
 """
@@ -36,8 +43,9 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig, PIRConfig
+from repro_torch.config import ModelConfig, PIRConfig, ShapeConfig
 from repro_torch.configs import get_arch
+from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.engine.backend import Device, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import build_model
@@ -143,21 +151,24 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(model: TransformerLM, embed: Callable, prompt: torch.Tensor,
-             n_new: int) -> dict:
+             n_new: int, prefix: Optional[torch.Tensor] = None) -> dict:
     """Greedy generation of ``n_new`` tokens per stream from ``prompt``
     ``[B, T]``: one ``embed`` call for the prompt, a prefill from those
-    embeddings (cache capacity T + n_new), then one ``embed`` call and one
-    cached decode per further token. Returns the tokens ``[B, T + n_new]``,
-    the cache, the last logits, and per step the seconds spent in
-    ``embed`` and in the trunk (host clock, the token read back)."""
+    embeddings behind the client's ``prefix`` ``[B, P, d]`` if given
+    (cache capacity P + T + n_new), then one ``embed`` call and one cached
+    decode per further token. Returns the tokens ``[B, T + n_new]``, the
+    cache, the last logits, and per step the seconds spent in ``embed``
+    and in the trunk (host clock, the token read back)."""
     b, t = prompt.shape
     d, vocab = model.cfg.d_model, model.cfg.vocab
     dev = model.device
+    n_prefix = 0 if prefix is None else prefix.shape[1]
     steps = []
     t0 = time.perf_counter()
     x = embed(prompt.reshape(-1)).reshape(b, t, d)
     t1 = time.perf_counter()
-    logits, cache = model.prefill(embeds=x, capacity=t + n_new)
+    logits, cache = model.prefill(embeds=x, prefix_embeds=prefix,
+                                  capacity=n_prefix + t + n_new)
     nxt = logits[:, :vocab].argmax(dim=-1)
     out = [nxt.cpu()]
     steps.append({"lookups": b * t, "embed_s": t1 - t0,
@@ -195,6 +206,16 @@ def example_prompt(streams: int) -> np.ndarray:
     return np.asarray([[3 + i, 17, 41] for i in range(streams)], np.int64)
 
 
+def client_prefix(cfg: ModelConfig, streams: int, seed: int) -> np.ndarray:
+    """Each stream's image as the client holds it: ``[streams,
+    n_frontend_tokens, d]`` float32 patch embeddings, normal x 0.02, the
+    stub ``TokenPipeline`` draws for batch 0 of ``streams`` sequences with
+    ``seed``."""
+    shape = ShapeConfig(name="client_prefix", seq_len=cfg.n_frontend_tokens,
+                        global_batch=streams, kind="prefill")
+    return TokenPipeline(cfg, shape, seed=seed).stub(0)
+
+
 def resolve_arch(arch: str, smoke: bool = False) -> ModelConfig:
     return PI_LM if arch == PI_LM.name else get_arch(arch, smoke=smoke)
 
@@ -202,12 +223,15 @@ def resolve_arch(arch: str, smoke: bool = False) -> ModelConfig:
 def run(device: Device = None, arch: str = PI_LM.name, *, smoke: bool = False,
         tokens: int = 8, streams: int = 2,
         prompt: Optional[np.ndarray] = None, seed: int = 0,
+        prefix: Optional[np.ndarray] = None,
         model: Optional[TransformerLM] = None, verbose: bool = True) -> dict:
     """Generate ``tokens`` tokens for each of ``streams`` streams with every
     embedding retrieved privately, and check the rows and tokens (raises
     ``AssertionError`` on a mismatch). ``model`` (with its weights, on its
     device) replaces the one drawn from ``seed`` for ``arch``; ``prompt``
-    ``[streams, T]`` replaces the example's. Returns what happened, the
+    ``[streams, T]`` replaces the example's. ``prefix`` ``[streams, P,
+    d]`` is the client's own rows ahead of the prompt, never sent; a VLM
+    without one gets :func:`client_prefix`. Returns what happened, the
     kernel counters included."""
     say = print if verbose else (lambda *a: None)
     if model is None:
@@ -218,22 +242,27 @@ def run(device: Device = None, arch: str = PI_LM.name, *, smoke: bool = False,
     cfg = model.cfg
     prompt = example_prompt(streams) if prompt is None else np.asarray(prompt)
     prompt_t = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
+    if prefix is None and cfg.family == "vlm":
+        prefix = client_prefix(cfg, prompt.shape[0], seed)
+    prefix_t = (None if prefix is None else
+                torch.as_tensor(prefix, device=dev).to(cfg.torch_dtype))
     ops.reset_counts()
     t0 = time.perf_counter()
     private = PrivateEmbedding(model, client_rng=np.random.default_rng(
         seed + 1))
     _sync(dev)
     setup_s = time.perf_counter() - t0
+    n_prefix = 0 if prefix_t is None else prefix_t.shape[1]
     say(f"{cfg.name}: {cfg.n_layers} layers x d_model {cfg.d_model}; PIR "
         f"table {private.pir_cfg.n_items} rows x {private.pir_cfg.item_bytes}"
-        f" B on {dev}")
-    gen = generate(model, private, prompt_t, tokens)
+        f" B on {dev}; {n_prefix} client-side prefix rows a stream")
+    gen = generate(model, private, prompt_t, tokens, prefix_t)
     solo = solo_step(model, private, gen)
     counts = ops.counts()
     rows_exact = private.check_rows()
 
     plain = lambda ids: embed_lookup(model.embed, ids.to(dev))
-    gen_plain = generate(model, plain, prompt_t, tokens)
+    gen_plain = generate(model, plain, prompt_t, tokens, prefix_t)
     solo_plain = solo_step(model, plain, gen_plain)
     streams_out = gen["tokens"].tolist()
     same = (torch.equal(gen["tokens"], gen_plain["tokens"])
@@ -257,7 +286,7 @@ def run(device: Device = None, arch: str = PI_LM.name, *, smoke: bool = False,
         "twin": "private_inference", "arch": cfg.name, "device": str(dev),
         "streams": streams_out, "solo_token": solo,
         "rows_exact": rows_exact, "plain_equal": same,
-        "queries": n_queries,
+        "queries": n_queries, "prefix_rows": n_prefix,
         "pir_calls": [{"queries": len(e["ids"]), "seconds": e["seconds"]}
                       for e in lookups],
         "steps": steps, "setup_s": setup_s,
@@ -271,8 +300,8 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--arch", default=PI_LM.name,
-                    help="pi-lm (the example's model) or a dense or "
-                    "moe arch")
+                    help="pi-lm (the example's model) or a dense, moe "
+                    "or vlm arch")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced config")
     ap.add_argument("--tokens", type=int, default=8)

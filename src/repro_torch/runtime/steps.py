@@ -2,7 +2,9 @@
 ``make_train_step`` and ``ServeStep`` / ``make_serve_step``, on one device.
 
 **Train step** (``make_train_step(run, device=)``): microbatches (the
-batch arrives pre-split ``[micro, B/micro, S]``, as the reference's) whose
+batch arrives pre-split ``[micro, B/micro, ...]``, as the reference's,
+every input of ``input_specs`` so: a microbatch takes its slice of each)
+whose
 gradients are accumulated in float32 (with one microbatch they stay in the
 parameter dtype), then the EF-int8 compression hook when
 ``run.optimizer.compress_grads``, then ``optim.opt_update`` (global-norm
@@ -26,7 +28,11 @@ The port takes the two parts of the run it reads, the ``ModelConfig`` and
 the ``ShapeConfig``, and runs both steps on one ``device`` (``None`` means
 the CUDA card), the weights held by
 ``ServeStep.model`` (draw them with ``model.init_params(generator)``), and
-decode updates the cache in place. ``capacity`` is the prefill cache's row
+decode updates the cache in place. Both steps take a batch of the inputs
+``input_specs`` names (a VLM's ``prefix_embeds`` beside ``tokens``),
+passed to the model as keywords as the reference passes them; each
+refuses a batch that lacks one of them, holds one of another shape, or
+holds any other input. ``capacity`` is the prefill cache's row
 count (default the prompt length, as the reference's); give it room for
 the tokens to decode with ``decode_write=True``.
 
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig, RunConfig, ShapeConfig
@@ -48,6 +55,25 @@ from repro_torch.optim import compression
 from repro_torch.optim.optimizer import opt_init, opt_update
 
 F32 = torch.float32
+
+
+def _check_inputs(batch, structs) -> None:
+    """Raise for a batch that is not the one ``structs`` names: an input
+    it does not name (``NotImplementedError``), or one it names that is
+    missing or of another shape (``ValueError``)."""
+    extra = sorted(set(batch) - set(structs))
+    if extra:
+        raise NotImplementedError(
+            f"step inputs {extra} are not this family's ({sorted(structs)}"
+            f"); the families that take them are not ported yet")
+    for name, spec in structs.items():
+        if name not in batch:
+            raise ValueError(f"the batch lacks {name!r}; the step takes "
+                             f"{sorted(structs)}")
+        shape = tuple(np.shape(batch[name]))
+        if shape != spec.shape:
+            raise ValueError(f"{name} of shape {shape}; the step takes "
+                             f"{spec.shape}")
 
 
 class TrainStep(NamedTuple):
@@ -84,16 +110,16 @@ def make_train_step(run: RunConfig, *, device: Device = None) -> TrainStep:
     names, plist = list(named), list(named.values())
     compress = run.optimizer.compress_grads
 
-    def grads_of(tokens):
+    def grads_of(inputs):
         if n_micro == 1:
-            loss, _ = model.loss(tokens)
+            loss, _ = model.loss(**inputs)
             grads = torch.autograd.grad(loss, plist)
             return loss.detach(), dict(zip(names, grads))
         loss_acc = torch.zeros((), dtype=F32, device=dev)
         acc = {n: torch.zeros(p.shape, dtype=F32, device=dev)
                for n, p in named.items()}
-        for mb in tokens:
-            loss, _ = model.loss(mb)
+        for i in range(n_micro):
+            loss, _ = model.loss(**{k: v[i] for k, v in inputs.items()})
             grads = torch.autograd.grad(loss, plist)
             with torch.no_grad():
                 for n, g in zip(names, grads):
@@ -108,16 +134,9 @@ def make_train_step(run: RunConfig, *, device: Device = None) -> TrainStep:
                 params[n] is not p for n, p in named.items()):
             raise ValueError("params must be the train step's own model "
                              "parameters (as init_state returns them)")
-        extra = sorted(set(batch) - {"tokens"})
-        if extra:
-            raise NotImplementedError(
-                f"step inputs {extra} belong to families not ported yet")
-        tokens = torch.as_tensor(batch["tokens"], device=dev)
-        want = structs["tokens"].shape
-        if tuple(tokens.shape) != want:
-            raise ValueError(f"tokens of shape {tuple(tokens.shape)}; the "
-                             f"step takes {want}")
-        return grads_of(tokens)
+        _check_inputs(batch, structs)
+        return grads_of({name: torch.as_tensor(batch[name], device=dev)
+                         for name in structs})
 
     def apply(params, opt_state, ef, grads):
         """The update, params and opt_state written in place: (params,
@@ -163,11 +182,8 @@ def make_serve_step(model_cfg: ModelConfig, shape: ShapeConfig, *,
     structs = input_specs(model_cfg, shape)
 
     def prefill(batch):
-        extra = sorted(set(batch) - {"tokens"})
-        if extra:
-            raise NotImplementedError(
-                f"step inputs {extra} belong to families not ported yet")
-        return model.prefill(batch["tokens"], capacity=capacity)
+        _check_inputs(batch, structs)
+        return model.prefill(capacity=capacity, **batch)
 
     def decode(cache, tokens):
         return model.decode(cache, tokens, write=decode_write)

@@ -1,10 +1,11 @@
-"""Port: the dense LM and the private-embedding twin on the card.
+"""Port: the LM families and the private-embedding twin on the card.
 
 Marked ``cuda``: they skip without a card (``pytest -m cuda
 tests/test_torch_lm_card.py`` on the card). The CPU's plain model is the
 reference here: the JAX package is compared in the CPU tests
 (``test_torch_models.py``, ``test_torch_private_inference.py``).
-``chip_smoke.py private_lm`` drives the same path at qwen3-4b's full size.
+``chip_smoke.py private_lm`` drives the same path at qwen3-4b's full size,
+``vlm_serve`` at llava-next-34b's full width.
 """
 from dataclasses import replace
 
@@ -92,6 +93,50 @@ def test_private_inference_on_the_kernels(card, vocab, kernel):
     out = pi.run(model=model, tokens=3, streams=4, seed=3, verbose=False)
     assert out["rows_exact"] and out["plain_equal"]
     assert out["launches"][kernel] >= 1 and out["launches"]["dpxor"] >= 1
+    assert not any(out["plain_calls"].values())
+
+
+@pytest.mark.cuda
+def test_vlm_model_on_the_card_matches_the_cpu(card):
+    """float32 smoke llava with a prefix of patch embeddings: the card's
+    forward, loss, prefill (length P + S) and three cached decodes equal
+    the CPU's within 1e-4."""
+    cfg = replace(SMOKES["llava-next-34b"], dtype="float32")
+    cpu = build_model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    dev = build_model(cfg, device=card)
+    dev.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 27)))
+    pre = torch.from_numpy(rng.standard_normal(
+        (2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32))
+    close = lambda got, want: torch.testing.assert_close(
+        got.cpu(), want, atol=1e-4, rtol=0)
+    want, _ = cpu.forward(tok, prefix_embeds=pre)
+    close(dev.forward(tok.to(card), prefix_embeds=pre.to(card))[0], want)
+    close(dev.loss(tok.to(card), prefix_embeds=pre.to(card))[0],
+          cpu.loss(tok, prefix_embeds=pre)[0])
+    _, cache = dev.prefill(tok[:, :24].to(card), prefix_embeds=pre.to(card),
+                           capacity=8 + 27)
+    assert int(cache.length) == 8 + 24
+    for i in range(3):
+        step, cache = dev.decode(cache, tok[:, 24 + i:25 + i].to(card))
+        close(step, want[:, 8 + 24 + i])
+
+
+@pytest.mark.cuda
+def test_private_inference_with_a_prefix_on_the_kernels(card):
+    """The twin at llava SMOKE on the card: each stream's prefix stays on
+    the client, its text tokens' rows come through the kernels bit-exact,
+    the tokens equal plain lookups', no plain call."""
+    cfg = replace(SMOKES["llava-next-34b"], vocab=1 << 13)
+    model = build_model(cfg, device=card).init_params(
+        torch.Generator(card).manual_seed(3))
+    out = pi.run(model=model, tokens=3, streams=4, seed=3, verbose=False)
+    assert out["rows_exact"] and out["plain_equal"]
+    assert out["prefix_rows"] == cfg.n_frontend_tokens
+    assert out["launches"]["fused_scan_xor"] >= 1
+    assert out["launches"]["dpxor"] >= 1
     assert not any(out["plain_calls"].values())
 
 

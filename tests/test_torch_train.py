@@ -324,16 +324,19 @@ def check_train_step(case, check_params=param_check):
     load_reference_weights(ts.model, arch, dtype)
     params, opt, ef = ts.init_state(None)
     assert (ef is None) == (not compress) == (ref_ef is None)
-    assert ts.input_structs["tokens"].shape == \
-        rts.input_structs["tokens"].shape
+    assert {k: s.shape for k, s in ts.input_structs.items()} == \
+        {k: s.shape for k, s in rts.input_structs.items()}
     pipe = TokenPipeline(run.model, run.shape)
     for step in range(3):
-        tokens = pipe.batch(step)["tokens"].reshape(
-            ts.input_structs["tokens"].shape)
+        # every input the step takes (a VLM's prefix_embeds too), split
+        # into microbatches as the step's structs say
+        batch = {k: v.reshape(ts.input_structs[k].shape)
+                 for k, v in pipe.batch(step).items()}
         with mesh:
             rparams, ropt, ref_ef, rm = rts.step(
-                rparams, ropt, ref_ef, {"tokens": jnp.asarray(tokens)})
-        params, opt, ef, m = ts.step(params, opt, ef, {"tokens": tokens})
+                rparams, ropt, ref_ef,
+                {k: jnp.asarray(v) for k, v in batch.items()})
+        params, opt, ef, m = ts.step(params, opt, ef, batch)
         if dtype == "float32":
             np.testing.assert_allclose(float(m["loss"]), float(rm["loss"]),
                                        rtol=1e-5)

@@ -5,8 +5,9 @@ tests/test_torch_train_card.py`` on the card). The CPU's plain step is the
 reference here: the JAX package is compared in the CPU tests
 (``test_torch_train.py``, ``test_torch_optim.py``,
 ``test_torch_checkpoint.py``, ``test_torch_moe_train.py``).
-``chip_smoke.py train_step`` and ``moe_train`` drive the same path at
-granite-3-2b's and grok-1-314b's full widths.
+``chip_smoke.py train_step``, ``moe_train`` and ``vlm_train`` drive the
+same path at granite-3-2b's, grok-1-314b's and llava-next-34b's full
+widths.
 """
 from dataclasses import replace
 
@@ -64,6 +65,15 @@ def test_moe_train_step_on_the_card_matches_the_cpu(card, arch):
                                          microbatches=2))
 
 
+@pytest.mark.cuda
+def test_vlm_train_step_on_the_card_matches_the_cpu(card):
+    """llava SMOKE in float32 with the pipeline's prefix_embeds, Adafactor
+    and two microbatches (each its slice of the prefix): two steps on the
+    card equal the CPU's within LOSS_TOL / PARAM_TOL."""
+    two_steps_against_the_cpu(card, _run("adafactor", "llava-next-34b",
+                                         microbatches=2))
+
+
 def two_steps_against_the_cpu(card, run):
     """Weights drawn on the CPU and copied to the card; two steps on each
     side: every loss within LOSS_TOL, every parameter within PARAM_TOL."""
@@ -74,8 +84,8 @@ def two_steps_against_the_cpu(card, run):
     states = {"cpu": cpu.init_state(None), "dev": dev.init_state(None)}
     pipe = TokenPipeline(run.model, run.shape)
     for step in range(2):
-        batch = {"tokens": pipe.batch(step)["tokens"].reshape(
-            cpu.input_structs["tokens"].shape)}
+        batch = {k: v.reshape(cpu.input_structs[k].shape)
+                 for k, v in pipe.batch(step).items()}
         outs = {}
         for side, ts in (("cpu", cpu), ("dev", dev)):
             p, o, e, m = ts.step(*states[side], batch)
