@@ -58,7 +58,9 @@ reconstruction:
               parties, and at 256, 512, 1056 and 2048 bytes on 2^16 rows:
               its split instance at 4 to 32 lanes per subtree, past 1024
               bytes in passes), dpXOR on a row slice only 4-byte aligned,
-              ptxas's registers and spills of each instance the widths
+              the fused XOR's wide instance at 1,028-byte records and on a
+              row slice of 5,120-byte records (2^16 rows, Q = 1, 4, 32,
+              33), ptxas's registers and spills of each instance the widths
               select, then each kernel at 32, 36 and 128 bytes timed in turns
               beside its bound
   serve_chk   TwoServerPIR with checksum=True at PIR_1G, xor-dpf-2 and
@@ -1365,6 +1367,15 @@ ROWS_128 = 1 << 23
 SPLIT_WIDTHS = (256, 512, 1056, 2048)
 ROWS_SPLIT = 1 << 16
 
+#: the fused XOR's wide instance (records past 128 bytes) on ROWS_SPLIT
+#: random rows: 1,028-byte records (257 words, not whole 16-byte words:
+#: word loads) and a row slice of 5,120-byte records one word into its
+#: buffer (4-byte aligned: word loads), at batches of 1, 4, 32 and 33 (two
+#: query groups)
+WIDE_ODD_BYTES = 1028
+WIDE_SLICE_BYTES = 5120
+WIDE_QS = (1, 4, 32, 33)
+
 #: rounds of the interleaved width timing (32, 36, 128, 128, 36, 32 bytes)
 WIDTH_ROUNDS = 2
 WIDTH_TURNS = (32, 36, 128, 128, 36, 32)
@@ -1400,16 +1411,19 @@ def phase_database_widths(host_db, cfg, device) -> tuple:
 def width_instances() -> dict:
     """ptxas's registers and spills of every template instance the 36- and
     128-byte records select at Q = 1 and Q = 32, of the fused XOR's word
-    instance at 128 bytes (a row slice), of both loads of the fused add's
-    split instance (all widths past 64 bytes), and of the int32 GEMM's at
-    the checksum width (answers of 36 and 40 columns, hints of 36 rows)
-    beside 32."""
+    instance at 128 bytes (a row slice), of every wide instance of the
+    fused XOR (records past 128 bytes: each query block, both loads), of
+    both loads of the fused add's split instance (all widths past 64
+    bytes), and of the int32 GEMM's at the checksum width (answers of 36
+    and 40 columns, hints of 36 rows) beside 32."""
     from repro_torch.kernels import build, dpxor as kd, fused_scan as kf
     from repro_torch.kernels import lwe_matmul as kl, pir_matmul as km
     wanted = {
         "dpxor": {kd.instance(w, q) for w in (9, 32) for q in (1, 32)},
         "fused_scan_xor": {kf.instance_xor(w) for w in (9, 32)} | {
-            kf.instance_xor(32, 4)},
+            kf.instance_xor(32, 4)} | {
+            kf.instance_xor(w, 16, q) for w in (1280, 257)
+            for q in kf.XOR_WIDE_QUERY_BLOCKS},
         "pir_gemm": {km.instance(b, q) for b in (36, 128) for q in (1, 32)},
         "fused_scan_add": {kf.instance_add(b) for b in (36, 128)} | {
             build.mangled("fused_scan_add_split_kernel", v)
@@ -1439,7 +1453,9 @@ def phase_check_widths(dbs, cfg, card, device) -> dict:
     parties, and at SPLIT_WIDTHS (its split instance at P = 8, 16 and 32,
     past 1024 bytes in passes) on 2^16 random rows; dpXOR on a row slice
     only 4-byte aligned, and the fused XOR on one of the 128-byte records
-    (its word instance; the whole DB takes the exact one);
+    (its word instance; the whole DB takes the exact one); the fused XOR's
+    wide instance at WIDE_ODD_BYTES and on a row slice of WIDE_SLICE_BYTES
+    records, ROWS_SPLIT random rows each, at the batches of WIDE_QS;
     the registers and spills of each instance; then every kernel at 32, 36
     and 128 bytes timed in turns (WIDTH_TURNS, WIDTH_ROUNDS times) beside
     its bound at each width. Returns each kernel's largest error."""
@@ -1564,6 +1580,28 @@ def phase_check_widths(dbs, cfg, card, device) -> dict:
             db_align=sliced.data_ptr() % 16,
             instance=kf.instance_xor(32, 4), plain_s=plain_s)
     del sliced
+    # the wide instance: records of 257 words (word loads), and 5,120-byte
+    # records one word into their buffer (a 4-byte aligned row slice)
+    rows = ROWS_SPLIT
+    lg, clog_x, _ = clogs(rows)
+    for item_bytes, offset in ((WIDE_ODD_BYTES, 0), (WIDE_SLICE_BYTES, 1)):
+        w = item_bytes // 4
+        flat = torch.randint(-(1 << 31), (1 << 31) - 1, (rows * w + offset,),
+                             generator=gen, device=device, dtype=torch.int32)
+        wide = flat[offset:].view(rows, w)
+        for q in WIDE_QS:
+            keys = dpf.gen_keys_batch(rng, rng.integers(0, rows, size=q),
+                                      lg)[q % 2].to(device)
+            inputs = fused_inputs(keys, 0, lg, clog_x)
+            want, plain_s = timed_plain(lambda: kf.fused_scan_xor_plain(
+                wide, *inputs, rounds=keys.rounds))
+            record("fused_scan_xor", kf.fused_scan_xor(
+                wide, *inputs, rounds=keys.rounds), want, q=q, rows=rows,
+                item_bytes=item_bytes, clog=clog_x, row_slice=bool(offset),
+                db_align=wide.data_ptr() % 16,
+                instance=kf.instance_xor(w, wide.data_ptr() % 16 or 16, q),
+                plain_s=plain_s)
+        del flat, wide
     emit({"phase": "check_widths_ptxas", "instances": width_instances()})
 
     # times: each width on its served operand, in turns
@@ -3698,7 +3736,8 @@ def lm_kernels(model, cfg, card, device, phase="private_lm_kernels"
     from repro_torch import private_inference as pi
     from repro_torch.core import dpf
     from repro_torch.core.protocol import plan_for
-    from repro_torch.kernels import dpxor as kd, fused_scan as kf, ops
+    from repro_torch.kernels import build, dpxor as kd, fused_scan as kf
+    from repro_torch.kernels import ops
     db = pi.table_as_words(pi.padded_table(model))
     rows, words = db.shape
     lg = (rows - 1).bit_length()
@@ -3738,10 +3777,21 @@ def lm_kernels(model, cfg, card, device, phase="private_lm_kernels"
         bound, by = fused_xor_bound(rows, words, q, clog, keys.rounds)
         ms = cuda_time_ms(lambda: kf.fused_scan_xor(
             db, *inputs, rounds=keys.rounds), reps=5)
+        instance = kf.instance_xor(words, queries=q)
+        ptxas = next((v for k, v in build.ptxas_report(
+            "fused_scan_xor").items() if instance in k), {})
+        # the select-XOR's own Q R W operations (one LOP3 per query and
+        # word), outside the bound, beside it
+        select_ops = q * rows * words
         out["fused_scan_xor"][str(q)] = {
-            "clog": clog, "instance": kf.instance_xor(words),
+            "clog": clog, "instance": instance,
+            "registers": ptxas.get("registers"),
+            "spill_stores": ptxas.get("spill_stores"),
+            "grid": kf.wide_geometry(words, q, rows >> clog, clog),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
-            "bound_ms": bound, "bound_by": by, "share_of_bound": bound / ms}
+            "bound_ms": bound, "bound_by": by, "share_of_bound": bound / ms,
+            "select_ops": select_ops,
+            "select_ms": select_ops / INT32_OPS_PER_S * 1e3}
     out["worst"] = worst
     emit(out)
     if any(worst.values()):

@@ -423,7 +423,7 @@ def _dpxor_instance(s: ProblemShape) -> str:
 
 def _fused_xor_instance(s: ProblemShape) -> str:
     from repro_torch.kernels import fused_scan
-    return fused_scan.instance_xor(s.words)
+    return fused_scan.instance_xor(s.words, queries=s.trees)
 
 
 def _pir_gemm_instance(s: ProblemShape) -> str:

@@ -39,7 +39,8 @@ LIBRARIES = {
     "dpxor": ("dpxor.cu", {"repro_dpxor": [_P, _P, _P, _L, _I, _I, _I, _P]}),
     "fused_scan_xor": ("fused_scan_xor.cu", {
         "repro_fused_scan_xor": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I,
-                                 _I, _P]}),
+                                 _I, _P],
+        "repro_fused_scan_xor_wide_geometry": [_I, _I, _L, _I, _I, _P]}),
     "pir_gemm": ("pir_gemm.cu", {
         "repro_pir_gemm": [_P, _P, _P, _L, _I, _I, _I, _P]}),
     "fused_scan_add": ("fused_scan_add.cu", {

@@ -10,18 +10,23 @@ words; a kernel expands each chunk's ``2^clog`` leaves and folds the DB
 rows at once, so neither selection bits nor shares reach memory.
 
 The Pallas kernel streams ``[W, tile_r]`` DB tiles through rotating VMEM
-buffers and expands each tile breadth-first. On the GPU one thread owns
-one (query, chunk root) and walks its subtree depth-first with ChaCha's
-state in registers — see ``csrc/fused_scan_xor.cu`` and
-``csrc/fused_scan_add.cu`` for the designs and their bounds. There is no DMA tile, so the reference's ``tile_r``/``depth``
-do not reach the kernel; ``ops.fused_tile`` still legalizes ``chunk_log``
-against ``tile_r`` exactly as the reference does. Both kernels take any
-record width (a multiple of 4 bytes): the widths of their exact instances
-(the XOR kernel's up to 128 bytes) read rows in vector loads. Past them the XOR kernel reads 4-byte words in
-column groups (grid.z), each group expanding the subtrees again; the add
-kernel reads one group of at most 64 bytes, and wider rows split each
-chunk's subtree over P lanes of 32 columns each that trade their leaves'
-shares, so every leaf is expanded once (up to 1024 bytes).
+buffers and expands each tile breadth-first. On the GPU, at rows of up to
+32 words (the XOR kernel) or 64 bytes (the add kernel), one thread owns one
+(query, chunk root) and walks its subtree depth-first with ChaCha's state
+in registers — see ``csrc/fused_scan_xor.cu`` and ``csrc/fused_scan_add.cu``
+for the designs and their bounds. There is no DMA tile, so the reference's
+``tile_r``/``depth`` do not reach the kernel; ``ops.fused_tile`` still
+legalizes ``chunk_log`` against ``tile_r`` exactly as the reference does.
+Both kernels take any record width (a multiple of 4 bytes): the widths of
+their exact instances (the XOR kernel's up to 128 bytes) read rows in
+vector loads. Past 32 words the XOR kernel takes its wide instance: a block
+owns a run of rows, its threads expand the run's leaves once (breadth-first
+together, then depth-first each) into bit words in shared memory, and then
+read every row once across its whole width, neighbouring threads on
+neighbouring 16-byte words. The add kernel reads one group of at most 64
+bytes, and wider rows split each chunk's subtree over P lanes of 32
+columns each that trade their leaves' shares, so every leaf is expanded
+once (up to 1024 bytes).
 
 ``fused_scan_xor`` and ``fused_scan_add`` dispatch on the tensors' device:
 CUDA launches the kernel (or raises), CPU takes the plain version;
@@ -58,20 +63,56 @@ XOR_VECTOR_WIDTHS = (1, 2, 4, 8, 16, 32)
 XOR_GROUPS = (8, 16, 32)
 ADD_GROUPS = (16, 48, 64)
 
+#: queries per thread of the XOR kernel's wide instances
+#: (``fused_scan_xor_wide_kernel<QB, vec>``, records wider than 32 words):
+#: the least that holds the batch; past 8, up to four threads of 8 share
+#: each column of a block's group of 32 queries
+XOR_WIDE_QUERY_BLOCKS = (1, 2, 4, 8)
 
-def instance_xor(words: int, align: int = 16) -> str:
-    """The template instance ``csrc/fused_scan_xor.cu`` launches for
-    records of ``words`` words in a DB whose base is ``align``-byte aligned
-    (16: an allocation; 4: a row slice of odd-word records): the exact one
-    (``<W, true>``) where the base is aligned for its vector loads
-    (``common.cuh row_align``), else the column group that holds them
-    (``<G, false>``, the last group repeated over grid.z), as the stem of
-    its mangled name."""
+
+def instance_xor(words: int, align: int = 16, queries: int = 32) -> str:
+    """The template instance ``csrc/fused_scan_xor.cu`` launches for a
+    batch of ``queries`` over records of ``words`` words in a DB whose base
+    is ``align``-byte aligned (16: an allocation; 4: a row slice of
+    odd-word records), as the stem of its mangled name. Up to 32 words:
+    the exact one (``<W, true>``) where the base is aligned for its vector
+    loads (``common.cuh row_align``), else the column group that holds
+    them (``<G, false>``). Past 32 words: the wide one for the batch's
+    query block, with 16-byte loads where ``words % 4 == 0`` and the base
+    is 16-byte aligned (``<QB, true>``), word loads otherwise."""
+    if words > XOR_GROUPS[-1]:
+        qb = next((b for b in XOR_WIDE_QUERY_BLOCKS if queries <= b),
+                  XOR_WIDE_QUERY_BLOCKS[-1])
+        return build.mangled("fused_scan_xor_wide_kernel", qb,
+                             words % 4 == 0 and align % 16 == 0)
     row_align = 16 if words % 4 == 0 else 8 if words % 2 == 0 else 4
     if words in XOR_VECTOR_WIDTHS and align % row_align == 0:
         return build.mangled("fused_scan_xor_kernel", words, True)
-    g = next((g for g in XOR_GROUPS if words <= g), XOR_GROUPS[-1])
+    g = next(g for g in XOR_GROUPS if words <= g)
     return build.mangled("fused_scan_xor_kernel", g, False)
+
+
+def wide_geometry(words: int, queries: int, chunks: int, clog: int,
+                  align: int = 16) -> dict:
+    """The grid the XOR kernel's wide instance (records wider than 32
+    words) takes on the current card for a batch of ``queries`` over
+    ``chunks`` chunks of ``2^clog`` rows: ``blocks`` (row runs x query
+    groups of 32), ``threads`` per block, ``split`` (levels from a chunk
+    root down to a block's subtrees) and ``span`` (subtrees per block),
+    and ``atomics_max``, the most global atomicXors one launch issues (one
+    per nonzero word of each row run's partial answer). Needs the card:
+    the grid follows the instance's occupancy."""
+    if words <= XOR_GROUPS[-1]:
+        raise ValueError(f"records of {words} words take no wide instance")
+    lib = build.library("fused_scan_xor")
+    geo = (ctypes.c_longlong * 4)()
+    build.check(lib, lib.repro_fused_scan_xor_wide_geometry(
+        words, queries, chunks, clog, int(align % 16 == 0), geo),
+        "fused_scan_xor_wide_geometry")
+    blocks, threads, split, span = (int(v) for v in geo)
+    groups = -(-queries // 32)
+    return {"blocks": blocks, "threads": threads, "split": split,
+            "span": span, "atomics_max": blocks // groups * queries * words}
 
 
 def instance_add(cols: int) -> str:

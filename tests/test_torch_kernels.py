@@ -345,7 +345,12 @@ def test_instances_follow_each_kernels_dispatch():
     assert kf.instance_xor(9) == "21fused_scan_xor_kernelILi16ELb0EE"
     # 128-byte records: the exact instance (eight 16-byte loads per row)
     assert kf.instance_xor(32) == "21fused_scan_xor_kernelILi32ELb1EE"
-    assert kf.instance_xor(40) == "21fused_scan_xor_kernelILi32ELb0EE"
+    # past 32 words: the wide instance, by the batch's query block
+    assert kf.instance_xor(40) == "26fused_scan_xor_wide_kernelILi8ELb1EE"
+    assert kf.instance_xor(40, queries=4) == \
+        "26fused_scan_xor_wide_kernelILi4ELb1EE"
+    assert kf.instance_xor(33, queries=1) == \
+        "26fused_scan_xor_wide_kernelILi1ELb0EE"
     assert kf.instance_add(32) == "21fused_scan_add_kernelILi32ELb1EE"
     assert kf.instance_add(12) == "21fused_scan_add_kernelILi16ELb0EE"
     assert kf.instance_add(36) == "21fused_scan_add_kernelILi48ELb0EE"
@@ -368,15 +373,36 @@ def test_instances_follow_each_kernels_dispatch():
 @pytest.mark.parametrize("words,align,want", [
     (32, 16, "21fused_scan_xor_kernelILi32ELb1EE"),   # an allocation
     (32, 4, "21fused_scan_xor_kernelILi32ELb0EE"),    # a row slice
-    (40, 16, "21fused_scan_xor_kernelILi32ELb0EE"),
+    (40, 16, "26fused_scan_xor_wide_kernelILi8ELb1EE"),  # 16-byte loads
+    (40, 4, "26fused_scan_xor_wide_kernelILi8ELb0EE"),   # a row slice
+    (33, 16, "26fused_scan_xor_wide_kernelILi8ELb0EE"),  # 132-byte rows
+    (1280, 16, "26fused_scan_xor_wide_kernelILi8ELb1EE"),
+    (3585, 16, "26fused_scan_xor_wide_kernelILi8ELb0EE"),
     (16, 8, "21fused_scan_xor_kernelILi16ELb0EE"),
     (2, 8, "21fused_scan_xor_kernelILi2ELb1EE"),
     (1, 4, "21fused_scan_xor_kernelILi1ELb1EE"),
 ])
 def test_fused_xor_instance_follows_width_and_alignment(words, align, want):
-    """The exact instance where the DB base is aligned for its vector
-    loads (``common.cuh row_align``), the word-read group otherwise."""
+    """Up to 32 words: the exact instance where the DB base is aligned for
+    its vector loads (``common.cuh row_align``), the word-read group
+    otherwise. Past 32 words: the wide instance, with 16-byte loads where
+    the width is whole 16-byte words and the base 16-byte aligned."""
     assert kf.instance_xor(words, align) == want
+
+
+@pytest.mark.parametrize("queries,qb", [(1, 1), (2, 2), (3, 4), (4, 4),
+                                        (5, 8), (8, 8), (9, 8), (16, 8),
+                                        (32, 8), (33, 8), (96, 8)])
+def test_fused_xor_wide_instance_follows_the_batch(queries, qb):
+    """The wide instance keeps one accumulator per query and word a thread
+    folds: the least query block that holds the batch, past 8 queries
+    blocks of 8; records of up to 32 words keep one instance whatever the
+    batch."""
+    assert kf.instance_xor(1280, queries=queries) == build.mangled(
+        "fused_scan_xor_wide_kernel", qb, True)
+    assert kf.instance_xor(3584, 4, queries) == build.mangled(
+        "fused_scan_xor_wide_kernel", qb, False)
+    assert kf.instance_xor(32, queries=queries) == kf.instance_xor(32)
 
 
 @pytest.mark.parametrize("m,p,want", [
@@ -581,6 +607,33 @@ def test_fused_xor_kernel_any_width_on_the_card(card, item_bytes, q, clog,
     assert torch.equal(kf.fused_scan_xor(db, *inputs, rounds=keys.rounds),
                        kf.fused_scan_xor_plain(db, *inputs,
                                                rounds=keys.rounds))
+
+
+#: record widths of the wide instance on the card: 16-byte loads at 516,
+#: 5,120 and 14,336 B, word loads at 132 and 1,028 B (not whole 16-byte
+#: words); offset 1 makes every one a 4-byte aligned row slice
+WIDE_CARD_WIDTHS = [132, 516, 1028, 5120, 14336]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("item_bytes", WIDE_CARD_WIDTHS)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("q", [1, 4, 32, 33])
+@pytest.mark.parametrize("clog", [0, 1, 5, 11])
+def test_fused_xor_wide_kernel_on_the_card(card, item_bytes, offset, q,
+                                           clog):
+    """Rows wider than 32 words take the wide instance (each leaf expanded
+    once per launch, each row read once): exact against the plain version
+    at every width, alignment, batch (33: two query groups) and chunk log
+    (0: the chunk roots are the leaves; 11: two chunks of 2^11 rows)."""
+    keys, inputs = _card_fused_inputs(card, q, 12, clog)
+    db = _card_db(card, 1 << 12, item_bytes, q + clog, offset)
+    assert (db.data_ptr() % 16 == 0) == (offset == 0)
+    before = kf.count.launches
+    assert torch.equal(kf.fused_scan_xor(db, *inputs, rounds=keys.rounds),
+                       kf.fused_scan_xor_plain(db, *inputs,
+                                               rounds=keys.rounds))
+    assert kf.count.launches == before + 1
 
 
 @pytest.mark.cuda
