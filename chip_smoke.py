@@ -226,6 +226,23 @@ Then the VLM family's serving path:
               lookups, no plain call), then B1 (Q = 1) and B2 (Q = 4, 32) at
               3,584 words over the 2^16 rows exact against their plain
               versions, timed beside their bounds
+Then the audio family's serving path:
+  audio_serve whisper-small uncut (12 encoder + 12 decoder layers, d_model
+              768, 0.263 B parameters with its 32,768 learned decoder
+              positions, drawn from a seeded generator on the card):
+              make_serve_step at 4 streams x (1,500 seeded frames through
+              the encoder + 2,048 decoder tokens), the cross K/V cached
+              once, and 32 decode steps with write=True; the prefill's last
+              logits against a forward over the same frames and tokens, the
+              last decode against a forward over all 2,080 tokens (within
+              LM_LOGIT_TOL, greedy tokens equal but for near-ties); no
+              kernel of the six launched. Then the private_inference twin
+              with each stream's frames kept on the client: 4 streams, a
+              16-token prompt, 16 new tokens, the decoder tokens' rows
+              through TwoServerPIR over the tied table padded to 2^16 rows
+              x 1,536 B (384 words, 96 MiB; B2 for the streams' batches, B1
+              alone), then B1 (Q = 1) and B2 (Q = 4, 32) at 384 words exact
+              against their plain versions, timed beside their bounds
 Then the LM's training half, which launches none of the six kernels (its
 counters must stay 0):
   train_step  granite-3-2b at full width and depth (40 layers, d_model
@@ -253,8 +270,17 @@ counters must stay 0):
               its slice of prefix_embeds), Adafactor; the first loss within
               0.5 of ln V + s^2 / 2; the model-FLOPs share counts all 4,096
               positions, since the trunk runs the prefix too
-  train_parity  granite-3-2b, qwen3-4b, deepseek-v3-671b, grok-1-314b and
-              llava-next-34b SMOKE in float32 (llava with its prefix), the
+  audio_train the same for the audio family: whisper-small uncut, train_4k's
+              4,096 decoder tokens behind 1,500 frames a sequence, the
+              global batch of 256 cut to 8 in 2 microbatches of 4 (each its
+              slice of frame_embeds), AdamW (the reference's policy for the
+              arch); the first loss within 0.5 of ln V + s^2 / 2; the
+              model-FLOPs share counts the encoder's parameters over the
+              frames and the decoder's and the tied unembedding's over the
+              tokens (6 N tokens does not describe an encoder-decoder)
+  train_parity  granite-3-2b, qwen3-4b, deepseek-v3-671b, grok-1-314b,
+              llava-next-34b and whisper-small SMOKE in float32 (llava
+              with its prefix, whisper with its frames), the
               same weights and batches on the card
               and on the CPU: three AdamW steps, and three Adafactor steps
               with compress_grads and two microbatches; losses and
@@ -379,6 +405,25 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, kernel: str, reps: int = 20):
+    """Mean device time a call of ``fn()`` spends in the kernels whose
+    symbol holds ``kernel``, over ``reps`` calls under torch.profiler
+    (device activity only): the kernel alone. CUDA events around
+    back-to-back calls (:func:`cuda_time_ms`) also hold the card's waits
+    for the wrapper's host work, once a launch is shorter than that. None
+    if no such kernel ran."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis.serve_trace import device_intervals
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [b - a for a, b, name in device_intervals(prof) if kernel in name]
+    return sum(spans) / 1e3 / reps if spans else None
 
 
 def host_time_s(fn, *, sync: bool):
@@ -3442,6 +3487,15 @@ VLM_SERVE = ("llava-next-34b", 16)
 VLM_TRAIN = ("llava-next-34b", 4)
 VLM_SEQ = 4096
 VLM_TRAIN_BATCH = 2
+#: the audio phases (PERF.md section 4): whisper-small uncut (12 + 12
+#: layers, full width). Serving at LM_STREAMS streams, each encoder_len =
+#: 1,500 seeded frames and LM_PREFILL decoder tokens; training at
+#: train_4k's 4,096 decoder tokens behind the 1,500 frames, the global batch
+#: of 256 cut to 8 in 2 microbatches of 4, AdamW (the reference's policy
+#: for the arch, repro/launch/dryrun.py:50)
+AUDIO_ARCH = "whisper-small"
+AUDIO_TRAIN_BATCH = 8
+AUDIO_TRAIN_MICROBATCHES = 2
 
 
 def fused_xor_bound(rows: int, words: int, queries: int, clog: int,
@@ -3459,7 +3513,8 @@ def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
     """make_serve_step's prefill on the batch its input_structs name, made
     from a seed (LM_STREAMS x LM_PREFILL tokens at private_lm's shape; a
     VLM's streams each a prefix of patch embeddings, normal x 0.02, ahead
-    of its text tokens), twice (the first call warms the card), and
+    of its text tokens; an audio model's each its frames, normal x 0.02,
+    through the encoder), twice (the first call warms the card), and
     LM_DECODE decode steps with write=True (each timed to its
     synchronize). Held: the prefill's last logits against a forward over
     the same prefix and tokens (within LM_LOGIT_TOL: an identity in the
@@ -3477,13 +3532,16 @@ def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
     tokens = torch.randint(0, cfg.vocab, (streams, text + LM_DECODE),
                            generator=gen, device=device)
     batch = {"tokens": tokens[:, :text]}
+    # the family's side input: a VLM's prefix rows take decoder positions,
+    # an audio model's frames go through the encoder and take none
+    side = next((k for k in structs if k != "tokens"), None)
     prefix = None
-    if "prefix_embeds" in structs:
-        spec = structs["prefix_embeds"]
+    if side is not None:
+        spec = structs[side]
         prefix = (torch.randn(spec.shape, generator=gen, device=device)
                   * 0.02).to(spec.dtype)
-        batch["prefix_embeds"] = prefix
-    n_prefix = 0 if prefix is None else prefix.shape[1]
+        batch[side] = prefix
+    n_prefix = prefix.shape[1] if side == "prefix_embeds" else 0
     total = n_prefix + text + LM_DECODE
     prefill_s = []
     for _ in range(2):
@@ -3527,6 +3585,8 @@ def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
            "layers": cfg.n_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab, "streams": streams,
            "prefill_tokens": text, "prefix_rows": n_prefix,
+           "side_input": side,
+           "side_rows": None if prefix is None else prefix.shape[1],
            "decode_steps": LM_DECODE, "prefill_s": prefill_s,
            # every position the prefill runs, a prefix row included
            "prefill_tokens_per_s": streams * (n_prefix + text)
@@ -3558,7 +3618,8 @@ def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
 def last_logits(model, tokens, prefix=None, *,
                 per_stream: bool = False) -> tuple:
     """The forward's last-position logits ``[B, vocab]`` over ``tokens``
-    behind ``prefix`` (a VLM's patch embeddings, or None) and the slots
+    with ``prefix`` (a VLM's patch embeddings, an audio model's frames,
+    given as its alias ``prefix_embeds``, or None) and the slots
     its MoE layers' dispatch dropped (a pre-hook on each MoE FFN counts
     them). ``per_stream`` runs one forward per stream: the same function
     (attention and the MoE dispatch are per sequence) in a quarter of the
@@ -3584,11 +3645,11 @@ def last_logits(model, tokens, prefix=None, *,
 def at_moe_inputs(model, fn):
     """Yield a list that gets ``fn(params, cfg, x)`` of each MoE layer's
     input ``x`` on every forward inside the ``with`` block (a pre-hook on
-    each MoE FFN, removed at its end)."""
+    each MoE FFN, removed at its end; an encoder-decoder has none)."""
     seen = []
     hooks = [b.ffn.register_forward_pre_hook(
         lambda mod, args: seen.append(fn(mod.params(), mod.cfg, args[0])))
-        for b in model.moe_layers]
+        for b in getattr(model, "moe_layers", ())]
     try:
         yield seen
     finally:
@@ -3726,7 +3787,9 @@ def lm_table_config(cfg):
 def lm_kernels(model, cfg, card, device, phase="private_lm_kernels"
                ) -> dict:
     """B1 and B2 on the padded table's words ([2^18, 1280] at qwen3-4b,
-    [2^17, 3584] at deepseek-v3-671b, [2^16, 3584] at llava-next-34b) at
+    [2^17, 3584] at deepseek-v3-671b, [2^16, 3584] at llava-next-34b,
+    [2^16, 384] at whisper-small; each launch's device time alone beside
+    the CUDA events', :func:`kernel_device_ms`) at
     the path's batches, each against
     its plain version on the same inputs (max_abs_err 0), then timed by
     CUDA events beside its bound and the
@@ -3756,11 +3819,13 @@ def lm_kernels(model, cfg, card, device, phase="private_lm_kernels"
         worst["dpxor"] = max(worst["dpxor"], err)
         bound = dpxor_bound_ms(rows, words, q)
         ms = cuda_time_ms(lambda: kd.dpxor(db, bits), reps=20)
+        dev_ms = kernel_device_ms(lambda: kd.dpxor(db, bits), "dpxor")
         out["dpxor"][str(q)] = {
             "max_abs_err": err, "ms": ms,
             "plain_ms": cuda_time_ms(lambda: kd.dpxor_plain(db, bits), 3),
             "bound_ms": bound, "bound_by": "bytes",
-            "share_of_bound": bound / ms}
+            "share_of_bound": bound / ms, "kernel_device_ms": dev_ms,
+            "kernel_share_of_bound": bound / dev_ms if dev_ms else None}
     for q in LM_FUSED_QS:
         plan = plan_for(pir_cfg, q, backend="cuda")
         _, clog = ops.fused_tile(rows, plan.tile_r, min(plan.chunk_log, lg))
@@ -3777,6 +3842,8 @@ def lm_kernels(model, cfg, card, device, phase="private_lm_kernels"
         bound, by = fused_xor_bound(rows, words, q, clog, keys.rounds)
         ms = cuda_time_ms(lambda: kf.fused_scan_xor(
             db, *inputs, rounds=keys.rounds), reps=5)
+        dev_ms = kernel_device_ms(lambda: kf.fused_scan_xor(
+            db, *inputs, rounds=keys.rounds), "fused_scan_xor", reps=5)
         instance = kf.instance_xor(words, queries=q)
         ptxas = next((v for k, v in build.ptxas_report(
             "fused_scan_xor").items() if instance in k), {})
@@ -3790,6 +3857,8 @@ def lm_kernels(model, cfg, card, device, phase="private_lm_kernels"
             "grid": kf.wide_geometry(words, q, rows >> clog, clog),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
             "bound_ms": bound, "bound_by": by, "share_of_bound": bound / ms,
+            "kernel_device_ms": dev_ms,
+            "kernel_share_of_bound": bound / dev_ms if dev_ms else None,
             "select_ops": select_ops,
             "select_ms": select_ops / INT32_OPS_PER_S * 1e3}
     out["worst"] = worst
@@ -3814,7 +3883,9 @@ def phase_lm(arch, card, device, *, phase="private_lm", layers=None,
     Everything is freed before it returns (worst errors, launches of the
     private lookups). private_lm: qwen3-4b at full depth; moe_serve and
     private_moe: the MoE archs at MOE_SERVE's and MOE_PRIVATE's depth;
-    vlm_serve: llava-next-34b at VLM_SERVE's depth and VLM_SEQ positions."""
+    vlm_serve: llava-next-34b at VLM_SERVE's depth and VLM_SEQ positions;
+    audio_serve: whisper-small uncut, LM_PREFILL decoder tokens behind
+    its encoder_len frames."""
     from repro_torch.config import ShapeConfig
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -3879,7 +3950,7 @@ TRAIN_FIRST_LOSS_TOL = 0.5  # the first loss within this of its want
 MOE_TRAIN = ("grok-1-314b", 1)
 MOE_TRAIN_BATCH = 2
 PARITY_ARCHS = ("granite-3-2b", "qwen3-4b", "deepseek-v3-671b",
-                "grok-1-314b", "llava-next-34b")
+                "grok-1-314b", "llava-next-34b", "whisper-small")
 PARITY_STEPS = 3
 PARITY_LR = 1e-3
 # card against CPU, float32: every loss within PARITY_LOSS_TOL; every
@@ -3949,7 +4020,8 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
     ``optimizer``, remat="block": one warm-up step, TRAIN_TIMED_STEPS
     timed ones (host clock to a synchronize) and one under
     torch.profiler, all on the pipeline's batch 0 (a VLM's with its
-    prefix_embeds stub). Fails unless every loss is finite, the first is
+    prefix_embeds stub, an audio model's with its frame_embeds). Fails
+    unless every loss is finite, the first is
     within TRAIN_FIRST_LOSS_TOL of its want and the last is below the
     first, and no PIR kernel ran. The want is ln(vocab); for a MoE or VLM
     config, whose random logits spread wider (d_model 6,144 and 7,168), ln
@@ -3958,7 +4030,9 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
     are reported for a MoE. The model-FLOPs share counts the active
     parameters (cfg.n_active_params(): the routed top-k experts) for a
     MoE, every parameter otherwise, times every position (a VLM's prefix
-    rows run the trunk too)."""
+    rows run the trunk too); for an encoder-decoder, the encoder's
+    parameters times the frames plus the decoder's and the tied
+    unembedding's times the tokens (the learned positions are a lookup)."""
     from repro_torch.analysis.roofline import PEAK_BF16_FLOPS_PER_S
     from repro_torch.config import OptimizerConfig, ShapeConfig
     from repro_torch.configs import get_arch
@@ -3992,9 +4066,9 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
     if cfg.family != "dense":
         first = {k: torch.as_tensor(v[:1], device=device)
                  for k, v in raw.items()}
+        side = {k: v for k, v in first.items() if k != "tokens"}
         with at_moe_inputs(ts.model, M.dropped_slots) as dropped:
-            logits, _ = ts.model.forward(
-                first["tokens"], prefix_embeds=first.get("prefix_embeds"))
+            logits, _ = ts.model.forward(first["tokens"], **side)
         std = float(logits[..., :cfg.vocab].std())
         del logits, first
         first_want += std ** 2 / 2
@@ -4019,6 +4093,20 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
     tokens_per_step = batch * TRAIN_SEQ
     timed = float(np.median(step_s[1:]))
     flops = 6 * n_active * tokens_per_step
+    basis = "6 x parameters (active for MoE) x positions"
+    if cfg.family == "audio":
+        sizes = {n: p.numel() for n, p in ts.model.named_parameters()}
+        n_enc = sum(v for n, v in sizes.items()
+                    if n.startswith(("enc_layers.", "enc_norm.")))
+        n_dec = sum(v for n, v in sizes.items()
+                    if n.startswith(("dec_layers.", "dec_norm.")))
+        n_unembed = sizes["embed"]
+        frames = batch * cfg.encoder_len
+        flops = 6 * (n_enc * frames + (n_dec + n_unembed) * tokens_per_step)
+        basis = ("6 x (encoder parameters x frames + (decoder + tied "
+                 "unembedding parameters) x tokens); pos_dec is a lookup")
+        spread.update(encoder_params=n_enc, decoder_params=n_dec,
+                      unembed_params=n_unembed, frames_per_step=frames)
     launches = {k: v["launches"] + v["plain_calls"]
                 for k, v in ops.counts().items()}
     out = {"phase": phase, "card": card, "arch": cfg.name,
@@ -4034,7 +4122,7 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
            "step_s_median": timed,
            # positions: a VLM's prefix rows included, as in the FLOPs
            "tokens_per_s": tokens_per_step / timed,
-           "model_flops_per_step": flops,
+           "model_flops_per_step": flops, "model_flops_basis": basis,
            "model_flops_share": flops / timed / PEAK_BF16_FLOPS_PER_S["cuda"],
            "peak_flops_per_s": PEAK_BF16_FLOPS_PER_S["cuda"],
            "state_bytes": state_bytes, "peak_device_bytes": peak,
@@ -4069,12 +4157,14 @@ def route_diff(sides, tokens) -> dict:
 def parity_case(arch, name, microbatches, compress, device) -> dict:
     """PARITY_STEPS steps of one float32 smoke model on the card and on
     the CPU from the same weights (drawn on the CPU) and batches; for a
-    MoE model also the routes the two sides part on at step 0."""
+    MoE model also the routes the two sides part on at step 0, and the
+    case's seconds."""
     from repro_torch.config import OptimizerConfig
     from repro_torch.configs import get_arch
     from repro_torch.configs.shapes import SMOKE_TRAIN
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.runtime.steps import make_train_step
+    t0 = time.perf_counter()
     run = one_card_run(
         replace(get_arch(arch, smoke=True), dtype="float32"), SMOKE_TRAIN,
         OptimizerConfig(name=name, lr=PARITY_LR, warmup_steps=1,
@@ -4113,13 +4203,15 @@ def parity_case(arch, name, microbatches, compress, device) -> dict:
             "compress_grads": compress, "losses_cuda": losses["cuda"],
             "losses_cpu": losses["cpu"], "max_loss_diff": loss_diff,
             "max_param_diff": worst, "param_outliers": outliers,
-            "params": total, **routes, "ok": ok}
+            "params": total, **routes, "ok": ok,
+            "seconds": time.perf_counter() - t0}
 
 
 def phase_train_parity(card, device) -> dict:
     """The PARITY_ARCHS' SMOKE configs in float32 (the dense granite-3-2b
     and qwen3-4b, the MoE deepseek-v3-671b and grok-1-314b, the VLM
-    llava-next-34b with its prefix_embeds stub): PARITY_STEPS
+    llava-next-34b with its prefix_embeds stub, the audio whisper-small
+    with its frame_embeds stub): PARITY_STEPS
     AdamW steps, and PARITY_STEPS Adafactor steps with compress_grads and
     two microbatches, on the card against the same steps on the CPU; the
     MoE cases' routes that part at step 0 are counted and reported."""
@@ -4373,8 +4465,14 @@ def main() -> int:
     worst_vlm, launches_vlm = phase_lm(
         VLM_SERVE[0], info["card"], device, phase="vlm_serve",
         layers=VLM_SERVE[1], seq_len=VLM_SEQ)
+    # the audio family: whisper-small uncut (0.263 B parameters), 1,500
+    # frames a stream through the encoder and 2,048 decoder tokens, private
+    # decoder-token lookups over its 96 MiB table of 1,536-byte rows
+    worst_audio, launches_audio = phase_lm(
+        AUDIO_ARCH, info["card"], device, phase="audio_serve")
     for name, err in (list(worst_lm.items()) + list(worst_moe.items())
-                      + list(worst_vlm.items())):
+                      + list(worst_vlm.items())
+                      + list(worst_audio.items())):
         worst[name] = max(worst[name], err)
     # the LM's training half, alone on the card: granite-3-2b at full
     # width and depth, the card against the CPU, the train_lm twin
@@ -4391,6 +4489,12 @@ def main() -> int:
                      arch=VLM_TRAIN[0], layers=VLM_TRAIN[1],
                      optimizer="adafactor", batch=VLM_TRAIN_BATCH,
                      microbatches=VLM_TRAIN_BATCH)
+    # the audio family's train step: whisper-small uncut, the frames split
+    # over two microbatches, AdamW
+    phase_train_step(info["card"], device, phase="audio_train",
+                     arch=AUDIO_ARCH, optimizer="adamw",
+                     batch=AUDIO_TRAIN_BATCH,
+                     microbatches=AUDIO_TRAIN_MICROBATCHES)
     phase_train_parity(info["card"], device)
     phase_train_loop(info["card"], device)
 
@@ -4404,12 +4508,12 @@ def main() -> int:
              total(launches, launches_chk, launches_w128, launches_upd,
                    launches_batch, launches_twins, launches_runtime,
                    launches_replicas, launches_lm, launches_moe,
-                   launches_vlm), timing),
+                   launches_vlm, launches_audio), timing),
             ("fused_scan_xor", "src/repro_torch/csrc/fused_scan_xor.cu",
              "src/repro/kernels/fused_scan.py:94",
              total(launches, launches_chk, launches_w128, launches_upd,
                    launches_runtime, launches_replicas, launches_lm,
-                   launches_moe, launches_vlm), timing),
+                   launches_moe, launches_vlm, launches_audio), timing),
             ("pir_gemm", "src/repro_torch/csrc/pir_gemm.cu",
              "src/repro/kernels/pir_matmul.py:35",
              total(launches_add, launches_chk, launches_w128, launches_upd),

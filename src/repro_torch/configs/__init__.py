@@ -4,7 +4,7 @@ does (``--arch <id>``).
 
 Each architecture module defines FULL (the published configuration) and
 SMOKE (a reduced same-family configuration runnable on one CPU device).
-The port serves the dense, MoE and VLM families so far; naming an
+The port serves the dense, MoE, VLM and audio families so far; naming an
 architecture of another family raises ``NotImplementedError`` that says
 so, never a silent fallback.
 """
@@ -21,6 +21,7 @@ from repro_torch.configs import (
     qwen3_4b,
     stablelm_3b,
     starcoder2_3b,
+    whisper_small,
 )
 from repro_torch.configs.shapes import SHAPES, get_shape
 
@@ -32,6 +33,7 @@ _MODULES = {
     "grok-1-314b": grok_1_314b,
     "deepseek-v3-671b": deepseek_v3_671b,
     "llava-next-34b": llava_next_34b,
+    "whisper-small": whisper_small,
 }
 
 ARCHS: Dict[str, ModelConfig] = {k: m.FULL for k, m in _MODULES.items()}
@@ -40,7 +42,6 @@ SMOKES: Dict[str, ModelConfig] = {k: m.SMOKE for k, m in _MODULES.items()}
 #: the reference's other architectures, by family; their configs and
 #: models are not ported yet
 NOT_PORTED: Dict[str, str] = {
-    "whisper-small": "audio",
     "xlstm-350m": "ssm",
     "zamba2-7b": "hybrid",
 }
@@ -50,7 +51,7 @@ def get_arch(name: str, *, smoke: bool = False) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} (family {NOT_PORTED[name]!r}) is not ported yet; "
-            f"the port serves the dense, moe and vlm families: "
+            f"the port serves the dense, moe, vlm and audio families: "
             f"{sorted(ARCHS)}")
     table = SMOKES if smoke else ARCHS
     if name not in table:

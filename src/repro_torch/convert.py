@@ -59,29 +59,37 @@ def tensor_from_reference(arr) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
+#: the reference's layer stacks (``[L, ...]`` leaves) -> the port's
+#: ``nn.ModuleList`` names
+_STACKS = {"dense_layers": "layers", "moe_layers": "moe_layers",
+           "enc_layers": "enc_layers", "dec_layers": "dec_layers"}
+
+
 def model_params_from_reference(params_np: Mapping, cfg
                                 ) -> Dict[str, torch.Tensor]:
-    """The reference ``TransformerLM``'s parameter tree (``embed``, the
-    layer stacks ``dense_layers`` and ``moe_layers`` stacked ``[L, ...]``
-    by ``vmap``, ``final_norm``, ``unembed``, ``mtp``) as the state dict
-    of the port's ``models.transformer.TransformerLM``
-    (``load_state_dict``): ``dense_layers[i]`` -> ``layers.{i}.*``,
-    ``moe_layers[j]`` -> ``moe_layers.{j}.*`` (the experts kept ``[E, d,
-    f]``, the shared ones under ``ffn.shared``), ``mtp`` -> ``mtp.*``;
-    same bits, on the CPU."""
+    """A reference model's parameter tree as the port model's state dict
+    (``load_state_dict``), same bits, on the CPU. Each layer stack,
+    stacked ``[L, ...]`` by ``vmap``, is unstacked onto the port's
+    modules: ``TransformerLM``'s ``dense_layers[i]`` -> ``layers.{i}.*``
+    and ``moe_layers[j]`` -> ``moe_layers.{j}.*`` (the experts kept ``[E,
+    d, f]``, the shared ones under ``ffn.shared``), ``EncDecLM``'s
+    ``enc_layers[i]`` -> ``enc_layers.{i}.*`` and ``dec_layers[i]`` ->
+    ``dec_layers.{i}.*``. Every other leaf keeps its path, dotted:
+    ``embed``, ``final_norm``, ``unembed``, ``mtp.*``, ``pos_dec``,
+    ``enc_norm.scale``. ``cfg`` is the model's config (unused: the tree
+    names every leaf)."""
     t = tensor_from_reference
-    state = {"embed": t(params_np["embed"]),
-             "final_norm": t(params_np["final_norm"])}
-    if not cfg.tie_embeddings:
-        state["unembed"] = t(params_np["unembed"])
-    for ref_name, name in (("dense_layers", "layers"),
-                           ("moe_layers", "moe_layers")):
-        for path, arr in leaf_paths(params_np.get(ref_name, {})):
+    state = {}
+    for key, tree in params_np.items():
+        if key not in _STACKS:
+            for path, arr in leaf_paths({key: tree}):
+                state[path.replace("/", ".")] = t(arr)
+            continue
+        for path, arr in leaf_paths(tree):
             arr = np.asarray(arr)
             for i in range(arr.shape[0]):
-                state[f"{name}.{i}.{path.replace('/', '.')}"] = t(arr[i])
-    for path, arr in leaf_paths(params_np.get("mtp", {})):
-        state[f"mtp.{path.replace('/', '.')}"] = t(arr)
+                state[f"{_STACKS[key]}.{i}.{path.replace('/', '.')}"] = \
+                    t(arr[i])
     return state
 
 
@@ -101,8 +109,9 @@ def opt_state_from_reference(state, cfg):
     m, v, master)`` or ``AdafactorState(step, vr, vc, v)``, by field
     names) as the port's, on the CPU: AdamW's trees unstacked to the
     port's parameter names, Adafactor's kept stacked per leaf path
-    (``dense_layers/attn/wq``, ``moe_layers/ffn/gate``, ``mtp/proj``;
-    ``None`` for ``()``): the keys of ``optimizer.leaf_groups``."""
+    (``dense_layers/attn/wq``, ``moe_layers/ffn/gate``, ``mtp/proj``,
+    ``enc_layers/attn/wq``, ``dec_layers/cross_attn/wk``; ``None`` for
+    ``()``): the keys of ``optimizer.leaf_groups``."""
     from repro_torch.optim.optimizer import AdafactorState, AdamWState
     step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32)
     if hasattr(state, "master"):

@@ -6,9 +6,7 @@
   run restored at step k needs no data-loader state.
 * **Host sharding** — each process draws only its ``[local_batch]`` slice.
 * **Modality stubs** — the VLM / audio families get their precomputed
-  patch or frame embeddings (the port trains the dense, MoE and VLM
-  families; the audio stub keeps the batches equal to the reference's for
-  every config).
+  patch or frame embeddings.
 
 Token statistics: Zipfian-ish via squaring a uniform. The batches are
 numpy arrays, bit for bit the reference's; the train step places them on

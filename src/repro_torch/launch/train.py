@@ -12,9 +12,12 @@ Examples:
       --optimizer adafactor --steps 20 --device cpu
   python -m repro_torch.launch.train --arch llava-next-34b --smoke \\
       --optimizer adafactor --steps 20 --device cpu
+  python -m repro_torch.launch.train --arch whisper-small --smoke \\
+      --steps 20 --microbatches 2 --device cpu
 
 A VLM's batches carry the pipeline's patch-embedding stub
-(``prefix_embeds``) beside its text tokens.
+(``prefix_embeds``) beside its text tokens, an audio model's its
+frame-embedding stub (``frame_embeds``) beside its decoder tokens.
 """
 from __future__ import annotations
 

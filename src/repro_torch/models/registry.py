@@ -1,22 +1,27 @@
 """Model zoo dispatch: ``ModelConfig.family`` -> model — the port of
-``repro/models/registry.py`` for the dense, MoE and VLM families.
+``repro/models/registry.py`` for the dense, MoE, VLM and audio families.
 
 A model is an ``nn.Module`` holding its weights (``init_params(generator)``
 draws them); its entry points are ``forward``, ``loss``, ``prefill``,
-``decode`` and ``init_cache`` (``models/transformer.py``). ``input_specs`` gives the step
-inputs' shapes and dtypes; there is no mesh, so no PartitionSpecs.
+``decode`` and ``init_cache`` (``models/transformer.py``'s
+``TransformerLM`` for the decoder-only families, ``models/encdec.py``'s
+``EncDecLM`` for audio). ``input_specs`` gives the step inputs' shapes and
+dtypes; there is no mesh, so no PartitionSpecs.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple, Union
 
 import torch
 
 from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.engine.backend import Device, resolve_device
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import PORTED_FAMILIES, TransformerLM
 
 FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
+#: every family the port serves: TransformerLM's and the encoder-decoder's
+SERVED = PORTED_FAMILIES + ("audio",)
 
 
 class InputSpec(NamedTuple):
@@ -29,20 +34,21 @@ class InputSpec(NamedTuple):
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
-    if cfg.family not in PORTED_FAMILIES:
+    if cfg.family not in SERVED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; the port "
-            f"serves {PORTED_FAMILIES}")
+            f"serves {SERVED}")
 
 
 def build_model(cfg: ModelConfig, *, device: Device = None,
-                remat: str = "block") -> TransformerLM:
+                remat: str = "block") -> Union[TransformerLM, EncDecLM]:
     """The model for ``cfg`` with its weights allocated on ``device``
     (``None`` means the CUDA card; no card raises) and not yet drawn.
     ``remat`` is the reference's: ``"block"`` recomputes each layer in the
     backward pass of ``loss``, ``"none"`` keeps its activations."""
     _check_family(cfg)
-    return TransformerLM(cfg, device=resolve_device(device), remat=remat)
+    model = EncDecLM if cfg.family == "audio" else TransformerLM
+    return model(cfg, device=resolve_device(device), remat=remat)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig
@@ -51,13 +57,20 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig
     ``decode`` shape. A VLM's other shapes split the S positions: the
     client's patch embeddings ``prefix_embeds`` ``[B, P, d]`` in the
     config's dtype (P = ``n_frontend_tokens``) and ``tokens`` ``[B, S -
-    P]``."""
+    P]``. An audio model's take ``tokens`` ``[B, S]`` and the client's
+    frame embeddings ``frame_embeds`` ``[B, encoder_len, d]`` in the
+    config's dtype."""
     _check_family(cfg)
     b = shape.global_batch
     if shape.kind == "decode":
         return {"tokens": InputSpec((b, 1), torch.int32)}
+    tokens = InputSpec((b, shape.seq_len), torch.int32)
+    if cfg.family == "audio":
+        return {"tokens": tokens,
+                "frame_embeds": InputSpec((b, cfg.encoder_len, cfg.d_model),
+                                          cfg.torch_dtype)}
     if cfg.family != "vlm":
-        return {"tokens": InputSpec((b, shape.seq_len), torch.int32)}
+        return {"tokens": tokens}
     n_front = cfg.n_frontend_tokens
     if shape.seq_len <= n_front:
         raise ValueError(

@@ -14,18 +14,21 @@ into one ``[L, ...]`` leaf; the port keeps one tensor per layer.
 ``leaf_groups`` maps the port's names onto the reference's leaves: the
 dense stack ``layers.{i}.<path>`` onto ``dense_layers/<path>``, the MoE
 trunk ``moe_layers.{j}.<path>`` onto ``moe_layers/<path>`` (an expert
-weight ``[E, d, f]`` a layer onto ``[L, E, d, f]``), and every other
-parameter (``embed``, ``mtp.proj``, ``mtp.layer.attn.wq``) onto its own
-unstacked leaf. Every statistic the reference takes over a whole leaf is
-taken over that group: Adafactor factors the stacked tensor over its last
-two axes (a norm scale ``[L, d]`` into ``vr [L]`` and ``vc [d]``, an
-expert weight into ``vr [L, E, d]`` and ``vc [L, E, f]``) and clips its
-update by the rms over the whole leaf (all L layers, all L·E experts);
-the gradient compression's int8 scale is the max over the group
-(``compression.py``). AdamW is elementwise, apart from the global norm,
-and keeps one moment tensor per parameter; Adafactor's ``vr`` / ``vc`` /
-``v`` are keyed by leaf, stacked as the reference's (``None`` where the
-reference holds ``()``).
+weight ``[E, d, f]`` a layer onto ``[L, E, d, f]``), the
+encoder-decoder's ``enc_layers.{i}.<path>`` and
+``dec_layers.{i}.<path>`` onto ``enc_layers/<path>`` and
+``dec_layers/<path>``, and every other parameter (``embed``,
+``pos_dec``, ``enc_norm.scale``, ``mtp.proj``, ``mtp.layer.attn.wq``)
+onto its own unstacked leaf. Every statistic the reference takes over a
+whole leaf is taken over that group: Adafactor factors the stacked
+tensor over its last two axes (a norm scale ``[L, d]`` into ``vr [L]``
+and ``vc [d]``, an expert weight into ``vr [L, E, d]`` and ``vc [L, E,
+f]``) and clips its update by the rms over the whole leaf (all L layers,
+all L·E experts); the gradient compression's int8 scale is the max over
+the group (``compression.py``). AdamW is elementwise, apart from the
+global norm, and keeps one moment tensor per parameter; Adafactor's
+``vr`` / ``vc`` / ``v`` are keyed by leaf, stacked as the reference's
+(``None`` where the reference holds ``()``).
 
 **Adafactor one slice at a time.** A factored leaf's moments and
 preconditioner at one index of its leading axes (all but the last two:
@@ -60,9 +63,11 @@ F32 = torch.float32
 Tensors = Dict[str, torch.Tensor]
 
 #: the port's layer stacks -> the reference's stacked leaves
-STACKS = {"layers": "dense_layers", "moe_layers": "moe_layers"}
+#: (``TransformerLM``'s and ``EncDecLM``'s)
+STACKS = {"layers": "dense_layers", "moe_layers": "moe_layers",
+          "enc_layers": "enc_layers", "dec_layers": "dec_layers"}
 
-_LAYER = re.compile(r"(layers|moe_layers)\.(\d+)\.(.+)")
+_LAYER = re.compile(rf"({'|'.join(STACKS)})\.(\d+)\.(.+)")
 
 # Adafactor's floor under the squared gradient and the moments
 _EPS = 1e-30

@@ -20,16 +20,19 @@ It then checks that every retrieved row equals the model's embedding row
 bit for bit, that the same loop on plain lookups (``embed_lookup``) generates the
 same tokens, and serves one more step for stream 0 alone (one query).
 
-A VLM client (llava-next-34b) also holds each stream's image: its patch
-embeddings stay on the client, ahead of the prompt (``prefix_embeds``),
-and only the text tokens' rows are fetched through the servers. The twin
-draws that prefix from the seed as the training pipeline draws its stub
+A VLM client (llava-next-34b) also holds each stream's image, and an
+audio client (whisper-small) each stream's audio: the family's side input
+(``input_specs``' name beside ``tokens``: the patch embeddings
+``prefix_embeds``, put ahead of the prompt, or the frame embeddings
+``frame_embeds``, which the encoder reads) stays on the client, and only
+the (decoder's) text tokens' rows are fetched through the servers. The
+twin draws it from the seed as the training pipeline draws its stub
 (normal x 0.02, numpy).
 
 Run:  PYTHONPATH=src python -m repro_torch.private_inference [--device cpu]
       [--tokens 8] [--streams 2]
       [--arch pi-lm | qwen3-4b | deepseek-v3-671b | grok-1-314b
-       | llava-next-34b [--smoke]]
+       | llava-next-34b | whisper-small [--smoke]]
 (the default device is the CUDA card; without one it raises). The last
 line printed is a JSON summary; a wrong row or token exits non-zero.
 """
@@ -38,7 +41,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -48,10 +51,13 @@ from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.engine.backend import Device, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models import build_model
+from repro_torch.models import EncDecLM, build_model, input_specs
 from repro_torch.models.layers import embed_lookup, pad_vocab
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.runtime.serve_loop import TwoServerPIR
+
+#: the twin's model: a decoder-only LM or the audio family's encoder-decoder
+Model = Union[TransformerLM, EncDecLM]
 
 #: the example's model (``examples/private_inference.py:48``)
 PI_LM = ModelConfig(name="pi-lm", family="dense", n_layers=2, d_model=64,
@@ -87,7 +93,7 @@ def padded_rows(vocab: int) -> int:
     return 1 << (pad_vocab(vocab) - 1).bit_length()
 
 
-def padded_table(model: TransformerLM) -> torch.Tensor:
+def padded_table(model: Model) -> torch.Tensor:
     """The servers' copy of ``model.embed``: ``[padded_rows(V), d]`` bf16
     on the model's device, rows past the table zero."""
     cfg = model.cfg
@@ -107,7 +113,7 @@ class PrivateEmbedding:
     for :meth:`check_rows`, and its seconds (host clock: keygen, both
     servers' answers, reconstruction)."""
 
-    def __init__(self, model: TransformerLM, *,
+    def __init__(self, model: Model, *,
                  client_rng: np.random.Generator):
         cfg = model.cfg
         self.model = model
@@ -150,25 +156,38 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model: TransformerLM, embed: Callable, prompt: torch.Tensor,
+def side_input(cfg: ModelConfig) -> Optional[str]:
+    """The family's client-side input beside ``tokens``, by its
+    ``input_specs`` name (``prefix_embeds`` for a VLM, ``frame_embeds`` for
+    audio), or None for a text-only family."""
+    shape = ShapeConfig(name="side_input", seq_len=cfg.n_frontend_tokens + 1,
+                        global_batch=1, kind="prefill")
+    names = sorted(set(input_specs(cfg, shape)) - {"tokens"})
+    return names[0] if names else None
+
+
+def generate(model: Model, embed: Callable, prompt: torch.Tensor,
              n_new: int, prefix: Optional[torch.Tensor] = None) -> dict:
     """Greedy generation of ``n_new`` tokens per stream from ``prompt``
     ``[B, T]``: one ``embed`` call for the prompt, a prefill from those
-    embeddings behind the client's ``prefix`` ``[B, P, d]`` if given
-    (cache capacity P + T + n_new), then one ``embed`` call and one cached
-    decode per further token. Returns the tokens ``[B, T + n_new]``, the
-    cache, the last logits, and per step the seconds spent in ``embed``
-    and in the trunk (host clock, the token read back)."""
+    embeddings with the client's ``prefix`` if given (the family's side
+    input, :func:`side_input`: a VLM's ``[B, P, d]`` rows ahead of the
+    prompt, cache capacity P + T + n_new; an audio model's frames, which
+    take no decoder position, capacity T + n_new), then one ``embed`` call
+    and one cached decode per further token. Returns the tokens ``[B, T +
+    n_new]``, the cache, the last logits, and per step the seconds spent
+    in ``embed`` and in the trunk (host clock, the token read back)."""
     b, t = prompt.shape
     d, vocab = model.cfg.d_model, model.cfg.vocab
     dev = model.device
-    n_prefix = 0 if prefix is None else prefix.shape[1]
+    side = {} if prefix is None else {side_input(model.cfg): prefix}
+    ahead = prefix.shape[1] if "prefix_embeds" in side else 0
     steps = []
     t0 = time.perf_counter()
     x = embed(prompt.reshape(-1)).reshape(b, t, d)
     t1 = time.perf_counter()
-    logits, cache = model.prefill(embeds=x, prefix_embeds=prefix,
-                                  capacity=n_prefix + t + n_new)
+    logits, cache = model.prefill(embeds=x, capacity=ahead + t + n_new,
+                                  **side)
     nxt = logits[:, :vocab].argmax(dim=-1)
     out = [nxt.cpu()]
     steps.append({"lookups": b * t, "embed_s": t1 - t0,
@@ -188,14 +207,16 @@ def generate(model: TransformerLM, embed: Callable, prompt: torch.Tensor,
             "steps": steps}
 
 
-def solo_step(model: TransformerLM, embed: Callable, gen: dict,
+def solo_step(model: Model, embed: Callable, gen: dict,
               stream: int = 0) -> int:
     """One more token for ``stream`` alone: one lookup (a batch of one
-    query) and a decode on that stream's slice of the cache."""
+    query) and a decode on that stream's slice of the cache (every field
+    but ``length`` is ``[Layers, B, ...]``)."""
     cache = gen["cache"]
     last = gen["tokens"][stream:stream + 1, -1].to(model.device)
-    one = cache._replace(k=cache.k[:, stream:stream + 1],
-                         v=cache.v[:, stream:stream + 1])
+    one = cache._replace(**{
+        name: getattr(cache, name)[:, stream:stream + 1]
+        for name in cache._fields if name != "length"})
     x = embed(last).reshape(1, 1, model.cfg.d_model)
     logits, _ = model.decode(one, embeds=x, write=False)
     return int(logits[0, :model.cfg.vocab].argmax())
@@ -207,11 +228,13 @@ def example_prompt(streams: int) -> np.ndarray:
 
 
 def client_prefix(cfg: ModelConfig, streams: int, seed: int) -> np.ndarray:
-    """Each stream's image as the client holds it: ``[streams,
-    n_frontend_tokens, d]`` float32 patch embeddings, normal x 0.02, the
-    stub ``TokenPipeline`` draws for batch 0 of ``streams`` sequences with
-    ``seed``."""
-    shape = ShapeConfig(name="client_prefix", seq_len=cfg.n_frontend_tokens,
+    """Each stream's side input as the client holds it: a VLM's image,
+    ``[streams, n_frontend_tokens, d]`` float32 patch embeddings, or an
+    audio model's ``[streams, encoder_len, d]`` frame embeddings; normal x
+    0.02, the stub ``TokenPipeline`` draws for batch 0 of ``streams``
+    sequences with ``seed``."""
+    shape = ShapeConfig(name="client_prefix",
+                        seq_len=cfg.n_frontend_tokens + 1,
                         global_batch=streams, kind="prefill")
     return TokenPipeline(cfg, shape, seed=seed).stub(0)
 
@@ -224,15 +247,16 @@ def run(device: Device = None, arch: str = PI_LM.name, *, smoke: bool = False,
         tokens: int = 8, streams: int = 2,
         prompt: Optional[np.ndarray] = None, seed: int = 0,
         prefix: Optional[np.ndarray] = None,
-        model: Optional[TransformerLM] = None, verbose: bool = True) -> dict:
+        model: Optional[Model] = None, verbose: bool = True) -> dict:
     """Generate ``tokens`` tokens for each of ``streams`` streams with every
     embedding retrieved privately, and check the rows and tokens (raises
     ``AssertionError`` on a mismatch). ``model`` (with its weights, on its
     device) replaces the one drawn from ``seed`` for ``arch``; ``prompt``
     ``[streams, T]`` replaces the example's. ``prefix`` ``[streams, P,
-    d]`` is the client's own rows ahead of the prompt, never sent; a VLM
-    without one gets :func:`client_prefix`. Returns what happened, the
-    kernel counters included."""
+    d]`` is the client's side input (:func:`side_input`: a VLM's rows
+    ahead of the prompt, an audio model's frames), never sent; a family
+    that takes one gets :func:`client_prefix` without it. Returns what
+    happened, the kernel counters included."""
     say = print if verbose else (lambda *a: None)
     if model is None:
         dev = resolve_device(device)
@@ -242,7 +266,7 @@ def run(device: Device = None, arch: str = PI_LM.name, *, smoke: bool = False,
     cfg = model.cfg
     prompt = example_prompt(streams) if prompt is None else np.asarray(prompt)
     prompt_t = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
-    if prefix is None and cfg.family == "vlm":
+    if prefix is None and side_input(cfg) is not None:
         prefix = client_prefix(cfg, prompt.shape[0], seed)
     prefix_t = (None if prefix is None else
                 torch.as_tensor(prefix, device=dev).to(cfg.torch_dtype))
@@ -255,7 +279,7 @@ def run(device: Device = None, arch: str = PI_LM.name, *, smoke: bool = False,
     n_prefix = 0 if prefix_t is None else prefix_t.shape[1]
     say(f"{cfg.name}: {cfg.n_layers} layers x d_model {cfg.d_model}; PIR "
         f"table {private.pir_cfg.n_items} rows x {private.pir_cfg.item_bytes}"
-        f" B on {dev}; {n_prefix} client-side prefix rows a stream")
+        f" B on {dev}; {n_prefix} client-side rows a stream")
     gen = generate(model, private, prompt_t, tokens, prefix_t)
     solo = solo_step(model, private, gen)
     counts = ops.counts()
@@ -300,8 +324,8 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--arch", default=PI_LM.name,
-                    help="pi-lm (the example's model) or a dense, moe "
-                    "or vlm arch")
+                    help="pi-lm (the example's model) or a dense, moe, "
+                    "vlm or audio arch")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced config")
     ap.add_argument("--tokens", type=int, default=8)

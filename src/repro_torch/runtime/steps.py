@@ -29,7 +29,8 @@ the ``ShapeConfig``, and runs both steps on one ``device`` (``None`` means
 the CUDA card), the weights held by
 ``ServeStep.model`` (draw them with ``model.init_params(generator)``), and
 decode updates the cache in place. Both steps take a batch of the inputs
-``input_specs`` names (a VLM's ``prefix_embeds`` beside ``tokens``),
+``input_specs`` names (a VLM's ``prefix_embeds`` or an audio model's
+``frame_embeds`` beside ``tokens``),
 passed to the model as keywords as the reference passes them; each
 refuses a batch that lacks one of them, holds one of another shape, or
 holds any other input. ``capacity`` is the prefill cache's row
@@ -41,7 +42,7 @@ Not ported: ``PIRStep`` (``steps.py:340``), whose role
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -49,6 +50,7 @@ import torch
 from repro_torch.config import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.engine.backend import Device
 from repro_torch.models import build_model, input_specs
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.registry import InputSpec
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.optim import compression
@@ -59,13 +61,14 @@ F32 = torch.float32
 
 def _check_inputs(batch, structs) -> None:
     """Raise for a batch that is not the one ``structs`` names: an input
-    it does not name (``NotImplementedError``), or one it names that is
-    missing or of another shape (``ValueError``)."""
+    it does not name (``NotImplementedError``: another family's, such as
+    a VLM's ``prefix_embeds`` handed to an audio step), or one it names
+    that is missing or of another shape (``ValueError``)."""
     extra = sorted(set(batch) - set(structs))
     if extra:
         raise NotImplementedError(
-            f"step inputs {extra} are not this family's ({sorted(structs)}"
-            f"); the families that take them are not ported yet")
+            f"step inputs {extra} are not this family's: the step takes "
+            f"{sorted(structs)} and nothing else")
     for name, spec in structs.items():
         if name not in batch:
             raise ValueError(f"the batch lacks {name!r}; the step takes "
@@ -81,7 +84,7 @@ class TrainStep(NamedTuple):
     grads: Callable           # (params, batch) -> (loss, grads)
     apply: Callable           # (params, opt_state, ef, grads) -> (...)
     init_state: Callable      # (generator) -> (params, opt_state, ef)
-    model: TransformerLM
+    model: Union[TransformerLM, EncDecLM]
     device: torch.device
     input_structs: Dict[str, InputSpec]
 
@@ -94,7 +97,8 @@ def make_train_step(run: RunConfig, *, device: Device = None) -> TrainStep:
     ``(params, opt_state, ef)``: the model's parameters by name, the
     optimizer state and the error-feedback buffers (``None`` without
     compression). The loss is the model's own (``TransformerLM.loss``:
-    with the MoE family its aux term and DeepSeek-V3's MTP head); with
+    with the MoE family its aux term and DeepSeek-V3's MTP head;
+    ``EncDecLM.loss`` for audio, from the batch's ``frame_embeds``); with
     microbatches each one is a pass of its own, whose MoE dispatch and
     aux loss see that microbatch alone, as the reference's scan."""
     model = build_model(run.model, device=device, remat=run.remat)
@@ -170,7 +174,7 @@ def make_train_step(run: RunConfig, *, device: Device = None) -> TrainStep:
 class ServeStep(NamedTuple):
     prefill: Callable          # batch {"tokens": [B, S]} -> (logits, cache)
     decode: Callable           # (cache, tokens [B, 1]) -> (logits, cache')
-    model: TransformerLM
+    model: Union[TransformerLM, EncDecLM]
     device: torch.device
     input_structs: Dict[str, InputSpec]
 

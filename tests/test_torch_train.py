@@ -384,7 +384,7 @@ def test_train_step_checks_its_inputs():
     split = {"tokens": flat["tokens"].reshape(2, 1, 32)}
     with pytest.raises(ValueError, match="own model parameters"):
         ts.step({k: v.clone() for k, v in params.items()}, opt, ef, split)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="not this family's"):
         ts.step(params, opt, ef, {**split, "prefix_embeds": np.zeros(1)})
     # the gradient half writes nothing; the update half writes in place
     before = {k: v.clone() for k, v in params.items()}
