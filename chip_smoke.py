@@ -243,6 +243,32 @@ Then the audio family's serving path:
               x 1,536 B (384 words, 96 MiB; B2 for the streams' batches, B1
               alone), then B1 (Q = 1) and B2 (Q = 4, 32) at 384 words exact
               against their plain versions, timed beside their bounds
+Then the SSM family's serving path:
+  ssm_serve   xlstm-350m uncut (24 blocks: 21 mLSTM and 3 sLSTM, d_model
+              1,024, chunk 256; 0.529 B parameters, 1.08 GB, drawn from a
+              seeded generator on the card): make_serve_step at 4 streams x
+              2,048 tokens and 32 decode steps (the recurrent state, 88.6 MB
+              a stream, advances; capacity and write are ignored); the
+              prefill's last logits against a forward over the same tokens,
+              the last decode against a forward over all 2,080 tokens at
+              chunk 32 (2,080 is no multiple of 256: ssd_scan raises there,
+              as the reference's), within LM_LOGIT_TOL, greedy tokens equal
+              but for near-ties; no kernel of the six launched. Then the
+              private_inference twin (text only): 4 streams, a 16-token
+              prompt, 16 new tokens, every row through TwoServerPIR over the
+              table padded to 2^16 rows x 2,048 B (512 words, 128 MiB; B2 for
+              the streams' batches, B1 alone), rows bit-exact, tokens those
+              of plain lookups; then B1 (Q = 1) and B2 (Q = 4, 32) at 512
+              words exact against their plain versions, timed beside their
+              bounds (ssm_serve_kernels). About 15 s
+  ssm_long    the long_500k cell, which only the SSM and hybrid archs run
+              (cell_is_skipped false for xlstm-350m, true for every other
+              ported arch): its serve step at batch 1, init_cache(1,
+              524,288) holding the bytes of init_cache(1, 2,048), a
+              256-token prompt prefilled, then 8 decodes from the prompt's
+              state and 8 from the long cache (ms a token), the long
+              cache's first decode bit-equal to the short one's, the
+              prompt's last decode against a forward. About 2 s
 Then the LM's training half, which launches none of the six kernels (its
 counters must stay 0):
   train_step  granite-3-2b at full width and depth (40 layers, d_model
@@ -278,9 +304,17 @@ counters must stay 0):
               model-FLOPs share counts the encoder's parameters over the
               frames and the decoder's and the tied unembedding's over the
               tokens (6 N tokens does not describe an encoder-decoder)
+  ssm_train   the same for the SSM family: xlstm-350m uncut at chunk 256,
+              train_4k's 4,096 tokens, the global batch of 256 cut to 8 in
+              one microbatch (the reference's policy has 4: the sLSTM's loop
+              over time makes a step's launches follow the microbatches),
+              AdamW; one warm-up step, one timed, one traced (the trace of
+              about 0.7 M launches and its reading take about 22 s); the
+              model-FLOPs share counts every parameter at its block's own
+              size. About 60 s
   train_parity  granite-3-2b, qwen3-4b, deepseek-v3-671b, grok-1-314b,
-              llava-next-34b and whisper-small SMOKE in float32 (llava
-              with its prefix, whisper with its frames), the
+              llava-next-34b, whisper-small and xlstm-350m SMOKE in float32
+              (llava with its prefix, whisper with its frames), the
               same weights and batches on the card
               and on the CPU: three AdamW steps, and three Adafactor steps
               with compress_grads and two microbatches; losses and
@@ -288,8 +322,8 @@ counters must stay 0):
               the top-k routes that part at step 0, counted and reported
   train_loop  the train_lm twin's recipe (model_100m, 16 x 512, two
               microbatches) through TrainLoop and CheckpointManager under a
-              temporary directory: run A, 40 steps with a checkpoint every
-              10; run B, 20 steps, then a fresh loop resumed to 40. A's last
+              temporary directory: run A, 24 steps with a checkpoint every
+              8; run B, 8 steps, then a fresh loop resumed to 24. A's last
               loss below its first, three checkpoints kept, B's resumed
               losses A's within LOOP_RESUME_TOL; checkpoint copy, write and
               restore seconds, steps/s
@@ -302,6 +336,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -3496,6 +3531,21 @@ VLM_TRAIN_BATCH = 2
 AUDIO_ARCH = "whisper-small"
 AUDIO_TRAIN_BATCH = 8
 AUDIO_TRAIN_MICROBATCHES = 2
+#: the SSM phases (PERF.md section 4): xlstm-350m uncut (24 blocks, 21
+#: mLSTM and 3 sLSTM, d_model 1,024, chunk 256). Serving at LM_STREAMS x
+#: LM_PREFILL tokens; long_500k (batch 1) from an init_cache of 524,288
+#: positions, a SSM_LONG_PROMPT-token prompt and SSM_LONG_DECODE decodes;
+#: training at train_4k's 4,096 tokens, the global batch of 256 cut to 8
+#: in one microbatch (the reference's policy: 4; the sLSTM's loop over
+#: time steps makes a step's launches follow the microbatches), AdamW (the
+#: reference's policy for the arch, repro/launch/dryrun.py:51), one timed
+#: step after the warm-up (each step runs the sLSTM's 3 x 4,096 time steps
+#: forward, again in the recompute and backward)
+SSM_ARCH = "xlstm-350m"
+SSM_LONG_PROMPT = 256
+SSM_LONG_DECODE = 8
+SSM_TRAIN_BATCH = 8
+SSM_TRAIN_TIMED_STEPS = 1
 
 
 def fused_xor_bound(rows: int, words: int, queries: int, clog: int,
@@ -3518,10 +3568,12 @@ def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
     LM_DECODE decode steps with write=True (each timed to its
     synchronize). Held: the prefill's last logits against a forward over
     the same prefix and tokens (within LM_LOGIT_TOL: an identity in the
-    reference) and, for the dense and VLM families, the last decode's
-    logits against a forward over every position, the decoded ones
-    included (within LM_LOGIT_TOL, greedy tokens equal but for near-ties).
-    For MoE that second difference and the slots the forwards' dispatch
+    reference) and, for the dense, VLM, audio and SSM families, the last
+    decode's logits against a forward over every position, the decoded
+    ones included (within LM_LOGIT_TOL, greedy tokens equal but for
+    near-ties; an SSM forward at :func:`ssm_chunk_for`'s chunk). The
+    cache's bytes are reported (an SSM's: its recurrent state). For MoE
+    that second difference and the slots the forwards' dispatch
     dropped are reported, not held (a decode step never drops a slot, the
     forward's capacity may), and the first MoE layer's two branches are
     held against each other (:func:`moe_branch_check`)."""
@@ -3559,13 +3611,19 @@ def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
         torch.cuda.synchronize()
         decode_s.append(time.perf_counter() - t0)
     length = int(cache.length)
+    state_bytes = (cache.nbytes() if cfg.family == "ssm" else
+                   sum(t.numel() * t.element_size() for t in cache
+                       if t.dim()))
     trace = lm_decode_trace(ss.model, cache, tokens[:, -1:])
     branch = moe_branch_check(ss.model, cache, tokens[:, -1:]) if moe \
         else None
     del cache
     t0 = time.perf_counter()
     pre_want, pre_dropped = last_logits(ss.model, batch["tokens"], prefix)
-    want, dropped = last_logits(ss.model, tokens, prefix, per_stream=True)
+    # an SSM forward holds one stream's state, not its attention scores:
+    # all streams in one pass
+    want, dropped = last_logits(ss.model, tokens, prefix,
+                                per_stream=cfg.family != "ssm")
     torch.cuda.synchronize()
     forward_s = time.perf_counter() - t0
     pre_diff = float((pre_got - pre_want).abs().max())
@@ -3594,7 +3652,8 @@ def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
            "decode_ms_per_token": dec * 1e3,
            "decode_ms_runs": [t * 1e3 for t in decode_s],
            "decode_tokens_per_s": streams / dec, "forward_s": forward_s,
-           "cache_length": length, "logits_finite": first_ok and bool(
+           "cache_length": length, "cache_bytes": state_bytes,
+           "logits_finite": first_ok and bool(
                torch.isfinite(got).all()),
            "prefill_max_abs_diff_vs_forward": pre_diff,
            "max_abs_diff_vs_forward": diff, "tolerance": LM_LOGIT_TOL,
@@ -3625,7 +3684,8 @@ def last_logits(model, tokens, prefix=None, *,
     (attention and the MoE dispatch are per sequence) in a quarter of the
     memory. At 2,080 or 4,128 positions, not a multiple of the 1,024
     attention chunk, one block spans the sequence: deepseek-v3's 128 heads
-    at 4 streams would make 8.25 GiB float32 score tensors."""
+    at 4 streams would make 8.25 GiB float32 score tensors. An SSM model
+    runs at :func:`ssm_chunk_for`'s chunk."""
     from repro_torch.models import moe as M
     if per_stream:
         groups = zip(tokens.split(1), (None,) * len(tokens) if prefix is None
@@ -3633,12 +3693,34 @@ def last_logits(model, tokens, prefix=None, *,
     else:
         groups = ((tokens, prefix),)
     last = []
-    with at_moe_inputs(model, M.dropped_slots) as dropped:
+    with at_moe_inputs(model, M.dropped_slots) as dropped, \
+            ssm_chunk_for(model, tokens.shape[1]):
         for group, pre in groups:
             full, _ = model.forward(group, prefix_embeds=pre)
             last.append(full[:, -1, :model.cfg.vocab].clone())
             del full
     return torch.cat(last), sum(dropped)
+
+
+@contextlib.contextmanager
+def ssm_chunk_for(model, n: int):
+    """Inside the block an SSM model's passes over ``n`` positions run at
+    the largest chunk that divides both n and the config's chunk (its
+    config swapped for the block): ssd_scan raises unless the chunk
+    divides the length, as the reference's, and 2,080 positions are no
+    multiple of xlstm's 256 (2,080 = 65 x 32). The chunk changes how the
+    scan groups its sums, not the function. Other models run as they
+    are."""
+    cfg = model.cfg
+    if cfg.family != "ssm" or n % min(cfg.ssm.chunk, n) == 0:
+        yield
+        return
+    model.cfg = replace(cfg, ssm=replace(cfg.ssm, chunk=math.gcd(
+        n, cfg.ssm.chunk)))
+    try:
+        yield
+    finally:
+        model.cfg = cfg
 
 
 @contextlib.contextmanager
@@ -3788,7 +3870,8 @@ def lm_kernels(model, cfg, card, device, phase="private_lm_kernels"
                ) -> dict:
     """B1 and B2 on the padded table's words ([2^18, 1280] at qwen3-4b,
     [2^17, 3584] at deepseek-v3-671b, [2^16, 3584] at llava-next-34b,
-    [2^16, 384] at whisper-small; each launch's device time alone beside
+    [2^16, 384] at whisper-small, [2^16, 512] at xlstm-350m; each launch's
+    device time alone beside
     the CUDA events', :func:`kernel_device_ms`) at
     the path's batches, each against
     its plain version on the same inputs (max_abs_err 0), then timed by
@@ -3885,7 +3968,7 @@ def phase_lm(arch, card, device, *, phase="private_lm", layers=None,
     private_moe: the MoE archs at MOE_SERVE's and MOE_PRIVATE's depth;
     vlm_serve: llava-next-34b at VLM_SERVE's depth and VLM_SEQ positions;
     audio_serve: whisper-small uncut, LM_PREFILL decoder tokens behind
-    its encoder_len frames."""
+    its encoder_len frames; ssm_serve: xlstm-350m uncut."""
     from repro_torch.config import ShapeConfig
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -3933,6 +4016,94 @@ def phase_lm(arch, card, device, *, phase="private_lm", layers=None,
     return worst, launches
 
 
+def phase_ssm_long(card, device) -> dict:
+    """The long_500k cell that xlstm-350m runs (cell_is_skipped is false
+    for it and true for every other ported arch): its serve step at batch
+    1, the decode state from init_cache(1, 524,288) (its bytes those at
+    capacity LM_PREFILL: the state does not grow), a SSM_LONG_PROMPT-token
+    prompt prefilled, then SSM_LONG_DECODE decode steps through the step
+    from the prompt's state and from the long cache, each timed to its
+    synchronize. Held: the bytes equal, every logit finite, the long
+    cache's first decode bit-equal to the one from a capacity-LM_PREFILL
+    cache, and the prompt's decodes within LM_LOGIT_TOL of a forward over
+    the prompt and the decoded tokens."""
+    from repro_torch.configs import ARCHS, SHAPES, cell_is_skipped, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.steps import make_serve_step
+    t_phase = time.perf_counter()
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    skipped = {a: cell_is_skipped(a, "long_500k") for a in ARCHS}
+    if skipped[SSM_ARCH] or not all(v for a, v in skipped.items()
+                                    if a != SSM_ARCH):
+        raise AssertionError(f"ssm_long: cell_is_skipped {skipped}")
+    cfg, shape = get_arch(SSM_ARCH), SHAPES["long_500k"]
+    ss = make_serve_step(cfg, shape, device=device)
+    model = ss.model.init_params(torch.Generator(device).manual_seed(
+        SEED + 600))
+    gen = torch.Generator(device).manual_seed(SEED + 601)
+    tokens = torch.randint(0, cfg.vocab, (1, SSM_LONG_PROMPT
+                                          + SSM_LONG_DECODE),
+                           generator=gen, device=device)
+    long_cache = model.init_cache(shape.global_batch, shape.seq_len)
+    short_cache = model.init_cache(shape.global_batch, LM_PREFILL)
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cache = model.prefill(tokens[:, :SSM_LONG_PROMPT])
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    runs = {}
+    for name, c in (("prompt", cache), ("long", long_cache)):
+        times, finite = [], True
+        for i in range(SSM_LONG_DECODE):
+            step = tokens[:, SSM_LONG_PROMPT + i:SSM_LONG_PROMPT + i + 1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, c = ss.decode(c, step)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            finite &= bool(torch.isfinite(logits).all())
+        runs[name] = {"decode_s": times, "finite": finite,
+                      "last": logits[:, :cfg.vocab].clone(),
+                      "length": int(c.length)}
+    step0 = tokens[:, SSM_LONG_PROMPT:SSM_LONG_PROMPT + 1]
+    first_long, _ = ss.decode(long_cache, step0)
+    first_short, _ = ss.decode(short_cache, step0)
+    want, _ = last_logits(model, tokens)
+    diff = float((runs["prompt"]["last"] - want).abs().max())
+    counts = ops.counts()
+    out = {"phase": "ssm_long", "card": card, "arch": cfg.name,
+           "shape": shape.name, "seq_len": shape.seq_len,
+           "batch": shape.global_batch, "cell_is_skipped": skipped,
+           "state_bytes_at_seq_len": long_cache.nbytes(),
+           "state_bytes_at_prefill": short_cache.nbytes(),
+           "state_bytes_after_prompt": cache.nbytes(),
+           "prompt_tokens": SSM_LONG_PROMPT, "prefill_s": prefill_s,
+           "decode_steps": SSM_LONG_DECODE,
+           "decode_ms_per_token": {k: float(np.median(v["decode_s"])) * 1e3
+                                   for k, v in runs.items()},
+           "decode_ms_runs": {k: [t * 1e3 for t in v["decode_s"]]
+                              for k, v in runs.items()},
+           "lengths": {k: v["length"] for k, v in runs.items()},
+           "logits_finite": all(v["finite"] for v in runs.values()),
+           "long_equals_short_cache": torch.equal(first_long, first_short),
+           "max_abs_diff_vs_forward": diff, "tolerance": LM_LOGIT_TOL,
+           "pir_kernel_calls": {k: v["launches"] + v["plain_calls"]
+                                for k, v in counts.items()},
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t_phase}
+    del ss, model, cache, long_cache, short_cache
+    release()
+    emit(out)
+    if not (out["state_bytes_at_seq_len"] == out["state_bytes_at_prefill"]
+            == out["state_bytes_after_prompt"] and out["logits_finite"]
+            and out["long_equals_short_cache"] and diff <= LM_LOGIT_TOL
+            and not any(out["pir_kernel_calls"].values())):
+        raise AssertionError(f"ssm_long: {out}")
+    return out
+
+
 # -- the training half ----------------------------------------------------------
 
 TRAIN_ARCH = "granite-3-2b"
@@ -3950,7 +4121,8 @@ TRAIN_FIRST_LOSS_TOL = 0.5  # the first loss within this of its want
 MOE_TRAIN = ("grok-1-314b", 1)
 MOE_TRAIN_BATCH = 2
 PARITY_ARCHS = ("granite-3-2b", "qwen3-4b", "deepseek-v3-671b",
-                "grok-1-314b", "llava-next-34b", "whisper-small")
+                "grok-1-314b", "llava-next-34b", "whisper-small",
+                "xlstm-350m")
 PARITY_STEPS = 3
 PARITY_LR = 1e-3
 # card against CPU, float32: every loss within PARITY_LOSS_TOL; every
@@ -3962,9 +4134,11 @@ PARITY_LOSS_TOL = 1e-4
 PARITY_PARAM_ATOL = 1e-4
 PARITY_PARAM_RTOL = 1e-4
 PARITY_FLIPS = 2e-3
-LOOP_STEPS = 40
-LOOP_CKPT_EVERY = 10
-LOOP_SPLIT = 20
+# run A, B1 and B2 together: 48 steps and 6 checkpoint writes, so that the
+# whole run stays inside its time budget (PERF.md section 5)
+LOOP_STEPS = 24
+LOOP_CKPT_EVERY = 8
+LOOP_SPLIT = 8
 # run B resumed against the uninterrupted run A, per logged loss: the two
 # runs are separate CUDA runs, whose atomic accumulations need not sum in
 # one order (on the H100 they have been equal bit for bit)
@@ -4012,12 +4186,13 @@ def train_trace(ts, params, opt, ef, batch) -> tuple:
 
 def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
                      layers=None, optimizer="adamw", batch=TRAIN_BATCH,
-                     microbatches=TRAIN_MICROBATCHES) -> dict:
+                     microbatches=TRAIN_MICROBATCHES,
+                     timed_steps=TRAIN_TIMED_STEPS) -> dict:
     """``arch``'s FULL config (its depth cut to ``layers`` if given; its
     weights drawn from a seeded generator on the card) trained by
     make_train_step at train_4k's sequence length with the global batch
     cut to ``batch`` sequences in ``microbatches`` microbatches,
-    ``optimizer``, remat="block": one warm-up step, TRAIN_TIMED_STEPS
+    ``optimizer``, remat="block": one warm-up step, ``timed_steps``
     timed ones (host clock to a synchronize) and one under
     torch.profiler, all on the pipeline's batch 0 (a VLM's with its
     prefix_embeds stub, an audio model's with its frame_embeds). Fails
@@ -4032,7 +4207,10 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
     MoE, every parameter otherwise, times every position (a VLM's prefix
     rows run the trunk too); for an encoder-decoder, the encoder's
     parameters times the frames plus the decoder's and the tied
-    unembedding's times the tokens (the learned positions are a lookup)."""
+    unembedding's times the tokens (the learned positions are a lookup);
+    for an SSM model every parameter, each block at its own size (the
+    config's n_params() counts every block as an mLSTM), times the
+    tokens."""
     from repro_torch.analysis.roofline import PEAK_BF16_FLOPS_PER_S
     from repro_torch.config import OptimizerConfig, ShapeConfig
     from repro_torch.configs import get_arch
@@ -4078,7 +4256,7 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
                           slots_first_forward=cfg.moe.top_k * TRAIN_SEQ
                           * (cfg.n_layers - cfg.moe.first_dense))
     losses, step_s = [], []
-    for _ in range(1 + TRAIN_TIMED_STEPS):
+    for _ in range(1 + timed_steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         *state, m = ts.step(*state, batch_in)
@@ -4107,6 +4285,10 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
                  "unembedding parameters) x tokens); pos_dec is a lookup")
         spread.update(encoder_params=n_enc, decoder_params=n_dec,
                       unembed_params=n_unembed, frames_per_step=frames)
+    if cfg.family == "ssm":
+        basis = ("6 x parameters x tokens, each block at its own size (the "
+                 "config's n_params() counts every block as an mLSTM); the "
+                 "mLSTM's intra-chunk [Q, Q] products are outside it")
     launches = {k: v["launches"] + v["plain_calls"]
                 for k, v in ops.counts().items()}
     out = {"phase": phase, "card": card, "arch": cfg.name,
@@ -4211,7 +4393,7 @@ def phase_train_parity(card, device) -> dict:
     """The PARITY_ARCHS' SMOKE configs in float32 (the dense granite-3-2b
     and qwen3-4b, the MoE deepseek-v3-671b and grok-1-314b, the VLM
     llava-next-34b with its prefix_embeds stub, the audio whisper-small
-    with its frame_embeds stub): PARITY_STEPS
+    with its frame_embeds stub, the SSM xlstm-350m): PARITY_STEPS
     AdamW steps, and PARITY_STEPS Adafactor steps with compress_grads and
     two microbatches, on the card against the same steps on the CPU; the
     MoE cases' routes that part at step 0 are counted and reported."""
@@ -4470,9 +4652,16 @@ def main() -> int:
     # decoder-token lookups over its 96 MiB table of 1,536-byte rows
     worst_audio, launches_audio = phase_lm(
         AUDIO_ARCH, info["card"], device, phase="audio_serve")
+    # the SSM family: xlstm-350m uncut (0.529 B parameters), 2,048 tokens a
+    # stream through 21 mLSTM and 3 sLSTM blocks, private lookups over its
+    # 128 MiB table of 2,048-byte rows; then its long_500k cell
+    worst_ssm, launches_ssm = phase_lm(SSM_ARCH, info["card"], device,
+                                       phase="ssm_serve")
+    phase_ssm_long(info["card"], device)
     for name, err in (list(worst_lm.items()) + list(worst_moe.items())
                       + list(worst_vlm.items())
-                      + list(worst_audio.items())):
+                      + list(worst_audio.items())
+                      + list(worst_ssm.items())):
         worst[name] = max(worst[name], err)
     # the LM's training half, alone on the card: granite-3-2b at full
     # width and depth, the card against the CPU, the train_lm twin
@@ -4495,6 +4684,12 @@ def main() -> int:
                      arch=AUDIO_ARCH, optimizer="adamw",
                      batch=AUDIO_TRAIN_BATCH,
                      microbatches=AUDIO_TRAIN_MICROBATCHES)
+    # the SSM family's train step: xlstm-350m uncut at chunk 256, one
+    # microbatch of 8, AdamW
+    phase_train_step(info["card"], device, phase="ssm_train",
+                     arch=SSM_ARCH, optimizer="adamw",
+                     batch=SSM_TRAIN_BATCH, microbatches=1,
+                     timed_steps=SSM_TRAIN_TIMED_STEPS)
     phase_train_parity(info["card"], device)
     phase_train_loop(info["card"], device)
 
@@ -4508,12 +4703,13 @@ def main() -> int:
              total(launches, launches_chk, launches_w128, launches_upd,
                    launches_batch, launches_twins, launches_runtime,
                    launches_replicas, launches_lm, launches_moe,
-                   launches_vlm, launches_audio), timing),
+                   launches_vlm, launches_audio, launches_ssm), timing),
             ("fused_scan_xor", "src/repro_torch/csrc/fused_scan_xor.cu",
              "src/repro/kernels/fused_scan.py:94",
              total(launches, launches_chk, launches_w128, launches_upd,
                    launches_runtime, launches_replicas, launches_lm,
-                   launches_moe, launches_vlm, launches_audio), timing),
+                   launches_moe, launches_vlm, launches_audio,
+                   launches_ssm), timing),
             ("pir_gemm", "src/repro_torch/csrc/pir_gemm.cu",
              "src/repro/kernels/pir_matmul.py:35",
              total(launches_add, launches_chk, launches_w128, launches_upd),

@@ -4,9 +4,11 @@ does (``--arch <id>``).
 
 Each architecture module defines FULL (the published configuration) and
 SMOKE (a reduced same-family configuration runnable on one CPU device).
-The port serves the dense, MoE, VLM and audio families so far; naming an
-architecture of another family raises ``NotImplementedError`` that says
-so, never a silent fallback.
+The port serves the dense, MoE, VLM, audio and SSM families so far;
+naming an architecture of another family raises ``NotImplementedError``
+that says so, never a silent fallback. ``LONG_CONTEXT_ARCHS`` and
+``cell_is_skipped`` are the reference's shape-grid rule: only the archs
+whose decode state does not grow with length run ``long_500k``.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.configs import (
     stablelm_3b,
     starcoder2_3b,
     whisper_small,
+    xlstm_350m,
 )
 from repro_torch.configs.shapes import SHAPES, get_shape
 
@@ -34,6 +37,7 @@ _MODULES = {
     "deepseek-v3-671b": deepseek_v3_671b,
     "llava-next-34b": llava_next_34b,
     "whisper-small": whisper_small,
+    "xlstm-350m": xlstm_350m,
 }
 
 ARCHS: Dict[str, ModelConfig] = {k: m.FULL for k, m in _MODULES.items()}
@@ -42,16 +46,19 @@ SMOKES: Dict[str, ModelConfig] = {k: m.SMOKE for k, m in _MODULES.items()}
 #: the reference's other architectures, by family; their configs and
 #: models are not ported yet
 NOT_PORTED: Dict[str, str] = {
-    "xlstm-350m": "ssm",
     "zamba2-7b": "hybrid",
 }
+
+#: pure full-attention archs skip long_500k (sub-quadratic required); the
+#: SSM and hybrid archs run it
+LONG_CONTEXT_ARCHS = ("xlstm-350m", "zamba2-7b")
 
 
 def get_arch(name: str, *, smoke: bool = False) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} (family {NOT_PORTED[name]!r}) is not ported yet; "
-            f"the port serves the dense, moe, vlm and audio families: "
+            f"the port serves the dense, moe, vlm, audio and ssm families: "
             f"{sorted(ARCHS)}")
     table = SMOKES if smoke else ARCHS
     if name not in table:
@@ -59,5 +66,11 @@ def get_arch(name: str, *, smoke: bool = False) -> ModelConfig:
     return table[name]
 
 
-__all__ = ["ARCHS", "SMOKES", "NOT_PORTED", "SHAPES", "get_arch",
-           "get_shape"]
+def cell_is_skipped(arch: str, shape_name: str) -> bool:
+    """True when an (arch x shape) cell is excluded by the assignment
+    rules: ``long_500k`` for every arch outside ``LONG_CONTEXT_ARCHS``."""
+    return shape_name == "long_500k" and arch not in LONG_CONTEXT_ARCHS
+
+
+__all__ = ["ARCHS", "SMOKES", "NOT_PORTED", "SHAPES", "LONG_CONTEXT_ARCHS",
+           "get_arch", "get_shape", "cell_is_skipped"]

@@ -76,8 +76,9 @@ def model_params_from_reference(params_np: Mapping, cfg
     ``enc_layers[i]`` -> ``enc_layers.{i}.*`` and ``dec_layers[i]`` ->
     ``dec_layers.{i}.*``. Every other leaf keeps its path, dotted:
     ``embed``, ``final_norm``, ``unembed``, ``mtp.*``, ``pos_dec``,
-    ``enc_norm.scale``. ``cfg`` is the model's config (unused: the tree
-    names every leaf)."""
+    ``enc_norm.scale``, and an item of a list by its index
+    (``XLSTMModel``'s ``blocks[i]/mix/w_in`` -> ``blocks.{i}.mix.w_in``).
+    ``cfg`` is the model's config (unused: the tree names every leaf)."""
     t = tensor_from_reference
     state = {}
     for key, tree in params_np.items():
@@ -94,11 +95,13 @@ def model_params_from_reference(params_np: Mapping, cfg
 
 
 def leaf_paths(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """(``a/b/c`` path, leaf) of a nested mapping; ``()`` leaves (the
-    reference's empty subtrees) come out as ``None``."""
-    for k, v in tree.items():
+    """(``a/b/c`` path, leaf) of a nested mapping, a list's items named by
+    their index (``blocks/0/mix/w_in``); ``()`` leaves (the reference's
+    empty subtrees) come out as ``None``."""
+    items = enumerate(tree) if isinstance(tree, list) else tree.items()
+    for k, v in items:
         path = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(v, Mapping):
+        if isinstance(v, (Mapping, list)):
             yield from leaf_paths(v, path)
         else:
             yield path, (None if isinstance(v, tuple) and not v else v)
@@ -110,8 +113,9 @@ def opt_state_from_reference(state, cfg):
     names) as the port's, on the CPU: AdamW's trees unstacked to the
     port's parameter names, Adafactor's kept stacked per leaf path
     (``dense_layers/attn/wq``, ``moe_layers/ffn/gate``, ``mtp/proj``,
-    ``enc_layers/attn/wq``, ``dec_layers/cross_attn/wk``; ``None`` for
-    ``()``): the keys of ``optimizer.leaf_groups``."""
+    ``enc_layers/attn/wq``, ``dec_layers/cross_attn/wk``,
+    ``blocks/0/mix/w_in``; ``None`` for ``()``): the keys of
+    ``optimizer.leaf_groups``."""
     from repro_torch.optim.optimizer import AdafactorState, AdamWState
     step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32)
     if hasattr(state, "master"):

@@ -14,6 +14,8 @@ Examples:
       --optimizer adafactor --steps 20 --device cpu
   python -m repro_torch.launch.train --arch whisper-small --smoke \\
       --steps 20 --microbatches 2 --device cpu
+  python -m repro_torch.launch.train --arch xlstm-350m --smoke \\
+      --steps 20 --device cpu
 
 A VLM's batches carry the pipeline's patch-embedding stub
 (``prefix_embeds``) beside its text tokens, an audio model's its

@@ -1,11 +1,13 @@
 """Model zoo dispatch: ``ModelConfig.family`` -> model — the port of
-``repro/models/registry.py`` for the dense, MoE, VLM and audio families.
+``repro/models/registry.py`` for the dense, MoE, VLM, audio and SSM
+families.
 
 A model is an ``nn.Module`` holding its weights (``init_params(generator)``
 draws them); its entry points are ``forward``, ``loss``, ``prefill``,
 ``decode`` and ``init_cache`` (``models/transformer.py``'s
 ``TransformerLM`` for the decoder-only families, ``models/encdec.py``'s
-``EncDecLM`` for audio). ``input_specs`` gives the step inputs' shapes and
+``EncDecLM`` for audio, ``models/xlstm.py``'s ``XLSTMModel`` for the SSM
+family). ``input_specs`` gives the step inputs' shapes and
 dtypes; there is no mesh, so no PartitionSpecs.
 """
 from __future__ import annotations
@@ -18,10 +20,15 @@ from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.engine.backend import Device, resolve_device
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import PORTED_FAMILIES, TransformerLM
+from repro_torch.models.xlstm import XLSTMModel
 
 FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
-#: every family the port serves: TransformerLM's and the encoder-decoder's
-SERVED = PORTED_FAMILIES + ("audio",)
+#: every family the port serves: TransformerLM's, the encoder-decoder's and
+#: the xLSTM's
+SERVED = PORTED_FAMILIES + ("audio", "ssm")
+
+#: the model class of each family outside TransformerLM's
+_MODELS = {"audio": EncDecLM, "ssm": XLSTMModel}
 
 
 class InputSpec(NamedTuple):
@@ -41,13 +48,14 @@ def _check_family(cfg: ModelConfig) -> None:
 
 
 def build_model(cfg: ModelConfig, *, device: Device = None,
-                remat: str = "block") -> Union[TransformerLM, EncDecLM]:
+                remat: str = "block"
+                ) -> Union[TransformerLM, EncDecLM, XLSTMModel]:
     """The model for ``cfg`` with its weights allocated on ``device``
     (``None`` means the CUDA card; no card raises) and not yet drawn.
     ``remat`` is the reference's: ``"block"`` recomputes each layer in the
     backward pass of ``loss``, ``"none"`` keeps its activations."""
     _check_family(cfg)
-    model = EncDecLM if cfg.family == "audio" else TransformerLM
+    model = _MODELS.get(cfg.family, TransformerLM)
     return model(cfg, device=resolve_device(device), remat=remat)
 
 

@@ -18,8 +18,9 @@ weight ``[E, d, f]`` a layer onto ``[L, E, d, f]``), the
 encoder-decoder's ``enc_layers.{i}.<path>`` and
 ``dec_layers.{i}.<path>`` onto ``enc_layers/<path>`` and
 ``dec_layers/<path>``, and every other parameter (``embed``,
-``pos_dec``, ``enc_norm.scale``, ``mtp.proj``, ``mtp.layer.attn.wq``)
-onto its own unstacked leaf. Every statistic the reference takes over a
+``pos_dec``, ``enc_norm.scale``, ``mtp.proj``, ``mtp.layer.attn.wq``,
+the xLSTM's unstacked ``blocks.{i}.mix.w_in``, which the reference keeps
+in a list: ``blocks/{i}/mix/w_in``) onto its own unstacked leaf. Every statistic the reference takes over a
 whole leaf is taken over that group: Adafactor factors the stacked
 tensor over its last two axes (a norm scale ``[L, d]`` into ``vr [L]``
 and ``vc [d]``, an expert weight into ``vr [L, E, d]`` and ``vc [L, E,

@@ -27,12 +27,14 @@ audio client (whisper-small) each stream's audio: the family's side input
 ``frame_embeds``, which the encoder reads) stays on the client, and only
 the (decoder's) text tokens' rows are fetched through the servers. The
 twin draws it from the seed as the training pipeline draws its stub
-(normal x 0.02, numpy).
+(normal x 0.02, numpy). An SSM client (xlstm-350m) is text-only; its
+decode state is recurrent, not a KV cache, so the prefill's capacity is
+ignored and each decode step advances the state.
 
 Run:  PYTHONPATH=src python -m repro_torch.private_inference [--device cpu]
       [--tokens 8] [--streams 2]
       [--arch pi-lm | qwen3-4b | deepseek-v3-671b | grok-1-314b
-       | llava-next-34b | whisper-small [--smoke]]
+       | llava-next-34b | whisper-small | xlstm-350m [--smoke]]
 (the default device is the CUDA card; without one it raises). The last
 line printed is a JSON summary; a wrong row or token exits non-zero.
 """
@@ -54,10 +56,12 @@ from repro_torch.kernels import ops
 from repro_torch.models import EncDecLM, build_model, input_specs
 from repro_torch.models.layers import embed_lookup, pad_vocab
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.xlstm import XLSTMCache, XLSTMModel
 from repro_torch.runtime.serve_loop import TwoServerPIR
 
-#: the twin's model: a decoder-only LM or the audio family's encoder-decoder
-Model = Union[TransformerLM, EncDecLM]
+#: the twin's model: a decoder-only LM, the audio family's encoder-decoder
+#: or the SSM family's xLSTM
+Model = Union[TransformerLM, EncDecLM, XLSTMModel]
 
 #: the example's model (``examples/private_inference.py:48``)
 PI_LM = ModelConfig(name="pi-lm", family="dense", n_layers=2, d_model=64,
@@ -210,13 +214,17 @@ def generate(model: Model, embed: Callable, prompt: torch.Tensor,
 def solo_step(model: Model, embed: Callable, gen: dict,
               stream: int = 0) -> int:
     """One more token for ``stream`` alone: one lookup (a batch of one
-    query) and a decode on that stream's slice of the cache (every field
-    but ``length`` is ``[Layers, B, ...]``)."""
+    query) and a decode on that stream's slice of the cache (a KV cache's
+    every field but ``length`` is ``[Layers, B, ...]``; an xLSTM cache
+    slices itself, :meth:`XLSTMCache.streams`)."""
     cache = gen["cache"]
     last = gen["tokens"][stream:stream + 1, -1].to(model.device)
-    one = cache._replace(**{
-        name: getattr(cache, name)[:, stream:stream + 1]
-        for name in cache._fields if name != "length"})
+    if isinstance(cache, XLSTMCache):
+        one = cache.streams(stream, stream + 1)
+    else:
+        one = cache._replace(**{
+            name: getattr(cache, name)[:, stream:stream + 1]
+            for name in cache._fields if name != "length"})
     x = embed(last).reshape(1, 1, model.cfg.d_model)
     logits, _ = model.decode(one, embeds=x, write=False)
     return int(logits[0, :model.cfg.vocab].argmax())
@@ -325,7 +333,7 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--arch", default=PI_LM.name,
                     help="pi-lm (the example's model) or a dense, moe, "
-                    "vlm or audio arch")
+                    "vlm, audio or ssm arch")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced config")
     ap.add_argument("--tokens", type=int, default=8)

@@ -105,7 +105,7 @@ def test_get_arch_unknown_and_build_model_other_family():
     with pytest.raises(ValueError, match="needs moe="):
         build_model(moe, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(replace(moe, family="ssm"), device="cpu")
+        build_model(replace(moe, family="hybrid"), device="cpu")
     with pytest.raises(ValueError, match="unknown family"):
         build_model(replace(moe, family="mystery"), device="cpu")
 
