@@ -147,7 +147,7 @@ Then the single-server LWE scheme runs at PIR_128M_LWE (2^22 records x
               on cuda:0 on one card), each placing its own 1 GiB Database,
               behind a seeded Router; join (build and attach seconds, the
               first exact answer), a 64-row publish fanned out to epoch 1,
-              256 queries from 4 client threads through the fleet and
+              128 queries from 4 client threads through the fleet and
               through r1 alone (sessions pinned), four turns (records/s,
               the split, each replica's batches and pad fraction, the
               metrics snapshot), the same four turns with the keys made
@@ -262,13 +262,50 @@ Then the SSM family's serving path:
               words exact against their plain versions, timed beside their
               bounds (ssm_serve_kernels). About 15 s
   ssm_long    the long_500k cell, which only the SSM and hybrid archs run
-              (cell_is_skipped false for xlstm-350m, true for every other
-              ported arch): its serve step at batch 1, init_cache(1,
-              524,288) holding the bytes of init_cache(1, 2,048), a
-              256-token prompt prefilled, then 8 decodes from the prompt's
-              state and 8 from the long cache (ms a token), the long
-              cache's first decode bit-equal to the short one's, the
-              prompt's last decode against a forward. About 2 s
+              (cell_is_skipped false for the archs of LONG_CONTEXT_ARCHS,
+              xlstm-350m and zamba2-7b, true for every other): xlstm's
+              serve step at batch 1, init_cache(1, 524,288) holding the
+              bytes of init_cache(1, 2,048), a 256-token prompt prefilled,
+              then 8 decodes from the prompt's state and 8 from the long
+              cache (ms a token), the long cache's first decode bit-equal to
+              the short one's, the prompt's last decode against a forward.
+              About 2 s
+Then the hybrid family's serving path:
+  hybrid_serve  zamba2-7b uncut (81 Mamba2 layers, d_model 3,584, chunk
+              256, and one weight-shared attention + MLP block applied
+              after every 6th layer: 13 invocations, each its own KV cache;
+              6.75 B parameters, 13.5 GB in bf16, drawn from a seeded
+              generator on the card): make_serve_step at 4 streams x 2,048
+              tokens, capacity 2,080, and 32 decode steps with write=True
+              (prefill s, decode ms per token, the decode state's bytes a
+              stream: the Mamba states and the KV caches apart); the
+              prefill's last logits against a forward over the same
+              tokens (within LM_LOGIT_TOL); the last decode's difference
+              from a forward over all 2,080 tokens at chunk 32
+              (ssm_chunk_for) reported beside two bf16 forwards' own
+              (chunks 16 and 32), the decode's identity held by a float32
+              twin at full size, one stream, 27 GB (within
+              HYBRID_F32_TOL), greedy tokens equal but for near-ties; no
+              kernel of the six launched. Then the private_inference twin
+              (text only): 4
+              streams, a 16-token prompt, 16 new tokens, every row of the
+              input table embed through TwoServerPIR over it padded to 2^15
+              rows x 7,168 B (1,792 words, 224 MiB; B2 for the streams'
+              batches, B1 alone), rows bit-exact, tokens those of plain
+              lookups; then B1 (Q = 1) and B2 (Q = 4, 32) at 1,792 words
+              exact against their plain versions, timed beside their bounds
+              (hybrid_serve_kernels)
+  hybrid_long the long_500k cell of zamba2-7b at batch 1, its depth cut 81
+              -> 36 layers (6 shared invocations: 13 KV caches of 524,288
+              rows would be 97.7 GB): a 256-token prompt prefilled into KV
+              caches of 524,288 rows (45.1 GB) and 8 timed decodes with
+              write=True; the Mamba states' bytes equal at capacity
+              524,288 and 2,048, the KV caches' 2 g C KV hd 2 B; the last
+              decode against a forward over the 264 tokens (within
+              LM_LOGIT_TOL), the first decode against the one from a
+              prefill at capacity 2,048 (the difference reported, whether
+              bit-equal said); peak device memory (decode_attention_append
+              copies one 7.5 GB K or V cache to float32 at a time)
 Then the LM's training half, which launches none of the six kernels (its
 counters must stay 0):
   train_step  granite-3-2b at full width and depth (40 layers, d_model
@@ -276,7 +313,7 @@ counters must stay 0):
               seeded generator on the card) through make_train_step at
               train_4k's 4,096 tokens, the global batch of 256 cut to
               TRAIN_BATCH sequences (one per microbatch), AdamW, remat
-              "block": one warm-up step, three timed ones and one under
+              "block": one warm-up step, one timed one and one under
               torch.profiler, all on the pipeline's batch 0; every loss
               finite, the first within 0.5 of ln(vocab), the last below the
               first; seconds per step, tokens/s, the model-FLOPs share (6 N
@@ -304,16 +341,24 @@ counters must stay 0):
               model-FLOPs share counts the encoder's parameters over the
               frames and the decoder's and the tied unembedding's over the
               tokens (6 N tokens does not describe an encoder-decoder)
-  ssm_train   the same for the SSM family: xlstm-350m uncut at chunk 256,
+  ssm_train   the same for the SSM family: xlstm-350m at full width, its
+              depth cut 24 -> 16 blocks (14 mLSTM, 2 sLSTM), at chunk 256,
               train_4k's 4,096 tokens, the global batch of 256 cut to 8 in
               one microbatch (the reference's policy has 4: the sLSTM's loop
               over time makes a step's launches follow the microbatches),
-              AdamW; one warm-up step, one timed, one traced (the trace of
-              about 0.7 M launches and its reading take about 22 s); the
+              AdamW; one warm-up step, one timed, one traced; the
               model-FLOPs share counts every parameter at its block's own
-              size. About 60 s
+              size. About 40 s
+  hybrid_train  the same for the hybrid family: zamba2-7b at full width, 81
+              -> 12 layers (2 shared invocations, 1.37 B parameters: AdamW's
+              float32 state at full depth would need about 120 GB) at chunk
+              256, train_4k's 4,096 tokens, the global batch of 256 cut to 8
+              in the reference's policy of 8 microbatches, AdamW; one
+              warm-up step, one timed, one traced; the model-FLOPs share
+              counts the shared block once per invocation
   train_parity  granite-3-2b, qwen3-4b, deepseek-v3-671b, grok-1-314b,
-              llava-next-34b, whisper-small and xlstm-350m SMOKE in float32
+              llava-next-34b, whisper-small, xlstm-350m and zamba2-7b SMOKE
+              in float32
               (llava with its prefix, whisper with its frames), the
               same weights and batches on the card
               and on the CPU: three AdamW steps, and three Adafactor steps
@@ -322,8 +367,8 @@ counters must stay 0):
               the top-k routes that part at step 0, counted and reported
   train_loop  the train_lm twin's recipe (model_100m, 16 x 512, two
               microbatches) through TrainLoop and CheckpointManager under a
-              temporary directory: run A, 24 steps with a checkpoint every
-              8; run B, 8 steps, then a fresh loop resumed to 24. A's last
+              temporary directory: run A, 9 steps with a checkpoint every
+              3; run B, 3 steps, then a fresh loop resumed to 9. A's last
               loss below its first, three checkpoints kept, B's resumed
               losses A's within LOOP_RESUME_TOL; checkpoint copy, write and
               restore seconds, steps/s
@@ -2941,8 +2986,10 @@ REPL_UPDATE_ROWS = 64
 REPL_CLIENTS = 4
 #: queries per load turn, from REPL_CLIENTS client threads: through the
 #: fleet's router (P2C) or through the same router with every client's
-#: session pinned to r1 (one replica), in turns
-REPL_QUERIES = 256
+#: session pinned to r1 (one replica), in turns, and per turn of keys made
+#: before the window (256 until the hybrid's phases needed the time: the
+#: load turns took 43 s on the H100's host)
+REPL_QUERIES = 128
 REPL_LOAD_TURNS = ("fleet", "one", "one", "fleet")
 #: single-query keygens timed one after another and over REPL_CLIENTS
 #: threads, the host work the router's load puts on its client threads
@@ -3535,17 +3582,50 @@ AUDIO_TRAIN_MICROBATCHES = 2
 #: mLSTM and 3 sLSTM, d_model 1,024, chunk 256). Serving at LM_STREAMS x
 #: LM_PREFILL tokens; long_500k (batch 1) from an init_cache of 524,288
 #: positions, a SSM_LONG_PROMPT-token prompt and SSM_LONG_DECODE decodes;
-#: training at train_4k's 4,096 tokens, the global batch of 256 cut to 8
-#: in one microbatch (the reference's policy: 4; the sLSTM's loop over
-#: time steps makes a step's launches follow the microbatches), AdamW (the
-#: reference's policy for the arch, repro/launch/dryrun.py:51), one timed
-#: step after the warm-up (each step runs the sLSTM's 3 x 4,096 time steps
-#: forward, again in the recompute and backward)
+#: training at SSM_TRAIN_LAYERS blocks, train_4k's 4,096 tokens, the
+#: global batch of 256 cut to 8 in one microbatch (the reference's policy:
+#: 4; the sLSTM's loop over time steps makes a step's launches follow the
+#: microbatches), AdamW (the reference's policy for the arch,
+#: repro/launch/dryrun.py:51), one timed step after the warm-up (each step
+#: runs the sLSTM's 2 x 4,096 time steps forward, again in the recompute
+#: and backward)
 SSM_ARCH = "xlstm-350m"
 SSM_LONG_PROMPT = 256
 SSM_LONG_DECODE = 8
 SSM_TRAIN_BATCH = 8
+#: ssm_train's depth, cut 24 -> 16 blocks (14 mLSTM, 2 sLSTM) when the
+#: hybrid's phases needed the time: the sLSTM's loop sets its step
+SSM_TRAIN_LAYERS = 16
 SSM_TRAIN_TIMED_STEPS = 1
+#: the hybrid phases (PERF.md section 4): zamba2-7b at full width. Serving
+#: uncut (81 Mamba2 layers, 13 shared invocations) at LM_STREAMS x
+#: LM_PREFILL tokens; long_500k (batch 1) cut to HYBRID_LONG_LAYERS (6
+#: invocations: 6 KV caches of 524,288 rows are 45.1 GB, 13 would be 97.7
+#: GB), a HYBRID_LONG_PROMPT-token prompt and HYBRID_LONG_DECODE decodes;
+#: training cut to HYBRID_TRAIN_LAYERS (2 invocations; AdamW's float32
+#: state at full depth would be about 120 GB) at train_4k's 4,096 tokens,
+#: the global batch of 256 cut to 8 in the reference's policy of 8
+#: microbatches with AdamW (repro/launch/dryrun.py:55)
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_LONG_LAYERS = 36
+HYBRID_LONG_PROMPT = 256
+HYBRID_LONG_DECODE = 8
+HYBRID_TRAIN_LAYERS = 12
+HYBRID_TRAIN_BATCH = 8
+HYBRID_TRAIN_MICROBATCHES = 8
+HYBRID_TRAIN_TIMED_STEPS = 1
+#: zamba2-7b's last bf16 decode is reported against the forward, not held
+#: to LM_LOGIT_TOL: over its 94 blocks at random weights the bf16
+#: arithmetic alone parts two passes by more (on the H100 two forwards that
+#: differ only in the scan's chunk, 16 and 32, by 0.241, at logits of
+#: std 1.198; the bf16 forward lies further still from a float32 one:
+#: bf16_forward_vs_float32_forward in the phase's line). The decode's
+#: identity is held in float32 instead, at full width and depth, one
+#: stream, within HYBRID_F32_TOL (measured 8.1e-5); and the bf16 forward at
+#: HYBRID_FLOOR_CHUNK is reported beside the decode's difference, as the
+#: bf16 noise floor
+HYBRID_F32_TOL = 1e-3
+HYBRID_FLOOR_CHUNK = 16
 
 
 def fused_xor_bound(rows: int, words: int, queries: int, clog: int,
@@ -3576,7 +3656,11 @@ def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
     that second difference and the slots the forwards' dispatch
     dropped are reported, not held (a decode step never drops a slot, the
     forward's capacity may), and the first MoE layer's two branches are
-    held against each other (:func:`moe_branch_check`)."""
+    held against each other (:func:`moe_branch_check`). For the hybrid
+    the bf16 decode's difference is reported beside the bf16 forward's own
+    at HYBRID_FLOOR_CHUNK, and the decode's identity is held in float32
+    (:func:`hybrid_f32_decode`, within HYBRID_F32_TOL) with the greedy
+    tokens."""
     moe = cfg.moe is not None
     structs = ss.input_structs
     streams, text = structs["tokens"].shape
@@ -3614,6 +3698,10 @@ def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
     state_bytes = (cache.nbytes() if cfg.family == "ssm" else
                    sum(t.numel() * t.element_size() for t in cache
                        if t.dim()))
+    # a hybrid's decode state a stream: the Mamba states, which do not
+    # grow, and the shared block's KV caches, which do
+    parts = (None if cfg.family != "hybrid" else
+             {k: v // streams for k, v in hybrid_bytes(cache).items()})
     trace = lm_decode_trace(ss.model, cache, tokens[:, -1:])
     branch = moe_branch_check(ss.model, cache, tokens[:, -1:]) if moe \
         else None
@@ -3621,14 +3709,29 @@ def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
     t0 = time.perf_counter()
     pre_want, pre_dropped = last_logits(ss.model, batch["tokens"], prefix)
     # an SSM forward holds one stream's state, not its attention scores:
-    # all streams in one pass
+    # all streams in one pass. So does a hybrid's: its 13 shared-block
+    # invocations hold one [4, 32, 2,080, 2,080] float32 score block (2.2
+    # GB) at a time, and one pass launches a quarter of the Mamba loop's
+    # kernels at chunk 32
     want, dropped = last_logits(ss.model, tokens, prefix,
-                                per_stream=cfg.family != "ssm")
+                                per_stream=cfg.family not in ("ssm",
+                                                              "hybrid"))
     torch.cuda.synchronize()
     forward_s = time.perf_counter() - t0
     pre_diff = float((pre_got - pre_want).abs().max())
     got = logits[:, :cfg.vocab]
     diff = float((got - want).abs().max())
+    hybrid = cfg.family == "hybrid"
+    if hybrid:
+        # the bf16 noise floor, and the decode's identity in float32
+        with at_chunk(ss.model, HYBRID_FLOOR_CHUNK):
+            floor_want, _ = last_logits(ss.model, tokens)
+        floor = float((floor_want - want).abs().max())
+        del floor_want
+        f32, f32_want = hybrid_f32_decode(cfg, tokens[:1], text, device)
+        # how far the bf16 forward itself lies from the float32 one
+        f32["bf16_forward_vs_float32_forward"] = float(
+            (want[:1] - f32_want).abs().max())
     top2 = want.topk(2, dim=-1).values
     gaps = (top2[:, 0] - top2[:, 1]).tolist()
     g_tok, w_tok = got.argmax(-1).tolist(), want.argmax(-1).tolist()
@@ -3653,11 +3756,12 @@ def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
            "decode_ms_runs": [t * 1e3 for t in decode_s],
            "decode_tokens_per_s": streams / dec, "forward_s": forward_s,
            "cache_length": length, "cache_bytes": state_bytes,
+           "cache_bytes_per_stream": parts,
            "logits_finite": first_ok and bool(
                torch.isfinite(got).all()),
            "prefill_max_abs_diff_vs_forward": pre_diff,
            "max_abs_diff_vs_forward": diff, "tolerance": LM_LOGIT_TOL,
-           "decode_vs_forward_held": not moe,
+           "decode_vs_forward_held": not (moe or hybrid),
            "logit_std": float(want.std()), "greedy_decode": g_tok,
            "greedy_forward": w_tok, "top2_gaps": gaps, "near_ties": near,
            "greedy_equal": sum(a == b for a, b in zip(g_tok, w_tok)),
@@ -3665,13 +3769,33 @@ def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
     if moe:
         out.update(moe_branch=branch, dropped_slots_prefill=pre_dropped,
                    dropped_slots_forward=dropped)
+    if hybrid:
+        out.update(forward_chunk_noise_max_abs_diff=floor,
+                   forward_chunks=(math.gcd(total, cfg.ssm.chunk),
+                                   HYBRID_FLOOR_CHUNK),
+                   float32_decode=f32)
     emit(out)
+    if moe:
+        decode_ok = branch["ok"]
+    elif hybrid:
+        decode_ok = (f32["max_abs_diff_vs_forward"] <= HYBRID_F32_TOL
+                     and greedy_ok)
+    else:
+        decode_ok = diff <= LM_LOGIT_TOL and greedy_ok
     held = (out["logits_finite"] and length == total
-            and pre_diff <= LM_LOGIT_TOL
-            and (branch["ok"] if moe else diff <= LM_LOGIT_TOL and greedy_ok))
+            and pre_diff <= LM_LOGIT_TOL and decode_ok)
     if not held:
         raise AssertionError(f"{phase}: {out}")
     return out
+
+
+def hybrid_bytes(cache) -> dict:
+    """A HybridCache's bytes: the Mamba layers' conv tails and SSD states
+    ("mamba", whatever the capacity) and the shared block's KV caches
+    ("kv", 2 g C KV hd x the element size)."""
+    size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    return {"mamba": size(cache.conv, cache.state),
+            "kv": size(cache.attn_k, cache.attn_v)}
 
 
 def last_logits(model, tokens, prefix=None, *,
@@ -3703,24 +3827,60 @@ def last_logits(model, tokens, prefix=None, *,
 
 
 @contextlib.contextmanager
-def ssm_chunk_for(model, n: int):
-    """Inside the block an SSM model's passes over ``n`` positions run at
-    the largest chunk that divides both n and the config's chunk (its
-    config swapped for the block): ssd_scan raises unless the chunk
-    divides the length, as the reference's, and 2,080 positions are no
-    multiple of xlstm's 256 (2,080 = 65 x 32). The chunk changes how the
-    scan groups its sums, not the function. Other models run as they
-    are."""
+def at_chunk(model, chunk: int):
+    """Inside the block an SSM or hybrid model's scans run at ``chunk``
+    (its config swapped for the block)."""
     cfg = model.cfg
-    if cfg.family != "ssm" or n % min(cfg.ssm.chunk, n) == 0:
-        yield
-        return
-    model.cfg = replace(cfg, ssm=replace(cfg.ssm, chunk=math.gcd(
-        n, cfg.ssm.chunk)))
+    model.cfg = replace(cfg, ssm=replace(cfg.ssm, chunk=chunk))
     try:
         yield
     finally:
         model.cfg = cfg
+
+
+@contextlib.contextmanager
+def ssm_chunk_for(model, n: int):
+    """Inside the block an SSM or hybrid model's passes over ``n``
+    positions run at the largest chunk that divides both n and the
+    config's chunk (its config swapped for the block): ssd_scan raises
+    unless the chunk divides the length, as the reference's, and 2,080
+    positions are no multiple of xlstm's or zamba2's 256 (2,080 = 65 x
+    32). The chunk changes how the scan groups its sums, not the function.
+    Other models run as they are."""
+    cfg = model.cfg
+    if cfg.ssm is None or n % min(cfg.ssm.chunk, n) == 0:
+        yield
+        return
+    with at_chunk(model, math.gcd(n, cfg.ssm.chunk)):
+        yield
+
+
+def hybrid_f32_decode(cfg, tokens, text: int, device) -> tuple:
+    """The serve path's decode identity in float32: ``cfg`` (zamba2-7b at
+    full width and depth) with dtype float32, its weights drawn from the
+    serve phase's seed (27 GB), on ``tokens`` [1, text + LM_DECODE]: a
+    prefill over ``text`` tokens, LM_DECODE decodes with write=True, the
+    last logits against a forward over all the tokens at
+    :func:`ssm_chunk_for`'s chunk. Returns (the difference and seconds,
+    the float32 forward's last logits); everything else is freed before
+    it returns."""
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    model = build_model(replace(cfg, dtype="float32"), device=device)
+    model.init_params(torch.Generator(device).manual_seed(SEED + 400))
+    _, cache = model.prefill(tokens[:, :text],
+                             capacity=tokens.shape[1])
+    for i in range(text, tokens.shape[1]):
+        logits, cache = model.decode(cache, tokens[:, i:i + 1], write=True)
+    got = logits[:, :cfg.vocab].clone()
+    del cache
+    want, _ = last_logits(model, tokens)
+    diff = float((got - want).abs().max())
+    del model
+    release()
+    return {"streams": tokens.shape[0], "max_abs_diff_vs_forward": diff,
+            "tolerance": HYBRID_F32_TOL, "logit_std": float(want.std()),
+            "seconds": time.perf_counter() - t0}, want
 
 
 @contextlib.contextmanager
@@ -3870,7 +4030,8 @@ def lm_kernels(model, cfg, card, device, phase="private_lm_kernels"
                ) -> dict:
     """B1 and B2 on the padded table's words ([2^18, 1280] at qwen3-4b,
     [2^17, 3584] at deepseek-v3-671b, [2^16, 3584] at llava-next-34b,
-    [2^16, 384] at whisper-small, [2^16, 512] at xlstm-350m; each launch's
+    [2^16, 384] at whisper-small, [2^16, 512] at xlstm-350m, [2^15, 1792]
+    at zamba2-7b; each launch's
     device time alone beside
     the CUDA events', :func:`kernel_device_ms`) at
     the path's batches, each against
@@ -3968,7 +4129,8 @@ def phase_lm(arch, card, device, *, phase="private_lm", layers=None,
     private_moe: the MoE archs at MOE_SERVE's and MOE_PRIVATE's depth;
     vlm_serve: llava-next-34b at VLM_SERVE's depth and VLM_SEQ positions;
     audio_serve: whisper-small uncut, LM_PREFILL decoder tokens behind
-    its encoder_len frames; ssm_serve: xlstm-350m uncut."""
+    its encoder_len frames; ssm_serve: xlstm-350m uncut; hybrid_serve:
+    zamba2-7b uncut."""
     from repro_torch.config import ShapeConfig
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -4018,7 +4180,9 @@ def phase_lm(arch, card, device, *, phase="private_lm", layers=None,
 
 def phase_ssm_long(card, device) -> dict:
     """The long_500k cell that xlstm-350m runs (cell_is_skipped is false
-    for it and true for every other ported arch): its serve step at batch
+    for the archs of LONG_CONTEXT_ARCHS, xlstm-350m and zamba2-7b, and
+    true for every other; phase_hybrid_long runs zamba2's): its serve step
+    at batch
     1, the decode state from init_cache(1, 524,288) (its bytes those at
     capacity LM_PREFILL: the state does not grow), a SSM_LONG_PROMPT-token
     prompt prefilled, then SSM_LONG_DECODE decode steps through the step
@@ -4027,15 +4191,16 @@ def phase_ssm_long(card, device) -> dict:
     cache's first decode bit-equal to the one from a capacity-LM_PREFILL
     cache, and the prompt's decodes within LM_LOGIT_TOL of a forward over
     the prompt and the decoded tokens."""
-    from repro_torch.configs import ARCHS, SHAPES, cell_is_skipped, get_arch
+    from repro_torch.configs import (ARCHS, LONG_CONTEXT_ARCHS, SHAPES,
+                                     cell_is_skipped, get_arch)
     from repro_torch.kernels import ops
     from repro_torch.runtime.steps import make_serve_step
     t_phase = time.perf_counter()
     release()
     torch.cuda.reset_peak_memory_stats()
     skipped = {a: cell_is_skipped(a, "long_500k") for a in ARCHS}
-    if skipped[SSM_ARCH] or not all(v for a, v in skipped.items()
-                                    if a != SSM_ARCH):
+    if SSM_ARCH not in LONG_CONTEXT_ARCHS or skipped != {
+            a: a not in LONG_CONTEXT_ARCHS for a in ARCHS}:
         raise AssertionError(f"ssm_long: cell_is_skipped {skipped}")
     cfg, shape = get_arch(SSM_ARCH), SHAPES["long_500k"]
     ss = make_serve_step(cfg, shape, device=device)
@@ -4104,6 +4269,105 @@ def phase_ssm_long(card, device) -> dict:
     return out
 
 
+def phase_hybrid_long(card, device) -> dict:
+    """The long_500k cell of zamba2-7b at batch 1, its depth cut to
+    HYBRID_LONG_LAYERS (every width as published): a HYBRID_LONG_PROMPT-
+    token prompt prefilled into KV caches of 524,288 rows, then
+    HYBRID_LONG_DECODE decodes with write=True through the serve step, each
+    timed to its synchronize. Held: cell_is_skipped false for the arch,
+    the Mamba states' bytes equal to those of a prefill at capacity
+    LM_PREFILL, the KV caches' bytes 2 g C KV hd 2 B, every logit finite,
+    the last decode within LM_LOGIT_TOL of a forward over the prompt and
+    the decoded tokens, no PIR kernel run. Reported: the first decode's
+    difference from the one on the capacity-LM_PREFILL cache (and whether
+    it is bit-equal), the peak device memory."""
+    from repro_torch.configs import SHAPES, cell_is_skipped, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.steps import make_serve_step
+    t_phase = time.perf_counter()
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    if cell_is_skipped(HYBRID_ARCH, "long_500k"):
+        raise AssertionError("hybrid_long: zamba2-7b skips long_500k")
+    full, shape = get_arch(HYBRID_ARCH), SHAPES["long_500k"]
+    cfg = replace(full, n_layers=HYBRID_LONG_LAYERS)
+    ss = make_serve_step(cfg, shape, device=device, decode_write=True,
+                         capacity=shape.seq_len)
+    model = ss.model.init_params(torch.Generator(device).manual_seed(
+        SEED + 700))
+    gen = torch.Generator(device).manual_seed(SEED + 701)
+    n = HYBRID_LONG_PROMPT + HYBRID_LONG_DECODE
+    tokens = torch.randint(0, cfg.vocab, (shape.global_batch, n),
+                           generator=gen, device=device)
+    prompt = tokens[:, :HYBRID_LONG_PROMPT]
+    step0 = tokens[:, HYBRID_LONG_PROMPT:HYBRID_LONG_PROMPT + 1]
+    ops.reset_counts()
+    _, short = model.prefill(prompt, capacity=LM_PREFILL)
+    short_bytes = hybrid_bytes(short)
+    first_short, _ = model.decode(short, step0, write=True)
+    del short
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cache = model.prefill(prompt, capacity=shape.seq_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    long_bytes = hybrid_bytes(cache)
+    times, finite, first_long = [], True, None
+    for i in range(HYBRID_LONG_DECODE):
+        step = tokens[:, HYBRID_LONG_PROMPT + i:HYBRID_LONG_PROMPT + i + 1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = ss.decode(cache, step)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        finite &= bool(torch.isfinite(logits).all())
+        if first_long is None:
+            first_long = logits.clone()
+    length = int(cache.length)
+    got = logits[:, :cfg.vocab].clone()
+    del cache
+    release()
+    want, _ = last_logits(model, tokens)
+    diff = float((got - want).abs().max())
+    first_diff = float((first_long - first_short).abs().max())
+    counts = ops.counts()
+    hd = cfg.resolved_head_dim
+    kv_want = (2 * model.n_groups * shape.seq_len * cfg.n_kv_heads * hd
+               * 2 * shape.global_batch)
+    out = {"phase": "hybrid_long", "card": card, "arch": cfg.name,
+           "layers": cfg.n_layers, "layers_config": full.n_layers,
+           "shared_invocations": model.n_groups,
+           "params": sum(p.numel() for p in model.parameters()),
+           "shape": shape.name, "seq_len": shape.seq_len,
+           "batch": shape.global_batch,
+           "mamba_bytes_at_seq_len": long_bytes["mamba"],
+           "mamba_bytes_at_prefill": short_bytes["mamba"],
+           "kv_bytes_at_seq_len": long_bytes["kv"],
+           "kv_bytes_want": kv_want,
+           "kv_bytes_at_prefill": short_bytes["kv"],
+           "prompt_tokens": HYBRID_LONG_PROMPT, "prefill_s": prefill_s,
+           "decode_steps": HYBRID_LONG_DECODE,
+           "decode_ms_per_token": float(np.median(times)) * 1e3,
+           "decode_ms_runs": [t * 1e3 for t in times], "length": length,
+           "logits_finite": finite,
+           "first_decode_vs_short_cache_max_abs_diff": first_diff,
+           "first_decode_bit_equal": torch.equal(first_long, first_short),
+           "max_abs_diff_vs_forward": diff, "tolerance": LM_LOGIT_TOL,
+           "pir_kernel_calls": {k: v["launches"] + v["plain_calls"]
+                                for k, v in counts.items()},
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t_phase}
+    del ss, model
+    release()
+    emit(out)
+    if not (long_bytes["mamba"] == short_bytes["mamba"]
+            and long_bytes["kv"] == kv_want and finite and length == n
+            and diff <= LM_LOGIT_TOL
+            and not any(out["pir_kernel_calls"].values())):
+        raise AssertionError(f"hybrid_long: {out}")
+    return out
+
+
 # -- the training half ----------------------------------------------------------
 
 TRAIN_ARCH = "granite-3-2b"
@@ -4112,6 +4376,9 @@ TRAIN_BATCH = 4             # train_4k's global batch of 256, cut to 4
 TRAIN_MICROBATCHES = 4      # one sequence per microbatch
 TRAIN_LR = 1e-4             # warmup 0: one fixed batch must fall
 TRAIN_TIMED_STEPS = 3       # after one warm-up step
+# train_step's own (granite-3-2b's steps take 12-15 s each; 3 until the
+# hybrid's phases needed the time); the other train phases keep theirs
+TRAIN_STEP_TIMED_STEPS = 1
 TRAIN_FIRST_LOSS_TOL = 0.5  # the first loss within this of its want
 # the MoE family's train step: grok-1-314b cut to one layer (6.53 B
 # parameters, 13.06 GB in bf16), 2 sequences of train_4k in one
@@ -4122,7 +4389,7 @@ MOE_TRAIN = ("grok-1-314b", 1)
 MOE_TRAIN_BATCH = 2
 PARITY_ARCHS = ("granite-3-2b", "qwen3-4b", "deepseek-v3-671b",
                 "grok-1-314b", "llava-next-34b", "whisper-small",
-                "xlstm-350m")
+                "xlstm-350m", "zamba2-7b")
 PARITY_STEPS = 3
 PARITY_LR = 1e-3
 # card against CPU, float32: every loss within PARITY_LOSS_TOL; every
@@ -4134,11 +4401,11 @@ PARITY_LOSS_TOL = 1e-4
 PARITY_PARAM_ATOL = 1e-4
 PARITY_PARAM_RTOL = 1e-4
 PARITY_FLIPS = 2e-3
-# run A, B1 and B2 together: 48 steps and 6 checkpoint writes, so that the
+# run A, B1 and B2 together: 18 steps and 6 checkpoint writes, so that the
 # whole run stays inside its time budget (PERF.md section 5)
-LOOP_STEPS = 24
-LOOP_CKPT_EVERY = 8
-LOOP_SPLIT = 8
+LOOP_STEPS = 9
+LOOP_CKPT_EVERY = 3
+LOOP_SPLIT = 3
 # run B resumed against the uninterrupted run A, per logged loss: the two
 # runs are separate CUDA runs, whose atomic accumulations need not sum in
 # one order (on the H100 they have been equal bit for bit)
@@ -4208,7 +4475,9 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
     rows run the trunk too); for an encoder-decoder, the encoder's
     parameters times the frames plus the decoder's and the tied
     unembedding's times the tokens (the learned positions are a lookup);
-    for an SSM model every parameter, each block at its own size (the
+    for a hybrid model every parameter, the shared block's once per
+    invocation, times the tokens; for an SSM model every parameter, each
+    block at its own size (the
     config's n_params() counts every block as an mLSTM), times the
     tokens."""
     from repro_torch.analysis.roofline import PEAK_BF16_FLOPS_PER_S
@@ -4289,6 +4558,16 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
         basis = ("6 x parameters x tokens, each block at its own size (the "
                  "config's n_params() counts every block as an mLSTM); the "
                  "mLSTM's intra-chunk [Q, Q] products are outside it")
+    if cfg.family == "hybrid":
+        n_shared = sum(p.numel() for p in ts.model.shared.parameters())
+        flops = 6 * (n_params + (ts.model.n_groups - 1) * n_shared) \
+            * tokens_per_step
+        basis = ("6 x (parameters + (invocations - 1) x the shared block's "
+                 "parameters) x tokens: the shared block counted once per "
+                 "invocation; Mamba2's intra-chunk [Q, Q] products are "
+                 "outside it")
+        spread.update(shared_params=n_shared,
+                      shared_invocations=ts.model.n_groups)
     launches = {k: v["launches"] + v["plain_calls"]
                 for k, v in ops.counts().items()}
     out = {"phase": phase, "card": card, "arch": cfg.name,
@@ -4393,7 +4672,8 @@ def phase_train_parity(card, device) -> dict:
     """The PARITY_ARCHS' SMOKE configs in float32 (the dense granite-3-2b
     and qwen3-4b, the MoE deepseek-v3-671b and grok-1-314b, the VLM
     llava-next-34b with its prefix_embeds stub, the audio whisper-small
-    with its frame_embeds stub, the SSM xlstm-350m): PARITY_STEPS
+    with its frame_embeds stub, the SSM xlstm-350m, the hybrid
+    zamba2-7b): PARITY_STEPS
     AdamW steps, and PARITY_STEPS Adafactor steps with compress_grads and
     two microbatches, on the card against the same steps on the CPU; the
     MoE cases' routes that part at step 0 are counted and reported."""
@@ -4658,14 +4938,23 @@ def main() -> int:
     worst_ssm, launches_ssm = phase_lm(SSM_ARCH, info["card"], device,
                                        phase="ssm_serve")
     phase_ssm_long(info["card"], device)
+    # the hybrid family: zamba2-7b uncut (6.75 B parameters, 13.5 GB), 81
+    # Mamba2 layers and 13 invocations of one shared attention block,
+    # private lookups over its 224 MiB table of 7,168-byte rows; then its
+    # long_500k cell at 36 layers
+    worst_hybrid, launches_hybrid = phase_lm(HYBRID_ARCH, info["card"],
+                                             device, phase="hybrid_serve")
+    phase_hybrid_long(info["card"], device)
     for name, err in (list(worst_lm.items()) + list(worst_moe.items())
                       + list(worst_vlm.items())
                       + list(worst_audio.items())
-                      + list(worst_ssm.items())):
+                      + list(worst_ssm.items())
+                      + list(worst_hybrid.items())):
         worst[name] = max(worst[name], err)
     # the LM's training half, alone on the card: granite-3-2b at full
     # width and depth, the card against the CPU, the train_lm twin
-    phase_train_step(info["card"], device)
+    phase_train_step(info["card"], device,
+                     timed_steps=TRAIN_STEP_TIMED_STEPS)
     # the MoE family's train step at full width: grok-1-314b cut to one
     # layer, Adafactor over its moe_layers leaves
     phase_train_step(info["card"], device, phase="moe_train",
@@ -4687,9 +4976,17 @@ def main() -> int:
     # the SSM family's train step: xlstm-350m uncut at chunk 256, one
     # microbatch of 8, AdamW
     phase_train_step(info["card"], device, phase="ssm_train",
-                     arch=SSM_ARCH, optimizer="adamw",
+                     arch=SSM_ARCH, layers=SSM_TRAIN_LAYERS,
+                     optimizer="adamw",
                      batch=SSM_TRAIN_BATCH, microbatches=1,
                      timed_steps=SSM_TRAIN_TIMED_STEPS)
+    # the hybrid family's train step: zamba2-7b cut to 12 layers at chunk
+    # 256, 8 microbatches of one sequence, AdamW
+    phase_train_step(info["card"], device, phase="hybrid_train",
+                     arch=HYBRID_ARCH, layers=HYBRID_TRAIN_LAYERS,
+                     optimizer="adamw", batch=HYBRID_TRAIN_BATCH,
+                     microbatches=HYBRID_TRAIN_MICROBATCHES,
+                     timed_steps=HYBRID_TRAIN_TIMED_STEPS)
     phase_train_parity(info["card"], device)
     phase_train_loop(info["card"], device)
 
@@ -4703,13 +5000,14 @@ def main() -> int:
              total(launches, launches_chk, launches_w128, launches_upd,
                    launches_batch, launches_twins, launches_runtime,
                    launches_replicas, launches_lm, launches_moe,
-                   launches_vlm, launches_audio, launches_ssm), timing),
+                   launches_vlm, launches_audio, launches_ssm,
+                   launches_hybrid), timing),
             ("fused_scan_xor", "src/repro_torch/csrc/fused_scan_xor.cu",
              "src/repro/kernels/fused_scan.py:94",
              total(launches, launches_chk, launches_w128, launches_upd,
                    launches_runtime, launches_replicas, launches_lm,
                    launches_moe, launches_vlm, launches_audio,
-                   launches_ssm), timing),
+                   launches_ssm, launches_hybrid), timing),
             ("pir_gemm", "src/repro_torch/csrc/pir_gemm.cu",
              "src/repro/kernels/pir_matmul.py:35",
              total(launches_add, launches_chk, launches_w128, launches_upd),

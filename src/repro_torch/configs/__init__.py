@@ -4,8 +4,9 @@ does (``--arch <id>``).
 
 Each architecture module defines FULL (the published configuration) and
 SMOKE (a reduced same-family configuration runnable on one CPU device).
-The port serves the dense, MoE, VLM, audio and SSM families so far;
-naming an architecture of another family raises ``NotImplementedError``
+The port serves every family of the reference: dense, MoE, VLM, audio,
+SSM and hybrid. ``NOT_PORTED`` is empty; an architecture a later
+reference adds goes there, and naming it raises ``NotImplementedError``
 that says so, never a silent fallback. ``LONG_CONTEXT_ARCHS`` and
 ``cell_is_skipped`` are the reference's shape-grid rule: only the archs
 whose decode state does not grow with length run ``long_500k``.
@@ -25,6 +26,7 @@ from repro_torch.configs import (
     starcoder2_3b,
     whisper_small,
     xlstm_350m,
+    zamba2_7b,
 )
 from repro_torch.configs.shapes import SHAPES, get_shape
 
@@ -38,16 +40,15 @@ _MODULES = {
     "llava-next-34b": llava_next_34b,
     "whisper-small": whisper_small,
     "xlstm-350m": xlstm_350m,
+    "zamba2-7b": zamba2_7b,
 }
 
 ARCHS: Dict[str, ModelConfig] = {k: m.FULL for k, m in _MODULES.items()}
 SMOKES: Dict[str, ModelConfig] = {k: m.SMOKE for k, m in _MODULES.items()}
 
-#: the reference's other architectures, by family; their configs and
-#: models are not ported yet
-NOT_PORTED: Dict[str, str] = {
-    "zamba2-7b": "hybrid",
-}
+#: the reference's architectures whose configs and models are not ported
+#: yet, by family (none: every family is)
+NOT_PORTED: Dict[str, str] = {}
 
 #: pure full-attention archs skip long_500k (sub-quadratic required); the
 #: SSM and hybrid archs run it
@@ -58,8 +59,8 @@ def get_arch(name: str, *, smoke: bool = False) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} (family {NOT_PORTED[name]!r}) is not ported yet; "
-            f"the port serves the dense, moe, vlm, audio and ssm families: "
-            f"{sorted(ARCHS)}")
+            f"the port serves the dense, moe, vlm, audio, ssm and hybrid "
+            f"families: {sorted(ARCHS)}")
     table = SMOKES if smoke else ARCHS
     if name not in table:
         raise KeyError(f"unknown arch {name!r}; have {sorted(table)}")

@@ -62,7 +62,8 @@ def tensor_from_reference(arr) -> torch.Tensor:
 #: the reference's layer stacks (``[L, ...]`` leaves) -> the port's
 #: ``nn.ModuleList`` names
 _STACKS = {"dense_layers": "layers", "moe_layers": "moe_layers",
-           "enc_layers": "enc_layers", "dec_layers": "dec_layers"}
+           "enc_layers": "enc_layers", "dec_layers": "dec_layers",
+           "mamba_layers": "mamba_layers"}
 
 
 def model_params_from_reference(params_np: Mapping, cfg
@@ -74,10 +75,12 @@ def model_params_from_reference(params_np: Mapping, cfg
     and ``moe_layers[j]`` -> ``moe_layers.{j}.*`` (the experts kept ``[E,
     d, f]``, the shared ones under ``ffn.shared``), ``EncDecLM``'s
     ``enc_layers[i]`` -> ``enc_layers.{i}.*`` and ``dec_layers[i]`` ->
-    ``dec_layers.{i}.*``. Every other leaf keeps its path, dotted:
+    ``dec_layers.{i}.*``, ``Zamba2Model``'s ``mamba_layers[i]`` ->
+    ``mamba_layers.{i}.*``. Every other leaf keeps its path, dotted:
     ``embed``, ``final_norm``, ``unembed``, ``mtp.*``, ``pos_dec``,
-    ``enc_norm.scale``, and an item of a list by its index
-    (``XLSTMModel``'s ``blocks[i]/mix/w_in`` -> ``blocks.{i}.mix.w_in``).
+    ``enc_norm.scale``, the hybrid's ``shared.attn.wq``, and an item of
+    a list by its index (``XLSTMModel``'s ``blocks[i]/mix/w_in`` ->
+    ``blocks.{i}.mix.w_in``).
     ``cfg`` is the model's config (unused: the tree names every leaf)."""
     t = tensor_from_reference
     state = {}
@@ -114,7 +117,8 @@ def opt_state_from_reference(state, cfg):
     port's parameter names, Adafactor's kept stacked per leaf path
     (``dense_layers/attn/wq``, ``moe_layers/ffn/gate``, ``mtp/proj``,
     ``enc_layers/attn/wq``, ``dec_layers/cross_attn/wk``,
-    ``blocks/0/mix/w_in``; ``None`` for ``()``): the keys of
+    ``blocks/0/mix/w_in``, ``mamba_layers/mix/a_log``, ``shared/mlp/up``;
+    ``None`` for ``()``): the keys of
     ``optimizer.leaf_groups``."""
     from repro_torch.optim.optimizer import AdafactorState, AdamWState
     step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32)

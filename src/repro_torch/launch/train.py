@@ -16,6 +16,8 @@ Examples:
       --steps 20 --microbatches 2 --device cpu
   python -m repro_torch.launch.train --arch xlstm-350m --smoke \\
       --steps 20 --device cpu
+  python -m repro_torch.launch.train --arch zamba2-7b --smoke \\
+      --steps 20 --device cpu
 
 A VLM's batches carry the pipeline's patch-embedding stub
 (``prefix_embeds``) beside its text tokens, an audio model's its

@@ -1,14 +1,15 @@
 """Model zoo dispatch: ``ModelConfig.family`` -> model — the port of
-``repro/models/registry.py`` for the dense, MoE, VLM, audio and SSM
-families.
+``repro/models/registry.py`` for every family: dense, MoE, VLM, audio,
+SSM and hybrid.
 
 A model is an ``nn.Module`` holding its weights (``init_params(generator)``
 draws them); its entry points are ``forward``, ``loss``, ``prefill``,
 ``decode`` and ``init_cache`` (``models/transformer.py``'s
 ``TransformerLM`` for the decoder-only families, ``models/encdec.py``'s
 ``EncDecLM`` for audio, ``models/xlstm.py``'s ``XLSTMModel`` for the SSM
-family). ``input_specs`` gives the step inputs' shapes and
-dtypes; there is no mesh, so no PartitionSpecs.
+family, ``models/hybrid.py``'s ``Zamba2Model`` for the hybrid family).
+``input_specs`` gives the step inputs' shapes and dtypes; there is no
+mesh, so no PartitionSpecs.
 """
 from __future__ import annotations
 
@@ -19,16 +20,17 @@ import torch
 from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.engine.backend import Device, resolve_device
 from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.hybrid import Zamba2Model
 from repro_torch.models.transformer import PORTED_FAMILIES, TransformerLM
 from repro_torch.models.xlstm import XLSTMModel
 
 FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
-#: every family the port serves: TransformerLM's, the encoder-decoder's and
-#: the xLSTM's
-SERVED = PORTED_FAMILIES + ("audio", "ssm")
+#: every family the port serves: TransformerLM's, the encoder-decoder's, the
+#: xLSTM's and the hybrid's
+SERVED = PORTED_FAMILIES + ("audio", "ssm", "hybrid")
 
 #: the model class of each family outside TransformerLM's
-_MODELS = {"audio": EncDecLM, "ssm": XLSTMModel}
+_MODELS = {"audio": EncDecLM, "ssm": XLSTMModel, "hybrid": Zamba2Model}
 
 
 class InputSpec(NamedTuple):
@@ -49,7 +51,7 @@ def _check_family(cfg: ModelConfig) -> None:
 
 def build_model(cfg: ModelConfig, *, device: Device = None,
                 remat: str = "block"
-                ) -> Union[TransformerLM, EncDecLM, XLSTMModel]:
+                ) -> Union[TransformerLM, EncDecLM, XLSTMModel, Zamba2Model]:
     """The model for ``cfg`` with its weights allocated on ``device``
     (``None`` means the CUDA card; no card raises) and not yet drawn.
     ``remat`` is the reference's: ``"block"`` recomputes each layer in the

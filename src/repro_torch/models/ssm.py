@@ -1,10 +1,14 @@
-"""State-space and recurrent sequence mixers: the chunkwise SSD core and the
-xLSTM blocks — the port of ``repro/models/ssm.py`` minus Mamba2.
+"""State-space and recurrent sequence mixers: the chunkwise SSD core,
+Mamba2 and the xLSTM blocks — the port of ``repro/models/ssm.py``.
 
 One chunkwise-parallel SSD core (:func:`ssd_scan`, :func:`ssd_step`)
-serves the mLSTM here and Mamba2 in the hybrid slice, which ports
-``mamba2_*`` (``repro/models/ssm.py:133-222``) with ``Zamba2Model``:
+serves two architectures:
 
+* **Mamba2** (zamba2-7b's mixer, ``models/hybrid.py``): selective state
+  space with a per-head scalar decay ``exp(Δt·A)``, input ``Δt·x ⊗ B``,
+  readout ``C·S``, a width-4 causal conv in front and a gated RMSNorm
+  behind. ``a_log``, ``dt_bias`` and ``d_skip`` are float32 in any model
+  dtype, as the reference's.
 * **mLSTM** (xlstm-350m): matrix-memory LSTM. Algebraically an SSD with
   data-dependent decay ``σ(f̃)`` and input gate ``σ(ĩ)``; the normalizer
   state n is carried as an extra (P+1)-th channel of the same recurrence
@@ -39,9 +43,15 @@ The other contractions are reassociated so that no ``[B, Q, H, P, N]``
 intermediate is formed (``einsum("bqh,bhdn,bqn->bqhd")`` as the decay
 times ``einsum("bqn,bhdn->bqhd")``): the same sums in float32.
 
+Mamba2's decay is per head, ``dt·A`` with ``dt = softplus(·)``: at the
+reference's initial ``a_log = 0`` and ``dt_bias = log(e - 1)`` it is
+about -1 a step, so zamba2-7b's chunk of 256 overflows the unmasked
+``exp`` as the mLSTM's does (ROADMAP §C5).
+
 Parameters are mappings of name -> tensor (an ``nn.ParameterDict`` of
-``models/xlstm.py``'s blocks), weights in the ``x @ W`` orientation. Not
-ported: the ``*_specs`` functions (mesh layout).
+``models/xlstm.py``'s blocks and ``models/hybrid.py``'s Mamba layers),
+weights in the ``x @ W`` orientation. Not ported: the ``*_specs``
+functions (mesh layout).
 """
 from __future__ import annotations
 
@@ -152,7 +162,7 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# xLSTM: mLSTM block (matrix memory — SSD with sigmoid gates + normalizer)
+# Mamba2 block
 # ---------------------------------------------------------------------------
 
 def _conv_init(gen: torch.Generator, k: int, c: int,
@@ -161,6 +171,104 @@ def _conv_init(gen: torch.Generator, k: int, c: int,
     w = torch.empty((k, c), dtype=F32, device=gen.device)
     return (w.normal_(generator=gen) * 0.1).to(dtype)
 
+
+def mamba2_shapes(cfg) -> dict:
+    """Name -> (shape, dtype) of a Mamba2 mixer's parameters (``a_log``,
+    ``dt_bias`` and ``d_skip`` float32 in any model dtype)."""
+    s, d, dt = cfg.ssm, cfg.d_model, cfg.torch_dtype
+    d_inner = s.expand * d
+    n_heads = d_inner // s.headdim
+    n = s.d_state
+    return {"in_proj": ((d, 2 * d_inner + 2 * n + n_heads), dt),
+            "conv_w": ((s.d_conv, d_inner + 2 * n), dt),
+            "a_log": ((n_heads,), F32),         # A = -exp(a_log)
+            "dt_bias": ((n_heads,), F32),
+            "d_skip": ((n_heads,), F32),
+            "norm": ((d_inner,), dt),
+            "out_proj": ((d_inner, d), dt)}
+
+
+def mamba2_init(gen: torch.Generator, cfg) -> dict:
+    """The reference's draws: ``in_proj`` and ``out_proj``
+    ``dense_init``, ``conv_w`` normal x 0.1, ``a_log`` 0, ``dt_bias``
+    log(e - 1) (softplus of it is 1), ``d_skip`` 1, the norm zero."""
+    out = {}
+    for name, (shape, dt) in mamba2_shapes(cfg).items():
+        if name == "conv_w":
+            out[name] = _conv_init(gen, *shape, dt)
+        elif name in ("in_proj", "out_proj"):
+            out[name] = dense_init(gen, *shape, dt)
+        else:
+            fill = {"a_log": 0.0, "dt_bias": math.log(math.e - 1),
+                    "d_skip": 1.0, "norm": 0.0}[name]
+            out[name] = torch.full(shape, fill, dtype=dt,
+                                   device=gen.device)
+    return out
+
+
+def _mamba2_split(cfg, proj):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    n = s.d_state
+    n_heads = d_inner // s.headdim
+    z = proj[..., :d_inner]
+    xbc = proj[..., d_inner:2 * d_inner + 2 * n]
+    dt_raw = proj[..., 2 * d_inner + 2 * n:]
+    return z, xbc, dt_raw, d_inner, n, n_heads
+
+
+def mamba2_apply(params: Params, cfg, x: torch.Tensor, *, cache=None):
+    """Mamba2 mixer, x [B, L, d]. ``cache=None`` runs the scan;
+    ``cache=(conv_tail, state)`` with L == 1 runs one decode step (L > 1
+    scans on from the cache). Returns (out [B, L, d], (conv_tail [B, K-1,
+    d_inner + 2N] in the model dtype, state [B, H, P, N] float32)).
+    Rounded in the model dtype at the reference's points: ``x · dt``,
+    ``d_skip · x`` and ``rmsnorm(y) · silu(z)``."""
+    s = cfg.ssm
+    bsz, l, _ = x.shape
+    proj = x @ params["in_proj"]
+    z, xbc, dt_raw, d_inner, n, n_heads = _mamba2_split(cfg, proj)
+
+    conv_state = None if cache is None else cache[0]
+    xbc, conv_tail = causal_conv(xbc, params["conv_w"], state=conv_state)
+    x_in = xbc[..., :d_inner].reshape(bsz, l, n_heads, s.headdim)
+    b_in = xbc[..., d_inner:d_inner + n]
+    c_out = xbc[..., d_inner + n:]
+
+    dt_v = F.softplus(dt_raw.to(F32) + params["dt_bias"])      # [B, L, H]
+    log_a = dt_v * -torch.exp(params["a_log"])
+    x_scaled = x_in * dt_v[..., None].to(x_in.dtype)
+
+    ssd_state = None if cache is None else cache[1]
+    if cache is not None and l == 1:
+        y, state = ssd_step(x_scaled[:, 0], log_a[:, 0], b_in[:, 0],
+                            c_out[:, 0], ssd_state)
+        y = y[:, None]
+    else:
+        y, state = ssd_scan(x_scaled, log_a, b_in, c_out, chunk=s.chunk,
+                            init_state=ssd_state)
+    y = y + params["d_skip"][None, None, :, None].to(y.dtype) * x_in
+    y = y.reshape(bsz, l, d_inner)
+    y = rmsnorm(y, params["norm"], cfg.norm_eps) * F.silu(z)
+    return y @ params["out_proj"], (conv_tail, state)
+
+
+def mamba2_cache_init(cfg, batch: int, device=None) -> tuple:
+    """(conv tail [B, K-1, d_inner + 2N] in the model dtype, SSD state [B,
+    H, P, N] float32), zero."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    n_heads = d_inner // s.headdim
+    conv = torch.zeros((batch, s.d_conv - 1, d_inner + 2 * s.d_state),
+                       dtype=cfg.torch_dtype, device=device)
+    state = torch.zeros((batch, n_heads, s.headdim, s.d_state), dtype=F32,
+                        device=device)
+    return conv, state
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM block (matrix memory — SSD with sigmoid gates + normalizer)
+# ---------------------------------------------------------------------------
 
 def mlstm_shapes(cfg) -> dict:
     """Name -> (shape, dtype) of an mLSTM mixer's parameters."""

@@ -17,8 +17,11 @@ trunk ``moe_layers.{j}.<path>`` onto ``moe_layers/<path>`` (an expert
 weight ``[E, d, f]`` a layer onto ``[L, E, d, f]``), the
 encoder-decoder's ``enc_layers.{i}.<path>`` and
 ``dec_layers.{i}.<path>`` onto ``enc_layers/<path>`` and
-``dec_layers/<path>``, and every other parameter (``embed``,
-``pos_dec``, ``enc_norm.scale``, ``mtp.proj``, ``mtp.layer.attn.wq``,
+``dec_layers/<path>``, the hybrid's ``mamba_layers.{i}.<path>`` onto
+``mamba_layers/<path>`` (its float32 ``a_log`` ``[H]`` a layer onto ``[L,
+H]``, which Adafactor factors as the reference does), and every other
+parameter (``embed``, ``pos_dec``, ``enc_norm.scale``, ``mtp.proj``,
+``mtp.layer.attn.wq``, the hybrid's one ``shared.attn.wq``,
 the xLSTM's unstacked ``blocks.{i}.mix.w_in``, which the reference keeps
 in a list: ``blocks/{i}/mix/w_in``) onto its own unstacked leaf. Every statistic the reference takes over a
 whole leaf is taken over that group: Adafactor factors the stacked
@@ -64,9 +67,10 @@ F32 = torch.float32
 Tensors = Dict[str, torch.Tensor]
 
 #: the port's layer stacks -> the reference's stacked leaves
-#: (``TransformerLM``'s and ``EncDecLM``'s)
+#: (``TransformerLM``'s, ``EncDecLM``'s and ``Zamba2Model``'s)
 STACKS = {"layers": "dense_layers", "moe_layers": "moe_layers",
-          "enc_layers": "enc_layers", "dec_layers": "dec_layers"}
+          "enc_layers": "enc_layers", "dec_layers": "dec_layers",
+          "mamba_layers": "mamba_layers"}
 
 _LAYER = re.compile(rf"({'|'.join(STACKS)})\.(\d+)\.(.+)")
 

@@ -29,12 +29,16 @@ the (decoder's) text tokens' rows are fetched through the servers. The
 twin draws it from the seed as the training pipeline draws its stub
 (normal x 0.02, numpy). An SSM client (xlstm-350m) is text-only; its
 decode state is recurrent, not a KV cache, so the prefill's capacity is
-ignored and each decode step advances the state.
+ignored and each decode step advances the state. A hybrid client
+(zamba2-7b) is text-only too; its cache holds both (every Mamba layer's
+state and the shared block's KV caches), every field but ``length``
+``[Layers, B, ...]``, so a stream's slice is taken as a KV cache's.
 
 Run:  PYTHONPATH=src python -m repro_torch.private_inference [--device cpu]
       [--tokens 8] [--streams 2]
       [--arch pi-lm | qwen3-4b | deepseek-v3-671b | grok-1-314b
-       | llava-next-34b | whisper-small | xlstm-350m [--smoke]]
+       | llava-next-34b | whisper-small | xlstm-350m | zamba2-7b
+       [--smoke]]
 (the default device is the CUDA card; without one it raises). The last
 line printed is a JSON summary; a wrong row or token exits non-zero.
 """
@@ -54,14 +58,15 @@ from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.engine.backend import Device, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import EncDecLM, build_model, input_specs
+from repro_torch.models.hybrid import Zamba2Model
 from repro_torch.models.layers import embed_lookup, pad_vocab
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.models.xlstm import XLSTMCache, XLSTMModel
 from repro_torch.runtime.serve_loop import TwoServerPIR
 
-#: the twin's model: a decoder-only LM, the audio family's encoder-decoder
-#: or the SSM family's xLSTM
-Model = Union[TransformerLM, EncDecLM, XLSTMModel]
+#: the twin's model: a decoder-only LM, the audio family's encoder-decoder,
+#: the SSM family's xLSTM or the hybrid family's Zamba2
+Model = Union[TransformerLM, EncDecLM, XLSTMModel, Zamba2Model]
 
 #: the example's model (``examples/private_inference.py:48``)
 PI_LM = ModelConfig(name="pi-lm", family="dense", n_layers=2, d_model=64,
@@ -214,9 +219,10 @@ def generate(model: Model, embed: Callable, prompt: torch.Tensor,
 def solo_step(model: Model, embed: Callable, gen: dict,
               stream: int = 0) -> int:
     """One more token for ``stream`` alone: one lookup (a batch of one
-    query) and a decode on that stream's slice of the cache (a KV cache's
-    every field but ``length`` is ``[Layers, B, ...]``; an xLSTM cache
-    slices itself, :meth:`XLSTMCache.streams`)."""
+    query) and a decode on that stream's slice of the cache (every field
+    but ``length`` of a KV cache, an encoder-decoder's and a hybrid's is
+    ``[Layers, B, ...]``; an xLSTM cache slices itself,
+    :meth:`XLSTMCache.streams`)."""
     cache = gen["cache"]
     last = gen["tokens"][stream:stream + 1, -1].to(model.device)
     if isinstance(cache, XLSTMCache):
@@ -333,7 +339,7 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--arch", default=PI_LM.name,
                     help="pi-lm (the example's model) or a dense, moe, "
-                    "vlm, audio or ssm arch")
+                    "vlm, audio, ssm or hybrid arch")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced config")
     ap.add_argument("--tokens", type=int, default=8)

@@ -37,7 +37,9 @@ holds any other input. ``capacity`` is the prefill cache's row
 count (default the prompt length, as the reference's); give it room for
 the tokens to decode with ``decode_write=True``. An SSM model's state
 does not grow with length: it ignores both ``capacity`` and
-``decode_write``.
+``decode_write``. A hybrid model's Mamba states do not grow and always
+advance; ``capacity`` and ``decode_write`` apply to its shared block's
+KV caches.
 
 Not ported: ``PIRStep`` (``steps.py:340``), whose role
 ``core.server.PIRServer`` plays.
@@ -53,6 +55,7 @@ from repro_torch.config import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.engine.backend import Device
 from repro_torch.models import build_model, input_specs
 from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.hybrid import Zamba2Model
 from repro_torch.models.registry import InputSpec
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.models.xlstm import XLSTMModel
@@ -87,7 +90,7 @@ class TrainStep(NamedTuple):
     grads: Callable           # (params, batch) -> (loss, grads)
     apply: Callable           # (params, opt_state, ef, grads) -> (...)
     init_state: Callable      # (generator) -> (params, opt_state, ef)
-    model: Union[TransformerLM, EncDecLM, XLSTMModel]
+    model: Union[TransformerLM, EncDecLM, XLSTMModel, Zamba2Model]
     device: torch.device
     input_structs: Dict[str, InputSpec]
 
@@ -102,7 +105,8 @@ def make_train_step(run: RunConfig, *, device: Device = None) -> TrainStep:
     compression). The loss is the model's own (``TransformerLM.loss``:
     with the MoE family its aux term and DeepSeek-V3's MTP head;
     ``EncDecLM.loss`` for audio, from the batch's ``frame_embeds``;
-    ``XLSTMModel.loss`` for the SSM family, from ``tokens`` alone); with
+    ``XLSTMModel.loss`` for the SSM family and ``Zamba2Model.loss`` for
+    the hybrid, from ``tokens`` alone); with
     microbatches each one is a pass of its own, whose MoE dispatch and
     aux loss see that microbatch alone, as the reference's scan."""
     model = build_model(run.model, device=device, remat=run.remat)
@@ -178,7 +182,7 @@ def make_train_step(run: RunConfig, *, device: Device = None) -> TrainStep:
 class ServeStep(NamedTuple):
     prefill: Callable          # batch {"tokens": [B, S]} -> (logits, cache)
     decode: Callable           # (cache, tokens [B, 1]) -> (logits, cache')
-    model: Union[TransformerLM, EncDecLM, XLSTMModel]
+    model: Union[TransformerLM, EncDecLM, XLSTMModel, Zamba2Model]
     device: torch.device
     input_structs: Dict[str, InputSpec]
 

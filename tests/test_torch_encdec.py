@@ -107,7 +107,7 @@ def test_whisper_config_is_the_reference():
             full.n_heads, full.n_kv_heads, full.d_ff, full.vocab,
             full.encoder_len, full.pos_kind) == \
         (12, 12, 768, 12, 12, 3072, 51865, 1500, "learned")
-    assert ARCH in ARCHS and sorted(NOT_PORTED) == ["zamba2-7b"]
+    assert ARCH in ARCHS and NOT_PORTED == {}
     model = build_model(SMOKES[ARCH], device="cpu")
     assert isinstance(model, EncDecLM)
     assert (len(model.enc_layers), len(model.dec_layers)) == (2, 2)

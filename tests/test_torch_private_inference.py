@@ -222,8 +222,8 @@ def test_twin_on_a_smoke_arch_and_refused_families():
                  verbose=False)
     assert out["arch"] == "qwen3-4b-smoke" and out["plain_equal"]
     assert out["pir_calls"][0]["queries"] == 8
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pi.run(device="cpu", arch="zamba2-7b", verbose=False)
+    with pytest.raises(KeyError, match="unknown arch"):
+        pi.run(device="cpu", arch="no-such-arch", verbose=False)
 
 
 def test_twin_cli_prints_a_json_summary(capsys):

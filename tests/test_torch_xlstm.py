@@ -92,7 +92,7 @@ def close(got, want, **tol):
 def test_xlstm_config_is_the_reference():
     """FULL and SMOKE field for field, ``n_params`` (which counts every
     block as an mLSTM, in both packages), the 7 : 1 pattern, and the
-    registry's remaining unported arch."""
+    registry with no arch left unported."""
     for smoke in (False, True):
         cfg, ref = get_arch(ARCH, smoke=smoke), ref_get_arch(ARCH,
                                                              smoke=smoke)
@@ -102,7 +102,7 @@ def test_xlstm_config_is_the_reference():
     assert (full.n_layers, full.d_model, full.n_heads, full.vocab,
             full.ssm.chunk, full.ssm.block_pattern) == \
         (24, 1024, 4, 50304, 256, ("mlstm",) * 7 + ("slstm",))
-    assert ARCH in ARCHS and NOT_PORTED == {"zamba2-7b": "hybrid"}
+    assert ARCH in ARCHS and NOT_PORTED == {}
     assert LONG_CONTEXT_ARCHS == REF_LONG
 
 

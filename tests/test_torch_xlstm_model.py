@@ -39,7 +39,8 @@ from repro_torch import private_inference as pi
 from repro_torch.configs import SMOKES, get_arch
 from repro_torch.configs.shapes import SHAPES, SMOKE_PREFILL
 from repro_torch.convert import leaf_paths, model_params_from_reference
-from repro_torch.models import XLSTMModel, build_model, input_specs
+from repro_torch.models import (XLSTMModel, Zamba2Model, build_model,
+                                input_specs)
 from repro_torch.models import layers as L
 from repro_torch.models.xlstm import XLSTMCache
 from repro_torch.runtime.steps import make_serve_step
@@ -131,14 +132,17 @@ def test_parameter_paths_are_the_reference_tree(dtype):
 
 
 def test_build_model_serves_the_ssm_family_only():
-    """``build_model`` gives an XLSTMModel for the SSM family; the hybrid
-    family still raises; a config without ``ssm=`` is refused."""
+    """``build_model`` gives an XLSTMModel for the SSM family (and a
+    Zamba2Model for the hybrid); XLSTMModel refuses a config of another
+    family or without ``ssm=``."""
     model = build_model(SMOKES[ARCH], device="cpu")
     assert isinstance(model, XLSTMModel)
     assert model.embed.shape == (L.pad_vocab(512), 64)
     assert model.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(replace(SMOKES[ARCH], family="hybrid"), device="cpu")
+    assert isinstance(build_model(SMOKES["zamba2-7b"], device="cpu"),
+                      Zamba2Model)
+    with pytest.raises(ValueError, match="ssm="):
+        XLSTMModel(replace(SMOKES[ARCH], family="hybrid"), device="cpu")
     with pytest.raises(ValueError, match="ssm="):
         XLSTMModel(replace(SMOKES[ARCH], ssm=None), device="cpu")
 
