@@ -26,7 +26,10 @@ Phases, one JSON line each:
   timing      kernels with CUDA events beside their bounds (and a PyTorch
               library call where one computes the same function);
               end-to-end latency and records/s for batches of 1 and 32 with
-              keygen, root descent and kernel time apart; peak device memory
+              keygen, root descent and kernel time apart; peak device
+              memory; B2 at Q = 32 also by torch.profiler beside the CUDA
+              events (kernel_device_ms keeps a profiler mean only where
+              one record matches each counted launch)
   timing_add  the same for the additive scheme, and k = 3 end to end
   check_ggm   the GGM level kernel against its plain version (full-range
               seeds at n = 2^24 and at n = 1000 with 256-thread blocks
@@ -320,6 +323,20 @@ counters must stay 0):
               tokens / step s / the bf16 dense peak,
               analysis/roofline.PEAK_BF16_FLOPS_PER_S), peak device memory,
               the traced step's device events and idle share
+  dryrun      the six custom ops' fakes opchecked against their kernels at
+              the check phase's shapes (schema and fake tensors; all must
+              pass); then train_step's RunConfig and timing's PIR_1G
+              xor-dpf-2 batch of 32 run on the meta device under the
+              op-level cost counter (python -m repro_torch.launch.dryrun's
+              lower_cell / lower_pir_cell, in a child process started after
+              the build, so the card's phases do not wait for its host
+              seconds): the predicted resident bytes within 1 % of the
+              card's after init (plus the batch), the predicted peak within
+              10 % of max_memory_allocated; op_cost's FLOPs beside the
+              model FLOPs, the roofline step time and the measured step's
+              share of it; the PIR step's counted bytes beside the engine's
+              modeled bytes, its roofline memory term beside the measured
+              B2 launch and end-to-end batch
   moe_train   the same for the MoE family: grok-1-314b, 64 -> 1 layer
               (6.53 B parameters, 2.91 B active, 13.06 GB in bf16), 2
               sequences of 4,096 tokens in one microbatch, Adafactor over
@@ -350,8 +367,10 @@ counters must stay 0):
               model-FLOPs share counts every parameter at its block's own
               size. About 40 s
   hybrid_train  the same for the hybrid family: zamba2-7b at full width, 81
-              -> 12 layers (2 shared invocations, 1.37 B parameters: AdamW's
-              float32 state at full depth would need about 120 GB) at chunk
+              -> 12 layers (2 shared invocations, 1.37 B parameters: at full
+              depth the weights and AdamW state alone are 94.5 GB and the
+              step's peak 234.7 GB, python -m repro_torch.launch.dryrun
+              --arch zamba2-7b --shape train_4k --batch 8) at chunk
               256, train_4k's 4,096 tokens, the global batch of 256 cut to 8
               in the reference's policy of 8 microbatches, AdamW; one
               warm-up step, one timed, one traced; the model-FLOPs share
@@ -399,77 +418,18 @@ import torch  # noqa: E402
 
 SEED = 20251016
 
-# Bounds (PERF.md "Kernel bounds", fixed before any timing). NVIDIA H100
-# SXM data sheet: 3.35 TB/s HBM3; 132 SMs; 1.98 GHz max boost clock. Integer
-# issue: 4 schedulers x 32 lanes = 128 int32 lane-ops per SM per clock
-# (ALU pipe for IADD3/LOP3/SHF plus the FMA pipe for IMAD-form adds).
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 128 * 1.98e9
-# 32-bit integer multiply-add: 64 per clock per SM (the CUDA programming
-# guide's arithmetic-throughput table, compute capability 9.0).
-IMAD_PER_S = 132 * 64 * 1.98e9
-# ChaCha ARX per block: rounds/2 double rounds x 8 quarter rounds x 12 ops
-# (4 add, 4 xor, 4 rotate = one SHF funnel shift each).
-ARX_OPS_PER_DOUBLE_ROUND = 8 * 12
+# The kernels' bounds and the card's constants (NVIDIA H100 SXM data
+# sheet) are the package's (analysis/roofline.py); the training phases'
+# optimizers and microbatches follow the dry run's per-arch policy
+from repro_torch.analysis.roofline import (  # noqa: E402
+    INT32_OPS_PER_S, dpxor_bound_ms, fused_add_bound_ms, fused_bound_ms,
+    fused_xor_bound, gemm_bound_ms, ggm_bound, lwe_gemm_bound,
+    model_flops_for)
+from repro_torch.launch.dryrun import ARCH_POLICY  # noqa: E402
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
-
-
-def dpxor_bound_ms(rows: int, words: int, queries: int) -> float:
-    """Bytes bound: DB and bits read once, answers written once."""
-    nbytes = rows * words * 4 + queries * rows * 4 + queries * words * 4
-    return nbytes / HBM_BYTES_PER_S * 1e3
-
-
-def fused_bound_ms(rows: int, queries: int, clog: int, rounds: int) -> float:
-    """Operations bound: one ChaCha permutation per internal GGM node of
-    every chunk subtree, (rows - chunks) per query; corrections, feed-
-    forward adds and the leaf mask/XOR are left out (a lower bound)."""
-    chunks = rows >> clog
-    ops = queries * (rows - chunks) * (rounds // 2) * ARX_OPS_PER_DOUBLE_ROUND
-    return ops / INT32_OPS_PER_S * 1e3
-
-
-def gemm_bound_ms(rows: int, cols: int, queries: int) -> float:
-    """Bytes bound of the int8 GEMM: DB bytes and shares read once, int32
-    answers written once."""
-    nbytes = rows * cols + queries * rows + queries * cols * 4
-    return nbytes / HBM_BYTES_PER_S * 1e3
-
-
-def fused_add_bound_ms(rows: int, queries: int, clog: int,
-                       rounds: int) -> float:
-    """Operations bound of the fused select-add: one ChaCha permutation per
-    internal node (rows - chunks per query) and one per leaf for its
-    conversion word (rows per query); the select-add's multiply-adds and
-    the corrections are left out (a lower bound)."""
-    chunks = rows >> clog
-    blocks = queries * (2 * rows - chunks)
-    ops = blocks * (rounds // 2) * ARX_OPS_PER_DOUBLE_ROUND
-    return ops / INT32_OPS_PER_S * 1e3
-
-
-def ggm_bound(n: int, rounds: int) -> dict:
-    """Bound of one GGM level over n parents: 20 B read and 40 B written per
-    node over HBM, and one ChaCha block per node at the int32 issue rate;
-    the larger of the two bounds it."""
-    bytes_ms = 60 * n / HBM_BYTES_PER_S * 1e3
-    ops_ms = n * (rounds // 2) * ARX_OPS_PER_DOUBLE_ROUND / INT32_OPS_PER_S * 1e3
-    return {"bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes_ms": bytes_ms, "ops_ms": ops_ms}
-
-
-def lwe_gemm_bound(m: int, k: int, p: int) -> tuple:
-    """(bound ms, "bytes" or "operations") of the wrapping int32 GEMM
-    [m, k] x [k, p]: both operands read once and the output written once
-    over HBM, or its m*k*p IMADs at the card's IMAD rate, the larger."""
-    bytes_ms = (m * k + k * p + m * p) * 4 / HBM_BYTES_PER_S * 1e3
-    ops_ms = m * k * p / IMAD_PER_S * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
-                                                           "operations")
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -487,23 +447,33 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, kernel: str, reps: int = 20):
+def kernel_device_ms(fn, kernel: str, reps: int = 20) -> dict:
     """Mean device time a call of ``fn()`` spends in the kernels whose
     symbol holds ``kernel``, over ``reps`` calls under torch.profiler
     (device activity only): the kernel alone. CUDA events around
     back-to-back calls (:func:`cuda_time_ms`) also hold the card's waits
-    for the wrapper's host work, once a launch is shorter than that. None
-    if no such kernel ran."""
+    for the wrapper's host work, once a launch is shorter than that.
+
+    ``kernel`` names the wrapper's launch counter too (``ops.counts()``),
+    read before and after the timed calls: the mean is kept only where
+    exactly one matching profiler record exists for each launch, and is
+    None otherwise (records lost or split would make an impossible
+    time). Returns ``{"ms", "records", "launches"}``."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.analysis.serve_trace import device_intervals
+    from repro_torch.kernels import ops
     fn()
     torch.cuda.synchronize()
+    before = ops.counts()[kernel]["launches"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    launches = ops.counts()[kernel]["launches"] - before
     spans = [b - a for a, b, name in device_intervals(prof) if kernel in name]
-    return sum(spans) / 1e3 / reps if spans else None
+    ok = launches > 0 and len(spans) == launches
+    return {"ms": sum(spans) / 1e3 / reps if ok else None,
+            "records": len(spans), "launches": launches}
 
 
 def host_time_s(fn, *, sync: bool):
@@ -820,11 +790,18 @@ def phase_timing(database, cfg, card, device):
                                                   rounds=k32.rounds), reps=3)
     f_plain = cuda_time_ms(lambda: kf.fused_scan_xor_plain(
         db, *inputs, rounds=k32.rounds), reps=1, warmup=0)
+    # the profiler's mean beside the CUDA events', on a launch (32 ms) long
+    # enough to hide the wrapper's host time
+    f_dev = kernel_device_ms(lambda: kf.fused_scan_xor(
+        db, *inputs, rounds=k32.rounds), "fused_scan_xor", reps=3)
     out["fused_scan_xor"] = {"q": 32, "rows": rows, "clog": clog,
                              "ms": f_ms, "plain_ms": f_plain,
                              "bound_ms": fused_bound_ms(rows, 32, clog,
                                                         k32.rounds),
-                             "bound_by": "operations"}
+                             "bound_by": "operations",
+                             "kernel_device_ms": f_dev["ms"],
+                             "kernel_records": f_dev["records"],
+                             "kernel_launches": f_dev["launches"]}
     for name in ("dpxor", "fused_scan_xor"):
         r = out[name]
         r["beats_bound"] = r["ms"] < r["bound_ms"]
@@ -3563,33 +3540,35 @@ MOE_BRANCH_TOL = dict(atol=2 ** -6, rtol=2 ** -6)
 #: train_4k's VLM_SEQ positions. Serving cuts the depth 60 -> 16 (9.84 B
 #: parameters, 19.7 GB in bf16); training 60 -> 4 (3.15 B, 6.3 GB), 2
 #: sequences in 2 microbatches of 1, so that each microbatch takes its
-#: slice of prefix_embeds, with Adafactor (the reference's choice for the
-#: arch, repro/launch/dryrun.py:52)
+#: slice of prefix_embeds (the policy's 8 cut with the batch), with the
+#: policy's optimizer (launch/dryrun.py ARCH_POLICY: Adafactor)
 VLM_SERVE = ("llava-next-34b", 16)
 VLM_TRAIN = ("llava-next-34b", 4)
 VLM_SEQ = 4096
 VLM_TRAIN_BATCH = 2
+VLM_TRAIN_OPTIMIZER = ARCH_POLICY[VLM_TRAIN[0]]["opt"]
 #: the audio phases (PERF.md section 4): whisper-small uncut (12 + 12
 #: layers, full width). Serving at LM_STREAMS streams, each encoder_len =
 #: 1,500 seeded frames and LM_PREFILL decoder tokens; training at
 #: train_4k's 4,096 decoder tokens behind the 1,500 frames, the global batch
-#: of 256 cut to 8 in 2 microbatches of 4, AdamW (the reference's policy
-#: for the arch, repro/launch/dryrun.py:50)
+#: of 256 cut to 8 in the policy's 2 microbatches, of 4, with its
+#: optimizer (ARCH_POLICY: AdamW)
 AUDIO_ARCH = "whisper-small"
 AUDIO_TRAIN_BATCH = 8
-AUDIO_TRAIN_MICROBATCHES = 2
+AUDIO_TRAIN_MICROBATCHES = ARCH_POLICY[AUDIO_ARCH]["micro"]
+AUDIO_TRAIN_OPTIMIZER = ARCH_POLICY[AUDIO_ARCH]["opt"]
 #: the SSM phases (PERF.md section 4): xlstm-350m uncut (24 blocks, 21
 #: mLSTM and 3 sLSTM, d_model 1,024, chunk 256). Serving at LM_STREAMS x
 #: LM_PREFILL tokens; long_500k (batch 1) from an init_cache of 524,288
 #: positions, a SSM_LONG_PROMPT-token prompt and SSM_LONG_DECODE decodes;
 #: training at SSM_TRAIN_LAYERS blocks, train_4k's 4,096 tokens, the
-#: global batch of 256 cut to 8 in one microbatch (the reference's policy:
-#: 4; the sLSTM's loop over time steps makes a step's launches follow the
-#: microbatches), AdamW (the reference's policy for the arch,
-#: repro/launch/dryrun.py:51), one timed step after the warm-up (each step
-#: runs the sLSTM's 2 x 4,096 time steps forward, again in the recompute
-#: and backward)
+#: global batch of 256 cut to 8 in one microbatch (ARCH_POLICY's 4 cut:
+#: the sLSTM's loop over time steps makes a step's launches follow the
+#: microbatches), the policy's optimizer (AdamW), one timed step after the
+#: warm-up (each step runs the sLSTM's 2 x 4,096 time steps forward, again
+#: in the recompute and backward)
 SSM_ARCH = "xlstm-350m"
+SSM_TRAIN_OPTIMIZER = ARCH_POLICY[SSM_ARCH]["opt"]
 SSM_LONG_PROMPT = 256
 SSM_LONG_DECODE = 8
 SSM_TRAIN_BATCH = 8
@@ -3602,17 +3581,19 @@ SSM_TRAIN_TIMED_STEPS = 1
 #: LM_PREFILL tokens; long_500k (batch 1) cut to HYBRID_LONG_LAYERS (6
 #: invocations: 6 KV caches of 524,288 rows are 45.1 GB, 13 would be 97.7
 #: GB), a HYBRID_LONG_PROMPT-token prompt and HYBRID_LONG_DECODE decodes;
-#: training cut to HYBRID_TRAIN_LAYERS (2 invocations; AdamW's float32
-#: state at full depth would be about 120 GB) at train_4k's 4,096 tokens,
-#: the global batch of 256 cut to 8 in the reference's policy of 8
-#: microbatches with AdamW (repro/launch/dryrun.py:55)
+#: training cut to HYBRID_TRAIN_LAYERS (2 invocations; at full depth the
+#: weights and AdamW state alone are 94.5 GB, the step's peak 234.7 GB, by
+#: the dry run; at 12 layers it predicts 44.9 GB) at train_4k's 4,096 tokens,
+#: the global batch of 256 cut to 8 in ARCH_POLICY's 8 microbatches with
+#: its optimizer (AdamW)
 HYBRID_ARCH = "zamba2-7b"
 HYBRID_LONG_LAYERS = 36
 HYBRID_LONG_PROMPT = 256
 HYBRID_LONG_DECODE = 8
 HYBRID_TRAIN_LAYERS = 12
 HYBRID_TRAIN_BATCH = 8
-HYBRID_TRAIN_MICROBATCHES = 8
+HYBRID_TRAIN_MICROBATCHES = ARCH_POLICY[HYBRID_ARCH]["micro"]
+HYBRID_TRAIN_OPTIMIZER = ARCH_POLICY[HYBRID_ARCH]["opt"]
 HYBRID_TRAIN_TIMED_STEPS = 1
 #: zamba2-7b's last bf16 decode is reported against the forward, not held
 #: to LM_LOGIT_TOL: over its 94 blocks at random weights the bf16
@@ -3626,17 +3607,6 @@ HYBRID_TRAIN_TIMED_STEPS = 1
 #: bf16 noise floor
 HYBRID_F32_TOL = 1e-3
 HYBRID_FLOOR_CHUNK = 16
-
-
-def fused_xor_bound(rows: int, words: int, queries: int, clog: int,
-                    rounds: int) -> tuple:
-    """(bound ms, "bytes" or "operations") of the fused XOR scan: the DB
-    read once and the answers written once over HBM, or its ChaCha
-    operations (:func:`fused_bound_ms`), the larger."""
-    bytes_ms = (rows * words + queries * words) * 4 / HBM_BYTES_PER_S * 1e3
-    ops_ms = fused_bound_ms(rows, queries, clog, rounds)
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
-                                                           "operations")
 
 
 def lm_serve_step(ss, cfg, card, device, phase="private_lm_serve") -> dict:
@@ -4063,12 +4033,15 @@ def lm_kernels(model, cfg, card, device, phase="private_lm_kernels"
         worst["dpxor"] = max(worst["dpxor"], err)
         bound = dpxor_bound_ms(rows, words, q)
         ms = cuda_time_ms(lambda: kd.dpxor(db, bits), reps=20)
-        dev_ms = kernel_device_ms(lambda: kd.dpxor(db, bits), "dpxor")
+        dev = kernel_device_ms(lambda: kd.dpxor(db, bits), "dpxor")
+        dev_ms = dev["ms"]
         out["dpxor"][str(q)] = {
             "max_abs_err": err, "ms": ms,
             "plain_ms": cuda_time_ms(lambda: kd.dpxor_plain(db, bits), 3),
             "bound_ms": bound, "bound_by": "bytes",
             "share_of_bound": bound / ms, "kernel_device_ms": dev_ms,
+            "kernel_records": dev["records"],
+            "kernel_launches": dev["launches"],
             "kernel_share_of_bound": bound / dev_ms if dev_ms else None}
     for q in LM_FUSED_QS:
         plan = plan_for(pir_cfg, q, backend="cuda")
@@ -4086,8 +4059,9 @@ def lm_kernels(model, cfg, card, device, phase="private_lm_kernels"
         bound, by = fused_xor_bound(rows, words, q, clog, keys.rounds)
         ms = cuda_time_ms(lambda: kf.fused_scan_xor(
             db, *inputs, rounds=keys.rounds), reps=5)
-        dev_ms = kernel_device_ms(lambda: kf.fused_scan_xor(
+        dev = kernel_device_ms(lambda: kf.fused_scan_xor(
             db, *inputs, rounds=keys.rounds), "fused_scan_xor", reps=5)
+        dev_ms = dev["ms"]
         instance = kf.instance_xor(words, queries=q)
         ptxas = next((v for k, v in build.ptxas_report(
             "fused_scan_xor").items() if instance in k), {})
@@ -4101,7 +4075,8 @@ def lm_kernels(model, cfg, card, device, phase="private_lm_kernels"
             "grid": kf.wide_geometry(words, q, rows >> clog, clog),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
             "bound_ms": bound, "bound_by": by, "share_of_bound": bound / ms,
-            "kernel_device_ms": dev_ms,
+            "kernel_device_ms": dev_ms, "kernel_records": dev["records"],
+            "kernel_launches": dev["launches"],
             "kernel_share_of_bound": bound / dev_ms if dev_ms else None,
             "select_ops": select_ops,
             "select_ms": select_ops / INT32_OPS_PER_S * 1e3}
@@ -4373,7 +4348,9 @@ def phase_hybrid_long(card, device) -> dict:
 TRAIN_ARCH = "granite-3-2b"
 TRAIN_SEQ = 4096            # train_4k's sequence length
 TRAIN_BATCH = 4             # train_4k's global batch of 256, cut to 4
-TRAIN_MICROBATCHES = 4      # one sequence per microbatch
+# the policy's 4 microbatches (one sequence each) and optimizer (AdamW)
+TRAIN_MICROBATCHES = ARCH_POLICY[TRAIN_ARCH]["micro"]
+TRAIN_OPTIMIZER = ARCH_POLICY[TRAIN_ARCH]["opt"]
 TRAIN_LR = 1e-4             # warmup 0: one fixed batch must fall
 TRAIN_TIMED_STEPS = 3       # after one warm-up step
 # train_step's own (granite-3-2b's steps take 12-15 s each; 3 until the
@@ -4382,11 +4359,12 @@ TRAIN_STEP_TIMED_STEPS = 1
 TRAIN_FIRST_LOSS_TOL = 0.5  # the first loss within this of its want
 # the MoE family's train step: grok-1-314b cut to one layer (6.53 B
 # parameters, 13.06 GB in bf16), 2 sequences of train_4k in one
-# microbatch (a second one's float32 accumulators would add 26 GB),
-# Adafactor (the reference's choice for the arch: AdamW's float32 state
-# would be 78 GB)
+# microbatch (ARCH_POLICY's 8 cut: a second one's float32 accumulators
+# would add 26 GB), the policy's Adafactor (AdamW's float32 state would be
+# 78 GB)
 MOE_TRAIN = ("grok-1-314b", 1)
 MOE_TRAIN_BATCH = 2
+MOE_TRAIN_OPTIMIZER = ARCH_POLICY[MOE_TRAIN[0]]["opt"]
 PARITY_ARCHS = ("granite-3-2b", "qwen3-4b", "deepseek-v3-671b",
                 "grok-1-314b", "llava-next-34b", "whisper-small",
                 "xlstm-350m", "zamba2-7b")
@@ -4417,6 +4395,23 @@ def one_card_run(model, shape, optimizer, **kw):
     from repro_torch.launch.train import ONE_DEVICE
     return RunConfig(model=model, shape=shape, mesh=ONE_DEVICE,
                      optimizer=optimizer, **kw)
+
+
+def train_run(arch, layers, optimizer, batch, microbatches) -> tuple:
+    """``(full config, config, shape, RunConfig)`` of a train phase:
+    ``arch``'s FULL config, its depth cut to ``layers`` if given, at
+    train_4k's sequence length with the global batch cut to ``batch``
+    sequences in ``microbatches`` microbatches, remat "block"."""
+    from repro_torch.config import OptimizerConfig, ShapeConfig
+    from repro_torch.configs import get_arch
+    full = get_arch(arch)
+    cfg = full if layers is None else replace(full, n_layers=layers)
+    shape = ShapeConfig(name=f"train_4k_b{batch}", seq_len=TRAIN_SEQ,
+                        global_batch=batch, kind="train")
+    run = one_card_run(cfg, shape, OptimizerConfig(
+        name=optimizer, lr=TRAIN_LR, warmup_steps=0, total_steps=100),
+        microbatches=microbatches, remat="block", seed=SEED)
+    return full, cfg, shape, run
 
 
 def train_trace(ts, params, opt, ef, batch) -> tuple:
@@ -4452,7 +4447,8 @@ def train_trace(ts, params, opt, ef, batch) -> tuple:
 
 
 def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
-                     layers=None, optimizer="adamw", batch=TRAIN_BATCH,
+                     layers=None, optimizer=TRAIN_OPTIMIZER,
+                     batch=TRAIN_BATCH,
                      microbatches=TRAIN_MICROBATCHES,
                      timed_steps=TRAIN_TIMED_STEPS) -> dict:
     """``arch``'s FULL config (its depth cut to ``layers`` if given; its
@@ -4481,8 +4477,6 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
     config's n_params() counts every block as an mLSTM), times the
     tokens."""
     from repro_torch.analysis.roofline import PEAK_BF16_FLOPS_PER_S
-    from repro_torch.config import OptimizerConfig, ShapeConfig
-    from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.kernels import ops
     from repro_torch.models import moe as M
@@ -4490,15 +4484,11 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
     t_phase = time.perf_counter()
     release()
     torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
     ops.reset_counts()
-    full = get_arch(arch)
-    cfg = full if layers is None else replace(full, n_layers=layers)
+    full, cfg, shape, run = train_run(arch, layers, optimizer, batch,
+                                      microbatches)
     moe = cfg.family == "moe"
-    shape = ShapeConfig(name=f"train_4k_b{batch}", seq_len=TRAIN_SEQ,
-                        global_batch=batch, kind="train")
-    run = one_card_run(cfg, shape, OptimizerConfig(
-        name=optimizer, lr=TRAIN_LR, warmup_steps=0, total_steps=100),
-        microbatches=microbatches, remat="block", seed=SEED)
     t0 = time.perf_counter()
     ts = make_train_step(run, device=device)
     state = ts.init_state(torch.Generator(device).manual_seed(SEED + 500))
@@ -4508,6 +4498,8 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
     raw = TokenPipeline(cfg, shape, seed=SEED).batch(0)
     batch_in = {k: torch.as_tensor(v.reshape(ts.input_structs[k].shape),
                                    device=device) for k, v in raw.items()}
+    batch_bytes = sum(v.numel() * v.element_size()
+                      for v in batch_in.values())
     first_want = float(np.log(cfg.vocab))
     spread = {}
     if cfg.family != "dense":
@@ -4539,7 +4531,10 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
     n_active = cfg.n_active_params() if moe else n_params
     tokens_per_step = batch * TRAIN_SEQ
     timed = float(np.median(step_s[1:]))
-    flops = 6 * n_active * tokens_per_step
+    # analysis/roofline.model_flops_for: 6 N D (int: the JSON line keeps
+    # its integer figures)
+    train_flops = lambda n, d: int(model_flops_for(n, d, training=True))
+    flops = train_flops(n_active, tokens_per_step)
     basis = "6 x parameters (active for MoE) x positions"
     if cfg.family == "audio":
         sizes = {n: p.numel() for n, p in ts.model.named_parameters()}
@@ -4549,7 +4544,8 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
                     if n.startswith(("dec_layers.", "dec_norm.")))
         n_unembed = sizes["embed"]
         frames = batch * cfg.encoder_len
-        flops = 6 * (n_enc * frames + (n_dec + n_unembed) * tokens_per_step)
+        flops = (train_flops(n_enc, frames)
+                 + train_flops(n_dec + n_unembed, tokens_per_step))
         basis = ("6 x (encoder parameters x frames + (decoder + tied "
                  "unembedding parameters) x tokens); pos_dec is a lookup")
         spread.update(encoder_params=n_enc, decoder_params=n_dec,
@@ -4560,8 +4556,8 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
                  "mLSTM's intra-chunk [Q, Q] products are outside it")
     if cfg.family == "hybrid":
         n_shared = sum(p.numel() for p in ts.model.shared.parameters())
-        flops = 6 * (n_params + (ts.model.n_groups - 1) * n_shared) \
-            * tokens_per_step
+        flops = train_flops(n_params + (ts.model.n_groups - 1) * n_shared,
+                            tokens_per_step)
         basis = ("6 x (parameters + (invocations - 1) x the shared block's "
                  "parameters) x tokens: the shared block counted once per "
                  "invocation; Mamba2's intra-chunk [Q, Q] products are "
@@ -4587,6 +4583,7 @@ def phase_train_step(card, device, *, phase="train_step", arch=TRAIN_ARCH,
            "model_flops_share": flops / timed / PEAK_BF16_FLOPS_PER_S["cuda"],
            "peak_flops_per_s": PEAK_BF16_FLOPS_PER_S["cuda"],
            "state_bytes": state_bytes, "peak_device_bytes": peak,
+           "base_device_bytes": base_bytes, "batch_bytes": batch_bytes,
            "trace": trace, "pir_kernel_calls": launches,
            "seconds": time.perf_counter() - t_phase}
     del ts, state, batch_in, m
@@ -4783,6 +4780,231 @@ def phase_train_loop(card, device) -> dict:
     return out
 
 
+# -- the dry run ----------------------------------------------------------------
+
+#: the dryrun phase's holds: the predicted arguments within this share of
+#: the card's resident bytes after init, the predicted peak within this
+#: share of torch.cuda.max_memory_allocated()
+DRYRUN_STATE_TOL = 0.01
+DRYRUN_PEAK_TOL = 0.10
+#: the PIR cell it predicts: the timing phase's xor-dpf-2 batch of 32
+DRYRUN_PIR = ("pir-1g", "fused-cuda", 32)
+#: the longest the phase waits for the dry run's child (66-81 s of host
+#: time on the card's machine, started some 700 s before the phase)
+DRYRUN_WAIT_S = 600
+
+
+def dryrun_cells(path: str) -> None:
+    """The dryrun phase's two cells on the meta device, written to
+    ``path`` as JSONL (``launch/dryrun.py``): train_step's own RunConfig
+    (``train_run``) and DRYRUN_PIR's answer step of one party. Runs in a
+    process of its own, started beside the card's phases."""
+    from repro_torch.launch import dryrun
+    _, _, _, run = train_run(TRAIN_ARCH, None, TRAIN_OPTIMIZER, TRAIN_BATCH,
+                             TRAIN_MICROBATCHES)
+    pir, path_name, queries = DRYRUN_PIR
+    with open(path, "w") as f:
+        for cell in (lambda: dryrun.lower_cell(TRAIN_ARCH, "train_4k",
+                                               run=run),
+                     lambda: dryrun.lower_pir_cell(pir, path=path_name,
+                                                   n_queries=queries)):
+            t0 = time.perf_counter()
+            rec = cell()
+            rec["seconds"] = time.perf_counter() - t0
+            f.write(json.dumps(rec) + "\n")
+
+
+def start_dryrun() -> tuple:
+    """Start :func:`dryrun_cells` in a child process with no card visible
+    (the meta device allocates nothing); it takes host seconds the card's
+    phases do not wait for. Returns (the process, its output path, the
+    temporary directory, the start time); the process is killed at exit if
+    it is still running."""
+    import atexit
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    path = os.path.join(tmp, "dryrun.jsonl")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join([root, os.path.join(root, "src")]))
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.dryrun_cells({path!r})"],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, path, tmp, time.perf_counter()
+
+
+def opcheck_kernels(device) -> dict:
+    """``torch.library.opcheck`` of the six custom ops (the schema, and the
+    fake against the kernel on the card: output shapes, dtypes and
+    strides) at the check phase's shapes: PIR_1G's words and bytes (B1 at
+    Q = 1, B2 at Q = 32 over chunk-11 roots, B3 at Q = 1, B4 at Q = 32
+    over chunk-10 roots), B5 at PIR_128M_LWE's answer ([32, 2^22] x
+    [2^22, 32]) and B6 at n = 2^24. Operands are seeded random words: the
+    checks read shapes, not values. ``{op: {test: "SUCCESS" or error}}``."""
+    from repro_torch.configs.pir import PIR_1G, PIR_128M_LWE
+    from repro_torch.kernels import ops  # noqa: F401 (registers the ops)
+    gen = torch.Generator(device=device).manual_seed(SEED + 900)
+
+    def ints(*shape, hi=1 << 30):
+        return torch.randint(0, hi, shape, generator=gen, device=device,
+                             dtype=torch.int32)
+
+    rows, lrows = PIR_1G.n_items, PIR_128M_LWE.n_items
+    db = ints(rows, PIR_1G.item_bytes // 4)
+    db_bytes = db.view(torch.int8).reshape(rows, PIR_1G.item_bytes)
+
+    def fused(clog):
+        c = rows >> clog
+        return (ints(32, c, 4), ints(32, c, hi=2), ints(32, clog, 4),
+                ints(32, clog, 2, hi=2))
+
+    n = GGM_N
+    cases = {
+        "dpxor": (db, ints(1, rows, hi=2)),
+        "fused_scan_xor": (db, *fused(11), 12),
+        "fused_scan_add": (db_bytes, *fused(10), ints(32), 0, 12),
+        "pir_gemm": (ints(1, rows, hi=256).to(torch.int8), db_bytes),
+        "lwe_gemm": (ints(32, lrows), ints(lrows, PIR_128M_LWE.item_bytes)),
+        "ggm_expand": (ints(n, 4), ints(n, hi=2), ints(4), ints(2, hi=2),
+                       12, 256),
+    }
+    out = {}
+    for name, args in cases.items():
+        res = torch.library.opcheck(
+            getattr(torch.ops.repro_torch, name), args,
+            test_utils=("test_schema", "test_faketensor"),
+            raise_exception=False)
+        out[name] = {k: v if v == "SUCCESS" else str(v)[:300]
+                     for k, v in res.items()}
+    del cases, db, db_bytes
+    torch.cuda.synchronize()
+    release()
+    return out
+
+
+def cublas_workspace_bytes(device) -> int:
+    """Bytes the caching allocator gives one cuBLAS handle's workspace
+    (allocated at its first GEMM, outside any op's outputs, so the cost
+    counter cannot see it): the allocated bytes a bf16 product adds beyond
+    its output, after the workspaces are cleared."""
+    a = torch.ones((64, 64), dtype=torch.bfloat16, device=device)
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    before = torch.cuda.memory_allocated()
+    b = a @ a
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() - before - b.untyped_storage() \
+        .nbytes()
+
+
+def phase_dryrun(card, device, train, timing, started) -> dict:
+    """The dry run against the card. The six custom ops' fakes are
+    opchecked against their kernels (all must pass); then the records of
+    :func:`dryrun_cells`, computed on the meta device in a child process
+    since the build (``started``), are read and held against what
+    train_step and timing measured on the card:
+
+    * train_step's cell (granite-3-2b uncut, TRAIN_BATCH x 4,096 tokens in
+      TRAIN_MICROBATCHES microbatches, AdamW): the predicted arguments
+      (parameters, AdamW state, the batch) within DRYRUN_STATE_TOL of the
+      card's resident bytes after init plus the batch, and the predicted
+      peak of live bytes within DRYRUN_PEAK_TOL of max_memory_allocated;
+      both predictions add what was allocated before the phase began
+      (``base_device_bytes``), and the difference that remains is
+      reported beside one cuBLAS handle's workspace
+      (:func:`cublas_workspace_bytes`), which no op's output holds.
+      Reported: op_cost's FLOPs beside the phase's model FLOPs
+      (useful / counted), the roofline step time at the data sheet's
+      constants, and its share of the measured step.
+    * timing's PIR_1G xor-dpf-2 batch of 32 on fused-cuda, one party's
+      answer step: op_cost's bytes beside the engine's modeled bytes, and
+      the roofline memory term beside the measured B2 launch and the
+      end-to-end batch (two parties, keygen and transfers included).
+    """
+    proc, path, tmp, t_start = started
+    t0 = time.perf_counter()
+    opcheck = opcheck_kernels(device)
+    workspace = cublas_workspace_bytes(device)
+    opcheck_s = time.perf_counter() - t0
+    t_wait = time.perf_counter()
+    _, stderr = proc.communicate(timeout=DRYRUN_WAIT_S)
+    waited_s = time.perf_counter() - t_wait
+    if proc.returncode:
+        raise AssertionError(f"dryrun: the dry run's process failed "
+                             f"({proc.returncode}): {stderr[-3000:]}")
+    with open(path) as f:
+        lm, pir = [json.loads(line) for line in f]
+    shutil.rmtree(tmp)
+    base = train["base_device_bytes"]
+    mem = lm["memory"]
+    state_meas = train["state_bytes"] + train["batch_bytes"]
+    state_pred = mem["argument_size_in_bytes"] + base
+    peak_meas = train["peak_device_bytes"]
+    peak_pred = lm["peak_live_bytes"] + base
+    step_s = train["step_s_median"]
+    model_flops = train["model_flops_per_step"]
+    b2_ms = timing["fused_scan_xor"]["ms"]
+    e2e_s = timing["e2e_32"]["median_s"]
+    out = {
+        "phase": "dryrun", "card": card,
+        "opcheck": opcheck,
+        "opcheck_passed": all(v == "SUCCESS" for r in opcheck.values()
+                              for v in r.values()),
+        "train": {
+            "cell": lm["name"], "global_batch": lm["global_batch"],
+            "microbatches": lm["microbatches"],
+            "optimizer": lm["optimizer"], "n_ops": lm["n_ops"],
+            "meta_seconds": lm["seconds"],
+            "memory": mem, "fits_one_card": lm["fits_one_card"],
+            "base_device_bytes": base,
+            "state_bytes_measured": state_meas,
+            "state_bytes_predicted": state_pred,
+            "state_error": state_pred / state_meas - 1,
+            "peak_bytes_measured": peak_meas,
+            "peak_bytes_predicted": peak_pred,
+            "peak_error": peak_pred / peak_meas - 1,
+            "peak_gap_bytes": peak_meas - peak_pred,
+            "cublas_workspace_bytes": workspace,
+            "op_cost_flops": lm["hlo_flops"],
+            "op_cost_elem_flops": lm["hlo_elem_flops"],
+            "op_cost_bytes": lm["hlo_bytes"],
+            "model_flops": model_flops,
+            "useful_flop_ratio": model_flops / lm["hlo_flops"],
+            "t_compute_s": lm["t_compute_s"], "t_memory_s": lm["t_memory_s"],
+            "bottleneck": lm["bottleneck"],
+            "roofline_step_s": lm["roofline_step_s"],
+            "step_s_measured": step_s,
+            "roofline_share_of_step": lm["roofline_step_s"] / step_s},
+        "pir": {
+            "cell": pir["name"], "plan": pir["plan"],
+            "n_queries": pir["n_queries"], "n_ops": pir["n_ops"],
+            "meta_seconds": pir["seconds"],
+            "op_cost_bytes": pir["hlo_bytes"],
+            "plan_predicted_bytes": pir["plan_predicted_bytes"],
+            "op_cost_over_plan_bytes":
+                pir["hlo_bytes"] / pir["plan_predicted_bytes"],
+            "peak_live_bytes": pir["peak_live_bytes"],
+            "t_memory_s": pir["t_memory_s"],
+            "b2_ms_measured": b2_ms,
+            "t_memory_share_of_b2": pir["t_memory_s"] * 1e3 / b2_ms,
+            "e2e_32_s_measured": e2e_s,
+            "t_memory_share_of_e2e": pir["t_memory_s"] / e2e_s},
+        # the child's head start: it ran beside the card's phases since
+        "child_started_s_before": t0 - t_start,
+        "waited_s": waited_s, "opcheck_s": opcheck_s,
+        "seconds": time.perf_counter() - t0,
+    }
+    emit(out)
+    held = (out["opcheck_passed"]
+            and abs(out["train"]["state_error"]) <= DRYRUN_STATE_TOL
+            and abs(out["train"]["peak_error"]) <= DRYRUN_PEAK_TOL)
+    if not held:
+        raise AssertionError(f"dryrun: {out}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4805,6 +5027,9 @@ def main() -> int:
     device = torch.device("cuda")
     info = phase_device()
     phase_build()
+    # the dryrun phase's meta-device cells, computed beside the card's
+    # phases in a child process (host seconds only)
+    dryrun = start_dryrun()
 
     cfg = PIR_1G
     t0 = time.perf_counter()
@@ -4953,38 +5178,42 @@ def main() -> int:
         worst[name] = max(worst[name], err)
     # the LM's training half, alone on the card: granite-3-2b at full
     # width and depth, the card against the CPU, the train_lm twin
-    phase_train_step(info["card"], device,
-                     timed_steps=TRAIN_STEP_TIMED_STEPS)
+    train = phase_train_step(info["card"], device,
+                             timed_steps=TRAIN_STEP_TIMED_STEPS)
+    # the dry run of that step and of timing's PIR_1G batch, held against
+    # what the card measured
+    phase_dryrun(info["card"], device, train, timing, dryrun)
     # the MoE family's train step at full width: grok-1-314b cut to one
     # layer, Adafactor over its moe_layers leaves
     phase_train_step(info["card"], device, phase="moe_train",
                      arch=MOE_TRAIN[0], layers=MOE_TRAIN[1],
-                     optimizer="adafactor", batch=MOE_TRAIN_BATCH,
+                     optimizer=MOE_TRAIN_OPTIMIZER, batch=MOE_TRAIN_BATCH,
                      microbatches=1)
     # the VLM family's train step: llava-next-34b cut to four layers, the
     # prefix split over two microbatches
     phase_train_step(info["card"], device, phase="vlm_train",
                      arch=VLM_TRAIN[0], layers=VLM_TRAIN[1],
-                     optimizer="adafactor", batch=VLM_TRAIN_BATCH,
+                     optimizer=VLM_TRAIN_OPTIMIZER, batch=VLM_TRAIN_BATCH,
                      microbatches=VLM_TRAIN_BATCH)
     # the audio family's train step: whisper-small uncut, the frames split
     # over two microbatches, AdamW
     phase_train_step(info["card"], device, phase="audio_train",
-                     arch=AUDIO_ARCH, optimizer="adamw",
+                     arch=AUDIO_ARCH, optimizer=AUDIO_TRAIN_OPTIMIZER,
                      batch=AUDIO_TRAIN_BATCH,
                      microbatches=AUDIO_TRAIN_MICROBATCHES)
     # the SSM family's train step: xlstm-350m uncut at chunk 256, one
     # microbatch of 8, AdamW
     phase_train_step(info["card"], device, phase="ssm_train",
                      arch=SSM_ARCH, layers=SSM_TRAIN_LAYERS,
-                     optimizer="adamw",
+                     optimizer=SSM_TRAIN_OPTIMIZER,
                      batch=SSM_TRAIN_BATCH, microbatches=1,
                      timed_steps=SSM_TRAIN_TIMED_STEPS)
     # the hybrid family's train step: zamba2-7b cut to 12 layers at chunk
     # 256, 8 microbatches of one sequence, AdamW
     phase_train_step(info["card"], device, phase="hybrid_train",
                      arch=HYBRID_ARCH, layers=HYBRID_TRAIN_LAYERS,
-                     optimizer="adamw", batch=HYBRID_TRAIN_BATCH,
+                     optimizer=HYBRID_TRAIN_OPTIMIZER,
+                     batch=HYBRID_TRAIN_BATCH,
                      microbatches=HYBRID_TRAIN_MICROBATCHES,
                      timed_steps=HYBRID_TRAIN_TIMED_STEPS)
     phase_train_parity(info["card"], device)

@@ -105,6 +105,14 @@ def _dpxor_op(db_words: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@_dpxor_op.register_fake
+def _dpxor_fake(db_words, bits):
+    """The output's shape and dtype, for meta and fake tensors (the dry
+    run, ``analysis/op_cost.py``); never runs the kernel."""
+    return db_words.new_empty((bits.shape[0], db_words.shape[1]),
+                              dtype=torch.int32)
+
+
 def dpxor(db_words: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """Select-XOR scan, row-major DB: ``[R, W]`` x ``[Q, R]`` -> ``[Q, W]``.
 

@@ -226,6 +226,14 @@ def _fused_scan_xor_op(db_words: torch.Tensor, roots: torch.Tensor,
     return out
 
 
+@_fused_scan_xor_op.register_fake
+def _fused_scan_xor_fake(db_words, roots, t_roots, cw_seed_lv, cw_t_lv,
+                         rounds):
+    """The output's shape and dtype, for meta and fake tensors."""
+    return db_words.new_empty((t_roots.shape[0], db_words.shape[1]),
+                              dtype=torch.int32)
+
+
 def fused_scan_xor(db_words, roots, t_roots, cw_seed_lv, cw_t_lv, *,
                    rounds: int = 12) -> torch.Tensor:
     """Fused expand + XOR scan, row-major DB.
@@ -325,6 +333,14 @@ def _fused_scan_add_op(db_bytes: torch.Tensor, roots: torch.Tensor,
     build.check(lib, err, "fused_scan_add")
     count_add.launches += 1
     return out
+
+
+@_fused_scan_add_op.register_fake
+def _fused_scan_add_fake(db_bytes, roots, t_roots, cw_seed_lv, cw_t_lv,
+                         cw_final, party, rounds):
+    """The output's shape and dtype, for meta and fake tensors."""
+    return db_bytes.new_empty((t_roots.shape[0], db_bytes.shape[1]),
+                              dtype=torch.int32)
 
 
 def fused_scan_add(db_bytes, roots, t_roots, cw_seed_lv, cw_t_lv, cw_final,

@@ -103,6 +103,14 @@ def _ggm_expand_op(seeds: torch.Tensor, t: torch.Tensor,
     return children, t_out
 
 
+@_ggm_expand_op.register_fake
+def _ggm_expand_fake(seeds, t, cw_seed, cw_t, rounds, tile):
+    """The outputs' shapes and dtypes, for meta and fake tensors."""
+    n = seeds.shape[0]
+    return (seeds.new_empty((2 * n, 4), dtype=torch.int32),
+            seeds.new_empty((2 * n,), dtype=torch.int32))
+
+
 def ggm_expand(seeds: torch.Tensor, t: torch.Tensor, cw_seed: torch.Tensor,
                cw_t: torch.Tensor, *, rounds: int = 12,
                tile: int = DEFAULT_BLOCK) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -111,6 +111,12 @@ def _lwe_gemm_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@_lwe_gemm_op.register_fake
+def _lwe_gemm_fake(a, b):
+    """The output's shape and dtype, for meta and fake tensors."""
+    return a.new_empty((a.shape[0], b.shape[1]), dtype=torch.int32)
+
+
 def lwe_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """LWE contraction: ``[M, K] i32 x [K, P] i32 -> [M, P] i32`` modulo
     2^32. CUDA tensors launch the kernel; CPU tensors take the plain

@@ -118,6 +118,13 @@ def _pir_gemm_op(shares: torch.Tensor, db_bytes: torch.Tensor
     return out
 
 
+@_pir_gemm_op.register_fake
+def _pir_gemm_fake(shares, db_bytes):
+    """The output's shape and dtype, for meta and fake tensors."""
+    return db_bytes.new_empty((shares.shape[0], db_bytes.shape[1]),
+                              dtype=torch.int32)
+
+
 def pir_gemm(shares: torch.Tensor, db_bytes: torch.Tensor) -> torch.Tensor:
     """Additive-PIR contraction: ``[Q, R] i8 x [R, L] i8 -> [Q, L] i32``.
 
