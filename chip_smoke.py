@@ -31,6 +31,20 @@ Phases, one JSON line each:
               events (kernel_device_ms keeps a profiler mean only where
               one record matches each counted launch)
   timing_add  the same for the additive scheme, and k = 3 end to end
+  reference_api  the reference's single-shard functions on the resident
+              PIR_1G views and seeded keys: answer_xor (Q = 1) and
+              answer_xor_batch (Q = 4) for both parties of xor-dpf-2 keys
+              and answer_additive_batch (Q = 4) of additive-dpf-2 keys on
+              the bytes view, the records exact; the paper's Table 1 split,
+              phase_eval_bits and phase_dpxor at Q = 1 and 4 by CUDA events
+              (eval ms, dpXOR ms, dpXOR's share) beside timing's descent and
+              B1 times; leaf_bits(eval_all(key)) at log_n 25 equal to that
+              key's phase_eval_bits row; leaf_words of a payload pair (W =
+              8, log_n 20) summing to beta at alpha and 0 elsewhere mod 2^32;
+              the packing round trips on the resident views; DatabaseSpec's
+              device views against the database's (bytes the words'
+              storage). B1 and B3 advance by exactly the calls made, every
+              other kernel by none, no plain call
   check_ggm   the GGM level kernel against its plain version (full-range
               seeds at n = 2^24 and at n = 1000 with 256-thread blocks
               requested, rounds 12 and 2), then ops.ggm_eval_leaves over one
@@ -84,10 +98,13 @@ reconstruction:
 The XOR/additive databases are then freed.
   batch       BatchPIR at PIR_1G_BATCH (2^25 records, m = 256, B = 512
               buckets, xor-dpf-2) alone on the card: the cuckoo layout and
-              the BucketedDatabase built and timed, three rounds (two of 256
-              distinct indices, one with duplicates) exact and 512 wide,
-              then 64 global rows published into every candidate bucket and
-              a round serving them with the new epoch
+              the BucketedDatabase built and timed, two rounds (256
+              distinct indices, then one with duplicates) exact and 512
+              wide, a second facade with n_clusters=2 over the same buckets
+              (two rounds of 256 distinct indices submitted before either
+              is waited on: exact, each lane carrying a batch, every
+              dispatch 512 wide), then 64 global rows published into every
+              candidate bucket and a round serving them with the new epoch
 Then the single-server LWE scheme runs at PIR_128M_LWE (2^22 records x
 32 B; A is 2^22 x 1024 int32 = 16 GiB):
   database_lwe  its own records from a seed, the int32 byte view, and A
@@ -99,6 +116,11 @@ Then the single-server LWE scheme runs at PIR_128M_LWE (2^22 records x
   serve_lwe   SingleServerPIR: batches of 32 and 1, then a session;
               records exact, the GEMM kernel launched, no plain call, and
               one hint fetch
+  encrypt_lwe the one-query lwe.encrypt while A is resident: one B5
+              launch, equal to row 0 of encrypt_batch under the same seed
+              and to host numpy A.s + e + Delta * onehot mod 2^32 on 4,096
+              sampled rows; DatabaseSpec's device views equal to the
+              database's resident bytes and bytes32
   timing_lwe  the kernel at 1 and 32 queries beside its bound and the plain
               version, the hint build, and batches of 1 and 32 end to end
               with host keygen, A.S on the card, the answer and host decode
@@ -971,6 +993,157 @@ def phase_timing_add(database, cfg, cfg_k3, card, device, kept):
     return out
 
 
+#: the reference answer paths' batches and the Table 1 split's batches
+API_QS = (1, 4)
+API_REPS = 3
+#: leaf_words' check: a payload of W words over a 2^API_WORDS_LOG_N domain
+API_WORDS = 8
+API_WORDS_LOG_N = 20
+
+
+def phase_reference_api(host_db, database, cfg, cfg_add, timing, card,
+                        device) -> dict:
+    """The reference's single-shard functions on the resident PIR_1G
+    database (its words and bytes views) and seeded keys: answer_xor (Q =
+    1) and answer_xor_batch (Q = 4) for both parties of xor-dpf-2 keys, the
+    XOR of the two shares equal to the host rows; answer_additive_batch (Q
+    = 4) on the bytes view, (r0 + r1) mod 256 equal to the host bytes; the
+    paper's Table 1 split, phase_eval_bits and phase_dpxor at Q = 1 and 4
+    by CUDA events, beside timing's descent and B1 times; leaf_bits of
+    eval_all at log_n 25 equal to that key's phase_eval_bits row;
+    leaf_words of a payload pair summing to beta at alpha and to 0
+    elsewhere; the packing round trips on the resident views; the spec's
+    device views against the database's. B1 and B3 must advance by
+    exactly the calls made here, every other kernel by none, with no plain
+    call. Returns the launches."""
+    from repro_torch.core import dpf, pir
+    from repro_torch.core.protocol import for_config
+    from repro_torch.crypto import packing
+    from repro_torch.db import DatabaseSpec
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(SEED + 800)
+    words, db_bytes = database.view("words"), database.view("bytes")
+    log_n = cfg.log_n
+    xor, add = for_config(cfg), for_config(cfg_add)
+    out = {"phase": "reference_api", "card": card, "config": "pir-1g"}
+    calls = {"dpxor": 0, "pir_gemm": 0}
+    checks = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    ops.reset_counts()
+    before = ops.counts()
+
+    def counted(kernel, fn):
+        calls[kernel] += 1
+        return fn()
+
+    # the answer paths, both parties, records against the host
+    idx1 = [int(rng.integers(cfg.n_items))]
+    k1 = [k.to(device) for k in xor.query_gen_batch(rng, idx1, cfg)]
+    r1 = [counted("dpxor", lambda k=k: pir.answer_xor(words, k)) for k in k1]
+    checks["answer_xor"] = np.array_equal(
+        packing.tensor_to_words(pir.reconstruct_xor(*r1)), host_db[idx1[0]])
+    idx4 = rng.integers(0, cfg.n_items, size=4)
+    k4 = [k.to(device) for k in xor.query_gen_batch(rng, idx4, cfg)]
+    r4 = [counted("dpxor", lambda k=k: pir.answer_xor_batch(words, k))
+          for k in k4]
+    checks["answer_xor_batch"] = np.array_equal(
+        packing.tensor_to_words(pir.reconstruct_xor(*r4)), host_db[idx4])
+    idx_add = rng.integers(0, cfg.n_items, size=4)
+    ka = [k.to(device) for k in add.query_gen_batch(rng, idx_add, cfg_add)]
+    ra = [counted("pir_gemm",
+                  lambda k=k: pir.answer_additive_batch(db_bytes, k))
+          for k in ka]
+    checks["answer_additive_batch"] = np.array_equal(
+        pir.reconstruct_additive(*ra).cpu().numpy(),
+        packing.np_words_to_bytes(host_db[idx_add]))
+
+    # the Table 1 split: Eval's selection bits, then dpXOR over them
+    split = {}
+    for q, keys in ((1, k1[0]), (4, k4[0])):
+        eval_ms = cuda_time_ms(lambda: pir.phase_eval_bits(keys, log_n),
+                               reps=API_REPS)
+        bits = pir.phase_eval_bits(keys, log_n)
+        dpxor_ms = cuda_time_ms(
+            lambda: counted("dpxor", lambda: pir.phase_dpxor(words, bits)),
+            reps=API_REPS)
+        # the split is the batch answer: party 0's shares from above
+        checks[f"phase_split_q{q}"] = torch.equal(
+            counted("dpxor", lambda: pir.phase_dpxor(words, bits)),
+            r1[0][None] if q == 1 else r4[0])
+        split[f"q{q}"] = {"eval_ms": eval_ms, "dpxor_ms": dpxor_ms,
+                          "dpxor_share": dpxor_ms / (eval_ms + dpxor_ms)}
+        if q == 1:
+            bits1 = bits
+        del bits
+    split["timing_descent_ms_per_party_q1"] = \
+        timing["batch_1_parts"]["descent_ms_per_party"]
+    split["timing_dpxor_ms_q1"] = timing["dpxor"]["ms"]
+    out["table1_split"] = split
+
+    # the leaves: eval_all's bits are phase_eval_bits', word shares sum
+    seeds, t = dpf.eval_all(k1[0])
+    checks["eval_all_leaf_bits"] = torch.equal(dpf.leaf_bits(t), bits1)
+    del seeds, t
+    alpha = int(rng.integers(1 << API_WORDS_LOG_N))
+    beta = rng.integers(0, 1 << 32, size=API_WORDS, dtype=np.uint32)
+    pair = [k.to(device) for k in dpf.gen_keys_batch(
+        rng, [alpha], API_WORDS_LOG_N, payload=beta)]
+    shares = [dpf.leaf_words(k, *dpf.eval_all(k), API_WORDS) for k in pair]
+    total = shares[0] + shares[1]                   # int32 adds wrap
+    want = torch.zeros_like(total)
+    want[0, alpha] = packing.words_to_tensor(beta, device)
+    checks["leaf_words_sum"] = torch.equal(total, want)
+    del shares, total, want
+
+    # packing round trips on the resident views
+    as_bytes = packing.words_to_bytes(words)
+    checks["bytes_round_trip"] = torch.equal(
+        packing.bytes_to_words(as_bytes), words)
+    checks["words_to_bytes_is_the_bytes_view"] = torch.equal(
+        as_bytes.view(torch.int8), db_bytes)
+    del as_bytes
+    checks["bits_round_trip"] = torch.equal(
+        packing.unpack_words_to_bits(packing.pack_bits_to_words(bits1)),
+        bits1)
+    del bits1
+
+    # the spec's device views: the bytes view is the words' own storage;
+    # bytes32 (not resident at PIR_1G) against the resident bytes widened
+    spec = DatabaseSpec.from_config(cfg)
+    view_b = spec.words_to_view_device("bytes", words)
+    checks["spec_bytes_view"] = (torch.equal(view_b, db_bytes)
+                                 and view_b.data_ptr() == words.data_ptr())
+    view_32 = spec.words_to_view_device("bytes32", words)
+    checks["spec_bytes32_view"] = torch.equal(
+        view_32, db_bytes.view(torch.uint8).to(torch.int32))
+    del view_32
+    torch.cuda.synchronize()
+    after = ops.counts()
+    peak = torch.cuda.max_memory_allocated()
+    # the later phases read free memory and the peak: Q = 4 descents over
+    # 2^25 leaves peaked at 29.5 GB on the H100
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    advanced = {k: after[k]["launches"] - before[k]["launches"]
+                for k in after}
+    out.update({"checks": checks, "calls": calls, "launches": advanced,
+                "plain_calls": {k: v["plain_calls"] for k, v in
+                                after.items()},
+                "peak_device_bytes": peak,
+                "seconds": time.perf_counter() - t_phase})
+    emit(out)
+    if not all(checks.values()):
+        raise AssertionError(f"reference_api: a check failed: {checks}")
+    want_launches = {k: calls.get(k, 0) for k in advanced}
+    if advanced != want_launches:
+        raise AssertionError(f"reference_api: launches {advanced}, expected "
+                             f"exactly the calls made {want_launches}")
+    return main_path_launches("reference_api", ("dpxor", "pir_gemm"))
+
+
 #: the tuner's budget on the card, per (scheme, bucket): up to 8 legal
 #: candidates per kernel, one warm-up and the median of 3 timed runs each,
 #: no new candidate after 20 s
@@ -1336,6 +1509,69 @@ def phase_serve_lwe(host_db, cfg, database, device):
     if system.hint_fetches != 1:
         raise AssertionError(f"serve_lwe fetched the hint "
                              f"{system.hint_fetches} times, not once")
+    return launches
+
+
+#: rows of the one-query ciphertext held to host numpy
+ENCRYPT_CHECK_ROWS = 4096
+
+
+def phase_encrypt_lwe(database, a, cfg, device) -> dict:
+    """The one-query ``lwe.encrypt`` while A is resident (``a``, the cached
+    ``matrix_a_device``): one B5 launch, equal to row 0 of
+    ``encrypt_batch`` under the same seed, and to host numpy A.s + e +
+    Delta * onehot mod 2^32 on ENCRYPT_CHECK_ROWS sampled rows (the index
+    among them); then the spec's device views against the database's
+    resident ones. Returns the launches of the one-query call."""
+    from repro_torch.core import lwe
+    from repro_torch.crypto.packing import tensor_to_words
+    from repro_torch.db import DatabaseSpec
+    from repro_torch.kernels import ops
+    params = lwe.params_for(cfg.n_items)
+    seed = SEED + 810
+    index = int(np.random.default_rng(seed + 1).integers(cfg.n_items))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops.reset_counts()
+    ct, state = lwe.encrypt(np.random.default_rng(seed), index, cfg.n_items,
+                            params, device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = main_path_launches("encrypt_lwe", ("lwe_gemm",))
+    cts, states = lwe.encrypt_batch(np.random.default_rng(seed), [index],
+                                    cfg.n_items, params, device)
+    # the same draws on the host, and the rows of A they multiply
+    s, e = lwe.sample_batch(np.random.default_rng(seed), [index],
+                            cfg.n_items, params)
+    rows = np.random.default_rng(seed + 2).choice(
+        cfg.n_items, size=ENCRYPT_CHECK_ROWS, replace=False)
+    rows[0] = index
+    a_rows = tensor_to_words(a[torch.from_numpy(rows).to(device)])
+    want = a_rows.astype(np.uint64) @ s[0] + e[0, rows].astype(np.uint64)
+    want[0] += np.uint64(params.delta)
+    want = (want & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    got = tensor_to_words(ct.ct[torch.from_numpy(rows).to(device)])
+    words = database.view("words")
+    spec = DatabaseSpec.from_config(cfg)
+    checks = {
+        "shape": tuple(ct.ct.shape) == (cfg.n_items,),
+        "batch_row_0": bool(torch.equal(ct.ct, cts.ct[0])
+                            and np.array_equal(state.s, states[0].s)),
+        "host_numpy_rows": bool(np.array_equal(got, want)),
+        "spec_bytes_view": bool(
+            torch.equal(spec.words_to_view_device("bytes", words),
+                        database.view("bytes"))),
+        "spec_bytes32_view": bool(
+            torch.equal(spec.words_to_view_device("bytes32", words),
+                        database.view("bytes32")))}
+    emit({"phase": "encrypt_lwe", "config": "pir-128m-lwe",
+          "index": index, "rows_checked": ENCRYPT_CHECK_ROWS,
+          "seconds": seconds, "launches": launches, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"encrypt_lwe: a check failed: {checks}")
+    if launches["lwe_gemm"] != 1:
+        raise AssertionError(f"encrypt_lwe: {launches['lwe_gemm']} B5 "
+                             f"launches for one query, not 1")
     return launches
 
 
@@ -2310,34 +2546,78 @@ def phase_updates_lwe(host_lwe, database, cfg, card, device) -> tuple:
     return max(p["max_abs_err"] for p in out["publishes"]), launches
 
 
-def batch_round(system, idx) -> tuple:
-    """One round of ``idx`` through ``submit_batch``: the records, the
-    future's epoch tag, the dispatches it took and the seconds of the
-    client's plan (cuckoo walk and B keygens). A placement that fails
-    (probability O(1/B)) is planned again with the generator moved on."""
+def submit_placed(system, idx):
+    """``submit_batch(idx)``; a placement that fails (probability O(1/B))
+    is planned again with the generator moved on."""
     from repro_torch.core.batch import CuckooFailure
-    log0 = len(system.dispatch_log)
-    t0 = time.perf_counter()
     for attempt in range(3):
         try:
-            fut = system.submit_batch(idx)
-            break
+            return system.submit_batch(idx)
         except CuckooFailure:
             if attempt == 2:
                 raise
+
+
+def batch_round(system, idx) -> tuple:
+    """One round of ``idx`` through ``submit_batch``: the records, the
+    future's epoch tag, the dispatches it took and the seconds of the
+    client's plan (cuckoo walk and B keygens)."""
+    log0 = len(system.dispatch_log)
+    t0 = time.perf_counter()
+    fut = submit_placed(system, idx)
     plan_s = time.perf_counter() - t0
     system.scheduler.pump()
     return (fut.result(timeout=600), fut.epoch, system.dispatch_log[log0:],
             plan_s)
 
 
+def batch_lanes(bdb, cfg, host, rng, device) -> dict:
+    """A second facade over the same buckets with two logical lanes
+    (``n_clusters=2``): two rounds of m distinct indices submitted before
+    either is waited on, then one pump. The records must be exact, each
+    lane (``cluster0``, ``cluster1``) must carry a batch, counted where the
+    scheduler records a batch's latency, and every dispatch must be B
+    wide."""
+    from collections import Counter
+    from repro_torch.runtime.batch import BatchPIR
+    system = BatchPIR(bdb, cfg, device=device, n_clusters=2,
+                      client_rng=np.random.default_rng(SEED + 303))
+    lanes = Counter()
+    record = system.scheduler.monitor.record
+
+    def counting(lane, latency):
+        lanes[lane] += 1
+        record(lane, latency)
+
+    system.scheduler.monitor.record = counting
+    t0 = time.perf_counter()
+    idx = [rng.choice(cfg.n_items, size=cfg.batch_m, replace=False)
+           for _ in range(2)]
+    futs = [submit_placed(system, i) for i in idx]
+    plan_s = time.perf_counter() - t0
+    system.scheduler.pump()
+    recs = [f.result(timeout=600) for f in futs]
+    out = {"n_clusters": 2, "rounds": len(idx),
+           "seconds": time.perf_counter() - t0, "plan_s": plan_s,
+           "lanes": dict(lanes), "dispatch_log": system.dispatch_log,
+           "epochs": [f.epoch for f in futs],
+           "exact": all(check_records(r, host[i])
+                        for r, i in zip(recs, idx))}
+    if not (out["exact"] and set(lanes) == {"cluster0", "cluster1"}
+            and all(n >= 1 for n in lanes.values())
+            and all(w == bdb.n_buckets for _, w in system.dispatch_log)):
+        raise AssertionError(f"batch: the two-lane rounds are wrong: {out}")
+    return out
+
+
 def phase_batch(cfg, card, device) -> dict:
     """The batch plane at PIR_1G_BATCH (2^25 records x 32 B, xor-dpf-2,
     m = 256, B = 512 buckets), with no other database on the card: the
-    layout and the BucketedDatabase built and timed, three rounds (two of
+    layout and the BucketedDatabase built and timed, two rounds (one of
     256 distinct random indices, one with duplicates) exact and 512 wide,
+    two rounds of 256 distinct indices on two lanes (``batch_lanes``),
     then 64 global rows staged and published into every candidate bucket
-    and a fourth round serving them with the new outer epoch. Returns the
+    and a round serving them with the new outer epoch. Returns the
     launches."""
     import resource
     from repro_torch.core import pir
@@ -2389,11 +2669,11 @@ def phase_batch(cfg, card, device) -> dict:
                 and log and all(w == bdb.n_buckets for _, w in log)):
             raise AssertionError(f"batch: round {rounds[-1]} is wrong")
 
-    for _ in range(2):
-        serve_round("distinct", rng.choice(cfg.n_items, size=m,
-                                           replace=False), 0)
+    serve_round("distinct", rng.choice(cfg.n_items, size=m, replace=False),
+                0)
     dup = rng.choice(cfg.n_items, size=m // 2, replace=False)
     serve_round("duplicates", rng.choice(dup, size=m), 0)
+    out["lanes"] = batch_lanes(bdb, cfg, host, rng, device)
 
     rows, vals = fresh_rows(rng, cfg.n_items, 64, cfg.item_bytes // 4)
     torch.cuda.synchronize()
@@ -5057,6 +5337,9 @@ def main() -> int:
     timing = phase_timing(database, cfg, info["card"], device)
     timing_add = phase_timing_add(database, PIR_1G_ADD, PIR_1G_K3,
                                   info["card"], device, kept)
+    # the reference's single-shard functions on the same resident views
+    launches_api = phase_reference_api(host_db, database, cfg, PIR_1G_ADD,
+                                       timing, info["card"], device)
 
     # the engine plane: B6, the smoke gate, the tuner, tuned serving
     ggm = phase_check_ggm(cfg, device)
@@ -5109,6 +5392,7 @@ def main() -> int:
     worst.update(worst_lwe)
     launches_lwe = phase_serve_lwe(host_lwe, PIR_128M_LWE, database_lwe,
                                    device)
+    launches_enc = phase_encrypt_lwe(database_lwe, a, PIR_128M_LWE, device)
     timing_lwe = phase_timing_lwe(host_lwe, database_lwe, a, PIR_128M_LWE,
                                   info["card"], device, plain_lwe)
     err_upd, launches_upd_lwe = phase_updates_lwe(
@@ -5226,11 +5510,11 @@ def main() -> int:
     for name, source, replaces, path_launches, times in (
             ("dpxor", "src/repro_torch/csrc/dpxor.cu",
              "src/repro/kernels/dpxor.py:56",
-             total(launches, launches_chk, launches_w128, launches_upd,
-                   launches_batch, launches_twins, launches_runtime,
-                   launches_replicas, launches_lm, launches_moe,
-                   launches_vlm, launches_audio, launches_ssm,
-                   launches_hybrid), timing),
+             total(launches, launches_api, launches_chk, launches_w128,
+                   launches_upd, launches_batch, launches_twins,
+                   launches_runtime, launches_replicas, launches_lm,
+                   launches_moe, launches_vlm, launches_audio,
+                   launches_ssm, launches_hybrid), timing),
             ("fused_scan_xor", "src/repro_torch/csrc/fused_scan_xor.cu",
              "src/repro/kernels/fused_scan.py:94",
              total(launches, launches_chk, launches_w128, launches_upd,
@@ -5239,15 +5523,15 @@ def main() -> int:
                    launches_ssm, launches_hybrid), timing),
             ("pir_gemm", "src/repro_torch/csrc/pir_gemm.cu",
              "src/repro/kernels/pir_matmul.py:35",
-             total(launches_add, launches_chk, launches_w128, launches_upd),
-             timing_add),
+             total(launches_add, launches_api, launches_chk, launches_w128,
+                   launches_upd), timing_add),
             ("fused_scan_add", "src/repro_torch/csrc/fused_scan_add.cu",
              "src/repro/kernels/fused_scan.py:131",
              total(launches_add, launches_chk, launches_w128, launches_upd),
              timing_add),
             ("lwe_gemm", "src/repro_torch/csrc/lwe_gemm.cu",
              "src/repro/kernels/pir_matmul.py:35",
-             total(launches_lwe, launches_lwe_chk,
+             total(launches_lwe, launches_enc, launches_lwe_chk,
                    {"lwe_gemm": launches_upd_lwe}, launches_runtime),
              timing_lwe),
             ("ggm_expand", "src/repro_torch/csrc/ggm_expand.cu",

@@ -6,7 +6,7 @@ reference ``vmap``s one-key functions over a query batch; here the batch is
 an explicit leading ``Q`` axis on every key tensor, so the server-side
 evaluators take *batched* keys (``stack_keys``).
 
-Output modes ported:
+Output modes:
 
 bits   leaf control bits t(j), t0(j) XOR t1(j) = 1{j == alpha}: the
        selection vector of the dpXOR scan (``xor-dpf-2``, ``xor-dpf-k``).
@@ -14,6 +14,9 @@ bytes  additive shares over Z_256, y0(j) + y1(j) = 1{j == alpha} mod 256:
        the int8 GEMM's operand (``additive-dpf-2``; keys made with
        ``payload=[1]``). Shares are ``uint8``; the GEMM reads them as int8
        through ``.view(torch.int8)``, never by value conversion.
+words  additive shares over Z_2^32 of a ``[W]`` payload,
+       y0(j) + y1(j) = beta * 1{j == alpha} (``leaf_words``; keys made with
+       ``payload=beta``).
 
 All words are int32 tensors holding u32 bits (package docstring).
 """
@@ -225,6 +228,17 @@ def eval_range(keys: DPFKey, start_block: int, log_range: int
     return eval_to_depth(keys, start_block, log_range, 0)
 
 
+def eval_all(keys: DPFKey) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-domain evaluation (``dpf.py:207`` upstream), the plain descent:
+    seeds ``[Q, 2^log_n, 4]`` and t ``[Q, 2^log_n]`` of a batch, or
+    ``[2^log_n, 4]`` and ``[2^log_n]`` of one unbatched key."""
+    if keys.root_seed.dim() == 1:
+        seeds, t = eval_range(map_keys(keys, lambda x: x[None]), 0,
+                              keys.log_n)
+        return seeds[0], t[0]
+    return eval_range(keys, 0, keys.log_n)
+
+
 def eval_roots_batch(keys: DPFKey, start_block: int, log_range: int,
                      stop_log: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunk roots for the fused kernel (the reference's vmapped
@@ -236,6 +250,32 @@ def eval_bits_batch(keys: DPFKey, start_block: int, log_range: int
                     ) -> torch.Tensor:
     """Selection bits of a leaf range: ``[Q, 2^log_range]`` int32."""
     return eval_range(keys, start_block, log_range)[1]
+
+
+def leaf_bits(t_bits: torch.Tensor) -> torch.Tensor:
+    """Selection bits of the dpXOR scan from leaf control bits (the paper's
+    Eval(k, j) values), int32 (``dpf.py:271`` upstream)."""
+    return t_bits.to(torch.int32)
+
+
+def leaf_words(keys: DPFKey, seeds: torch.Tensor, t_bits: torch.Tensor,
+               n_words: int) -> torch.Tensor:
+    """Additive payload shares over Z_2^32 (``dpf.py:276`` upstream):
+    ``y_b(j) = (-1)^b (convert(s_j) + t_j cw_final)`` mod 2^32, so the two
+    parties' shares sum to ``beta * 1{j == alpha}``.
+
+    ``seeds [..., n, 4]``, ``t_bits [..., n]`` of one key or of a batch
+    (``cw_final [W]`` or ``[Q, W]``) -> ``[..., n, n_words]`` int32 words;
+    the conversion words are ``prg_bits`` of each leaf seed. int32 adds
+    and negation wrap mod 2^32, as u32 arithmetic does.
+    """
+    if keys.cw_final is None:
+        raise ValueError("key was generated without a payload")
+    conv = prg_bits(seeds, n_words, rounds=keys.rounds)
+    share = conv + t_bits[..., None] * keys.cw_final[..., None, :n_words]
+    if keys.party == 1:
+        share = (~share) + 1                  # negate mod 2^32
+    return share
 
 
 def leaf_bytes(keys: DPFKey, seeds: torch.Tensor, t_bits: torch.Tensor

@@ -271,6 +271,17 @@ def encrypt_with(s: np.ndarray, e: np.ndarray, indices: Sequence[int],
     return LWECiphertext(ct=ct, log_n=(n_items - 1).bit_length(), n=params.n)
 
 
+def encrypt(rng: np.random.Generator, index: int, n_items: int,
+            params: LWEParams, device: Device = None
+            ) -> Tuple[LWECiphertext, LWEClientState]:
+    """ct = A.s + e + Delta * onehot(index) mod 2^32 with fresh ``(s, e)``
+    for one query (``lwe.py:197`` upstream): :func:`encrypt_batch` of
+    ``[index]``, so the same draws, and A.s in one ``lwe_gemm`` launch on
+    the card. ``ct`` is ``[N]``."""
+    ct, states = encrypt_batch(rng, [index], n_items, params, device)
+    return ct.map(lambda x: x[0]), states[0]
+
+
 def encrypt_batch(rng: np.random.Generator, indices: Sequence[int],
                   n_items: int, params: LWEParams, device: Device = None
                   ) -> Tuple[LWECiphertext, List[LWEClientState]]:

@@ -6,8 +6,14 @@ Client:  ``query_gen`` (key generation through the protocol registry),
          ``reconstruct_additive`` ((r1 + r2) mod 256).
 Server:  ``dpxor`` — the plain select-XOR scan — and
          ``answer_additive_matmul`` — the plain int8 GEMM — that the
-         ``torch`` plans use; the served form runs through
-         ``core/protocol.py`` and the kernels.
+         ``torch`` plans use; the reference's single-shard answer paths
+         ``answer_xor`` / ``answer_xor_batch`` (Eval, then one dpXOR launch)
+         and ``answer_additive_batch`` (Z_256 shares, then one int8 GEMM
+         launch), and the paper's Table 1 phase split, ``phase_eval_bits``
+         and ``phase_dpxor``. These follow the database's device: a CUDA
+         tensor launches the kernel through ``kernels/ops.py``, a CPU
+         tensor takes its plain version. The served form runs through
+         ``core/protocol.py``.
 """
 from __future__ import annotations
 
@@ -24,9 +30,11 @@ from repro_torch.db.spec import row_checksum
 from repro_torch.kernels.dpxor import dpxor_plain, xor_fold
 from repro_torch.kernels.pir_matmul import pir_gemm_plain
 
-__all__ = ["Query", "answer_additive_matmul", "batch_queries", "db_as_bytes",
-           "dpxor", "make_database", "query_gen", "reconstruct_additive",
-           "reconstruct_xor", "xor_fold"]
+__all__ = ["Query", "answer_additive_batch", "answer_additive_matmul",
+           "answer_xor", "answer_xor_batch", "batch_queries", "db_as_bytes",
+           "dpxor", "make_database", "phase_dpxor", "phase_eval_bits",
+           "query_gen", "reconstruct_additive", "reconstruct_xor",
+           "xor_fold"]
 
 
 def make_database(rng: np.random.Generator, n_items: int,
@@ -109,3 +117,60 @@ def dpxor(db_words: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     if bits.dim() == 1:
         return dpxor_plain(db_words, bits[None])[0]
     return dpxor_plain(db_words, bits)
+
+
+# ---------------------------------------------------------------------------
+# Reference answer paths (one shard, the whole database)
+# ---------------------------------------------------------------------------
+
+def _one_query(key: dpf.DPFKey) -> dpf.DPFKey:
+    """An unbatched key, or a batch of one, as a batch of one."""
+    if key.root_seed.dim() == 1:
+        return dpf.map_keys(key, lambda x: x[None])
+    if dpf.n_queries_of(key) != 1:
+        raise ValueError(f"one query expected, got a batch of "
+                         f"{dpf.n_queries_of(key)}")
+    return key
+
+
+def answer_xor(db_words: torch.Tensor, key: dpf.DPFKey) -> torch.Tensor:
+    """One query's answer share ``[W]``: Eval, then dpXOR (``pir.py:144``
+    upstream). ``key`` is unbatched or a batch of one."""
+    return answer_xor_batch(db_words, _one_query(key))[0]
+
+
+def answer_xor_batch(db_words: torch.Tensor, keys: dpf.DPFKey
+                     ) -> torch.Tensor:
+    """``[Q, W]`` answer shares of a key batch (``pir.py:152``): every
+    query's selection bits, then one dpXOR launch for all Q. A database of
+    N rows takes the first N of the ``2^ceil(log2 N)`` leaves."""
+    n = db_words.shape[0]
+    keys = keys.to(db_words.device)
+    bits = phase_eval_bits(keys, (n - 1).bit_length())
+    return phase_dpxor(db_words, bits[:, :n])
+
+
+def answer_additive_batch(db_bytes_i8: torch.Tensor, keys: dpf.DPFKey
+                          ) -> torch.Tensor:
+    """``[Q, L]`` int32 partial sums of a key batch (``pir.py:172``): the
+    Z_256 shares of the first N leaves, then one int8 GEMM launch. They
+    wrap mod 2^32 as the reference's int32 dot does; only their value mod
+    256 matters."""
+    from repro_torch.kernels import ops
+    n = db_bytes_i8.shape[0]
+    keys = keys.to(db_bytes_i8.device)
+    shares = dpf.eval_bytes_batch(keys, 0, (n - 1).bit_length())
+    return ops.pir_gemm(shares[:, :n].contiguous(), db_bytes_i8)
+
+
+def phase_eval_bits(keys: dpf.DPFKey, log_n: int) -> torch.Tensor:
+    """Phase ② of the paper's Table 1: DPF evaluation alone, the
+    ``[Q, 2^log_n]`` selection bits written out (``pir.py:186``)."""
+    return dpf.eval_bits_batch(keys, 0, log_n)
+
+
+def phase_dpxor(db_words: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """Phases ④-⑤: dpXOR alone over precomputed ``[Q, N]`` selection bits,
+    one launch for all Q (``pir.py:192``)."""
+    from repro_torch.kernels import ops
+    return ops.dpxor(db_words, bits.contiguous())

@@ -83,6 +83,16 @@ class ExecutionPlan:
     def name(self) -> str:
         return f"{self.expand}/{self.scan}"
 
+    def describe(self) -> Dict[str, object]:
+        """Reporting form (the dry run's records), under the reference's
+        keys (``protocol.py:125`` upstream) for the fields the port has.
+        The reference's ``tile_q``, ``tile_l`` and ``depth`` tile its
+        Pallas kernels and ``collective`` shapes its multi-card reduce;
+        the port has none of them, and they are left out."""
+        return {"name": self.name, "expand": self.expand, "scan": self.scan,
+                "chunk_log": self.chunk_log, "tile_r": self.tile_r,
+                "provenance": self.provenance}
+
 
 #: ``path=`` strings -> plans (the reference's legacy server API, with the
 #: Pallas names replaced by their CUDA counterparts)
@@ -192,6 +202,13 @@ class PIRProtocol:
         ``query_gen`` per index, in order."""
         raise NotImplementedError
 
+    def query_gen_full(self, rng: np.random.Generator, index: int,
+                       cfg: PIRConfig):
+        """Gen with client state, ``(keys, state)``: the DPF schemes keep
+        none (``protocol.py:230`` upstream); a hint scheme returns the
+        per-query secret its reconstruction needs."""
+        return self.query_gen(rng, index, cfg), None
+
     def reconstruct(self, answers):
         """Combine all parties' answer shares into the records."""
         raise NotImplementedError
@@ -246,6 +263,10 @@ class PIRProtocol:
         raise NotImplementedError
 
     # -- hint lifecycle (hint protocols only) ---------------------------
+    def hint_builder(self, cfg: PIRConfig):
+        """``words [N, W] -> hint``, a full rebuild on the device."""
+        raise NotImplementedError(f"{self.name} has no hint")
+
     def hint_delta(self, cfg: PIRConfig):
         """``(hint, rows, old_words, new_words) -> new hint``, exact; None
         where the hint can only be rebuilt (``protocol.py:310`` upstream)."""
@@ -274,6 +295,11 @@ def get(name: str) -> PIRProtocol:
         raise KeyError(
             f"unknown protocol {name!r}; registered: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def available() -> Tuple[str, ...]:
+    """The registered protocol names, sorted."""
+    return tuple(sorted(_REGISTRY))
 
 
 def for_config(cfg: PIRConfig) -> PIRProtocol:
@@ -555,11 +581,28 @@ def _flatten_components(keys: dpf.DPFKey) -> dpf.DPFKey:
     return dpf.map_keys(keys, lambda x: x.reshape((-1,) + x.shape[2:]))
 
 
+def replace_party(key: dpf.DPFKey, party: int) -> dpf.DPFKey:
+    """The key with its party id rewritten (``protocol.py:699`` upstream);
+    the tensors are shared. The id enters no mask evaluation (with zero
+    correction words the initial t bit multiplies nothing), but the
+    components of one party's keys must agree on it to stack."""
+    return replace(key, party=party)
+
+
+def _component_bits(key: dpf.DPFKey, block: int, log_range: int
+                    ) -> torch.Tensor:
+    """One query's ``[C, ...]`` component keys -> ``[2^log_range]``
+    selection bits, XOR-folded over the components: the batch form at
+    Q = 1."""
+    return _component_bits_batch(dpf.map_keys(key, lambda x: x[None]),
+                                 block, log_range)[0]
+
+
 def _component_bits_batch(keys: dpf.DPFKey, start_block: int,
                           log_range: int) -> torch.Tensor:
     """``[Q, C, ...]`` component keys -> ``[Q, 2^log_range]`` selection
-    bits, XOR-folded over the components (``protocol.py:712-726``; the
-    reference's one-query ``_component_bits`` is this at Q = 1)."""
+    bits, XOR-folded over the components (``protocol.py:712-726``
+    upstream): the Q * C components evaluated as one flat batch."""
     q, c = keys.root_seed.shape[:2]
     bits = dpf.eval_bits_batch(_flatten_components(keys), start_block,
                                log_range)

@@ -110,6 +110,15 @@ class BucketedServeFns:
     def n_compiles(self) -> int:
         return len(self._steps)
 
+    def plan_report(self) -> Dict[int, dict]:
+        """``{bucket: engine.plan_report row}`` for every bucket: the plan,
+        its provenance and its modeled bytes, resolved without building a
+        step (``server.py:300`` upstream)."""
+        from repro_torch import engine
+        return {b: engine.plan_report(self.cfg, self.plan_for_bucket(b), b,
+                                      backend=self.backend)
+                for b in self.buckets}
+
     def step_for(self, bucket: int) -> ExecutionPlan:
         """The plan a batch of ``bucket`` is answered with, building the
         bucket's step at its first dispatch (counted in ``n_compiles``)."""
@@ -240,14 +249,8 @@ class PIRServer:
         return self.db.epoch
 
     def plan_report(self) -> Dict[int, dict]:
-        """``{bucket: engine.plan_report row}`` for every bucket: the plan,
-        its provenance and its modeled bytes, resolved without building a
-        step."""
-        from repro_torch import engine
-        return {b: engine.plan_report(self.cfg,
-                                      self.bucketed.plan_for_bucket(b), b,
-                                      backend=self.bucketed.backend)
-                for b in self.buckets}
+        """``BucketedServeFns.plan_report`` of this party's buckets."""
+        return self.bucketed.plan_report()
 
     def stage_keys(self, keys: Keys) -> Keys:
         """Upload a key batch ahead of dispatch (pipelining)."""

@@ -50,6 +50,40 @@ def words_to_bytes(w: torch.Tensor) -> torch.Tensor:
     return b.to(torch.uint8).reshape(w.shape[:-1] + (w.shape[-1] * 4,))
 
 
+def bytes_to_words(b: torch.Tensor) -> torch.Tensor:
+    """``[..., 4k]`` bytes -> ``[..., k]`` int32 words (little-endian), the
+    inverse of :func:`words_to_bytes` (``packing.py:13`` upstream). uint8
+    and int8 bytes both pack by their bits."""
+    if b.shape[-1] % 4:
+        raise ValueError(f"byte length {b.shape[-1]} not a multiple of 4")
+    b = (b.to(torch.int32) & 0xFF).reshape(b.shape[:-1]
+                                           + (b.shape[-1] // 4, 4))
+    return (b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16)
+            | (b[..., 3] << 24))
+
+
+def pack_bits_to_words(bits: torch.Tensor) -> torch.Tensor:
+    """``[..., 32k]`` bits in {0, 1} -> ``[..., k]`` int32 words: bit ``j``
+    of word ``w`` is bit ``32w + j`` (``packing.py:29`` upstream)."""
+    n = bits.shape[-1]
+    if n % 32:
+        raise ValueError(f"bit length {n} not a multiple of 32")
+    bits = bits.to(torch.int32).reshape(bits.shape[:-1] + (n // 32, 32))
+    out = bits[..., 0].clone()
+    for j in range(1, 32):
+        out |= bits[..., j] << j
+    return out
+
+
+def unpack_words_to_bits(words: torch.Tensor) -> torch.Tensor:
+    """``[..., k]`` int32 words -> ``[..., 32k]`` int32 bits in {0, 1}
+    (``packing.py:39`` upstream). ``>>`` on int32 is arithmetic, so each
+    shifted word is masked to its low bit."""
+    sh = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words.to(torch.int32)[..., None] >> sh) & 1
+    return bits.reshape(words.shape[:-1] + (words.shape[-1] * 32,))
+
+
 def words_to_bytes_i8(w: torch.Tensor) -> torch.Tensor:
     """``[..., k]`` words -> ``[..., 4k]`` int8: the same bytes read as int8
     (the additive GEMM's operand), by reinterpretation. A parity helper,

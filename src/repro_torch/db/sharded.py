@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import PIRConfig
-from repro_torch.crypto.packing import words_to_bytes_i32, words_to_tensor
+from repro_torch.crypto.packing import words_to_tensor
 from repro_torch.db.spec import DatabaseSpec
 from repro_torch.engine.backend import Device, resolve_device
 
@@ -224,11 +224,12 @@ class Database:
         self.spec.view_dtype(name)
         with self._lock:
             holder = self._holder(epoch)
-            if name == "bytes":
-                return holder.views["words"].view(torch.int8)
+            if name == "bytes":                   # an alias of the words
+                return self.spec.words_to_view_device(
+                    name, holder.views["words"])
             if name not in holder.views:          # bytes32, once per epoch
-                holder.views[name] = words_to_bytes_i32(
-                    holder.views["words"])
+                holder.views[name] = self.spec.words_to_view_device(
+                    name, holder.views["words"])
                 self.stats.n_view_packs += 1
             return holder.views[name]
 
@@ -357,8 +358,7 @@ class Database:
         old_words = base.views["words"][idx] if delta_hints else None
         new_views = {}
         for name, tensor in views.items():
-            rows_v = (new_words if name == "words"
-                      else words_to_bytes_i32(new_words))
+            rows_v = self.spec.words_to_view_device(name, new_words)
             new_views[name] = tensor.clone().index_copy_(0, idx, rows_v)
             self.stats.clone_device_bytes += \
                 tensor.numel() * tensor.element_size()

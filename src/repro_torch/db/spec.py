@@ -4,6 +4,10 @@ Three views are served: ``words`` (u32 words, the XOR scans' operand),
 ``bytes`` (int8 bytes, little-endian, the additive GEMM's operand) and
 ``bytes32`` (the same byte values widened to int32, the LWE GEMM's
 operand). A view name is protocol metadata (``PIRProtocol.db_view``).
+``DatabaseSpec`` is the one place a view is derived from word rows: on
+their device (``words_to_view_device``: ``bytes`` an alias of the words'
+storage, ``bytes32`` a widened copy), on the host (``pack_host``) and on
+the meta device for the dry run (``view_struct``).
 
 Verified reconstruction adds an optional per-row checksum column: with
 ``checksum=True`` every stored record carries one more u32 word
@@ -21,9 +25,11 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.config import PIRConfig
-from repro_torch.crypto.packing import np_bytes_to_words
+from repro_torch.crypto.packing import (np_bytes_to_words, np_words_to_bytes,
+                                        words_to_bytes_i32)
 
 #: registered database views: name -> dtype of its ``[N, cols]`` tensor
 VIEWS = {
@@ -34,6 +40,10 @@ VIEWS = {
     # contraction is mod-2^32 arithmetic, and the int8 view's negatives
     # (byte >= 128 -> byte - 256) would shift it by 256·k, not 0 mod q.
 }
+
+#: the torch dtype each view's device tensor has (u32 words in int32)
+TORCH_VIEWS = {"words": torch.int32, "bytes": torch.int8,
+               "bytes32": torch.int32}
 
 
 class IntegrityError(RuntimeError):
@@ -158,6 +168,27 @@ class DatabaseSpec:
     def stored_words(self) -> int:
         return self.item_words + (1 if self.checksum else 0)
 
+    @property
+    def log_n(self) -> int:
+        return (self.n_items - 1).bit_length()
+
+    @property
+    def db_bytes(self) -> int:
+        return self.n_items * self.item_bytes
+
+    def rows_per_shard(self, n_shards: int) -> int:
+        """Rows held by one DB shard; validates the paper's linear layout
+        (shard d holds rows [d·B_d, (d+1)·B_d), B_d a power of two)."""
+        n_shards = max(n_shards, 1)
+        if self.n_items % n_shards:
+            raise ValueError(
+                f"{self.n_items} rows not divisible by {n_shards} shards")
+        rows = self.n_items // n_shards
+        if rows & (rows - 1):
+            raise ValueError(
+                f"per-shard row count must be a power of two, got {rows}")
+        return rows
+
     def view_dtype(self, view: str) -> np.dtype:
         if view not in VIEWS:
             raise KeyError(f"unknown db view {view!r}; known: {sorted(VIEWS)}")
@@ -167,6 +198,52 @@ class DatabaseSpec:
         self.view_dtype(view)
         cols = self.stored_words if view == "words" else self.stored_bytes
         return (self.n_items, cols)
+
+    def view_struct(self, view: str) -> torch.Tensor:
+        """A meta tensor of one view's shape and torch dtype, the dry run's
+        stand-in for the device view (the reference's
+        ``jax.ShapeDtypeStruct``); it holds no storage."""
+        self.view_dtype(view)
+        return torch.empty(self.view_shape(view), dtype=TORCH_VIEWS[view],
+                           device="meta")
+
+    def words_to_bytes_host(self, words: np.ndarray) -> np.ndarray:
+        """``[..., W]`` u32 -> ``[..., 4W]`` u8 on the host (little-endian)."""
+        return np_words_to_bytes(np.asarray(words))
+
+    def bytes_to_words_host(self, b: np.ndarray) -> np.ndarray:
+        """``[..., 4W]`` u8 -> ``[..., W]`` u32 on the host (little-endian)."""
+        return np_bytes_to_words(np.asarray(b, np.uint8))
+
+    def words_to_bytes_device(self, words: torch.Tensor) -> torch.Tensor:
+        """``[..., W]`` int32 words -> ``[..., 4W]`` int8 bytes on their
+        device: a view of the same storage (``.view(torch.int8)``; the card
+        is little-endian), never a copy."""
+        return words.view(torch.int8)
+
+    def words_to_view_device(self, view: str, words: torch.Tensor
+                             ) -> torch.Tensor:
+        """Any registered view of word rows, on their device: ``words``
+        itself, the ``bytes`` alias of its storage, or ``bytes32``, the
+        byte values widened to int32 (a new tensor, 4x the words)."""
+        if view == "words":
+            return words
+        if view == "bytes":
+            return self.words_to_bytes_device(words)
+        if view == "bytes32":
+            return words_to_bytes_i32(words)
+        raise KeyError(f"unknown db view {view!r}; known: {sorted(VIEWS)}")
+
+    def pack_host(self, words: np.ndarray, view: str) -> np.ndarray:
+        """Host-side packing of word rows into any registered view (test
+        oracles, tuner inputs)."""
+        if view == "words":
+            return np.asarray(words, np.uint32)
+        if view == "bytes":
+            return self.words_to_bytes_host(words).view(np.int8)
+        if view == "bytes32":
+            return self.words_to_bytes_host(words).astype(np.int32)
+        raise KeyError(f"unknown db view {view!r}; known: {sorted(VIEWS)}")
 
     def validate_words(self, db_words: np.ndarray) -> np.ndarray:
         arr = np.asarray(db_words)
@@ -199,7 +276,7 @@ class DatabaseSpec:
         if arr.ndim != 2:
             raise ValueError(f"row values must be 2-D, got shape {arr.shape}")
         if arr.shape[1] == self.item_bytes and arr.dtype == np.uint8:
-            return np_bytes_to_words(arr)
+            return self.bytes_to_words_host(arr)
         if arr.shape[1] == self.item_words:
             return arr.astype(np.uint32, copy=False)
         raise ValueError(

@@ -33,7 +33,9 @@ as ``policy_fsdp``): on one card FSDP shards nothing.
 PIR cells (``lower_pir_cell``) run one party's answer step of a PIR
 config on a meta database and meta keys. Plans are chosen for ``"cuda"``
 (the card the dry run predicts for; the engine does not serve on meta),
-and the record carries the plan, the engine's modeled bytes of the step
+and the record carries the plan (``ExecutionPlan.describe()`` under
+``plan``, as the reference's record; its tuner label under
+``plan_label``), the engine's modeled bytes of the step
 (``plan_predicted_bytes``) and the reference's PIR "model FLOPs", one XOR
 word-op per 4 bytes of DB per query.
 
@@ -217,12 +219,7 @@ def lower_pir_cell(pir_name: str, *, path: str = "fused-cuda",
                            path=None if path == "auto" else path,
                            chunk_log=chunk_log)
     plan = fns.plan_for_bucket(n_queries)
-    spec = DatabaseSpec.from_config(cfg)
-    view = fns.protocol.db_view
-    # the device views: int8 bytes, or 4-byte words carried in int32
-    dtype = torch.int8 if spec.view_dtype(view).itemsize == 1 \
-        else torch.int32
-    db = torch.empty(spec.view_shape(view), dtype=dtype, device=META)
+    db = DatabaseSpec.from_config(cfg).view_struct(fns.protocol.db_view)
     keys = meta_keys(cfg, n_queries)
     t_lower = time.time() - t0
     cost = op_cost.analyze(fns.answer, db, keys)
@@ -238,7 +235,7 @@ def lower_pir_cell(pir_name: str, *, path: str = "fused-cuda",
         "n_chips": 1, "ok": True,
         "lower_s": round(t_lower, 1), "compile_s": round(t_run, 1),
         "n_queries": n_queries, "chunk_log": chunk_log,
-        "plan": report["label"],
+        "plan": plan.describe(), "plan_label": report["label"],
         "plan_predicted_bytes": report["predicted_step_bytes"],
         **_cost_fields(cost, roof),
     }

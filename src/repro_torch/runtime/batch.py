@@ -57,6 +57,9 @@ class BatchPIR(MultiServerPIR):
 
     ``db_words`` is the host array or a built :class:`BucketedDatabase`.
     ``rounds`` is the scheduler's bucket ladder in rounds per dispatch.
+    ``n_clusters`` is its lane count (``cluster0``, ...), round-robin with
+    straggler shedding as for every facade; the lanes are logical, on one
+    device and one stream, and each dispatch reads its own snapshot.
     ``path=None`` resolves each bucket's plan through the engine at the
     bucket shape (``inner_cfg``).
     """
@@ -64,6 +67,7 @@ class BatchPIR(MultiServerPIR):
     def __init__(self, db_words, cfg: PIRConfig, *, device: Device = None,
                  path: Optional[str] = None, rounds: Sequence[int] = (1,),
                  max_wait_s: float = DEFAULT_MAX_WAIT_S,
+                 n_clusters: int = 1,
                  protocol: Optional[PIRProtocol] = None,
                  client_rng: Optional[np.random.Generator] = None,
                  default_deadline_s: Optional[float] = None):
@@ -100,9 +104,10 @@ class BatchPIR(MultiServerPIR):
         #: per dispatch: (rounds, per-bucket queries issued per round); the
         #: second is always ``db.n_buckets`` whatever the indices were
         self.dispatch_log: List[Tuple[int, int]] = []
-        self.scheduler = self._make_scheduler(max_wait_s)
+        self.scheduler = self._make_scheduler(max_wait_s, n_clusters)
 
-    def _make_scheduler(self, max_wait_s: float) -> QueryScheduler:
+    def _make_scheduler(self, max_wait_s: float, n_clusters: int
+                        ) -> QueryScheduler:
         serve, proto, db = self.serve, self.protocol, self.db
         parties = range(self.n_parties)
         inner_cfg = self.inner_cfg
@@ -150,7 +155,8 @@ class BatchPIR(MultiServerPIR):
         return QueryScheduler(
             collate=collate, stage=stage, dispatch=dispatch,
             finalize=finalize, buckets=serve[0].buckets,
-            max_wait_s=max_wait_s, epoch_of=lambda raw: raw[2])
+            n_clusters=n_clusters, max_wait_s=max_wait_s,
+            epoch_of=lambda raw: raw[2])
 
     # -- client API -------------------------------------------------------
 

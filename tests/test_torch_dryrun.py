@@ -173,7 +173,8 @@ def test_pir_cell_plans_for_the_card(pir, path, queries):
                         backend="cuda")
     want = engine.plan_report(cfg, plan, queries, backend="cuda")
     assert rec["ok"] and rec["kind"] == "pir"
-    assert rec["plan"] == want["label"]
+    assert rec["plan"] == plan.describe()
+    assert rec["plan_label"] == want["label"]
     assert rec["plan_predicted_bytes"] == want["predicted_step_bytes"]
     assert rec["model_flops"] == cfg.db_bytes / 4 * queries
     assert rec["memory"]["argument_size_in_bytes"] >= cfg.db_bytes
