@@ -191,6 +191,25 @@ Then the single-server LWE scheme runs at PIR_128M_LWE (2^22 records x
               the delta log, no heuristic plan), a detach under 128 queries
               (handed off, all exact); peak device memory. B1 and B2
               launched, no plain call
+  sharded     A6b's serving path, once the fleets are freed: four ranks of
+              torch.distributed (processes started with
+              torch.multiprocessing, one FileStore under a temporary
+              directory) share this card under gloo, their collectives
+              through the host; each loads the parent's kernels (no nvcc)
+              and memory-maps the parent's PIR_1G and PIR_128M_LWE words.
+              On the (1, 4) and (2, 2) meshes each rank holds its row block
+              and serves xor-dpf-2 through TwoServerPIR(mesh=) at 32 and 1
+              queries under both collectives (keys drawn on rank 0 only and
+              broadcast), additive-dpf-2 and xor-dpf-k at 32, then 8 rows
+              updated over all four blocks and served; one lwe-simple-1
+              answer of 32 seeded ciphertexts (B5 on each block, the int32
+              all-reduce) equal to one unsharded B5 answer on rank 0.
+              Records exact; each rank's counters advance by exactly one
+              launch of its plan's kernel a party and batch, no plain
+              call; one epoch on every rank; start_block 0-3 on (1, 4).
+              Per rank: device, rows, launches, the answer step's and the
+              collective's CUDA-event ms (time-sliced ranks: not a
+              scaling figure); which gloo collectives take a CUDA tensor
   private_lm  the dense LM, once the fleets are released: qwen3-4b at full
               width and depth (36 layers, d_model 2,560, vocab 151,936,
               bf16, 8.8 GB of weights drawn from a seeded generator on the
@@ -3777,6 +3796,389 @@ def phase_replicas(host_db, cfg, host_chk, cfg_chk, card) -> dict:
     return launches
 
 
+#: the sharded phase: four ranks of torch.distributed on this card, each
+#: a process of its own (gloo: NCCL refuses two ranks on one card), over
+#: the (1, 4) and (2, 2) meshes of A6b's serving path
+SHARDED_RANKS = 4
+SHARDED_MESHES = ((1, 4), (2, 2))
+SHARDED_QS = (32, 1)
+SHARDED_UPDATE_ROWS = 8
+#: a rank that has not finished after this long fails the phase
+SHARDED_TIMEOUT_S = 600
+
+
+def sharded_expected(server, n: int) -> dict:
+    """The launches one rank's answer of ``n`` queries must add: one of
+    its bucket's plan's kernel for each party (every path of the port's
+    answer step is one launch)."""
+    plan = server.bucketed.plan_for_bucket(server.bucketed.bucket_for(n))
+    return {_kernels_of(plan, server.protocol.share_kind)[0]: 1}
+
+
+def sharded_probe(device) -> dict:
+    """Whether gloo's all_gather and all_reduce take a CUDA tensor as it is
+    (every rank tries each op the same way, so an op refused on one is
+    refused on all). Point-to-point ops are not tried: gloo's send hands
+    the tensor's pointer to its host transport, which is why the
+    collectives run on the host under gloo."""
+    import torch.distributed as dist
+    x = torch.arange(8, dtype=torch.int32, device=device)
+    ops_ = {
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(dist.get_world_size())], x),
+        "all_reduce": lambda: dist.all_reduce(x.clone())}
+    out = {}
+    for name, fn in ops_.items():
+        try:
+            fn()
+            torch.cuda.synchronize(device)
+            out[name] = "ok"
+        except Exception as e:   # noqa: BLE001 - the refusal is the result
+            out[name] = f"{type(e).__name__}: {str(e)[:120]}"
+        dist.barrier()
+    return out
+
+
+def sharded_time(server, view, keys) -> dict:
+    """CUDA events around one batch's answer step (this rank's shard) and
+    its collective (the reduce over the shard axis and the clusters'
+    gather), after the counted run."""
+    keys = server.protocol.pad(keys, server.bucketed.bucket_for(
+        server.protocol.n_queries(keys))).to(view.device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    part, plan = server.bucketed.local_answer(view, keys)
+    ev[1].record()
+    server.bucketed.combine(part, plan)
+    ev[2].record()
+    torch.cuda.synchronize()
+    return {"answer_ms": ev[0].elapsed_time(ev[1]),
+            "collective_ms": ev[1].elapsed_time(ev[2])}
+
+
+def sharded_kernels(database, db_lwe, ct, device) -> dict:
+    """B1-B5 at a shard's shapes (a quarter of PIR_1G, 2^23 rows; a quarter
+    of PIR_128M_LWE) on this rank's block and ``start_block``, by CUDA
+    events while the other ranks wait: the kernel alone on the card,
+    beside its bound at that shape. Outside the counted runs."""
+    from repro_torch.configs.pir import PIR_1G, PIR_1G_ADD
+    from repro_torch.core import dpf
+    from repro_torch.core.protocol import get, plan_for
+    from repro_torch.kernels import (dpxor as kd, fused_scan as kf,
+                                     lwe_matmul as kl, ops,
+                                     pir_matmul as km)
+    rng = np.random.default_rng(SEED + 506)
+    words, raw = database.view("words"), database.view("bytes")
+    rows, w = words.shape
+    log_local = rows.bit_length() - 1
+    start = database.shard_index
+    out = {"rows": rows, "start_block": start}
+    xor, add = get(PIR_1G.protocol), get(PIR_1G_ADD.protocol)
+    pick = lambda n: rng.integers(0, PIR_1G.n_items, size=n)
+
+    k1 = xor.query_gen_batch(rng, pick(1), PIR_1G)[0].to(device)
+    bits = dpf.eval_bits_batch(k1, start, log_local)
+    out["dpxor"] = {"q": 1, "ms": cuda_time_ms(lambda: kd.dpxor(words, bits),
+                                               reps=20),
+                    "bound_ms": dpxor_bound_ms(rows, w, 1),
+                    "bound_by": "bytes"}
+    k32 = xor.query_gen_batch(rng, pick(32), PIR_1G)[0].to(device)
+    plan = plan_for(PIR_1G, 32, backend="cuda")
+    _, clog = ops.fused_tile(rows, plan.tile_r, min(plan.chunk_log,
+                                                    log_local))
+    inputs = fused_inputs(k32, start, log_local, clog)
+    bound, by = fused_xor_bound(rows, w, 32, clog, k32.rounds)
+    out["fused_scan_xor"] = {
+        "q": 32, "clog": clog, "bound_ms": bound, "bound_by": by,
+        "ms": cuda_time_ms(lambda: kf.fused_scan_xor(
+            words, *inputs, rounds=k32.rounds), reps=3)}
+
+    a1 = add.query_gen_batch(rng, pick(1), PIR_1G_ADD)[0].to(device)
+    shares = dpf.eval_bytes_batch(a1, start, log_local).view(torch.int8)
+    out["pir_gemm"] = {"q": 1, "ms": cuda_time_ms(
+        lambda: km.pir_gemm(shares, raw), reps=20),
+        "bound_ms": gemm_bound_ms(rows, raw.shape[1], 1), "bound_by": "bytes"}
+    a32 = add.query_gen_batch(rng, pick(32), PIR_1G_ADD)[0].to(device)
+    plan = plan_for(PIR_1G_ADD, 32, backend="cuda")
+    _, clog = ops.fused_tile(rows, plan.tile_r, min(plan.chunk_log,
+                                                    log_local))
+    inputs = fused_inputs(a32, start, log_local, clog) + (
+        a32.cw_final[:, 0].contiguous(),)
+    out["fused_scan_add"] = {
+        "q": 32, "clog": clog, "bound_by": "operations",
+        "bound_ms": fused_add_bound_ms(rows, 32, clog, a32.rounds),
+        "ms": cuda_time_ms(lambda: kf.fused_scan_add(
+            raw, *inputs, party=a32.party, rounds=a32.rounds), reps=3)}
+
+    b32 = db_lwe.view("bytes32")
+    lo = db_lwe.shard_index * b32.shape[0]
+    ct_local = ct[:, lo:lo + b32.shape[0]].contiguous()
+    bound, by = lwe_gemm_bound(ct.shape[0], b32.shape[0], b32.shape[1])
+    out["lwe_gemm"] = {"q": ct.shape[0], "rows": b32.shape[0],
+                       "bound_ms": bound, "bound_by": by,
+                       "ms": cuda_time_ms(lambda: kl.lwe_gemm(ct_local, b32),
+                                          reps=20)}
+    return out
+
+
+def sharded_serve(system, host, idx, counts) -> dict:
+    """One synchronous query on every rank: the records exact, and this
+    rank's counters advanced by exactly one launch a party of the plan's
+    kernel, with no plain call."""
+    from repro_torch.kernels import ops
+    want = {}
+    for server in system.servers:
+        for k, v in sharded_expected(server, len(idx)).items():
+            want[k] = want.get(k, 0) + v
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    recs = system.query(idx)
+    seconds = time.perf_counter() - t0
+    got = {k: v["launches"] for k, v in ops.counts().items() if v["launches"]}
+    plain = sum(v["plain_calls"] for v in ops.counts().values())
+    for k, v in got.items():
+        counts[k] = counts.get(k, 0) + v
+    return {"n": len(idx), "seconds": seconds,
+            "exact": check_records(recs, expected_records(system, host, idx)),
+            "launches": got, "want": want,
+            "launches_ok": got == want and plain == 0}
+
+
+def sharded_rank(rank: int, tmp: str) -> None:
+    """One rank of the sharded phase, in a process of its own: join the
+    process group through a file under ``tmp``, load the kernels the
+    parent built, and serve the parent's memory-mapped databases on each
+    mesh. Writes its results (or its error) to ``tmp/rank{rank}.json``."""
+    out = {"rank": rank}
+    try:
+        out.update(sharded_rank_run(rank, tmp))
+        out["ok"] = True
+    except Exception as e:   # noqa: BLE001 - reported to the parent
+        import traceback
+        out.update(ok=False, error=f"{type(e).__name__}: {e}",
+                   traceback=traceback.format_exc()[-4000:])
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def sharded_rank_run(rank: int, tmp: str) -> dict:
+    import torch.distributed as dist
+    from repro_torch.config import MeshConfig
+    from repro_torch.configs.pir import (PIR_1G, PIR_1G_ADD, PIR_1G_K3,
+                                         PIR_128M_LWE)
+    from repro_torch.core import lwe
+    from repro_torch.core.server import PIRServer
+    from repro_torch.db import Database
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.runtime.serve_loop import MultiServerPIR, TwoServerPIR
+    # a rank runs no nvcc: the parent's build must be on disk
+    missing = [n for n in build.LIBRARIES
+               if not build.library_path(n).exists()]
+    if missing:
+        raise RuntimeError(f"rank {rank}: no built library for {missing}")
+    for name in build.LIBRARIES:
+        build.library(name)
+    backend = init_distributed(rank, SHARDED_RANKS, f"file://{tmp}/store")
+    host = np.load(os.path.join(tmp, "db.npy"), mmap_mode="c")
+    host_lwe = np.load(os.path.join(tmp, "db_lwe.npy"), mmap_mode="c")
+    ct = np.load(os.path.join(tmp, "ct.npy"), mmap_mode="c")
+    out = {"backend": backend, "meshes": {}}
+    try:
+        meshes = {shape: make_mesh(MeshConfig(shape=shape,
+                                              axes=("data", "model")))
+                  for shape in SHARDED_MESHES}
+        device = meshes[SHARDED_MESHES[0]].device
+        out["device"] = str(device)
+        out["transport"] = meshes[SHARDED_MESHES[0]].transport
+        out["gloo_cuda"] = sharded_probe(device) if backend == "gloo" else {}
+        idx_rng = np.random.default_rng(SEED + 500)     # the same on all
+        for shape, mesh in meshes.items():
+            tag = f"{shape[0]}x{shape[1]}"
+            counts: dict = {}
+            t0 = time.perf_counter()
+            database = Database(host, PIR_1G, mesh=mesh)
+            row = {"rows": list(database.rows),
+                   "start_block": database.shard_index,
+                   "cluster": mesh.coord("data"),
+                   "place_s": time.perf_counter() - t0, "batches": []}
+            view = database.view("words")
+            for coll in ("gather", "butterfly"):
+                rng = np.random.default_rng(SEED + 501) if rank == 0 \
+                    else None
+                system = TwoServerPIR(database, PIR_1G, mesh=mesh,
+                                      collective=coll, client_rng=rng,
+                                      n_queries=32)
+                for n in SHARDED_QS:
+                    idx = idx_rng.integers(0, PIR_1G.n_items, size=n)
+                    row["batches"].append({
+                        "config": "pir-1g", "collective": coll,
+                        **sharded_serve(system, host, idx, counts)})
+                keys = system.protocol.query_gen_batch(
+                    np.random.default_rng(SEED + 502),
+                    idx_rng.integers(0, PIR_1G.n_items, size=32), PIR_1G)
+                row[f"timing_{coll}"] = sharded_time(system.servers[0],
+                                                     view, keys[0])
+            for cfg, cls, name in ((PIR_1G_ADD, TwoServerPIR, "pir-1g-add"),
+                                   (PIR_1G_K3, MultiServerPIR, "pir-1g-k3")):
+                rng = np.random.default_rng(SEED + 503) if rank == 0 \
+                    else None
+                system = cls(database, cfg, mesh=mesh, client_rng=rng,
+                             n_queries=32)
+                idx = idx_rng.integers(0, cfg.n_items, size=32)
+                row["batches"].append({"config": name, "collective": "gather",
+                                       **sharded_serve(system, host, idx,
+                                                       counts)})
+            # one update of rows in every block, then those rows served
+            system = TwoServerPIR(database, PIR_1G, mesh=mesh,
+                                  client_rng=np.random.default_rng(SEED + 504)
+                                  if rank == 0 else None, n_queries=32)
+            blocks = np.arange(SHARDED_UPDATE_ROWS) % 4
+            rows = blocks * (PIR_1G.n_items // 4) + idx_rng.integers(
+                0, PIR_1G.n_items // 4, size=SHARDED_UPDATE_ROWS)
+            vals = idx_rng.integers(0, 2 ** 32, size=(len(rows), 8),
+                                    dtype=np.uint64).astype(np.uint32)
+            system.update(rows, vals)
+            row["epoch"] = system.publish()
+            ops.reset_counts()
+            got = system.query(rows)
+            row["update_exact"] = bool(np.array_equal(got, vals))
+            row["update_plain_calls"] = sum(
+                v["plain_calls"] for v in ops.counts().values())
+            for k, v in ops.counts().items():
+                counts[k] = counts.get(k, 0) + v["launches"]
+            del system, view
+            # lwe-simple-1: B5 on each block of seeded ciphertexts, then
+            # the int32 all-reduce; rank 0 holds it to one unsharded B5
+            # answer over the whole database
+            db_lwe = Database(host_lwe, PIR_128M_LWE, mesh=mesh)
+            server = PIRServer(0, database=db_lwe, cfg=PIR_128M_LWE,
+                               mesh=mesh, n_queries=ct.shape[0])
+            keys = lwe.LWECiphertext(
+                ct=torch.from_numpy(ct).to(device), log_n=PIR_128M_LWE.log_n,
+                n=lwe.params_for(PIR_128M_LWE.n_items).n)
+            want = sharded_expected(server, ct.shape[0])
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            ans = server.answer(keys)
+            torch.cuda.synchronize()
+            lwe_s = time.perf_counter() - t0
+            got = {k: v["launches"] for k, v in ops.counts().items()
+                   if v["launches"]}
+            plain = sum(v["plain_calls"] for v in ops.counts().values())
+            for k, v in got.items():
+                counts[k] = counts.get(k, 0) + v
+            row["lwe"] = {"seconds": lwe_s, "launches": got, "want": want,
+                          "launches_ok": got == want and plain == 0,
+                          **sharded_time(server, db_lwe.view("bytes32"),
+                                         keys)}
+            if rank == 0:
+                whole = Database(host_lwe, PIR_128M_LWE, device)
+                one = ops.lwe_gemm(keys.ct, whole.view("bytes32"))
+                row["lwe"]["exact"] = bool(torch.equal(ans, one))
+                del whole, one
+                if tag == "1x4":        # each kernel at a quarter's shape
+                    row["kernels"] = sharded_kernels(database, db_lwe,
+                                                     keys.ct, device)
+            dist.barrier()
+            del server, db_lwe, keys, ans, database
+            gc.collect()
+            torch.cuda.empty_cache()
+            row["launches"] = counts
+            out["meshes"][tag] = row
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_sharded(host_db, host_lwe, card) -> dict:
+    """A6b's serving path on this card: four ranks (``SHARDED_RANKS``
+    processes started with torch.multiprocessing, one FileStore under a
+    temporary directory) share it under gloo, the collectives through the
+    host. On the (1, 4) and (2, 2) meshes each rank holds its row block of
+    PIR_1G and serves xor-dpf-2 through TwoServerPIR(mesh=) at 32 and 1
+    queries under both collectives, additive-dpf-2 and xor-dpf-k (k = 3)
+    at 32 (gather), then an update of rows in every block; and one
+    lwe-simple-1 answer of 32 seeded ciphertexts at PIR_128M_LWE (B5 on
+    each block, then the int32 all-reduce) held to one unsharded B5 answer
+    on rank 0. Records exact, each rank's counters advanced by exactly one
+    launch of its plan's kernel a party and batch with no plain call,
+    every rank at the same epoch. The kernels' times are from four ranks
+    time-sliced on one card: not a scaling figure. Returns the line."""
+    import torch.multiprocessing as mp
+    from repro_torch.configs.pir import PIR_128M_LWE
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="repro_sharded_")
+    try:
+        np.save(os.path.join(tmp, "db.npy"), host_db)
+        np.save(os.path.join(tmp, "db_lwe.npy"), host_lwe)
+        ct = np.random.default_rng(SEED + 505).integers(
+            -2 ** 31, 2 ** 31, size=(32, PIR_128M_LWE.n_items),
+            dtype=np.int64).astype(np.int32)
+        np.save(os.path.join(tmp, "ct.npy"), ct)
+        del ct
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=sharded_rank, args=(r, tmp))
+                 for r in range(SHARDED_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SHARDED_TIMEOUT_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        ranks = []
+        for r in range(SHARDED_RANKS):
+            path = os.path.join(tmp, f"rank{r}.json")
+            ranks.append(json.load(open(path)) if os.path.exists(path)
+                         else {"rank": r, "ok": False,
+                               "error": "no result (killed or crashed)"})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    failed = [r for r in ranks if not r.get("ok")]
+    checks = {}
+    if not failed:
+        batches = [b for r in ranks for m in r["meshes"].values()
+                   for b in m["batches"]]
+        meshes = [m for r in ranks for m in r["meshes"].values()]
+        checks = {
+            "records_exact": all(b["exact"] for b in batches)
+            and all(m["update_exact"] for m in meshes),
+            "launches_exact": all(b["launches_ok"] for b in batches)
+            and all(m["lwe"]["launches_ok"] for m in meshes)
+            and all(m["update_plain_calls"] == 0 for m in meshes),
+            "lwe_exact": all(r["meshes"][t]["lwe"]["exact"]
+                             for r in ranks if r["rank"] == 0
+                             for t in r["meshes"]),
+            "epochs_equal": len({m["epoch"] for m in meshes}) == 1,
+            "start_blocks_1x4": sorted(r["meshes"]["1x4"]["start_block"]
+                                       for r in ranks)
+            == list(range(SHARDED_RANKS))}
+    devices = {r.get("device") for r in ranks}
+    out = {"phase": "sharded", "card": card,
+           "note": "four ranks time-sliced on one card: times are not a "
+                   "scaling figure",
+           "backend": ranks[0].get("backend"),
+           "transport": ranks[0].get("transport"),
+           "ranks_per_card": SHARDED_RANKS // max(1, len(devices)),
+           "gloo_cuda": ranks[0].get("gloo_cuda"), "checks": checks,
+           "ranks": [{k: r.get(k) for k in ("rank", "device", "ok", "error",
+                                            "meshes")} for r in ranks],
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    if failed:
+        raise AssertionError(
+            "sharded: ranks failed: " + "; ".join(
+                f"rank {r['rank']}: {r.get('error')}\n"
+                f"{r.get('traceback', '')}" for r in failed))
+    if not all(checks.values()):
+        raise AssertionError(f"sharded: checks failed: {checks}")
+    return out
+
+
 #: the private_lm phase: qwen3-4b at full width and depth (PERF.md §4):
 #: the serve step's prefill (two attention chunks) and cached decodes, then
 #: private generation through xor-dpf-2 over the padded embedding table
@@ -5418,7 +5820,9 @@ def main() -> int:
     release()
     launches_replicas = phase_replicas(
         host_db, cfg, host_chk, replace(cfg, checksum=True), info["card"])
-    del host_db, host_chk
+    # A6b's serving path: the database sharded over four ranks on this card
+    phase_sharded(host_db, host_lwe, info["card"])
+    del host_db, host_chk, host_lwe
     # the dense LM last, once the fleets are released: qwen3-4b's weights
     # (8.8 GB) and its 1.25 GiB embedding table served through xor-dpf-2
     worst_lm, launches_lm = phase_lm(LM_ARCH, info["card"], device)

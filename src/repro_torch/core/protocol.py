@@ -17,10 +17,15 @@ Port of ``repro/core/protocol.py``:
 
 Plan names map to the reference's: ``scan="jnp"`` -> ``"torch"``,
 ``scan="pallas"`` -> ``"cuda"``, ``expand="fused-pallas"`` ->
-``"fused-cuda"``. The reference's collective and GEMM/DMA tile fields are
-left out: the port runs on one device and its kernels take no tiles
-(``tile_r`` stays, because it legalizes the fused kernels' ``chunk_log``
-as in the reference).
+``"fused-cuda"``. The reference's GEMM/DMA tile fields are left out: the
+port's kernels take no tiles (``tile_r`` stays, because it legalizes the
+fused kernels' ``chunk_log`` as in the reference).
+
+On a mesh (``launch/mesh.py``) each rank answers its DB shard's partial
+shares and ``PIRProtocol.reduce`` combines them over the shard axis's
+process group: an XOR all-reduce for the XOR schemes (``plan.collective``:
+all_gather + fold, or a butterfly of paired exchanges), an int32 SUM
+all-reduce, wrapping mod 2^32, for the additive and LWE ones.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import PIRConfig
 from repro_torch.core import dpf, lwe, pir
@@ -67,6 +73,8 @@ class ExecutionPlan:
                "cuda": the dpXOR kernel (``kernels/dpxor.py``) or the int8
                GEMM kernel (``kernels/pir_matmul.py``).
     chunk_log  log2 leaves per chunk (fused expansions).
+    collective "gather" | "butterfly": the XOR all-reduce over the DB-shard
+               axis of a mesh (additive and LWE schemes sum and ignore it).
     tile_r     the reference's row tile; legalizes ``chunk_log`` for the
                fused kernel (``ops.fused_tile``).
     provenance "heuristic" (``plan_for``), "forced" (a ``path=`` string),
@@ -76,6 +84,7 @@ class ExecutionPlan:
     expand: str = "materialize"
     scan: str = "torch"
     chunk_log: int = 12
+    collective: str = "gather"
     tile_r: int = 2048
     provenance: str = field(default="heuristic", compare=False)
 
@@ -87,12 +96,15 @@ class ExecutionPlan:
         """Reporting form (the dry run's records), under the reference's
         keys (``protocol.py:125`` upstream) for the fields the port has.
         The reference's ``tile_q``, ``tile_l`` and ``depth`` tile its
-        Pallas kernels and ``collective`` shapes its multi-card reduce;
-        the port has none of them, and they are left out."""
+        Pallas kernels; the port has none of them, and they are left
+        out."""
         return {"name": self.name, "expand": self.expand, "scan": self.scan,
-                "chunk_log": self.chunk_log, "tile_r": self.tile_r,
-                "provenance": self.provenance}
+                "chunk_log": self.chunk_log, "collective": self.collective,
+                "tile_r": self.tile_r, "provenance": self.provenance}
 
+
+#: the XOR all-reduces over the DB-shard axis (``ExecutionPlan.collective``)
+COLLECTIVES = ("gather", "butterfly")
 
 #: ``path=`` strings -> plans (the reference's legacy server API, with the
 #: Pallas names replaced by their CUDA counterparts)
@@ -148,21 +160,26 @@ def plan_for(cfg: PIRConfig, n_queries: int, *, backend: str,
 
 
 def resolve_plan(path: Optional[str], cfg: PIRConfig, n_queries: int, *,
-                 backend: str, chunk_log: int = 12,
-                 device=None) -> ExecutionPlan:
+                 backend: str, chunk_log: int = 12, device=None,
+                 collective: str = "gather") -> ExecutionPlan:
     """A plan from a ``path`` string, or through the engine when path is
     None/"auto": the tuned plan on a plan-cache hit for ``device`` (or, if
     not given, the backend's current card), ``plan_for`` on a miss. GEMM
-    schemes pin the GEMM tile on forced plans too."""
+    schemes pin the GEMM tile on forced plans too. ``collective`` is
+    passed through to the plan (``protocol.py:144`` upstream)."""
+    if collective not in COLLECTIVES:
+        raise ValueError(f"unknown collective {collective!r}; expected one "
+                         f"of {COLLECTIVES}")
     if path is None or path == "auto":
         from repro_torch import engine
-        return engine.resolve(cfg, n_queries, backend=backend, device=device,
+        plan = engine.resolve(cfg, n_queries, backend=backend, device=device,
                               chunk_log=chunk_log)
+        return replace(plan, collective=collective)
     if path not in PATH_PLANS:
         raise ValueError(f"unknown path {path!r}; "
                          f"expected one of {sorted(PATH_PLANS)} or 'auto'")
     return pin_tile(replace(PATH_PLANS[path], chunk_log=chunk_log,
-                            provenance="forced"), cfg)
+                            collective=collective, provenance="forced"), cfg)
 
 
 def pin_tile(plan: ExecutionPlan, cfg: PIRConfig) -> ExecutionPlan:
@@ -242,11 +259,26 @@ class PIRProtocol:
         return (cfg.item_bytes // 4,), np.uint32
 
     # -- server side ----------------------------------------------------
+    def key_specs(self, cfg: PIRConfig, n_queries: int, *, party: int = 0):
+        """A batch of ``n_queries`` keys of ``party`` as meta tensors of the
+        real keys' shapes, with the party, ``log_n`` and rounds they carry
+        (``protocol.py:282`` upstream: ShapeDtypeStructs): the dry run's
+        and the key broadcast's stand-in."""
+        raise NotImplementedError
+
     def answer_local(self, db_local: torch.Tensor, keys_local,
                      start_block: int, log_local: int,
                      plan: ExecutionPlan) -> torch.Tensor:
         """One shard's answer shares ``[Q, cols]`` for a batch of keys; the
         shard holds leaves ``[start_block * 2^log_local, ...)``."""
+        raise NotImplementedError
+
+    def reduce(self, partial_res: torch.Tensor, axis, n_shards: int,
+               plan: ExecutionPlan) -> torch.Tensor:
+        """The cross-shard reduction of the ``[Q, cols]`` partial answers
+        over the DB-shard axis. The reference takes the mesh axis's name;
+        the port takes that axis's process group (``Mesh.group``) in the
+        same position. Every rank of the group gets the reduced answer."""
         raise NotImplementedError
 
     def expand_local(self, keys_local, start_block: int, log_local: int,
@@ -319,10 +351,104 @@ def _xor_scan(db_local: torch.Tensor, bits: torch.Tensor,
     return pir.dpxor(db_local, bits)
 
 
+def on_transport(fn, x: torch.Tensor, group) -> torch.Tensor:
+    """``fn(x)`` run on the tensor where the group's backend takes it: gloo
+    takes no CUDA tensor for point-to-point ops, so under gloo a card's
+    tensor goes to the host and the result comes back
+    (``launch/mesh.py transport_of``)."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        return fn(x.cpu()).to(x.device)
+    return fn(x)
+
+
+def all_gather_stack(x: torch.Tensor, group) -> torch.Tensor:
+    """``[G, ...]``: every rank's ``x`` over ``group``, in group rank order."""
+    def gather(t):
+        t = t.contiguous()
+        parts = [torch.empty_like(t)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, t, group=group)
+        return torch.stack(parts)
+    return on_transport(gather, x, group)
+
+
+def xor_allreduce_gather(partial_res: torch.Tensor, axis) -> torch.Tensor:
+    """XOR all-reduce over the process group ``axis``: all_gather, then a
+    local fold (the paper's host aggregation; ``protocol.py:360``
+    upstream)."""
+    return xor_fold(all_gather_stack(partial_res, axis), 0)
+
+
+def xor_allreduce_butterfly(partial_res: torch.Tensor, axis, size: int
+                            ) -> torch.Tensor:
+    """XOR all-reduce by recursive doubling over the process group
+    ``axis`` of ``size`` ranks: in the round of shift ``s`` (1, 2, 4, ...),
+    group rank ``i`` exchanges with ``i ^ s`` (one ``batch_isend_irecv``
+    pair) and XORs what it receives; log2(size) rounds move the same bytes
+    as the gather (``protocol.py:366`` upstream). A size that is not a
+    power of two raises ``ValueError``: the reference's permutation would
+    leave the axis there."""
+    if size < 1 or size & (size - 1):
+        raise ValueError(f"the butterfly needs a power-of-two axis, got "
+                         f"{size}")
+    if size == 1:
+        return partial_res
+
+    def butterfly(x):
+        me = dist.get_group_rank(axis, dist.get_rank())
+        x = x.contiguous()
+        shift = 1
+        while shift < size:
+            peer = dist.get_global_rank(axis, me ^ shift)
+            got = torch.empty_like(x)
+            for req in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, x, peer, group=axis),
+                    dist.P2POp(dist.irecv, got, peer, group=axis)]):
+                req.wait()
+            x = x ^ got
+            shift <<= 1
+        return x
+    return on_transport(butterfly, partial_res, axis)
+
+
+def _xor_reduce(partial_res: torch.Tensor, axis, n_shards: int,
+                plan: ExecutionPlan) -> torch.Tensor:
+    if plan.collective == "butterfly":
+        return xor_allreduce_butterfly(partial_res, axis, n_shards)
+    return xor_allreduce_gather(partial_res, axis)
+
+
+def _sum_reduce(partial_res: torch.Tensor, axis) -> torch.Tensor:
+    """int32 SUM all-reduce; it wraps mod 2^32 as the reference's ``psum``
+    does (Z_256 shares keep their value mod 256, LWE answers are mod q)."""
+    def allreduce(x):
+        x = x.clone()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=axis)
+        return x
+    return on_transport(allreduce, partial_res, axis)
+
+
+def _dpf_key_specs(cfg: PIRConfig, n_queries: int, *, party: int,
+                   with_payload: bool,
+                   components: Optional[int] = None) -> dpf.DPFKey:
+    """A batched ``DPFKey`` of meta int32 tensors, optionally with a
+    component axis (``protocol.py:388`` upstream)."""
+    log_n = cfg.log_n
+    lead = (n_queries,) if components is None else (n_queries, components)
+    mk = lambda *s: torch.empty(lead + s, dtype=torch.int32, device="meta")
+    return dpf.DPFKey(party=party, log_n=log_n, root_seed=mk(4),
+                      cw_seed=mk(log_n, 4), cw_t=mk(log_n, 2),
+                      cw_final=mk(1) if with_payload else None,
+                      rounds=PRG_ROUNDS.get(cfg.prf, 12))
+
+
 class _XorProtocol(PIRProtocol):
     """XOR share algebra: reconstruction is the XOR of all answers."""
 
     share_kind = "xor"
+
+    def reduce(self, partial_res, axis, n_shards, plan):
+        return _xor_reduce(partial_res, axis, n_shards, plan)
 
     def scan_local(self, db_local, selection, plan):
         return _xor_scan(db_local, selection, plan)
@@ -348,6 +474,9 @@ class XorDpf2(_XorProtocol):
     def query_gen_batch(self, rng, indices, cfg):
         return dpf.gen_keys_batch(rng, indices, cfg.log_n,
                                   rounds=PRG_ROUNDS[cfg.prf])
+
+    def key_specs(self, cfg, n_queries, *, party=0):
+        return _dpf_key_specs(cfg, n_queries, party=party, with_payload=False)
 
     def expand_local(self, keys_local, start_block, log_local, plan):
         return dpf.eval_bits_batch(keys_local, start_block, log_local)
@@ -448,6 +577,12 @@ class AdditiveDpf2(PIRProtocol):
         return dpf.gen_keys_batch(rng, indices, cfg.log_n,
                                   payload=PAYLOAD_ONE,
                                   rounds=PRG_ROUNDS[cfg.prf])
+
+    def key_specs(self, cfg, n_queries, *, party=0):
+        return _dpf_key_specs(cfg, n_queries, party=party, with_payload=True)
+
+    def reduce(self, partial_res, axis, n_shards, plan):
+        return _sum_reduce(partial_res, axis)
 
     def expand_local(self, keys_local, start_block, log_local, plan):
         return dpf.eval_bytes_batch(keys_local, start_block, log_local)
@@ -558,6 +693,13 @@ class XorDpfK(_XorProtocol):
                                    cw_t=cw_t.contiguous(),
                                    rounds=PRG_ROUNDS[cfg.prf]))
         return tuple(keys)
+
+    def key_specs(self, cfg, n_queries, *, party=0):
+        """``[Q, C, ...]``: C = 3 components for parties 0 and 1 (the DPF
+        key and two masks), 2 for the rest."""
+        return _dpf_key_specs(cfg, n_queries, party=party,
+                              with_payload=False,
+                              components=3 if party < 2 else 2)
 
     def expand_local(self, keys_local, start_block, log_local, plan):
         return _component_bits_batch(keys_local, start_block, log_local)
@@ -719,6 +861,15 @@ class LweSimple1(PIRProtocol):
         return records
 
     # -- server side ----------------------------------------------------
+    def key_specs(self, cfg, n_queries, *, party=0):
+        return lwe.LWECiphertext(
+            ct=torch.empty((n_queries, cfg.n_items), dtype=torch.int32,
+                           device="meta"),
+            log_n=cfg.log_n, n=self._params(cfg).n)
+
+    def reduce(self, partial_res, axis, n_shards, plan):
+        return _sum_reduce(partial_res, axis)     # wraps mod q = 2^32
+
     def answer_local(self, db_local, keys_local, start_block, log_local,
                      plan):
         """``[Q, rows]`` ciphertext slice of this shard x the int32 byte

@@ -1,15 +1,31 @@
-"""PIR server of one party on one device (port of ``repro/core/server.py``).
+"""PIR server of one party (port of ``repro/core/server.py``).
 
 The reference shards the DB over a TPU mesh and compiles one ``shard_map``
-serve step per batch bucket. The port runs on one device: the whole DB
-is one shard (``start_block = 0``), there is no collective, and PyTorch
-runs eagerly, so a bucket's "step" is its resolved plan applied through
-the protocol's ``answer_local``. Ragged batches still pad up to the
-smallest covering bucket, and batches past the largest bucket are
-chunked, exactly as upstream.
+serve step per batch bucket. PyTorch runs eagerly, so a bucket's "step"
+is its resolved plan applied through the protocol's ``answer_local``.
+Ragged batches pad up to the smallest covering bucket, and batches past
+the largest bucket are chunked, exactly as upstream.
+
+Without a mesh (or on a ``(1, 1)`` one) the whole DB is one shard
+(``start_block = 0``) and there is no collective. On a mesh the port is
+SPMD where the reference is single-controller: every rank calls
+``answer`` with the same keys, and rank ``(c, d)`` of the
+``(cluster, model)`` grid runs the per-shard step of the reference's
+``shard_map`` (``server.py:180-201``) itself:
+
+  1. it takes cluster ``c``'s queries ``[c*Q/C, (c+1)*Q/C)`` of the padded
+     batch (the clusters answer disjoint queries);
+  2. it answers them against its own row block,
+     ``answer_local(block, keys_c, start_block=d, log_local)``;
+  3. ``protocol.reduce`` combines the partials over the ``model`` group,
+     in the protocol's share algebra (the paper's MASTERXOR step);
+  4. the clusters' results are gathered over the cluster axes, so that
+     every rank returns the whole ``[Q, cols]``, as the reference's global
+     output holds it.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -22,6 +38,9 @@ from repro_torch.core.lwe import LWECiphertext
 from repro_torch.core.protocol import ExecutionPlan, PIRProtocol
 from repro_torch.db import Database, DatabaseSpec
 from repro_torch.engine.backend import Device, backend_of
+from repro_torch.launch.mesh import (Mesh, cluster_index, mesh_axis_size,
+                                     n_clusters, pir_cluster_axes,
+                                     pir_shard_axis, single_mesh)
 
 
 Keys = Union[dpf.DPFKey, LWECiphertext]
@@ -37,6 +56,14 @@ def map_keys(keys: Keys, fn) -> Keys:
     if isinstance(keys, LWECiphertext):
         return keys.map(fn)
     return dpf.map_keys(keys, fn)
+
+
+def key_specs(cfg: PIRConfig, n_queries: int, *, party: int = 0,
+              protocol: Optional[PIRProtocol] = None) -> Keys:
+    """Meta-tensor stand-ins for a batch of ``party``'s keys: the config's
+    protocol's ``key_specs`` (``server.py:66`` upstream)."""
+    proto = protocol if protocol is not None else protocol_mod.for_config(cfg)
+    return proto.key_specs(cfg, n_queries, party=party)
 
 
 def bucket_for(buckets: Sequence[int], n: int) -> int:
@@ -81,7 +108,8 @@ class BucketedServeFns:
     def __init__(self, cfg: PIRConfig, *, buckets: Sequence[int],
                  backend: str, path: Optional[str] = None,
                  protocol: Optional[PIRProtocol] = None, chunk_log: int = 12,
-                 device: Device = None):
+                 device: Device = None, mesh: Optional[Mesh] = None,
+                 collective: str = "gather"):
         if not buckets:
             raise ValueError("need at least one bucket")
         self.cfg = cfg
@@ -89,10 +117,25 @@ class BucketedServeFns:
         self.device = device
         self.path = path
         self.chunk_log = chunk_log
+        self.collective = collective
         self.protocol = (protocol if protocol is not None
                          else protocol_mod.for_config(cfg))
+        self.mesh = mesh
+        #: more than one rank: answers run the sharded step
+        self.sharded = mesh is not None and mesh.size > 1
+        self.shard_axis = pir_shard_axis(mesh) if mesh else None
+        self.n_shards = mesh_axis_size(mesh, self.shard_axis) if mesh else 1
+        self.n_clusters = n_clusters(mesh) if mesh else 1
+        for b in buckets:
+            if b % self.n_clusters:
+                raise ValueError(
+                    f"bucket {b} not divisible by {self.n_clusters} clusters")
+        #: this rank's DB shard (its leaf block) and cluster (its queries)
+        self.shard_index = mesh.coord(self.shard_axis) if mesh else 0
+        self.cluster = cluster_index(mesh) if mesh else 0
+        self.log_local = int(math.log2(
+            DatabaseSpec.from_config(cfg).rows_per_shard(self.n_shards)))
         self.buckets = tuple(sorted(set(buckets)))
-        self.log_local = cfg.log_n
         self._plans: Dict[int, ExecutionPlan] = {}
         self._steps: set = set()       # buckets whose step was built
 
@@ -103,7 +146,8 @@ class BucketedServeFns:
         if bucket not in self._plans:
             self._plans[bucket] = protocol_mod.resolve_plan(
                 self.path, self.cfg, bucket, backend=self.backend,
-                chunk_log=self.chunk_log, device=self.device)
+                chunk_log=self.chunk_log, device=self.device,
+                collective=self.collective)
         return self._plans[bucket]
 
     @property
@@ -112,10 +156,13 @@ class BucketedServeFns:
 
     def plan_report(self) -> Dict[int, dict]:
         """``{bucket: engine.plan_report row}`` for every bucket: the plan,
-        its provenance and its modeled bytes, resolved without building a
-        step (``server.py:300`` upstream)."""
+        its provenance and the modeled bytes of one rank's contraction (its
+        cluster's ``bucket / C`` queries against its shard), resolved
+        without building a step (``server.py:300`` upstream)."""
         from repro_torch import engine
-        return {b: engine.plan_report(self.cfg, self.plan_for_bucket(b), b,
+        return {b: engine.plan_report(self.cfg, self.plan_for_bucket(b),
+                                      b // self.n_clusters,
+                                      n_shards=self.n_shards,
                                       backend=self.backend)
                 for b in self.buckets}
 
@@ -162,6 +209,10 @@ class BucketedServeFns:
         leaves instead of one per view; the scan (``scan_local``) runs per
         view. Other plans answer view by view, as :meth:`answer` does.
         """
+        if self.n_shards > 1:
+            raise NotImplementedError(
+                "answer_views over a sharded database is not ported (ROADMAP "
+                "A6b-serve-2: the batch plane over a mesh)")
         n_views = len(views)
         q = self.protocol.n_queries(keys)
         if q % n_views:
@@ -184,12 +235,42 @@ class BucketedServeFns:
                 for b in range(lo, hi))
         return torch.stack(out)
 
+    def local_answer(self, db: torch.Tensor, keys: Keys
+                     ) -> Tuple[torch.Tensor, ExecutionPlan]:
+        """Steps 1-2 of a batch of at most the largest bucket: its keys
+        padded to the bucket, this rank's cluster's share of them answered
+        against this rank's shard. Returns the partial shares and the
+        bucket's plan (off a mesh: the answer)."""
+        bucket = self.bucket_for(self.protocol.n_queries(keys))
+        keys = self.protocol.pad(keys, bucket)
+        plan = self.step_for(bucket)
+        if self.n_clusters > 1:
+            per = bucket // self.n_clusters
+            lo = self.cluster * per
+            keys = map_keys(keys, lambda x: x[lo:lo + per])
+        return self.protocol.answer_local(db, keys, self.shard_index,
+                                          self.log_local, plan), plan
+
+    def combine(self, partial_res: torch.Tensor, plan: ExecutionPlan
+                ) -> torch.Tensor:
+        """Steps 3-4: the protocol's reduce over the shard axis, then the
+        clusters' answers gathered (innermost cluster axis first, so the
+        rows come in cluster order); the identity off a mesh."""
+        if not self.sharded:
+            return partial_res
+        out = partial_res
+        if self.n_shards > 1:
+            out = self.protocol.reduce(out, self.mesh.group(self.shard_axis),
+                                       self.n_shards, plan)
+        for axis in reversed(pir_cluster_axes(self.mesh)):
+            if mesh_axis_size(self.mesh, axis) > 1:
+                out = protocol_mod.all_gather_stack(
+                    out, self.mesh.group(axis)).flatten(0, 1)
+        return out
+
     def _answer_one(self, db: torch.Tensor, keys: Keys) -> torch.Tensor:
         q = self.protocol.n_queries(keys)
-        bucket = self.bucket_for(q)
-        keys = self.protocol.pad(keys, bucket)
-        return self.protocol.answer_local(
-            db, keys, 0, self.log_local, self.step_for(bucket))[:q]
+        return self.combine(*self.local_answer(db, keys))[:q]
 
 
 class PIRServer:
@@ -197,40 +278,52 @@ class PIRServer:
 
     References a :class:`Database` (shared across parties: its contents
     are public) and owns that party's per-bucket plans. ``db_words`` (a
-    host array, placed into a private ``Database`` on ``device``) is the
-    legacy construction path; new code passes ``database=``.
+    host array, placed into a private ``Database`` on ``device``, or on
+    ``mesh``) is the legacy construction path; new code passes
+    ``database=``, placed on the same ``mesh`` (``None``: one card).
+    ``collective`` is the XOR schemes' reduce over the shard axis.
     """
 
     def __init__(self, party: int, db_words: Optional[np.ndarray] = None,
                  cfg: Optional[PIRConfig] = None, *,
                  database: Optional[Database] = None, device: Device = None,
-                 n_queries: int = 32, path: Optional[str] = None,
+                 mesh: Optional[Mesh] = None, n_queries: int = 32,
+                 path: Optional[str] = None,
                  buckets: Optional[Sequence[int]] = None,
-                 protocol: Optional[PIRProtocol] = None):
+                 protocol: Optional[PIRProtocol] = None,
+                 collective: str = "gather"):
         if (db_words is None) == (database is None):
             raise ValueError("pass exactly one of db_words= (host array) or "
                              "database= (Database)")
         if cfg is None:
             raise ValueError("cfg= is required")
         if database is None:
-            database = Database(db_words, cfg, device)
+            database = Database(db_words, cfg, device, mesh=mesh)
         elif device is not None and torch.device(device) != database.device:
             raise ValueError(f"database lives on {database.device}, not "
                              f"{device}")
         if database.spec != DatabaseSpec.from_config(cfg):
             raise ValueError(f"database spec {database.spec} does not match "
                              f"the config")
+        # fail here, not in the first answer (``server.py:423`` upstream)
+        if database.mesh != (mesh if mesh is not None
+                             else single_mesh(database.device)):
+            raise ValueError("database was placed on a different mesh than "
+                             "the serve steps will run on")
         self.party = party
         self.cfg = cfg
         self.db = database
+        self.mesh = database.mesh
         self.device = database.device
         if buckets is None:
-            buckets = default_buckets(max_bucket=max(n_queries, 1))
+            buckets = default_buckets(n_clusters(self.mesh),
+                                      max_bucket=max(n_queries, 1))
         if n_queries not in buckets:
             buckets = tuple(sorted(set(buckets) | {n_queries}))
         self.bucketed = BucketedServeFns(
             cfg, buckets=buckets, backend=backend_of(self.device), path=path,
-            protocol=protocol, device=self.device)
+            protocol=protocol, device=self.device, mesh=self.mesh,
+            collective=collective)
         self.protocol = self.bucketed.protocol
         self.bucketed.step_for(n_queries)
 

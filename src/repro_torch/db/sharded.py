@@ -41,6 +41,17 @@ blocking readers.
 All parties of a deployment share one ``Database``: the contents are
 public in the PIR model, and replicas stay equal by applying the same
 published deltas (``subscribe``).
+
+On a mesh (``launch/mesh.py``) the database is placed as upstream's
+``ShardedDatabase`` places it (``sharded.py:127-178``): the rows are split
+over the ``model`` axis in the paper's linear layout and replicated over
+the cluster axes, so rank ``(c, d)`` keeps rows ``[d*B, (d+1)*B)`` on its
+device, ``B = spec.rows_per_shard(P)``, and every view is that block.
+Every rank constructs the database and calls ``stage`` / ``publish`` with
+the same arguments (SPMD): the staged log is the whole public delta, each
+rank scatters the rows its block owns, and every rank advances the epoch
+in lockstep, whether or not its block changed. The LWE hint needs the
+whole database, so ``register_hint`` refuses a mesh with P > 1.
 """
 from __future__ import annotations
 
@@ -55,6 +66,8 @@ from repro_torch.config import PIRConfig
 from repro_torch.crypto.packing import words_to_tensor
 from repro_torch.db.spec import DatabaseSpec
 from repro_torch.engine.backend import Device, resolve_device
+from repro_torch.launch.mesh import (Mesh, mesh_axis_size, pir_cluster_axes,
+                                     pir_shard_axis, single_mesh)
 
 
 @dataclass
@@ -100,6 +113,20 @@ class _Epoch:
     hints: Dict[str, torch.Tensor] = field(default_factory=dict)
 
 
+@dataclass(frozen=True)
+class ShardPlacement:
+    """Where one view lives (the counterpart of upstream's
+    ``NamedSharding(mesh, P(shard, None))``): rows split over ``axis`` in
+    ``n_shards`` blocks, replicated over ``replicated_over``; this rank
+    holds block ``shard``, rows ``[rows[0], rows[1])``."""
+    view: str
+    axis: Optional[str]
+    n_shards: int
+    shard: int
+    rows: Tuple[int, int]
+    replicated_over: Tuple[str, ...]
+
+
 @dataclass
 class _Pending:
     """A prepared publish, not yet visible: the epoch it was built from,
@@ -110,20 +137,36 @@ class _Pending:
 
 
 class Database:
-    """The PIR database on one device (``device=None`` means CUDA).
+    """The PIR database on one device (``device=None`` means CUDA, or the
+    mesh's device), or this rank's block of it on a ``mesh``.
 
-    ``db_words`` is ``[N, W]`` u32 numpy (placed on the device) or an int32
-    words tensor at the stored width, taken over without a copy where it
-    already lies on the card (``_take_tensor``).
+    ``db_words`` is ``[N, W]`` u32 numpy (placed on the device; on a mesh
+    only the rank's block is read, so a memory-mapped file is read once
+    per block) or an int32 words tensor at the stored width, taken over
+    without a copy where it already lies on the card (``_take_tensor``).
 
     Thread-safe: the scheduler reads ``snapshot()`` on its thread while
     clients ``stage`` / ``publish`` on theirs. Callers re-read the views
     per dispatch; a batch keeps the tensors of the epoch it read.
     """
 
-    def __init__(self, db_words, cfg: PIRConfig, device: Device = None):
+    def __init__(self, db_words, cfg: PIRConfig, device: Device = None, *,
+                 mesh: Optional[Mesh] = None):
         self.spec = DatabaseSpec.from_config(cfg)
-        self.device = resolve_device(device)
+        if mesh is None:
+            mesh = single_mesh(resolve_device(device))
+        elif device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"the mesh places this rank on {mesh.device}, "
+                             f"not {device}")
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device)
+        self.shard_axis = pir_shard_axis(mesh)
+        self.n_shards = mesh_axis_size(mesh, self.shard_axis)
+        self.shard_index = mesh.coord(self.shard_axis)
+        block = self.spec.rows_per_shard(self.n_shards)   # validates
+        #: the global rows this rank's block holds, [lo, hi)
+        self.rows = (self.shard_index * block,
+                     (self.shard_index + 1) * block)
         self.stats = TransferStats()
         self._lock = threading.RLock()          # epochs, staging, hints
         self._publish_lock = threading.RLock()  # one publisher at a time
@@ -140,8 +183,7 @@ class Database:
         else:
             # payload rows take their checksum column here, once (rows
             # already at the stored width pass through)
-            host = self.spec.validate_words(
-                self.spec.attach_checksums(db_words))
+            host = self._host_block(db_words)
             words = words_to_tensor(host, self.device)
             if words.device.type == "cpu":
                 # from_numpy shares the caller's array; an epoch's rows are
@@ -151,6 +193,21 @@ class Database:
         self.stats.n_full_placements += 1
         self._current = _Epoch(epoch=0, views={"words": words})
         self._retired: Optional[_Epoch] = None
+
+    def _host_block(self, db_words) -> np.ndarray:
+        """This rank's rows of a ``[N, W]`` u32 host array at the stored
+        width (checksums attached to the block only)."""
+        lo, hi = self.rows
+        arr = np.asarray(db_words)
+        if arr.ndim != 2 or len(arr) != self.spec.n_items:
+            self.spec.validate_words(arr)              # raises
+        if (lo, hi) == (0, self.spec.n_items):
+            return self.spec.validate_words(self.spec.attach_checksums(arr))
+        block = self.spec.attach_checksums(arr[lo:hi])
+        if block.shape[1] != self.spec.stored_words \
+                or block.dtype != np.uint32:
+            self.spec.validate_words(arr)              # raises
+        return block
 
     def _take_tensor(self, words: torch.Tensor) -> torch.Tensor:
         """A ``[N, item_words]`` int32 words tensor (the u32 bits) as the
@@ -170,7 +227,8 @@ class Database:
             raise ValueError(
                 f"a words tensor must be {want} int32 (the stored width), "
                 f"got {tuple(words.shape)} {words.dtype}")
-        placed = words.to(self.device).contiguous()
+        lo, hi = self.rows
+        placed = words[lo:hi].to(self.device).contiguous()
         if words.device != placed.device:
             self.stats.preload_h2d_bytes += placed.numel() * 4
         if placed.device.type == "cpu":
@@ -203,7 +261,16 @@ class Database:
             return sum(t.numel() * t.element_size()
                        for e in held for t in e.views.values())
 
-    # -- views ----------------------------------------------------------
+    # -- placement and views -------------------------------------------
+
+    def sharding(self, view: str = "words") -> ShardPlacement:
+        """The placement of one view (every view shares the row split);
+        ``KeyError`` for a view the spec does not know."""
+        self.spec.view_dtype(view)
+        return ShardPlacement(
+            view=view, axis=self.shard_axis, n_shards=self.n_shards,
+            shard=self.shard_index, rows=self.rows,
+            replicated_over=pir_cluster_axes(self.mesh))
 
     def _holder(self, epoch: Optional[int]) -> _Epoch:
         """The resident epoch ``epoch`` names (lock held by the caller)."""
@@ -247,7 +314,16 @@ class Database:
                       delta: Optional[Callable] = None) -> None:
         """Register a per-epoch hint: ``build(words) -> hint`` and an
         optional exact ``delta(hint, rows, old_words, new_words)``.
-        Re-registering a name replaces the spec and keeps built hints."""
+        Re-registering a name replaces the spec and keeps built hints.
+
+        A hint is built over the whole database, so a database sharded
+        over more than one block refuses it (``NotImplementedError``): the
+        LWE hint on a mesh is ROADMAP's A6b-serve-2."""
+        if self.n_shards > 1:
+            raise NotImplementedError(
+                f"a hint over a database sharded in {self.n_shards} blocks "
+                f"is not ported (ROADMAP A6b-serve-2: the LWE hint on a "
+                f"mesh)")
         with self._lock:
             self._hint_specs[name] = _HintSpec(build=build, delta=delta)
 
@@ -350,22 +426,27 @@ class Database:
         _, first_of_rev = np.unique(rows[::-1], return_index=True)
         keep = np.sort(len(rows) - 1 - first_of_rev)
         rows, vals = rows[keep], vals[keep]
-        stored = self.spec.attach_checksums(vals)     # device rows: stored
-        idx32 = np.ascontiguousarray(rows, np.int32)
-        idx = torch.from_numpy(idx32).to(self.device).long()
-        new_words = words_to_tensor(stored, self.device)
-        self.stats.update_h2d_bytes += idx32.nbytes + stored.nbytes
-        old_words = base.views["words"][idx] if delta_hints else None
-        new_views = {}
-        for name, tensor in views.items():
-            rows_v = self.spec.words_to_view_device(name, new_words)
-            new_views[name] = tensor.clone().index_copy_(0, idx, rows_v)
-            self.stats.clone_device_bytes += \
-                tensor.numel() * tensor.element_size()
-        new_hints = {}
-        for name, (h, delta) in delta_hints.items():
-            new_hints[name] = delta(h, rows, old_words, new_words)
-            self.stats.n_hint_deltas += 1
+        # this rank's block keeps its own rows (all of them off a mesh);
+        # a block the delta misses carries its views into the new epoch
+        lo, hi = self.rows
+        mine = (rows >= lo) & (rows < hi)
+        new_views, new_hints = dict(views), {}
+        if mine.any():
+            local = rows[mine] - lo
+            stored = self.spec.attach_checksums(vals[mine])   # stored width
+            idx32 = np.ascontiguousarray(local, np.int32)
+            idx = torch.from_numpy(idx32).to(self.device).long()
+            new_words = words_to_tensor(stored, self.device)
+            self.stats.update_h2d_bytes += idx32.nbytes + stored.nbytes
+            old_words = base.views["words"][idx] if delta_hints else None
+            for name, tensor in views.items():
+                rows_v = self.spec.words_to_view_device(name, new_words)
+                new_views[name] = tensor.clone().index_copy_(0, idx, rows_v)
+                self.stats.clone_device_bytes += \
+                    tensor.numel() * tensor.element_size()
+            for name, (h, delta) in delta_hints.items():
+                new_hints[name] = delta(h, local, old_words, new_words)
+                self.stats.n_hint_deltas += 1
         epoch = base.epoch + 1
         return _Pending(base=base,
                         new=_Epoch(epoch=epoch, views=new_views,

@@ -87,16 +87,20 @@ def record_plans(cfg, plans: dict, *, device="cuda",
     return written
 
 
-def plan_report(cfg, plan, bucket: int, *, backend: str = "cuda",
+def plan_report(cfg, plan, bucket: int, *, n_shards: int = 1,
+                backend: str = "cuda",
                 measured_wall_s: Optional[float] = None) -> dict:
     """Reporting row for one bucket's plan: provenance, the modeled bytes
-    its answer step moves and the backend's bandwidth roof; with
-    ``measured_wall_s``, the fraction of that roof the run reached."""
+    its answer step moves (one DB shard's contraction of ``bucket``
+    queries when ``n_shards`` > 1, as upstream) and the backend's
+    bandwidth roof; with ``measured_wall_s``, the fraction of that roof
+    the run reached."""
     from repro_torch.analysis.roofline import (achieved_fraction,
                                                peak_bytes_per_s)
     from repro_torch.core import protocol as protocol_mod
     kind = protocol_mod.get(cfg.protocol).share_kind
-    step_bytes = predicted_step_bytes(plan, kind, problem_shape(cfg, bucket))
+    step_bytes = predicted_step_bytes(
+        plan, kind, problem_shape(cfg, bucket, n_shards=n_shards))
     out = {
         "plan": plan.name,
         "label": plan_label(plan),

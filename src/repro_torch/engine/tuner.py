@@ -66,15 +66,18 @@ def heuristic_plan(cfg, n_queries: int, *, backend: str,
 # Candidate enumeration
 # ---------------------------------------------------------------------------
 
-def problem_shape(cfg, bucket: int) -> ProblemShape:
-    """The shape a plan serves. Its record width is the stored one (with
-    ``cfg.checksum``, 4 bytes past ``item_bytes``): the kernels scan the
-    stored rows, and the width selects their template instance."""
+def problem_shape(cfg, bucket: int, *, n_shards: int = 1) -> ProblemShape:
+    """The shape a plan serves: one DB shard's rows (``n_items / n_shards``,
+    validated as ``DatabaseSpec.rows_per_shard`` does). Its record width
+    is the stored one (with ``cfg.checksum``, 4 bytes past
+    ``item_bytes``): the kernels scan the stored rows, and the width
+    selects their template instance."""
     from repro_torch.core import protocol as protocol_mod
     from repro_torch.db.spec import DatabaseSpec
     proto = protocol_mod.get(cfg.protocol)
-    return ProblemShape(bucket=bucket, rows=cfg.n_items,
-                        item_bytes=DatabaseSpec.from_config(cfg).stored_bytes,
+    spec = DatabaseSpec.from_config(cfg)
+    return ProblemShape(bucket=bucket, rows=spec.rows_per_shard(n_shards),
+                        item_bytes=spec.stored_bytes,
                         components=proto.key_components)
 
 

@@ -62,7 +62,6 @@ import traceback
 from dataclasses import replace
 from typing import Optional
 
-import numpy as np
 import torch
 
 from repro_torch.analysis import op_cost
@@ -191,19 +190,10 @@ def lower_cell(arch: str, shape_name: str, *,
 
 
 def meta_keys(cfg, n_queries: int):
-    """Party 0's keys for ``n_queries`` random indices, on meta: DPF keys
-    drawn on the host (numpy ChaCha) and moved; LWE ciphertexts as meta
-    tensors of their shape (drawing them needs the public matrix)."""
-    from repro_torch.core import lwe, protocol as protocol_mod
-    proto = protocol_mod.for_config(cfg)
-    if proto.share_kind == "lwe":
-        return lwe.LWECiphertext(
-            ct=torch.empty((n_queries, cfg.n_items), dtype=torch.int32,
-                           device=META),
-            log_n=cfg.log_n, n=lwe.params_for(cfg.n_items).n)
-    rng = np.random.default_rng(0)
-    idx = rng.integers(0, cfg.n_items, size=n_queries).tolist()
-    return proto.query_gen_batch(rng, idx, cfg)[0].to(META)
+    """Party 0's keys for a batch of ``n_queries`` as meta tensors: the
+    protocol's ``key_specs``, the one derivation of the keys' shapes."""
+    from repro_torch.core.server import key_specs
+    return key_specs(cfg, n_queries, party=0)
 
 
 def lower_pir_cell(pir_name: str, *, path: str = "fused-cuda",

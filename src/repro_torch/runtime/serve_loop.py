@@ -30,6 +30,17 @@ epoch its own dispatch read. Per-query deadlines ride on the futures
 launch, and ``replica.serve_step``, where the facades hand each batch's
 answer shares to ``corrupt_shares``; as upstream, the facades stage keys
 padded to their bucket, so that those shares are ``[bucket, cols]``.
+
+On a mesh of more than one rank (``mesh=``, ``launch/mesh.py``) the
+facades run SPMD: every rank builds the facade and calls ``query``,
+``update`` and ``publish`` with the same arguments. The database is
+sharded over the mesh and each party's ``PIRServer`` answers through the
+sharded step (``core/server.py``); the keys of a call are drawn on the
+mesh's first rank and broadcast, so a client rng that differs between
+ranks cannot split them, and every rank returns the records. What needs
+one controller is refused with a ``ValueError`` (ROADMAP A6b-serve-2): a
+session (``start`` / ``submit``), ``n_clusters`` lanes, ``chaos`` and
+``SingleServerPIR``.
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import PIRConfig
 from repro_torch.core import dpf, lwe
@@ -51,10 +63,15 @@ from repro_torch.core.server import PIRServer, bucket_for
 from repro_torch.crypto.packing import records_to_host
 from repro_torch.db import Database
 from repro_torch.engine.backend import Device
+from repro_torch.launch.mesh import Mesh
 from repro_torch.runtime.fault import StragglerMonitor
 
 #: dispatch depth: one batch running on the card, one being staged
 PIPELINE_DEPTH = 2
+
+#: what a facade on a mesh of more than one rank refuses
+MESH_REFUSED = ("{} on a mesh of more than one rank is not ported: it needs "
+                "one controller (ROADMAP A6b-serve-2)")
 
 #: how long a lone query may wait for companions before an under-full
 #: (padded) batch is cut
@@ -667,12 +684,20 @@ class MultiServerPIR:
     replica plane passes its replica id. Both are held by the scheduler
     (``scheduler.chaos``, ``scheduler.chaos_target``) and read on every
     visit, so setting them on a built facade takes effect.
+
+    ``mesh`` (a ``launch.mesh.Mesh``) shards the database over its ranks
+    and makes the facade SPMD (module docstring); ``collective`` is the
+    XOR schemes' reduce over the shard axis.
     """
 
     #: hint protocols (``PIRProtocol.needs_hint``) carry per-query client
     #: state and an epoch hint through the scheduler; only subclasses that
     #: do (SingleServerPIR) may serve them
     _supports_hint_protocols = False
+    #: the mesh the database is sharded over (None: one device), and
+    #: whether the facade runs SPMD over its ranks
+    mesh: Optional[Mesh] = None
+    spmd = False
 
     def __init__(self, db_words, cfg: PIRConfig, *, device: Device = None,
                  path: Optional[str] = None, n_queries: int = 4,
@@ -682,8 +707,15 @@ class MultiServerPIR:
                  client_rng: Optional[np.random.Generator] = None,
                  default_deadline_s: Optional[float] = None,
                  n_clusters: int = 1, chaos=None,
-                 chaos_scope: Optional[str] = None):
+                 chaos_scope: Optional[str] = None,
+                 mesh: Optional[Mesh] = None, collective: str = "gather"):
         self.cfg = cfg
+        self.mesh = mesh
+        self.spmd = mesh is not None and mesh.size > 1
+        if self.spmd and n_clusters != 1:
+            raise ValueError(MESH_REFUSED.format("n_clusters lanes"))
+        if self.spmd and chaos is not None:
+            raise ValueError(MESH_REFUSED.format("chaos"))
         self.protocol = (protocol if protocol is not None
                          else protocol_mod.for_config(cfg))
         if self.protocol.needs_hint and not self._supports_hint_protocols:
@@ -693,11 +725,11 @@ class MultiServerPIR:
                 f"SingleServerPIR, not {type(self).__name__}")
         self.n_parties = self.protocol.n_parties(cfg)
         self.db = (db_words if isinstance(db_words, Database)
-                   else Database(db_words, cfg, device))
+                   else Database(db_words, cfg, device, mesh=mesh))
         self.servers = [
-            PIRServer(party=b, database=self.db, cfg=cfg,
+            PIRServer(party=b, database=self.db, cfg=cfg, mesh=mesh,
                       n_queries=n_queries, path=path, buckets=buckets,
-                      protocol=self.protocol)
+                      protocol=self.protocol, collective=collective)
             for b in range(self.n_parties)]
         # key material must not be replayable: OS entropy unless a seeded
         # generator is injected (tests, benchmarks)
@@ -763,6 +795,8 @@ class MultiServerPIR:
     # -- streaming session API ------------------------------------------
 
     def start(self):
+        if self.spmd:
+            raise ValueError(MESH_REFUSED.format("a session"))
         self.scheduler.start()
 
     def close(self):
@@ -786,6 +820,8 @@ class MultiServerPIR:
         """Private retrieval of ``db[index]``; resolves to one record
         (``PIRProtocol.record_struct``: ``[W]`` uint32 words for XOR
         schemes, ``[L]`` uint8 bytes for the additive one)."""
+        if self.spmd:
+            raise ValueError(MESH_REFUSED.format("submit"))
         fut = self._deadline_future(deadline_s)
         with self._lock:         # client-side keygen shares one rng
             keys = self.protocol.query_gen(self.rng, index, self.cfg)
@@ -837,9 +873,23 @@ class MultiServerPIR:
         """The scheduler's per-query items for a whole call, generated in
         one batch (the same rng draws as one :meth:`submit` per index):
         one key per party."""
-        batch = self.protocol.query_gen_batch(self.rng, indices, self.cfg)
+        batch = self._drawn(lambda: self.protocol.query_gen_batch(
+            self.rng, indices, self.cfg))
         return [tuple(dpf.key_at(k, i) for k in batch)
                 for i in range(len(indices))]
+
+    def _drawn(self, draw: Callable[[], Any]) -> Any:
+        """``draw()`` once for the deployment: on a mesh, on its first rank,
+        then broadcast to every rank (as host tensors), so that every rank
+        answers the same keys whatever its own rng holds."""
+        if not self.spmd:
+            return draw()
+        src = self.mesh.ranks[0]
+        box = [draw() if self.mesh.rank == src else None]
+        dist.broadcast_object_list(
+            box, src=src, group=self.mesh.all_group,
+            device=self.mesh.device if self.mesh.backend == "nccl" else None)
+        return box[0]
 
 
 class SingleServerPIR(MultiServerPIR):
@@ -868,6 +918,9 @@ class SingleServerPIR(MultiServerPIR):
 
     def __init__(self, db_words, cfg: PIRConfig, *,
                  protocol: Optional[PIRProtocol] = None, **kwargs):
+        mesh = kwargs.get("mesh")
+        if mesh is not None and mesh.size > 1:
+            raise ValueError(MESH_REFUSED.format("SingleServerPIR"))
         proto = (protocol if protocol is not None
                  else protocol_mod.for_config(cfg))
         k = proto.n_parties(cfg)

@@ -1,0 +1,213 @@
+"""The reference's sharded serving path on four XLA CPU devices.
+
+Run as a script in its own process (the device count must be set before
+JAX initializes):
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \
+        python tests/_ref_sharded.py SPEC.json OUT.npz
+
+``SPEC.json`` holds a list of cases; each case writes arrays into
+``OUT.npz`` under keys that start with the case's ``name``:
+
+  serve      ``PIRServer.answer`` of every party on each mesh shape and
+             collective (``{name}/{d}x{m}/{collective}/p{party}``) and on
+             one device (``{name}/single/p{party}``); inputs are the
+             seeded database and keys that the port's tests draw the same
+             way (``make_database``, ``query_gen`` per index, or seeded
+             int32 ciphertexts for ``lwe-simple-1``)
+  allreduce  ``xor_allreduce_gather`` / ``xor_allreduce_butterfly`` under
+             ``shard_map`` over the ``model`` axis of a ``(data, model)``
+             mesh, on seeded ``[data, model, Q, W]`` u32 partials
+             (``{name}/{collective}``: every device's result)
+  mesh       the mesh helpers on ``MeshConfig`` shapes and
+             ``make_local_mesh`` clips (``{name}/{i}``, JSON in a 0-d
+             string array)
+  report     ``BucketedServeFns.plan_report`` on a mesh
+             (``{name}/{d}x{m}``, JSON)
+  placement  ``ShardedDatabase`` on each mesh shape: every device's row
+             range of each view (``{name}/{d}x{m}/{view}/rows``, device
+             order), the words after each staged update is published
+             (``.../words{step}``, its epoch ``.../epoch{step}``) and a
+             checksummed database's words (``.../chk_words``)
+
+The port's tests read the file and compare with the same cases run over
+four ``gloo`` ranks.
+"""
+import json
+import sys
+
+import numpy as np
+
+
+def _cfg(case):
+    from repro.config import PIRConfig
+    return PIRConfig(n_items=case["n_items"], item_bytes=case["item_bytes"],
+                     protocol=case["protocol"],
+                     n_servers=case.get("n_servers", 2))
+
+
+def _mesh(shape):
+    import jax
+    devs = np.asarray(jax.devices()[:shape[0] * shape[1]]).reshape(shape)
+    return jax.sharding.Mesh(devs, ("data", "model"))
+
+
+_KEYS: dict = {}
+
+
+def keys_for(case, cfg):
+    """Every party's batched keys: one ``query_gen`` per index from one
+    rng (``lwe-simple-1``: seeded int32 ciphertexts); drawn once per
+    protocol, seed and indices."""
+    sig = (cfg.protocol, cfg.n_servers, case["key_seed"],
+           tuple(case["indices"]))
+    if sig not in _KEYS:
+        _KEYS[sig] = _draw_keys(case, cfg)
+    return _KEYS[sig]
+
+
+def _draw_keys(case, cfg):
+    import jax.numpy as jnp
+    from repro.core import dpf, lwe, protocol as protocol_mod
+    proto = protocol_mod.for_config(cfg)
+    rng = np.random.default_rng(case["key_seed"])
+    idx = case["indices"]
+    if proto.share_kind == "lwe":
+        ct = rng.integers(-2 ** 31, 2 ** 31, size=(len(idx), cfg.n_items),
+                          dtype=np.int64).astype(np.int32)
+        return (lwe.LWECiphertext(ct=jnp.asarray(ct), log_n=cfg.log_n,
+                                  n=lwe.params_for(cfg.n_items).n),)
+    per = [proto.query_gen(rng, int(i), cfg) for i in idx]
+    return tuple(dpf.stack_keys([p[b] for p in per])
+                 for b in range(proto.n_parties(cfg)))
+
+
+def run_serve(case, out):
+    from repro.core import pir
+    from repro.core.server import PIRServer
+    from repro.db import ShardedDatabase
+    cfg = _cfg(case)
+    db = pir.make_database(np.random.default_rng(case["db_seed"]),
+                           cfg.n_items, cfg.item_bytes)
+    keys = keys_for(case, cfg)
+    q = case.get("n_queries", len(case["indices"]))
+    meshes = [("single", (1, 1), "gather")] * case.get("single", True) + [
+        (f"{d}x{m}/{c}", (d, m), c) for d, m in case["meshes"]
+        for c in case["collectives"]]
+    for tag, shape, coll in meshes:
+        mesh = _mesh(shape)
+        database = ShardedDatabase(db, cfg, mesh)
+        for party, k in enumerate(keys):
+            server = PIRServer(party, database=database, cfg=cfg, mesh=mesh,
+                               n_queries=q, path="baseline", collective=coll)
+            out[f"{case['name']}/{tag}/p{party}"] = np.asarray(
+                server.answer(k))
+
+
+def run_allreduce(case, out):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+    from repro.compat import shard_map
+    from repro.core.protocol import (xor_allreduce_butterfly,
+                                     xor_allreduce_gather)
+    d, m = case["mesh"]
+    rng = np.random.default_rng(case["seed"])
+    parts = rng.integers(0, 2 ** 32, size=(d, m) + tuple(case["shape"]),
+                         dtype=np.uint64).astype(np.uint32)
+    mesh = _mesh((d, m))
+    fns = {"gather": lambda x: xor_allreduce_gather(x, "model"),
+           "butterfly": lambda x: xor_allreduce_butterfly(x, "model", m)}
+    for coll, fn in fns.items():
+        step = shard_map(lambda x, fn=fn: fn(x[0, 0])[None, None], mesh=mesh,
+                         in_specs=P("data", "model"),
+                         out_specs=P("data", "model"), check_vma=False)
+        out[f"{case['name']}/{coll}"] = np.asarray(
+            jax.jit(step)(jnp.asarray(parts)))
+    out[f"{case['name']}/partials"] = parts
+
+
+def run_mesh(case, out):
+    from repro.config import MeshConfig
+    from repro.launch import mesh as mesh_mod
+    rows = []
+    for shape, axes in case["configs"]:
+        mesh = mesh_mod.make_mesh(MeshConfig(shape=tuple(shape),
+                                             axes=tuple(axes)))
+        rows.append(_mesh_row(mesh_mod, mesh))
+    for data, model in case["local"]:
+        rows.append(_mesh_row(mesh_mod,
+                              mesh_mod.make_local_mesh(data, model)))
+    out[case["name"]] = np.asarray(json.dumps(rows))
+
+
+def _mesh_row(mesh_mod, mesh):
+    return {"shape": dict(mesh.shape), "axis_names": list(mesh.axis_names),
+            "size": {a: mesh_mod.mesh_axis_size(mesh, a)
+                     for a in ("pod", "data", "model", "expert")},
+            "batch_axes": list(mesh_mod.batch_axes(mesh)),
+            "pir_cluster_axes": list(mesh_mod.pir_cluster_axes(mesh)),
+            "pir_shard_axis": mesh_mod.pir_shard_axis(mesh)}
+
+
+def run_report(case, out):
+    from repro.core.server import BucketedServeFns
+    cfg = _cfg(case)
+    for d, m in case["meshes"]:
+        fns = BucketedServeFns(cfg, _mesh((d, m)), buckets=case["buckets"],
+                               path=case["path"])
+        rep = fns.plan_report()
+        out[f"{case['name']}/{d}x{m}"] = np.asarray(json.dumps(
+            {str(b): {k: r[k] for k in ("plan", "label", "provenance",
+                                        "predicted_step_bytes")}
+             for b, r in rep.items()}))
+
+
+def run_placement(case, out):
+    from dataclasses import replace
+    from repro.core import pir
+    from repro.db import ShardedDatabase
+    cfg = _cfg(case)
+    db = pir.make_database(np.random.default_rng(case["db_seed"]),
+                           cfg.n_items, cfg.item_bytes)
+    for d, m in case["meshes"]:
+        tag = f"{case['name']}/{d}x{m}"
+        mesh = _mesh((d, m))
+        database = ShardedDatabase(db, cfg, mesh)
+        order = {dev: i for i, dev in enumerate(mesh.devices.flat)}
+        for view in ("words", "bytes"):
+            rows = [None] * mesh.size
+            for shard in database.view(view).addressable_shards:
+                sl = shard.index[0]
+                rows[order[shard.device]] = (sl.start or 0,
+                                             sl.stop or cfg.n_items)
+            out[f"{tag}/{view}/rows"] = np.asarray(rows)
+        for step, (rows, seed) in enumerate(case["updates"]):
+            vals = np.random.default_rng(seed).integers(
+                0, 2 ** 32, size=(len(rows), cfg.item_bytes // 4),
+                dtype=np.uint64).astype(np.uint32)
+            database.stage(rows, vals)
+            out[f"{tag}/epoch{step}"] = np.asarray(database.publish())
+            out[f"{tag}/words{step}"] = np.asarray(database.view("words"))
+        chk = ShardedDatabase(db, replace(cfg, checksum=True), mesh)
+        out[f"{tag}/chk_words"] = np.asarray(chk.view("words"))
+
+
+RUNNERS = {"serve": run_serve, "allreduce": run_allreduce,
+           "mesh": run_mesh, "report": run_report,
+           "placement": run_placement}
+
+
+def main(argv):
+    spec_path, out_path = argv
+    with open(spec_path) as f:
+        cases = json.load(f)
+    out = {}
+    for case in cases:
+        RUNNERS[case["kind"]](case, out)
+    np.savez(out_path, **out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

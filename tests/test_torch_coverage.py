@@ -77,24 +77,7 @@ NOT_PORTED = {
     "repro.core.lwe.LWECiphertext.tree_unflatten": ("jax-only", _PYTREE),
     "repro.core.pir.U32": ("jax-only", _U32),
     "repro.core.protocol.U32": ("jax-only", _U32),
-    "repro.core.protocol.PIRProtocol.key_specs": (
-        "a6b", "ShapeDtypeStruct keys for sharded lowering; the dry run "
-               "draws meta keys (launch/dryrun.meta_keys)"),
-    "repro.core.protocol.PIRProtocol.reduce": (
-        "a6b", "the cross-shard reduce of partial answers"),
-    "repro.core.protocol.xor_allreduce_gather": (
-        "a6b", "all_gather + fold over the DB-shard axis"),
-    "repro.core.protocol.xor_allreduce_butterfly": (
-        "a6b", "paired exchanges over the DB-shard axis"),
-    "repro.core.protocol.XorDpf2.key_specs": ("a6b", "see PIRProtocol"),
-    "repro.core.protocol.AdditiveDpf2.key_specs": ("a6b", "see PIRProtocol"),
-    "repro.core.protocol.AdditiveDpf2.reduce": ("a6b", "see PIRProtocol"),
-    "repro.core.protocol.XorDpfK.key_specs": ("a6b", "see PIRProtocol"),
-    "repro.core.protocol.LweSimple1.key_specs": ("a6b", "see PIRProtocol"),
-    "repro.core.protocol.LweSimple1.reduce": ("a6b", "see PIRProtocol"),
     "repro.core.server.U32": ("jax-only", _U32),
-    "repro.core.server.key_specs": (
-        "renamed", "repro_torch.launch.dryrun.meta_keys"),
     "repro.core.server.ServeFns": (
         "jax-only", "a jitted, sharded step per bucket; the port binds a "
                     "plan per bucket (BucketedServeFns.step_for)"),
@@ -110,15 +93,13 @@ NOT_PORTED = {
     "repro.core.server.PIRServer.lower": (
         "jax-only", "jax lowering; the dry run is launch/dryrun."
                     "lower_pir_cell on meta"),
-    # db: one card holds the whole database
+    # db: one Database, a rank's block of it on a mesh
     "repro.db.sharded.ShardedDatabase": (
         "renamed", "repro_torch.db.sharded.Database"),
-    "repro.db.sharded.ShardedDatabase.sharding": (
-        "a6b", "the database's NamedSharding over a mesh"),
     **{f"repro.db.sharded.ShardedDatabase.{m}": (
         "renamed", f"repro_torch.db.sharded.Database.{m}")
        for m in ("epoch", "n_staged", "view", "snapshot", "register_hint",
-                 "hint", "stage", "subscribe", "publish")},
+                 "hint", "stage", "subscribe", "publish", "sharding")},
     # engine
     "repro.engine.backend.FORCE_BACKEND_ENV": (
         "jax-only", "forces a jax backend; the port follows the device "
@@ -171,14 +152,11 @@ NOT_PORTED = {
     "repro.kernels.pir_matmul.lwe_matmul": (
         "jax-only", "Pallas entry; kernels.lwe_matmul.lwe_gemm"),
     "repro.kernels.ref.U32": ("jax-only", _U32),
-    # launch: TPU pod meshes, and the device mesh of A6b
+    # launch: TPU pod meshes
     "repro.launch.mesh.SINGLE_POD": ("jax-only", "a TPU pod shape"),
     "repro.launch.mesh.MULTI_POD": ("jax-only", "a TPU pod shape"),
     "repro.launch.mesh.make_production_mesh": (
         "jax-only", "a TPU pod mesh; the dry run takes --mesh one"),
-    **{f"repro.launch.mesh.{n}": ("a6b", "the device mesh")
-       for n in ("make_mesh", "make_local_mesh", "mesh_axis_size",
-                 "batch_axes", "pir_cluster_axes", "pir_shard_axis")},
     # models: sharding specs
     **{f"repro.models.{m}.{c}.{s}": ("a6b", _SPECS)
        for m, c in (("encdec", "EncDecLM"), ("hybrid", "Zamba2Model"),
@@ -355,6 +333,53 @@ def test_a22_functions_are_ported(names, name):
         mod, attr = name.rsplit(".", 1)
         assert hasattr(importlib.import_module(
             "repro_torch" + mod[len("repro"):]), attr)
+
+
+#: the sharded serving path (ROADMAP §A, A6b-serve): each must resolve,
+#: and none may stand in the table
+A6B_SERVE = (
+    "repro.launch.mesh.make_mesh",
+    "repro.launch.mesh.make_local_mesh",
+    "repro.launch.mesh.mesh_axis_size",
+    "repro.launch.mesh.batch_axes",
+    "repro.launch.mesh.pir_cluster_axes",
+    "repro.launch.mesh.pir_shard_axis",
+    "repro.core.protocol.xor_allreduce_gather",
+    "repro.core.protocol.xor_allreduce_butterfly",
+    "repro.core.protocol._xor_reduce",
+    "repro.core.protocol._dpf_key_specs",
+    "repro.core.protocol.PIRProtocol.key_specs",
+    "repro.core.protocol.PIRProtocol.reduce",
+    "repro.core.protocol.XorDpf2.key_specs",
+    "repro.core.protocol.XorDpf2.reduce",
+    "repro.core.protocol.AdditiveDpf2.key_specs",
+    "repro.core.protocol.AdditiveDpf2.reduce",
+    "repro.core.protocol.XorDpfK.key_specs",
+    "repro.core.protocol.XorDpfK.reduce",
+    "repro.core.protocol.LweSimple1.key_specs",
+    "repro.core.protocol.LweSimple1.reduce",
+    "repro.core.server.key_specs",
+)
+
+
+@pytest.mark.parametrize("name", A6B_SERVE)
+def test_a6b_serve_functions_are_ported(names, name):
+    assert name not in NOT_PORTED
+    if name in names:
+        assert _resolves(*names[name]), name
+    else:              # private, or inherited: not in the AST scan
+        assert _resolve_dotted("repro_torch" + name[len("repro"):])
+
+
+def test_a6b_entries_left_are_the_training_half():
+    left = sorted(q for q, (r, _) in NOT_PORTED.items() if r == "a6b")
+    assert left and all(
+        q.startswith(("repro.models.", "repro.optim.")) for q in left), left
+
+
+def test_database_sharding_is_ported_under_its_class():
+    assert NOT_PORTED["repro.db.sharded.ShardedDatabase.sharding"] == (
+        "renamed", "repro_torch.db.sharded.Database.sharding")
 
 
 def test_batch_pir_takes_n_clusters():

@@ -95,13 +95,13 @@ def test_component_bits_batch_rows_are_the_one_query_form():
     {},
     {"expand": "fused", "scan": "cuda", "chunk_log": 10, "tile_r": 512,
      "provenance": "tuned"},
-    {"expand": "materialize", "scan": "torch", "provenance": "forced"}])
+    {"expand": "materialize", "scan": "torch", "provenance": "forced"},
+    {"collective": "butterfly"}])
 def test_describe_matches_reference(fields):
     got = protocol.ExecutionPlan(**fields).describe()
     want = ref_protocol.ExecutionPlan(**fields).describe()
-    # the reference's Pallas tiles and multi-card collective: not in the port
-    assert set(want) - set(got) == {"tile_q", "tile_l", "depth",
-                                    "collective"}
+    # the reference's Pallas tiles: not in the port
+    assert set(want) - set(got) == {"tile_q", "tile_l", "depth"}
     if "scan" not in fields:      # the default scans' names differ
         want["scan"] = "torch"
         want["name"] = f"{want['expand']}/torch"
