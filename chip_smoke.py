@@ -203,13 +203,29 @@ Then the single-server LWE scheme runs at PIR_128M_LWE (2^22 records x
               broadcast), additive-dpf-2 and xor-dpf-k at 32, then 8 rows
               updated over all four blocks and served; one lwe-simple-1
               answer of 32 seeded ciphertexts (B5 on each block, the int32
-              all-reduce) equal to one unsharded B5 answer on rank 0.
-              Records exact; each rank's counters advance by exactly one
-              launch of its plan's kernel a party and batch, no plain
-              call; one epoch on every rank; start_block 0-3 on (1, 4).
-              Per rank: device, rows, launches, the answer step's and the
-              collective's CUDA-event ms (time-sliced ranks: not a
-              scaling figure); which gloo collectives take a CUDA tensor
+              all-reduce) equal to one unsharded B5 answer on rank 0;
+              then SingleServerPIR(mesh=) at PIR_128M_LWE: 8 indices
+              encrypted on rank 0 (the whole A there, one block of A on
+              each other rank), the hint built per block and summed, equal
+              to an unsharded B5 build on rank 0, an update of rows in
+              every block (one hint delta on every rank, the hint again
+              equal to a rebuild) and those rows served. On (1, 4),
+              BatchPIR(mesh=) at PIR_1G_BATCH from the batch phase's
+              layout (saved once, memory-mapped by the ranks), each rank's
+              block of the 512 buckets read from the mapped records: a
+              round of 256 distinct indices, a publish of 64 rows whose
+              slots land in every block, a round with them. Records exact;
+              each rank's counters advance by exactly one launch of its
+              plan's kernel a party and batch (B1: 512 a party and round;
+              B5: A.s on rank 0, one block build, one delta), one reduce a
+              party and batch dispatch, no plain call; one epoch on every
+              rank; start_block 0-3 on (1, 4). Per rank: device, rows,
+              launches, the answer step's and the collective's CUDA-event
+              ms, the block hint build, B5 at the block's shape, the delta
+              and the hint's all-reduce, B1 on a bucket's block, each
+              part's seconds, the round's plan_s, max_memory_allocated
+              (time-sliced ranks: not a scaling figure); which gloo
+              collectives take a CUDA tensor
   private_lm  the dense LM, once the fleets are released: qwen3-4b at full
               width and depth (36 layers, d_model 2,560, vocab 151,936,
               bf16, 8.8 GB of weights drawn from a seeded generator on the
@@ -2629,7 +2645,7 @@ def batch_lanes(bdb, cfg, host, rng, device) -> dict:
     return out
 
 
-def phase_batch(cfg, card, device) -> dict:
+def phase_batch(cfg, card, device) -> tuple:
     """The batch plane at PIR_1G_BATCH (2^25 records x 32 B, xor-dpf-2,
     m = 256, B = 512 buckets), with no other database on the card: the
     layout and the BucketedDatabase built and timed, two rounds (one of
@@ -2637,7 +2653,7 @@ def phase_batch(cfg, card, device) -> dict:
     two rounds of 256 distinct indices on two lanes (``batch_lanes``),
     then 64 global rows staged and published into every candidate bucket
     and a round serving them with the new outer epoch. Returns the
-    launches."""
+    launches and the layout, which the sharded phase serves from too."""
     import resource
     from repro_torch.core import pir
     from repro_torch.core.batch import CuckooLayout, CuckooParams
@@ -2720,7 +2736,7 @@ def phase_batch(cfg, card, device) -> dict:
     out["launches"] = main_path_launches("batch", ("dpxor",))
     out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     emit(out)
-    return out["launches"]
+    return out["launches"], layout
 
 
 def phase_twins(device) -> dict:
@@ -3805,6 +3821,12 @@ SHARDED_QS = (32, 1)
 SHARDED_UPDATE_ROWS = 8
 #: a rank that has not finished after this long fails the phase
 SHARDED_TIMEOUT_S = 600
+#: SingleServerPIR(mesh=) at PIR_128M_LWE: queries of one call
+SHARDED_LWE_QUERIES = 8
+#: BatchPIR(mesh=) at PIR_1G_BATCH: its mesh, and the rows one publish
+#: writes (their slots land in every block of the buckets)
+SHARDED_BATCH_MESH = (1, 4)
+SHARDED_BATCH_UPDATE_ROWS = 64
 
 
 def sharded_expected(server, n: int) -> dict:
@@ -3944,6 +3966,209 @@ def sharded_serve(system, host, idx, counts) -> dict:
             "launches_ok": got == want and plain == 0}
 
 
+def sharded_counted(fn) -> tuple:
+    """``fn()`` with the counters zeroed before it and read after it:
+    ``(result, seconds, B5 launches, plain calls)``."""
+    from repro_torch.kernels import ops
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.counts()
+    return (result, seconds, counts["lwe_gemm"]["launches"],
+            sum(v["plain_calls"] for v in counts.values()))
+
+
+def sharded_lwe_single(db_lwe, whole, host_lwe, mesh, idx_rng,
+                       device) -> dict:
+    """SingleServerPIR(mesh=) at PIR_128M_LWE over this rank's block of
+    ``db_lwe``: a query of ``SHARDED_LWE_QUERIES`` indices drawn and
+    encrypted on the mesh's first rank (the whole of A there, one block of
+    A on every other rank), the hint built per block and summed, then an
+    update of rows in every block, its hint delta, and a query of those
+    rows. Every rank's records exact and its B5 launches exactly the
+    design's (the client's A.s on the first rank, one answer a batch, one
+    block build, one delta), no plain call; the first rank (``whole``:
+    the unsharded database there) holds the replicated hint to one
+    unsharded B5 build before and after the publish, and times the block
+    build, B5 at the block's shape and the delta by CUDA events, alone on
+    the card. Every rank times the hint's all-reduce."""
+    import torch.distributed as dist
+    from repro_torch.configs.pir import PIR_128M_LWE as cfg
+    from repro_torch.core import lwe
+    from repro_torch.crypto.packing import words_to_bytes_i32
+    from repro_torch.kernels import lwe_matmul as kl
+    from repro_torch.runtime.serve_loop import SingleServerPIR
+    client = mesh.rank == mesh.ranks[0]
+    system = SingleServerPIR(
+        db_lwe, cfg, mesh=mesh, n_queries=SHARDED_LWE_QUERIES,
+        client_rng=np.random.default_rng(SEED + 507) if client else None)
+    name, params = system.protocol.name, lwe.params_for(cfg.n_items)
+    build = lwe.hint_build_fn(params, cfg.n_items)
+    lo, hi = db_lwe.rows
+    out = {"rows": [lo, hi], "client": client}
+
+    idx = idx_rng.integers(0, cfg.n_items, size=SHARDED_LWE_QUERIES)
+    recs, secs, n, plain = sharded_counted(lambda: system.query(idx))
+    # the client's A.s (first rank), the batch's answer, the block build
+    out["query"] = {"seconds": secs, "launches": n, "plain_calls": plain,
+                    "want": 3 if client else 2,
+                    "exact": check_records(recs, host_lwe[idx].view(
+                        np.uint8))}
+    hint = system.db.hint(name)
+    out["hint_shape"] = list(hint.shape)
+    if client:
+        out["hint_exact"] = bool(torch.equal(hint, build(
+            whole.view("words"))))
+        words = db_lwe.view("words")
+        d_t = words_to_bytes_i32(words).t().contiguous()
+        a = lwe.matrix_a_device(params, cfg.n_items, device, rows=(lo, hi))
+        bound, by = lwe_gemm_bound(d_t.shape[0], hi - lo, params.n)
+        out["hint_build"] = {
+            "m": d_t.shape[0], "k": hi - lo, "n": params.n,
+            "ms": cuda_time_ms(lambda: build(words, row0=lo), reps=5),
+            "kernel_ms": cuda_time_ms(lambda: kl.lwe_gemm(d_t, a), reps=5),
+            "bound_ms": bound, "bound_by": by}
+        del d_t, a
+    dist.barrier()
+
+    # an update with rows in every block of four, then those rows served
+    blocks = np.arange(SHARDED_UPDATE_ROWS) % 4
+    quarter = cfg.n_items // 4
+    rows = blocks * quarter + idx_rng.integers(0, quarter,
+                                               size=SHARDED_UPDATE_ROWS)
+    vals = idx_rng.integers(0, 2 ** 32, size=(len(rows), 8),
+                            dtype=np.uint64).astype(np.uint32)
+    deltas = db_lwe.stats.n_hint_deltas
+    system.update(rows, vals)
+    epoch, secs, n, plain = sharded_counted(system.publish)
+    out["publish"] = {"epoch": epoch, "seconds": secs, "launches": n,
+                      "plain_calls": plain, "want": 1,
+                      "hint_deltas": db_lwe.stats.n_hint_deltas - deltas}
+    recs, secs, n, plain = sharded_counted(lambda: system.query(rows))
+    out["query_after"] = {"seconds": secs, "launches": n,
+                          "plain_calls": plain, "want": 2 if client else 1,
+                          "exact": check_records(recs, vals.view(np.uint8))}
+    hint = system.db.hint(name)
+    if client:
+        whole.stage(rows, vals)
+        whole.publish()
+        out["hint_after_exact"] = bool(torch.equal(hint, build(
+            whole.view("words"))))
+        mine = rows[(rows >= lo) & (rows < hi)]
+        local = torch.as_tensor(mine - lo, device=device)
+        new = db_lwe.view("words")[local]
+        zero = torch.zeros_like(hint)
+        delta = lwe.hint_delta_fn(params, cfg.n_items)
+        out["hint_delta"] = {"rows": len(mine), "ms": cuda_time_ms(
+            lambda: delta(zero, mine, new, new, row0=lo, n_rows=hi - lo),
+            reps=20)}
+    dist.barrier()
+    part = torch.zeros_like(hint)
+    out["reduce_ms"] = cuda_time_ms(lambda: db_lwe._shard_sum(part), reps=5)
+    return out
+
+
+def sharded_batch(host, layout, mesh, idx_rng, device) -> dict:
+    """BatchPIR(mesh=) at PIR_1G_BATCH (2^25 records, m = 256, B = 512
+    buckets of 2^18 rows, xor-dpf-2): the parent's layout, each rank's
+    block of every bucket read from the memory-mapped records, one round
+    of m distinct indices, a publish of rows whose slots land in every
+    block, then a round with them. Every rank's records exact, every
+    dispatch 512 wide, B1 launched B times a party and round, one reduce a
+    party and dispatch, no plain call; the first rank times B1 on one
+    bucket's block alone on the card."""
+    import torch.distributed as dist
+    from repro_torch.configs.pir import PIR_1G_BATCH as cfg
+    from repro_torch.core import dpf
+    from repro_torch.db import BucketedDatabase
+    from repro_torch.kernels import dpxor as kd, ops
+    from repro_torch.runtime.batch import BatchPIR
+    client = mesh.rank == mesh.ranks[0]
+    t0 = time.perf_counter()
+    bdb = BucketedDatabase(host, cfg, layout=layout, mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0,
+           "rows": list(bdb.buckets[0].rows),
+           "resident_bytes": bdb.resident_bytes}
+    system = BatchPIR(bdb, cfg, mesh=mesh, client_rng=np.random.default_rng(
+        SEED + 508) if client else None)
+    parties, n_buckets = system.n_parties, bdb.n_buckets
+    out["plan"] = system.serve[0].plan_for_bucket(1).name
+    reduces = []
+    proto = system.protocol
+    reduce = proto.reduce
+
+    def counting(*args, **kwargs):
+        reduces.append(1)
+        return reduce(*args, **kwargs)
+
+    proto.reduce = counting           # this rank's process only
+    rounds = []
+    updated: dict = {}
+
+    def serve_round(kind, idx, want_epoch):
+        ops.reset_counts()
+        r0 = len(reduces)
+        t0 = time.perf_counter()
+        recs, epoch, log, plan_s = batch_round(system, idx)
+        seconds = time.perf_counter() - t0
+        counts = ops.counts()
+        want = np.stack([updated.get(int(i), host[i]) for i in idx])
+        rounds.append({
+            "kind": kind, "n": len(idx), "seconds": seconds,
+            "plan_s": plan_s, "dispatch_log": log, "epoch": epoch,
+            "want_epoch": want_epoch,
+            "dpxor_launches": counts["dpxor"]["launches"],
+            "want_launches": n_buckets * parties * len(log),
+            "reduces": len(reduces) - r0, "want_reduces": parties * len(log),
+            "plain_calls": sum(v["plain_calls"] for v in counts.values()),
+            "exact": check_records(recs, want)})
+
+    try:
+        m = cfg.batch_m
+        first = idx_rng.choice(cfg.n_items, size=m, replace=False)
+        serve_round("distinct", first, 0)
+        rows, vals = fresh_rows(idx_rng, cfg.n_items,
+                                SHARDED_BATCH_UPDATE_ROWS, 8)
+        # random rows fill slots below the buckets' loads (about 3/4 of
+        # the capacity), so the last block holds pad rows but in the
+        # fullest buckets: the first rows are the fullest bucket's records
+        # at each block's first slot
+        block = layout.capacity // mesh.shape["model"]
+        fullest = layout.bucket_rows[int(np.argmax(layout.loads))]
+        edge = fullest[::block][:mesh.shape["model"]]
+        rows[:len(edge)] = edge
+        out["publish_blocks"] = sorted({
+            slot // block for r in rows
+            for _, slot in layout.occurrences(int(r))})
+        system.update(rows, vals)
+        t0 = time.perf_counter()
+        out["epoch"] = system.publish()
+        torch.cuda.synchronize()
+        out["publish_s"] = time.perf_counter() - t0
+        updated.update(zip(rows.tolist(), vals))
+        serve_round("after_publish", np.concatenate(
+            [rows, first[:m - len(rows)]]), 1)
+    finally:
+        del proto.reduce
+    out["rounds"] = rounds
+    if client:
+        view = bdb.buckets[0].view("words")
+        keys = proto.query_gen_batch(np.random.default_rng(SEED + 509), [5],
+                                     system.inner_cfg)[0].to(device)
+        log_local = view.shape[0].bit_length() - 1
+        bits = dpf.eval_bits_batch(keys, bdb.buckets[0].shard_index,
+                                   log_local)
+        out["dpxor_block"] = {
+            "rows": view.shape[0], "q": 1, "bound_by": "bytes",
+            "bound_ms": dpxor_bound_ms(view.shape[0], view.shape[1], 1),
+            "ms": cuda_time_ms(lambda: kd.dpxor(view, bits), reps=20)}
+    dist.barrier()
+    return out
+
+
 def sharded_rank(rank: int, tmp: str) -> None:
     """One rank of the sharded phase, in a process of its own: join the
     process group through a file under ``tmp``, load the kernels the
@@ -4072,27 +4297,75 @@ def sharded_rank_run(rank: int, tmp: str) -> dict:
                           "launches_ok": got == want and plain == 0,
                           **sharded_time(server, db_lwe.view("bytes32"),
                                          keys)}
+            whole = None
             if rank == 0:
                 whole = Database(host_lwe, PIR_128M_LWE, device)
                 one = ops.lwe_gemm(keys.ct, whole.view("bytes32"))
                 row["lwe"]["exact"] = bool(torch.equal(ans, one))
-                del whole, one
+                del one
                 if tag == "1x4":        # each kernel at a quarter's shape
                     row["kernels"] = sharded_kernels(database, db_lwe,
                                                      keys.ct, device)
             dist.barrier()
-            del server, db_lwe, keys, ans, database
+            del server, keys, ans, database
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            row["lwe_single"] = sharded_lwe_single(
+                db_lwe, whole, host_lwe, mesh, idx_rng, device)
+            row["lwe_single"]["seconds"] = time.perf_counter() - t0
+            del db_lwe, whole
+            if rank != 0:   # rank 0 keeps the client's whole A for the next
+                lwe.clear_matrix_cache()
             gc.collect()
             torch.cuda.empty_cache()
             row["launches"] = counts
             out["meshes"][tag] = row
             dist.barrier()
+        lwe.clear_matrix_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["batch"] = sharded_batch(host, load_layout(tmp),
+                                     meshes[SHARDED_BATCH_MESH], idx_rng,
+                                     device)
+        out["batch"]["seconds"] = time.perf_counter() - t0
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
     finally:
         dist.destroy_process_group()
     return out
 
 
-def phase_sharded(host_db, host_lwe, card) -> dict:
+def save_layout(layout, tmp: str) -> None:
+    """The cuckoo layout as arrays on disk, built once by the parent: the
+    ranks map them (``load_layout``) instead of building it four times."""
+    np.save(os.path.join(tmp, "layout_hashes.npy"), layout.hashes)
+    np.save(os.path.join(tmp, "layout_slot_of.npy"), layout.slot_of)
+    np.save(os.path.join(tmp, "layout_rows.npy"),
+            np.concatenate(layout.bucket_rows))
+    with open(os.path.join(tmp, "layout.json"), "w") as f:
+        json.dump({"n_items": layout.n_items, "capacity": layout.capacity,
+                   "params": vars(layout.params),
+                   "loads": [len(r) for r in layout.bucket_rows]}, f)
+
+
+def load_layout(tmp: str):
+    """The parent's layout (``save_layout``), its arrays memory-mapped."""
+    from repro_torch.core.batch import CuckooLayout, CuckooParams
+    with open(os.path.join(tmp, "layout.json")) as f:
+        meta = json.load(f)
+    load = lambda name: np.load(os.path.join(tmp, f"layout_{name}.npy"),
+                                mmap_mode="r")
+    rows, ends = load("rows"), np.cumsum(meta["loads"])
+    return CuckooLayout(
+        n_items=meta["n_items"], params=CuckooParams(**meta["params"]),
+        capacity=meta["capacity"], hashes=load("hashes"),
+        slot_of=load("slot_of"),
+        bucket_rows=tuple(rows[e - n:e] for e, n in zip(ends,
+                                                        meta["loads"])))
+
+
+def phase_sharded(host_db, host_lwe, layout, card) -> dict:
     """A6b's serving path on this card: four ranks (``SHARDED_RANKS``
     processes started with torch.multiprocessing, one FileStore under a
     temporary directory) share it under gloo, the collectives through the
@@ -4104,7 +4377,11 @@ def phase_sharded(host_db, host_lwe, card) -> dict:
     each block, then the int32 all-reduce) held to one unsharded B5 answer
     on rank 0. Records exact, each rank's counters advanced by exactly one
     launch of its plan's kernel a party and batch with no plain call,
-    every rank at the same epoch. The kernels' times are from four ranks
+    every rank at the same epoch. On both meshes SingleServerPIR(mesh=)
+    serves PIR_128M_LWE (``sharded_lwe_single``: the hint built per block
+    and summed, equal to an unsharded build before and after a publish);
+    on (1, 4) BatchPIR(mesh=) serves PIR_1G_BATCH from ``layout``, built
+    once here (``sharded_batch``). The kernels' times are from four ranks
     time-sliced on one card: not a scaling figure. Returns the line."""
     import torch.multiprocessing as mp
     from repro_torch.configs.pir import PIR_128M_LWE
@@ -4118,6 +4395,7 @@ def phase_sharded(host_db, host_lwe, card) -> dict:
             dtype=np.int64).astype(np.int32)
         np.save(os.path.join(tmp, "ct.npy"), ct)
         del ct
+        save_layout(layout, tmp)
         ctx = mp.get_context("spawn")
         procs = [ctx.Process(target=sharded_rank, args=(r, tmp))
                  for r in range(SHARDED_RANKS)]
@@ -4157,6 +4435,35 @@ def phase_sharded(host_db, host_lwe, card) -> dict:
             "start_blocks_1x4": sorted(r["meshes"]["1x4"]["start_block"]
                                        for r in ranks)
             == list(range(SHARDED_RANKS))}
+        singles = [m["lwe_single"] for m in meshes]
+        steps = [p for one in singles
+                 for p in (one["query"], one["publish"], one["query_after"])]
+        checks.update({
+            "lwe_single_exact": all(one["query"]["exact"]
+                                    and one["query_after"]["exact"]
+                                    for one in singles),
+            "lwe_hint_exact": all(one["hint_exact"]
+                                  and one["hint_after_exact"]
+                                  for one in singles if one["client"]),
+            "lwe_hint_deltas": all(one["publish"]["hint_deltas"] == 1
+                                   and one["publish"]["epoch"] == 1
+                                   for one in singles),
+            "lwe_single_launches_exact": all(
+                p["launches"] == p["want"] and p["plain_calls"] == 0
+                for p in steps)})
+        rounds = [rd for r in ranks for rd in r["batch"]["rounds"]]
+        checks.update({
+            "batch_exact": all(rd["exact"] and rd["epoch"] == rd["want_epoch"]
+                               for rd in rounds),
+            "batch_dispatch_log": all(rd["dispatch_log"] == [[1, 512]]
+                                      for rd in rounds),
+            "batch_launches_exact": all(
+                rd["dpxor_launches"] == rd["want_launches"]
+                and rd["reduces"] == rd["want_reduces"]
+                and rd["plain_calls"] == 0 for rd in rounds),
+            "batch_publish_every_block": all(
+                r["batch"]["publish_blocks"]
+                == list(range(SHARDED_BATCH_MESH[1])) for r in ranks)})
     devices = {r.get("device") for r in ranks}
     out = {"phase": "sharded", "card": card,
            "note": "four ranks time-sliced on one card: times are not a "
@@ -4166,7 +4473,9 @@ def phase_sharded(host_db, host_lwe, card) -> dict:
            "ranks_per_card": SHARDED_RANKS // max(1, len(devices)),
            "gloo_cuda": ranks[0].get("gloo_cuda"), "checks": checks,
            "ranks": [{k: r.get(k) for k in ("rank", "device", "ok", "error",
-                                            "meshes")} for r in ranks],
+                                            "meshes", "batch",
+                                            "peak_device_bytes")}
+                     for r in ranks],
            "seconds": time.perf_counter() - t_phase}
     emit(out)
     if failed:
@@ -5786,7 +6095,7 @@ def main() -> int:
     del db, kept, database_w128, host128
     gc.collect()
     torch.cuda.empty_cache()
-    launches_batch = phase_batch(PIR_1G_BATCH, info["card"], device)
+    launches_batch, layout = phase_batch(PIR_1G_BATCH, info["card"], device)
     gc.collect()
     torch.cuda.empty_cache()
     host_lwe, database_lwe, a = phase_database_lwe(PIR_128M_LWE, device)
@@ -5821,8 +6130,8 @@ def main() -> int:
     launches_replicas = phase_replicas(
         host_db, cfg, host_chk, replace(cfg, checksum=True), info["card"])
     # A6b's serving path: the database sharded over four ranks on this card
-    phase_sharded(host_db, host_lwe, info["card"])
-    del host_db, host_chk, host_lwe
+    phase_sharded(host_db, host_lwe, layout, info["card"])
+    del host_db, host_chk, host_lwe, layout
     # the dense LM last, once the fleets are released: qwen3-4b's weights
     # (8.8 GB) and its 1.25 GiB embedding table served through xor-dpf-2
     worst_lm, launches_lm = phase_lm(LM_ARCH, info["card"], device)

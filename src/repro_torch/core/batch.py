@@ -78,6 +78,10 @@ class CuckooFailure(RuntimeError):
         super().__init__(msg)
         self.index = index
 
+    def __reduce__(self):
+        # pickled whole: a mesh's first rank broadcasts a failed plan
+        return type(self), (str(self), self.index)
+
 
 @dataclass(frozen=True)
 class CuckooParams:

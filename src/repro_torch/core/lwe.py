@@ -28,7 +28,8 @@ size=(N, n), dtype=np.uint64)`` call draws it: that call takes one 32-bit
 output of PCG64 per entry, two per 64-bit step, so rows ``[r0, r1)`` are a
 fresh generator advanced by ``r0 * n / 2`` steps. ``matrix_a_device``
 draws row chunks that way on several host threads and copies each chunk
-to the device as int32, so the host never holds the whole matrix.
+to the device as int32, so the host never holds the whole matrix; a row
+block of a database sharded over a mesh draws only its own rows.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ import threading
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -156,31 +157,42 @@ _A_LOCK = threading.Lock()
 
 
 def matrix_a_device(params: LWEParams, n_items: int,
-                    device: Device = None) -> torch.Tensor:
+                    device: Device = None, *,
+                    rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """A as an int32 ``[N, n]`` tensor on ``device`` (same bits as
     :func:`matrix_a`), drawn in row chunks of ``A_CHUNK_ROWS`` on up to one
-    host thread per core and copied chunk by chunk.
+    host thread per core and copied chunk by chunk. With ``rows=(r0, r1)``
+    only those rows, ``[r1 - r0, n]``: a database's row block on a mesh
+    draws its own rows, never the whole matrix; where the whole matrix is
+    already cached on the device (the client's rank), the block is a view
+    of it.
 
-    Cached per (seed, n, N, device), as the reference caches per
+    Cached per (seed, n, N, rows, device), as the reference caches per
     (seed, n, N): the client's encryption and the hint builder share it.
     """
     # the device a tensor lands on ("cuda" -> "cuda:0"), so that every
     # caller's spelling of one card finds the same copy
     dev = torch.empty(0, device=resolve_device(device)).device
-    key = (params.a_seed, params.n, n_items, str(dev))
+    r0, r1 = (0, n_items) if rows is None else rows
+    if not 0 <= r0 < r1 <= n_items:
+        raise ValueError(f"rows {rows} outside [0, {n_items})")
+    whole = (params.a_seed, params.n, n_items, (0, n_items), str(dev))
+    key = whole[:3] + ((r0, r1), str(dev))
     with _A_LOCK:
-        if key in _A_CACHE:
-            _A_CACHE.move_to_end(key)
-            return _A_CACHE[key]
+        for k in (key, whole):
+            if k in _A_CACHE:
+                _A_CACHE.move_to_end(k)
+                a = _A_CACHE[k]
+                return a if k == key else a[r0:r1]
         n = params.n
-        out = torch.empty((n_items, n), dtype=torch.int32, device=dev)
+        out = torch.empty((r1 - r0, n), dtype=torch.int32, device=dev)
         step = A_CHUNK_ROWS + (A_CHUNK_ROWS * n) % 2     # whole 64-bit steps
-        starts = range(0, n_items, step)
+        starts = range(r0, r1, step)
 
-        def fill(r0: int):
-            r1 = min(r0 + step, n_items)
-            rows = matrix_a_rows(params.a_seed, n, r0, r1)
-            out[r0:r1].copy_(torch.from_numpy(rows.view(np.int32)))
+        def fill(c0: int):
+            c1 = min(c0 + step, r1)
+            chunk = matrix_a_rows(params.a_seed, n, c0, c1)
+            out[c0 - r0:c1 - r0].copy_(torch.from_numpy(chunk.view(np.int32)))
 
         workers = max(1, min(len(starts), os.cpu_count() or 1))
         with ThreadPoolExecutor(max_workers=workers) as pool:
@@ -333,34 +345,46 @@ def hint_build_fn(params: LWEParams, n_items: int):
     H = A^T.D is computed as (D^T.A)^T, so the product has the answer's
     shape family (small M, long K) and A is read as stored (``[N, n]``
     row-major); A comes from :func:`matrix_a_device` on the words' device.
+
+    ``row0`` is the global row of ``words[0]``: a row block of a database
+    sharded over a mesh passes its first row and gets its block's partial
+    ``A_block^T.D_block`` (rows of A drawn for the block alone), which the
+    database sums over the blocks; 0, the whole database, off a mesh.
     """
-    def build(words: torch.Tensor) -> torch.Tensor:
+    def build(words: torch.Tensor, row0: int = 0) -> torch.Tensor:
         from repro_torch.crypto.packing import words_to_bytes_i32
         from repro_torch.kernels import ops
-        a = matrix_a_device(params, n_items, words.device)    # [N, n]
-        d_t = words_to_bytes_i32(words).t().contiguous()      # [L, N]
+        a = matrix_a_device(params, n_items, words.device,
+                            rows=(row0, row0 + words.shape[0]))  # [B, n]
+        d_t = words_to_bytes_i32(words).t().contiguous()      # [L, B]
         return ops.lwe_gemm(d_t, a).t().contiguous()          # [n, L]
 
     return build
 
 
 def hint_delta_operands(params: LWEParams, n_items: int, rows,
-                        old_words: torch.Tensor, new_words: torch.Tensor
+                        old_words: torch.Tensor, new_words: torch.Tensor,
+                        row0: int = 0, n_rows: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The two operands of a hint delta's int32 GEMM: ``Delta^T [L, R4]``
     (the byte changes of the published rows, zero rows up to R4, the next
     multiple of 4, which the kernel needs for K) and ``A[rows] [R4, n]``
-    (zero rows past R), on the words' device."""
+    (zero rows past R), on the words' device. ``rows`` are global; their
+    rows of A come from the block ``[row0, row0 + n_rows)`` that holds
+    them (the whole of A off a mesh)."""
     from repro_torch.crypto.packing import words_to_bytes_i32
     dev = new_words.device
-    a = matrix_a_device(params, n_items, dev)                    # [N, n]
+    n_rows = n_items - row0 if n_rows is None else n_rows
+    a = matrix_a_device(params, n_items, dev,
+                        rows=(row0, row0 + n_rows))              # [B, n]
     d = words_to_bytes_i32(new_words) - words_to_bytes_i32(old_words)
     r = d.shape[0]
     r4 = -(-r // 4) * 4
     d_t = torch.zeros((d.shape[1], r4), dtype=torch.int32, device=dev)
     d_t[:, :r] = d.t()
     a_rows = torch.zeros((r4, a.shape[1]), dtype=torch.int32, device=dev)
-    a_rows[:r] = a[torch.as_tensor(np.asarray(rows, np.int64), device=dev)]
+    a_rows[:r] = a[torch.as_tensor(np.asarray(rows, np.int64) - row0,
+                                   device=dev)]
     return d_t, a_rows
 
 
@@ -375,13 +399,16 @@ def hint_delta_fn(params: LWEParams, n_items: int):
     the update is ``Delta^T . A[rows]`` (``[L, R] x [R, n]``), one call of
     the int32 GEMM, whose kernel needs K = R to be a multiple of 4: Delta
     takes zero rows up to R4, paired with zero rows of A, which add
-    nothing (:func:`hint_delta_operands`).
+    nothing (:func:`hint_delta_operands`). On a mesh, ``row0`` and
+    ``n_rows`` name the row block that holds ``rows`` (global indices),
+    whose rows of A are the only ones drawn.
     """
     def delta(hint: torch.Tensor, rows, old_words: torch.Tensor,
-              new_words: torch.Tensor) -> torch.Tensor:
+              new_words: torch.Tensor, row0: int = 0,
+              n_rows: Optional[int] = None) -> torch.Tensor:
         from repro_torch.kernels import ops
         d_t, a_rows = hint_delta_operands(params, n_items, rows, old_words,
-                                          new_words)
+                                          new_words, row0, n_rows)
         return hint + ops.lwe_gemm(d_t, a_rows).t()              # [n, L]
 
     return delta

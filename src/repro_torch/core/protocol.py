@@ -42,6 +42,7 @@ from repro_torch.crypto.chacha import PRG_ROUNDS
 from repro_torch.crypto.packing import records_to_host
 from repro_torch.db.spec import IntegrityError, verify_records
 from repro_torch.kernels.dpxor import xor_fold
+from repro_torch.launch.mesh import all_reduce_sum, on_transport
 
 #: the reference's GEMM reduction tile default (``engine/kernels.py:153``),
 #: pinned on additive and LWE plans; it legalizes chunk_log to 10 at 2^25
@@ -296,12 +297,16 @@ class PIRProtocol:
 
     # -- hint lifecycle (hint protocols only) ---------------------------
     def hint_builder(self, cfg: PIRConfig):
-        """``words [N, W] -> hint``, a full rebuild on the device."""
+        """``words [N, W] -> hint``, a full rebuild on the device; with
+        ``row0=`` a row block's partial, which a database sharded over a
+        mesh sums over its blocks."""
         raise NotImplementedError(f"{self.name} has no hint")
 
     def hint_delta(self, cfg: PIRConfig):
         """``(hint, rows, old_words, new_words) -> new hint``, exact; None
-        where the hint can only be rebuilt (``protocol.py:310`` upstream)."""
+        where the hint can only be rebuilt (``protocol.py:310`` upstream).
+        On a mesh it also takes ``row0=`` / ``n_rows=``, the block that
+        holds ``rows``."""
         return None
 
     # -- batching -------------------------------------------------------
@@ -349,16 +354,6 @@ def _xor_scan(db_local: torch.Tensor, bits: torch.Tensor,
         from repro_torch.kernels import ops
         return ops.dpxor(db_local, bits)
     return pir.dpxor(db_local, bits)
-
-
-def on_transport(fn, x: torch.Tensor, group) -> torch.Tensor:
-    """``fn(x)`` run on the tensor where the group's backend takes it: gloo
-    takes no CUDA tensor for point-to-point ops, so under gloo a card's
-    tensor goes to the host and the result comes back
-    (``launch/mesh.py transport_of``)."""
-    if x.is_cuda and dist.get_backend(group) == "gloo":
-        return fn(x.cpu()).to(x.device)
-    return fn(x)
 
 
 def all_gather_stack(x: torch.Tensor, group) -> torch.Tensor:
@@ -416,16 +411,6 @@ def _xor_reduce(partial_res: torch.Tensor, axis, n_shards: int,
     if plan.collective == "butterfly":
         return xor_allreduce_butterfly(partial_res, axis, n_shards)
     return xor_allreduce_gather(partial_res, axis)
-
-
-def _sum_reduce(partial_res: torch.Tensor, axis) -> torch.Tensor:
-    """int32 SUM all-reduce; it wraps mod 2^32 as the reference's ``psum``
-    does (Z_256 shares keep their value mod 256, LWE answers are mod q)."""
-    def allreduce(x):
-        x = x.clone()
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=axis)
-        return x
-    return on_transport(allreduce, partial_res, axis)
 
 
 def _dpf_key_specs(cfg: PIRConfig, n_queries: int, *, party: int,
@@ -582,7 +567,9 @@ class AdditiveDpf2(PIRProtocol):
         return _dpf_key_specs(cfg, n_queries, party=party, with_payload=True)
 
     def reduce(self, partial_res, axis, n_shards, plan):
-        return _sum_reduce(partial_res, axis)
+        # int32 wraps mod 2^32 as the reference's psum: shares keep their
+        # value mod 256
+        return all_reduce_sum(partial_res, axis)
 
     def expand_local(self, keys_local, start_block, log_local, plan):
         return dpf.eval_bytes_batch(keys_local, start_block, log_local)
@@ -868,7 +855,7 @@ class LweSimple1(PIRProtocol):
             log_n=cfg.log_n, n=self._params(cfg).n)
 
     def reduce(self, partial_res, axis, n_shards, plan):
-        return _sum_reduce(partial_res, axis)     # wraps mod q = 2^32
+        return all_reduce_sum(partial_res, axis)  # wraps mod q = 2^32
 
     def answer_local(self, db_local, keys_local, start_block, log_local,
                      plan):
@@ -891,7 +878,7 @@ class LweSimple1(PIRProtocol):
         from repro_torch.kernels.lwe_matmul import lwe_gemm_plain
         return lwe_gemm_plain(selection, db_local)
 
-    # -- hint lifecycle -------------------------------------------------
+    # -- hint lifecycle: a row block's offset passes through to A -------
     def hint_builder(self, cfg: PIRConfig):
         return lwe.hint_build_fn(self._params(cfg), cfg.n_items)
 

@@ -202,38 +202,60 @@ class BucketedServeFns:
                      ) -> torch.Tensor:
         """Answer a batch spread over same-shape views (the batch plane's
         buckets): queries ``[b*R, (b+1)*R)`` of ``keys`` against
-        ``views[b]``, as ``[B, R, cols]`` (async on the card).
+        ``views[b]``, as ``[B, R, cols]`` (async on the card). Each view's
+        queries are padded to the bucket of R, as :meth:`answer` pads.
 
         Under a ``materialize`` plan the views' queries share the leaf
         expansion (``expand_local``), one pass per ``EXPAND_LEAVES``
         leaves instead of one per view; the scan (``scan_local``) runs per
-        view. Other plans answer view by view, as :meth:`answer` does.
+        view. Other plans answer view by view.
+
+        On a mesh each view is this rank's row block of a bucket: the rank
+        answers its cluster's queries of every view against its block
+        (``start_block`` = its shard), then the stacked ``[B, R/C, cols]``
+        partials take **one** protocol reduce over the shard axis and one
+        gather over the clusters, whatever B is. The one-controller half
+        of ROADMAP's A6b-serve-2 (sessions, lanes, chaos) is refused by
+        the facades, not here.
         """
-        if self.n_shards > 1:
-            raise NotImplementedError(
-                "answer_views over a sharded database is not ported (ROADMAP "
-                "A6b-serve-2: the batch plane over a mesh)")
         n_views = len(views)
         q = self.protocol.n_queries(keys)
         if q % n_views:
             raise ValueError(f"{q} queries do not split over {n_views} views")
         r = q // n_views
-        keys = keys.to(views[0].device)
-        part = lambda lo, hi: map_keys(keys, lambda x: x[lo * r:hi * r])
-        plan = self.step_for(self.bucket_for(r))
+        dev = views[0].device
+        max_b = self.buckets[-1]
+        if r > max_b:                    # past the largest bucket: chunks
+            return torch.cat([self.answer_views(views, map_keys(
+                keys, lambda x, lo=lo: x.reshape(n_views, r, *x.shape[1:])[
+                    :, lo:lo + max_b].flatten(0, 1)))
+                for lo in range(0, r, max_b)], dim=1)
+        bucket = self.bucket_for(r)
+        plan = self.step_for(bucket)
+        # this rank's cluster's slots of each view's padded queries, one
+        # gather for all views (a pad slot repeats its view's last query)
+        per = bucket // self.n_clusters
+        slot = torch.arange(self.cluster * per, (self.cluster + 1) * per)
+        idx = (torch.arange(n_views)[:, None] * r
+               + slot.clamp(max=r - 1)[None, :]).flatten()
+        keys = map_keys(keys.to(dev), lambda x: x[idx.to(x.device)])
+        part = lambda lo, hi: map_keys(keys, lambda x: x[lo * per:hi * per])
         if plan.expand != "materialize":
-            return torch.stack([self.answer(v, part(b, b + 1))
-                                for b, v in enumerate(views)])
-        per = max(1, EXPAND_LEAVES // (r * views[0].shape[0]))
-        out = []
-        for lo in range(0, n_views, per):
-            hi = min(lo + per, n_views)
-            sel = self.protocol.expand_local(part(lo, hi), 0, self.log_local,
-                                             plan)
-            out.extend(self.protocol.scan_local(
-                views[b], sel[(b - lo) * r:(b - lo + 1) * r], plan)
-                for b in range(lo, hi))
-        return torch.stack(out)
+            out = [self.protocol.answer_local(v, part(b, b + 1),
+                                              self.shard_index,
+                                              self.log_local, plan)
+                   for b, v in enumerate(views)]
+        else:
+            chunk = max(1, EXPAND_LEAVES // (per * views[0].shape[0]))
+            out = []
+            for lo in range(0, n_views, chunk):
+                hi = min(lo + chunk, n_views)
+                sel = self.protocol.expand_local(
+                    part(lo, hi), self.shard_index, self.log_local, plan)
+                out.extend(self.protocol.scan_local(
+                    views[b], sel[(b - lo) * per:(b - lo + 1) * per], plan)
+                    for b in range(lo, hi))
+        return self.combine(torch.stack(out), plan)[:, :r]
 
     def local_answer(self, db: torch.Tensor, keys: Keys
                      ) -> Tuple[torch.Tensor, ExecutionPlan]:
@@ -255,7 +277,8 @@ class BucketedServeFns:
                 ) -> torch.Tensor:
         """Steps 3-4: the protocol's reduce over the shard axis, then the
         clusters' answers gathered (innermost cluster axis first, so the
-        rows come in cluster order); the identity off a mesh."""
+        rows come in cluster order); the identity off a mesh. The partial
+        is ``[Q/C, cols]``, or ``[B, Q/C, cols]`` for B views at once."""
         if not self.sharded:
             return partial_res
         out = partial_res
@@ -265,7 +288,8 @@ class BucketedServeFns:
         for axis in reversed(pir_cluster_axes(self.mesh)):
             if mesh_axis_size(self.mesh, axis) > 1:
                 out = protocol_mod.all_gather_stack(
-                    out, self.mesh.group(axis)).flatten(0, 1)
+                    out, self.mesh.group(axis)).movedim(0, -3).flatten(-3,
+                                                                       -2)
         return out
 
     def _answer_one(self, db: torch.Tensor, keys: Keys) -> torch.Tensor:

@@ -16,6 +16,14 @@ copy-on-publish, so only those buckets are cloned), and the outer lock is
 held only to swap them all, so a ``snapshot`` sees all B buckets at one
 version. Memory: B · capacity stored rows, about 2 · n_hashes · N
 (replication times the power-of-two rounding).
+
+On a mesh (``mesh=``, as upstream's ``BucketedDatabase(..., mesh)``) each
+bucket is a ``Database(..., mesh=mesh)``: rank ``(c, d)`` holds rows
+``[d·C/P, (d+1)·C/P)`` of every bucket's ``capacity`` C, and reads only
+those rows of the host store (a memory-mapped file is read once per block,
+never gathered whole). ``stage`` / ``publish`` are SPMD: every rank calls
+them with the same arguments and keeps the same outer epoch. A prebuilt
+``layout`` saves each rank the host layout's build.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from repro_torch.core.batch import CuckooLayout, CuckooParams
 from repro_torch.db.sharded import Database, TransferStats
 from repro_torch.db.spec import DatabaseSpec
 from repro_torch.engine.backend import Device, resolve_device
+from repro_torch.launch.mesh import Mesh, mesh_axis_size, pir_shard_axis
 
 
 class BucketedDatabase:
@@ -43,9 +52,12 @@ class BucketedDatabase:
 
     def __init__(self, db_words: np.ndarray, cfg: PIRConfig,
                  device: Device = None,
-                 layout: Optional[CuckooLayout] = None):
+                 layout: Optional[CuckooLayout] = None, *,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
         self.params = CuckooParams.from_config(cfg).validate()
         self.spec = DatabaseSpec.from_config(cfg)       # outer, logical
         if layout is None:
@@ -82,11 +94,19 @@ class BucketedDatabase:
         self._epoch = 0
         self._n_staged_logical = 0
         w = self.spec.item_words
+        # this rank's slots of every bucket (all of them off a mesh); the
+        # rest of a bucket's host rows stay unwritten zero pages
+        n_shards = mesh_axis_size(mesh, pir_shard_axis(mesh)) if mesh else 1
+        block = self.inner_spec.rows_per_shard(n_shards)
+        lo = (mesh.coord(pir_shard_axis(mesh)) if mesh else 0) * block
         buckets = []
         for rows in layout.bucket_rows:
             rows_host = np.zeros((layout.capacity, w), np.uint32)
-            rows_host[:len(rows)] = host[rows]
-            buckets.append(Database(rows_host, self.inner_cfg, self.device))
+            mine = rows[lo:lo + block]
+            rows_host[lo:lo + len(mine)] = host[mine]
+            buckets.append(Database(rows_host, self.inner_cfg,
+                                    None if mesh else self.device,
+                                    mesh=mesh))
         self.buckets: Tuple[Database, ...] = tuple(buckets)
 
     # -- geometry -------------------------------------------------------

@@ -50,8 +50,14 @@ device, ``B = spec.rows_per_shard(P)``, and every view is that block.
 Every rank constructs the database and calls ``stage`` / ``publish`` with
 the same arguments (SPMD): the staged log is the whole public delta, each
 rank scatters the rows its block owns, and every rank advances the epoch
-in lockstep, whether or not its block changed. The LWE hint needs the
-whole database, so ``register_hint`` refuses a mesh with P > 1.
+in lockstep, whether or not its block changed. A hint on a mesh of P > 1
+blocks is built per block and summed: each rank builds its block's
+partial (the LWE hint's ``A_block^T.D_block``, from the rows of A its
+block owns) and a SUM all-reduce over the ``model`` group makes the whole
+hint on every rank, replicated over the clusters as upstream's hint is; a
+publish's delta is summed the same way, a block the delta misses adding
+a zero partial, so every rank makes the same collectives in the same
+order.
 """
 from __future__ import annotations
 
@@ -66,8 +72,9 @@ from repro_torch.config import PIRConfig
 from repro_torch.crypto.packing import words_to_tensor
 from repro_torch.db.spec import DatabaseSpec
 from repro_torch.engine.backend import Device, resolve_device
-from repro_torch.launch.mesh import (Mesh, mesh_axis_size, pir_cluster_axes,
-                                     pir_shard_axis, single_mesh)
+from repro_torch.launch.mesh import (Mesh, all_reduce_sum, mesh_axis_size,
+                                     pir_cluster_axes, pir_shard_axis,
+                                     single_mesh)
 
 
 @dataclass
@@ -316,14 +323,23 @@ class Database:
         optional exact ``delta(hint, rows, old_words, new_words)``.
         Re-registering a name replaces the spec and keeps built hints.
 
-        A hint is built over the whole database, so a database sharded
-        over more than one block refuses it (``NotImplementedError``): the
-        LWE hint on a mesh is ROADMAP's A6b-serve-2."""
-        if self.n_shards > 1:
-            raise NotImplementedError(
+        On a mesh of P > 1 row blocks a hint must be additive over the
+        blocks: the database calls ``build(block, row0=)`` (``row0`` the
+        block's first global row) for its block's partial and
+        ``delta(zeros, rows, old_words, new_words, row0=, n_rows=)`` for
+        the change of the published rows its block holds, and sums the
+        partials over the ``model`` process group (an int32 hint wraps mod
+        2^32). Building a hint is then a collective, so every rank must
+        ask for it at the same call, as SPMD callers do
+        (``SingleServerPIR``'s finalize); a mesh without that group
+        refuses the hint (``ValueError``). What a mesh still refuses is
+        the one-controller half of ROADMAP's A6b-serve-2 (sessions,
+        lanes, chaos), in the facades."""
+        if self.n_shards > 1 and self.mesh.group(self.shard_axis) is None:
+            raise ValueError(
                 f"a hint over a database sharded in {self.n_shards} blocks "
-                f"is not ported (ROADMAP A6b-serve-2: the LWE hint on a "
-                f"mesh)")
+                f"sums the blocks' partials over the mesh's "
+                f"{self.shard_axis!r} process group, and this mesh has none")
         with self._lock:
             self._hint_specs[name] = _HintSpec(build=build, delta=delta)
 
@@ -331,17 +347,24 @@ class Database:
              ) -> torch.Tensor:
         """The device-resident hint of one epoch (current or retired),
         built on first use; ``KeyError`` for an unregistered name or an
-        epoch not resident."""
+        epoch not resident. On a mesh the first use is a collective."""
         with self._lock:
             if name not in self._hint_specs:
                 raise KeyError(f"unknown hint {name!r}; registered: "
                                f"{sorted(self._hint_specs)}")
             holder = self._holder(epoch)
             if name not in holder.hints:
-                holder.hints[name] = self._hint_specs[name].build(
-                    holder.views["words"])
+                build, words = self._hint_specs[name].build, \
+                    holder.views["words"]
+                holder.hints[name] = (
+                    build(words) if self.n_shards == 1
+                    else self._shard_sum(build(words, row0=self.rows[0])))
                 self.stats.n_hint_builds += 1
             return holder.hints[name]
+
+    def _shard_sum(self, partial: torch.Tensor) -> torch.Tensor:
+        """The blocks' partials summed over the ``model`` group."""
+        return all_reduce_sum(partial, self.mesh.group(self.shard_axis))
 
     # -- epoched online updates -----------------------------------------
 
@@ -432,9 +455,8 @@ class Database:
         mine = (rows >= lo) & (rows < hi)
         new_views, new_hints = dict(views), {}
         if mine.any():
-            local = rows[mine] - lo
             stored = self.spec.attach_checksums(vals[mine])   # stored width
-            idx32 = np.ascontiguousarray(local, np.int32)
+            idx32 = np.ascontiguousarray(rows[mine] - lo, np.int32)
             idx = torch.from_numpy(idx32).to(self.device).long()
             new_words = words_to_tensor(stored, self.device)
             self.stats.update_h2d_bytes += idx32.nbytes + stored.nbytes
@@ -444,9 +466,17 @@ class Database:
                 new_views[name] = tensor.clone().index_copy_(0, idx, rows_v)
                 self.stats.clone_device_bytes += \
                     tensor.numel() * tensor.element_size()
-            for name, (h, delta) in delta_hints.items():
-                new_hints[name] = delta(h, local, old_words, new_words)
-                self.stats.n_hint_deltas += 1
+        for name, (h, delta) in delta_hints.items():
+            if self.n_shards == 1:
+                new_hints[name] = delta(h, rows, old_words, new_words)
+            else:
+                # this block's change (zero where the delta misses it),
+                # summed over the blocks on every rank
+                part = (delta(torch.zeros_like(h), rows[mine], old_words,
+                              new_words, row0=lo, n_rows=hi - lo)
+                        if mine.any() else torch.zeros_like(h))
+                new_hints[name] = h + self._shard_sum(part)
+            self.stats.n_hint_deltas += 1
         epoch = base.epoch + 1
         return _Pending(base=base,
                         new=_Epoch(epoch=epoch, views=new_views,

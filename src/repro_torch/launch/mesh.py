@@ -122,6 +122,36 @@ def init_distributed(rank: int, world_size: int, init_method: str, *,
     return backend
 
 
+def on_transport(fn, x: torch.Tensor, group) -> torch.Tensor:
+    """``fn(x)`` run on the tensor where the group's backend takes it: gloo
+    takes no CUDA tensor for point-to-point ops, so under gloo a card's
+    tensor goes to the host and the result comes back
+    (:func:`transport_of`)."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        return fn(x.cpu()).to(x.device)
+    return fn(x)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """A SUM all-reduce of ``x`` over ``group`` into a new tensor (``x`` is
+    left as it was); int32 wraps mod 2^32, as the reference's ``psum``."""
+    def allreduce(t):
+        t = t.clone()
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        return t
+    return on_transport(allreduce, x, group)
+
+
+def broadcast_from(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Global rank ``src``'s ``x`` on every rank of ``group``: the others
+    pass a buffer of its shape and dtype, which is filled."""
+    def bcast(t):
+        t = t.contiguous()
+        dist.broadcast(t, src=src, group=group)
+        return t
+    return on_transport(bcast, x, group)
+
+
 def transport_of(backend: Optional[str], device: torch.device) -> str:
     """Where a collective's operand travels: ``"host"`` for gloo on the
     card (copied to the host and back), ``"device"`` otherwise, and

@@ -19,6 +19,15 @@ leaves are expanded together (``BucketedServeFns.answer_views``; the
 reference answers bucket by bucket) and each bucket is scanned on its own,
 and the B answers are stacked on the device, so that finalize pays one
 device-to-host copy per party.
+
+On a mesh (``mesh=``, SPMD as ``MultiServerPIR``'s): the buckets are
+sharded over the ``model`` axis (``BucketedDatabase(mesh=)``), each rank
+answers its block of every bucket and each party's dispatch makes one
+cross-shard reduce for all B buckets. A round is planned on the mesh's
+first rank and broadcast, a ``CuckooFailure`` included, so every rank
+takes the same halving in ``query_batch``. Still refused there, as the
+one-controller half of ROADMAP's A6b-serve-2: a session (``start`` /
+``submit``) and ``n_clusters`` lanes.
 """
 from __future__ import annotations
 
@@ -38,8 +47,10 @@ from repro_torch.core.server import BucketedServeFns
 from repro_torch.crypto.packing import records_to_host
 from repro_torch.db import BucketedDatabase
 from repro_torch.engine.backend import Device, backend_of
-from repro_torch.runtime.serve_loop import (DEFAULT_MAX_WAIT_S, AnswerFuture,
-                                            MultiServerPIR, QueryScheduler)
+from repro_torch.launch.mesh import Mesh
+from repro_torch.runtime.serve_loop import (DEFAULT_MAX_WAIT_S, MESH_REFUSED,
+                                            AnswerFuture, MultiServerPIR,
+                                            QueryScheduler)
 
 
 class BatchPIR(MultiServerPIR):
@@ -61,7 +72,9 @@ class BatchPIR(MultiServerPIR):
     straggler shedding as for every facade; the lanes are logical, on one
     device and one stream, and each dispatch reads its own snapshot.
     ``path=None`` resolves each bucket's plan through the engine at the
-    bucket shape (``inner_cfg``).
+    bucket shape (``inner_cfg``). ``mesh`` shards the buckets over its
+    ranks (module docstring; a prebuilt database must be placed on it) and
+    ``collective`` is the XOR schemes' reduce over the shard axis.
     """
 
     def __init__(self, db_words, cfg: PIRConfig, *, device: Device = None,
@@ -70,12 +83,17 @@ class BatchPIR(MultiServerPIR):
                  n_clusters: int = 1,
                  protocol: Optional[PIRProtocol] = None,
                  client_rng: Optional[np.random.Generator] = None,
-                 default_deadline_s: Optional[float] = None):
+                 default_deadline_s: Optional[float] = None,
+                 mesh: Optional[Mesh] = None, collective: str = "gather"):
         if cfg.batch_m < 1:
             raise ValueError(
                 f"BatchPIR needs cfg.batch_m >= 1 (got {cfg.batch_m}); "
                 f"use MultiServerPIR for single-query serving")
         self.cfg = cfg
+        self.mesh = mesh
+        self.spmd = mesh is not None and mesh.size > 1
+        if self.spmd and n_clusters != 1:
+            raise ValueError(MESH_REFUSED.format("n_clusters lanes"))
         self.protocol = (protocol if protocol is not None
                          else protocol_mod.for_config(cfg))
         if self.protocol.needs_hint:
@@ -85,7 +103,10 @@ class BatchPIR(MultiServerPIR):
                 f"(xor-dpf-2, xor-dpf-k, additive-dpf-2)")
         self.n_parties = self.protocol.n_parties(cfg)
         self.db = (db_words if isinstance(db_words, BucketedDatabase)
-                   else BucketedDatabase(db_words, cfg, device))
+                   else BucketedDatabase(db_words, cfg, device, mesh=mesh))
+        if self.db.mesh != mesh:
+            raise ValueError("the bucketed database was placed on a "
+                             "different mesh than the serve steps run on")
         self.layout = self.db.layout
         #: the bucket shape the inner protocol keygens and serves against
         self.inner_cfg = self.db.inner_cfg
@@ -93,7 +114,8 @@ class BatchPIR(MultiServerPIR):
         self.serve = [
             BucketedServeFns(self.inner_cfg, buckets=rounds,
                              backend=backend_of(dev), path=path,
-                             protocol=self.protocol, device=dev)
+                             protocol=self.protocol, device=dev, mesh=mesh,
+                             collective=collective)
             for _ in range(self.n_parties)]
         self.rng = (client_rng if client_rng is not None
                     else np.random.default_rng())
@@ -178,9 +200,18 @@ class BatchPIR(MultiServerPIR):
                 f"batch of {len(set(request))} unique indices exceeds "
                 f"m={self.layout.params.m}")
         fut = self._deadline_future(deadline_s)
+
+        def draw():
+            try:
+                return plan_round(self.rng, request, self.layout,
+                                  self.inner_cfg, self.protocol)
+            except CuckooFailure as e:      # raised alike on every rank
+                return e
+
         with self._lock:    # keygen and the cuckoo walk share one rng
-            plan = plan_round(self.rng, request, self.layout,
-                              self.inner_cfg, self.protocol)
+            plan = self._drawn(draw)
+        if isinstance(plan, CuckooFailure):
+            raise plan
         return self.scheduler.submit(plan, future=fut)
 
     def query_batch(self, indices: Sequence[int]) -> np.ndarray:
@@ -218,6 +249,8 @@ class BatchPIR(MultiServerPIR):
                deadline_s: Optional[float] = None) -> AnswerFuture:
         """One index as a round of one real and B - 1 dummy queries (the
         servers see the same B-wide round as for a full batch)."""
+        if self.spmd:
+            raise ValueError(MESH_REFUSED.format("submit"))
         inner = self.submit_batch([index], deadline_s=deadline_s)
         fut = AnswerFuture(deadline=inner.deadline)
 

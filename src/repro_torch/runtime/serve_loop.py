@@ -37,10 +37,14 @@ facades run SPMD: every rank builds the facade and calls ``query``,
 sharded over the mesh and each party's ``PIRServer`` answers through the
 sharded step (``core/server.py``); the keys of a call are drawn on the
 mesh's first rank and broadcast, so a client rng that differs between
-ranks cannot split them, and every rank returns the records. What needs
-one controller is refused with a ``ValueError`` (ROADMAP A6b-serve-2): a
-session (``start`` / ``submit``), ``n_clusters`` lanes, ``chaos`` and
-``SingleServerPIR``.
+ranks cannot split them, and every rank returns the records.
+``SingleServerPIR`` serves the same way: rank 0 encrypts (A.s needs the
+whole of A, which only that rank draws) and broadcasts the ciphertexts and
+the client's secrets, the hint is built per row block and summed over the
+shard axis (``db/sharded.py``), and every rank decodes. What needs one
+controller is refused with a ``ValueError``: a session (``start`` /
+``submit``), ``n_clusters`` lanes and ``chaos`` (the one-controller half of
+ROADMAP's A6b-serve-2).
 """
 from __future__ import annotations
 
@@ -63,7 +67,7 @@ from repro_torch.core.server import PIRServer, bucket_for
 from repro_torch.crypto.packing import records_to_host
 from repro_torch.db import Database
 from repro_torch.engine.backend import Device
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, broadcast_from
 from repro_torch.runtime.fault import StragglerMonitor
 
 #: dispatch depth: one batch running on the card, one being staged
@@ -912,15 +916,20 @@ class SingleServerPIR(MultiServerPIR):
 
     The client encrypts on the database's device: ``A.s`` is one int32
     GEMM through ``ops.lwe_gemm``.
+
+    On a mesh (SPMD, module docstring) the client is the mesh's first
+    rank: it encrypts a call's queries there and broadcasts the whole
+    ``[Q, N]`` ciphertexts (each rank's answer reads its block's columns)
+    and the secrets; the hint, built per row block and summed, is the same
+    on every rank, so every rank decodes the records. The first query of
+    an epoch builds the hint in finalize, a collective every rank reaches
+    at the same batch.
     """
 
     _supports_hint_protocols = True
 
     def __init__(self, db_words, cfg: PIRConfig, *,
                  protocol: Optional[PIRProtocol] = None, **kwargs):
-        mesh = kwargs.get("mesh")
-        if mesh is not None and mesh.size > 1:
-            raise ValueError(MESH_REFUSED.format("SingleServerPIR"))
         proto = (protocol if protocol is not None
                  else protocol_mod.for_config(cfg))
         k = proto.n_parties(cfg)
@@ -986,6 +995,8 @@ class SingleServerPIR(MultiServerPIR):
         """Private retrieval of ``db[index]``; resolves to one record
         (``[L]`` uint8). The secret stays with the client: only the
         ciphertext reaches the device path."""
+        if self.spmd:
+            raise ValueError(MESH_REFUSED.format("submit"))
         fut = self._deadline_future(deadline_s)
         with self._lock:         # client-side keygen shares one rng
             keys, state = self.protocol.query_gen_full(
@@ -994,9 +1005,20 @@ class SingleServerPIR(MultiServerPIR):
 
     def _query_items(self, indices: List[int]) -> List[Any]:
         """``((ct,), state)`` per query, the whole call encrypted in one
-        batch on the database's device."""
-        (ct,), states = self.protocol.query_gen_batch_full(
+        batch on the database's device (on a mesh, on its first rank, then
+        broadcast: the states as objects, the ciphertexts as one int32
+        tensor)."""
+        first = not self.spmd or self.mesh.rank == self.mesh.ranks[0]
+        (ct,), states = (self.protocol.query_gen_batch_full(
             self.rng, indices, self.cfg, device=self.db.device)
+            if first else ((None,), None))
+        if self.spmd:
+            states = self._drawn(lambda: states)
+            spec = self.protocol.key_specs(self.cfg, len(indices))
+            buf = ct.ct if first else torch.empty(
+                spec.ct.shape, dtype=spec.ct.dtype, device=self.db.device)
+            ct = spec.map(lambda _: broadcast_from(
+                buf, self.mesh.ranks[0], self.mesh.all_group))
         return [((ct.map(lambda x, i=i: x[i]),), states[i])
                 for i in range(len(indices))]
 

@@ -27,8 +27,26 @@ JAX initializes):
   placement  ``ShardedDatabase`` on each mesh shape: every device's row
              range of each view (``{name}/{d}x{m}/{view}/rows``, device
              order), the words after each staged update is published
-             (``.../words{step}``, its epoch ``.../epoch{step}``) and a
+             (``.../words{step}``, its epoch ``.../epoch{step}``), the sum
+             of the words registered as a hint (``.../hint``) and a
              checksummed database's words (``.../chk_words``)
+  hint       ``ShardedDatabase`` on each mesh shape with the LWE hint
+             registered twice, with its delta (``delta``) and without
+             (``rebuilt``, dropped and rebuilt after a publish): both hints
+             at each epoch (``{name}/{d}x{m}/{hint}{step}``) and the
+             counters (``.../stats``: builds, deltas)
+  single     ``SingleServerPIR`` (``lwe-simple-1``) on each mesh shape
+             with a seeded client rng: the records of a query
+             (``{name}/{d}x{m}/q{step}``), then after each staged update is
+             published, with the epoch, the replicated hint
+             (``.../hint{step}``) and the database's hint counters
+             (``.../stats``: builds, deltas, client fetches)
+  batch      ``BatchPIR`` on each mesh shape with its ``rounds``: the
+             records of each query batch (``{name}/{d}x{m}/q{step}``, one
+             of them failing cuckoo placement and halved), before and after
+             a published update, the ``dispatch_log`` and the epoch; a
+             ``refusals`` list of (mesh, rounds) whose construction raises
+             (``{name}/refused/{d}x{m}``: the message)
 
 The port's tests read the file and compare with the same cases run over
 four ``gloo`` ranks.
@@ -189,13 +207,106 @@ def run_placement(case, out):
             database.stage(rows, vals)
             out[f"{tag}/epoch{step}"] = np.asarray(database.publish())
             out[f"{tag}/words{step}"] = np.asarray(database.view("words"))
+        database.register_hint("h", lambda w: w.sum())
+        out[f"{tag}/hint"] = np.asarray(database.hint("h"))
         chk = ShardedDatabase(db, replace(cfg, checksum=True), mesh)
         out[f"{tag}/chk_words"] = np.asarray(chk.view("words"))
 
 
+def run_hint(case, out):
+    from repro.core import pir, protocol as protocol_mod
+    from repro.db import ShardedDatabase
+    cfg = _cfg(case)
+    proto = protocol_mod.for_config(cfg)
+    db = pir.make_database(np.random.default_rng(case["db_seed"]),
+                           cfg.n_items, cfg.item_bytes)
+    for d, m in case["meshes"]:
+        tag = f"{case['name']}/{d}x{m}"
+        database = ShardedDatabase(db, cfg, _mesh((d, m)))
+        database.register_hint("delta", proto.hint_builder(cfg),
+                               proto.hint_delta(cfg))
+        database.register_hint("rebuilt", proto.hint_builder(cfg))
+        for step, upd in enumerate([None] + case["updates"]):
+            if upd is not None:
+                rows, seed = upd
+                database.stage(rows, _update_rows(cfg, rows, seed))
+                out[f"{tag}/epoch{step}"] = np.asarray(database.publish())
+            for name in ("delta", "rebuilt"):
+                out[f"{tag}/{name}{step}"] = np.asarray(database.hint(name))
+        st = database.stats
+        out[f"{tag}/stats"] = np.asarray([st.n_hint_builds,
+                                          st.n_hint_deltas])
+
+
+def _update_rows(cfg, rows, seed) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, 2 ** 32, size=(len(rows), cfg.item_bytes // 4),
+        dtype=np.uint64).astype(np.uint32)
+
+
+def run_single(case, out):
+    from repro.core import pir
+    from repro.runtime.serve_loop import SingleServerPIR
+    cfg = _cfg(case)
+    db = pir.make_database(np.random.default_rng(case["db_seed"]),
+                           cfg.n_items, cfg.item_bytes)
+    for d, m in case["meshes"]:
+        tag = f"{case['name']}/{d}x{m}"
+        system = SingleServerPIR(
+            db, cfg, _mesh((d, m)), n_queries=case["n_queries"],
+            client_rng=np.random.default_rng(case["key_seed"]))
+        out[f"{tag}/q0"] = system.query(case["indices"])
+        out[f"{tag}/epoch0"] = np.asarray(system.epoch)
+        out[f"{tag}/hint0"] = np.asarray(system.db.hint(cfg.protocol))
+        for step, (rows, seed) in enumerate(case["updates"], start=1):
+            system.update(rows, _update_rows(cfg, rows, seed))
+            out[f"{tag}/epoch{step}"] = np.asarray(system.publish())
+            out[f"{tag}/hint{step}"] = np.asarray(
+                system.db.hint(cfg.protocol))
+            out[f"{tag}/q{step}"] = system.query(rows + case["indices"])
+        st = system.db.stats
+        out[f"{tag}/stats"] = np.asarray(
+            [st.n_hint_builds, st.n_hint_deltas, system.hint_fetches])
+
+
+def _batch_cfg(case):
+    from repro.config import PIRConfig
+    return PIRConfig(n_items=case["n_items"], item_bytes=case["item_bytes"],
+                     protocol=case["protocol"], batch_m=case["batch_m"],
+                     batch_queries=1, checksum=case["checksum"])
+
+
+def run_batch(case, out):
+    from repro.core import pir
+    from repro.runtime.batch import BatchPIR
+    cfg = _batch_cfg(case)
+    db = pir.make_database(np.random.default_rng(case["db_seed"]),
+                           cfg.n_items, cfg.item_bytes)
+    for (d, m), rounds in case["meshes"]:
+        tag = f"{case['name']}/{d}x{m}"
+        system = BatchPIR(db, cfg, _mesh((d, m)), rounds=tuple(rounds),
+                          client_rng=np.random.default_rng(case["key_seed"]))
+        for step, idx in enumerate(case["queries"]):
+            out[f"{tag}/q{step}"] = system.query_batch(idx)
+        rows = case["update_rows"]
+        system.update(rows, _update_rows(cfg, rows, case["update_seed"]))
+        out[f"{tag}/epoch"] = np.asarray(system.publish())
+        out[f"{tag}/q_after"] = system.query_batch(rows)
+        out[f"{tag}/dispatch_log"] = np.asarray(system.dispatch_log)
+    for (d, m), rounds in case.get("refusals", ()):
+        try:
+            BatchPIR(db, cfg, _mesh((d, m)), rounds=tuple(rounds))
+            msg = ""
+        except ValueError as e:
+            msg = f"ValueError: {e}"
+        out[f"{case['name']}/refused/{d}x{m}"] = np.asarray(msg)
+
+
 RUNNERS = {"serve": run_serve, "allreduce": run_allreduce,
            "mesh": run_mesh, "report": run_report,
-           "placement": run_placement}
+           "placement": run_placement, "hint": run_hint,
+           "single": run_single,
+           "batch": run_batch}
 
 
 def main(argv):

@@ -298,6 +298,16 @@ def scenario_serve(spec) -> dict:
                 out[f"refused/{what}"] = None
             except (ValueError, NotImplementedError) as e:
                 out[f"refused/{what}"] = f"{type(e).__name__}: {e}"
+        case = spec["bucket_refusal"]
+        keys = port_keys(case, cfg)[0]
+        db = pir.make_database(np.random.default_rng(case["db_seed"]),
+                               cfg.n_items, cfg.item_bytes)
+        for d, m in MESHES:
+            database = Database(db, cfg, mesh=_mesh((d, m)))
+            out[f"views/{d}x{m}"] = _host(PIRServer(
+                0, database=database, cfg=cfg, mesh=_mesh((d, m)),
+                n_queries=8, path="baseline").bucketed.answer_views(
+                    [database.view()] * 2, keys))
     return out
 
 
@@ -310,8 +320,8 @@ def _host(t):
 
 def scenario_db(spec) -> dict:
     """``Database`` on each mesh: its block, the views, the placement, a
-    staged delta over every block published in lockstep, the hint
-    refusal, a checksummed and a tensor-fed placement."""
+    staged delta over every block published in lockstep, a hint summed
+    over the blocks, a checksummed and a tensor-fed placement."""
     import torch
     from dataclasses import replace
     from repro_torch.core import pir
@@ -354,11 +364,10 @@ def scenario_db(spec) -> dict:
         out[f"{tag}/heard"] = heard
         out[f"{tag}/published"] = [(p.epoch, p.rows.tolist(), p.n_staged)
                                    for p in database.published]
-        try:
-            database.register_hint("h", lambda w: w.sum())
-            out[f"{tag}/hint"] = int(database.hint("h"))
-        except NotImplementedError as e:
-            out[f"{tag}/hint"] = str(e)
+        # the sum of the words: additive over the blocks, so on a mesh each
+        # rank sums its block (row0 unused) and the partials are summed
+        database.register_hint("h", lambda w, row0=0: w.sum())
+        out[f"{tag}/hint"] = int(database.hint("h"))
         chk = Database(db, replace(cfg, checksum=True), mesh=mesh)
         out[f"{tag}/chk_words"] = _host(chk.view("words"))
         full = torch.from_numpy(db.view(np.int32).copy())
@@ -409,19 +418,203 @@ def scenario_facade(spec) -> dict:
         "submit": lambda: TwoServerPIR(db, cfg, mesh=mesh).submit(0),
         "lanes": lambda: TwoServerPIR(db, cfg, mesh=mesh, n_clusters=2),
         "chaos": lambda: TwoServerPIR(db, cfg, mesh=mesh, chaos=object()),
-        "single": lambda: SingleServerPIR(
-            db, replace(cfg, protocol="lwe-simple-1"), mesh=mesh)}
+        "single": lambda: SingleServerPIR(db, lwe_cfg, mesh=mesh).submit(0)}
+    lwe_cfg = replace(cfg, protocol="lwe-simple-1", n_servers=1)
     for what, fn in refusals.items():
         try:
             fn()
             out[f"refused/{what}"] = None
         except ValueError as e:
             out[f"refused/{what}"] = str(e)
+    single = SingleServerPIR(
+        db, lwe_cfg, mesh=mesh, n_queries=8, client_rng=np.random.default_rng(
+            spec["key_seed"]) if rank == 0 else None)
+    out["single/q0"] = single.query(spec["indices"])
     return out
 
 
+def _counting(obj, name: str, counter: list):
+    """Wrap ``obj.name`` so that each call appends to ``counter``; returns
+    the original, for the caller to put back."""
+    orig = getattr(obj, name)
+
+    def wrapped(*args, **kwargs):
+        counter.append(name)
+        return orig(*args, **kwargs)
+    setattr(obj, name, wrapped)
+    return orig
+
+
+def _update_vals(cfg, rows, seed) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, 2 ** 32, size=(len(rows), cfg.item_bytes // 4),
+        dtype=np.uint64).astype(np.uint32)
+
+
+def scenario_hint(spec) -> dict:
+    """A ``Database`` on each mesh with the LWE hint registered with its
+    delta and without: both at each epoch, summed over the blocks, and the
+    counters."""
+    from repro_torch.core import lwe, pir, protocol as protocol_mod
+    from repro_torch.db import Database
+    cfg = _cfg(spec)
+    proto = protocol_mod.for_config(cfg)
+    db = pir.make_database(np.random.default_rng(spec["db_seed"]),
+                           cfg.n_items, cfg.item_bytes)
+    out = {}
+    for d, m in spec["meshes"]:
+        tag = f"{spec['name']}/{d}x{m}"
+        lwe.clear_matrix_cache()
+        database = Database(db, cfg, mesh=_mesh((d, m)))
+        database.register_hint("delta", proto.hint_builder(cfg),
+                               proto.hint_delta(cfg))
+        database.register_hint("rebuilt", proto.hint_builder(cfg))
+        for step, upd in enumerate([None] + spec["updates"]):
+            if upd is not None:
+                rows, seed = upd
+                database.stage(rows, _update_vals(cfg, rows, seed))
+                out[f"{tag}/epoch{step}"] = database.publish()
+            for name in ("delta", "rebuilt"):
+                out[f"{tag}/{name}{step}"] = _host(database.hint(name))
+        st = database.stats
+        out[f"{tag}/stats"] = [st.n_hint_builds, st.n_hint_deltas]
+        out[f"{tag}/a_rows"] = sorted(k[3] for k in lwe._A_CACHE)
+    return out
+
+
+def scenario_single(spec) -> dict:
+    """``SingleServerPIR`` on each mesh with the client rng seeded on rank 0
+    only: the records, the epochs, the hint after each publish, the hint
+    counters, the rows of A each rank drew; the refusals left on a mesh
+    and a hint on a mesh without a ``model`` group."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import lwe, pir
+    from repro_torch.db import Database
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.runtime.serve_loop import SingleServerPIR
+    cfg = _cfg(spec)
+    db = pir.make_database(np.random.default_rng(spec["db_seed"]),
+                           cfg.n_items, cfg.item_bytes)
+    rank = dist.get_rank()
+    out = {}
+    for d, m in spec["meshes"]:
+        tag = f"{spec['name']}/{d}x{m}"
+        lwe.clear_matrix_cache()
+        system = SingleServerPIR(
+            db, cfg, mesh=_mesh((d, m)), n_queries=spec["n_queries"],
+            client_rng=np.random.default_rng(spec["key_seed"])
+            if rank == 0 else None)
+        out[f"{tag}/rows"] = system.db.rows
+        out[f"{tag}/q0"] = system.query(spec["indices"])
+        out[f"{tag}/epoch0"] = system.epoch
+        out[f"{tag}/hint0"] = _host(system.db.hint(cfg.protocol))
+        for step, (rows, seed) in enumerate(spec["updates"], start=1):
+            system.update(rows, _update_vals(cfg, rows, seed))
+            out[f"{tag}/epoch{step}"] = system.publish()
+            out[f"{tag}/hint{step}"] = _host(system.db.hint(cfg.protocol))
+            out[f"{tag}/q{step}"] = system.query(rows + spec["indices"])
+        st = system.db.stats
+        out[f"{tag}/stats"] = [st.n_hint_builds, st.n_hint_deltas,
+                               system.hint_fetches]
+        # the row ranges of A this rank holds: its block, or the whole
+        # matrix where it encrypted (a block of it is then a view)
+        out[f"{tag}/a_rows"] = sorted(k[3] for k in lwe._A_CACHE)
+        for what, fn in {"submit": lambda: system.submit(0),
+                         "session": system.start}.items():
+            try:
+                fn()
+                out[f"{tag}/refused/{what}"] = None
+            except ValueError as e:
+                out[f"{tag}/refused/{what}"] = str(e)
+    lwe.clear_matrix_cache()
+    bare = Mesh(axis_names=("data", "model"), sizes=(1, 4),
+                ranks=(0, 1, 2, 3), rank=rank, device=torch.device("cpu"))
+    try:
+        Database(db, cfg, mesh=bare).register_hint("h", lambda w, row0=0: w)
+        out[f"{spec['name']}/refused/no_group"] = None
+    except ValueError as e:
+        out[f"{spec['name']}/refused/no_group"] = str(e)
+    return out
+
+
+def scenario_batch(spec) -> dict:
+    """``BatchPIR`` on each mesh with its ``rounds`` and the client rng
+    seeded on rank 0 only: the records of each batch (one of them halved
+    after a failed cuckoo placement), an update over every block, the
+    ``dispatch_log``, the epoch, and this rank's calls of ``plan_round``,
+    of the protocol's ``reduce`` and of ``combine``; the refusals."""
+    import torch.distributed as dist
+    from repro_torch.config import PIRConfig
+    from repro_torch.core import pir, protocol as protocol_mod
+    from repro_torch.core.server import BucketedServeFns
+    from repro_torch.runtime import batch as runtime_batch
+    from repro_torch.runtime.batch import BatchPIR
+    rank = dist.get_rank()
+    out = {}
+    for case in spec["cases"]:
+        cfg = PIRConfig(n_items=case["n_items"],
+                        item_bytes=case["item_bytes"],
+                        protocol=case["protocol"], batch_m=case["batch_m"],
+                        batch_queries=1, checksum=case["checksum"])
+        db = pir.make_database(np.random.default_rng(case["db_seed"]),
+                               cfg.n_items, cfg.item_bytes)
+        proto = protocol_mod.for_config(cfg)
+        for (d, m), rounds in case["meshes"]:
+            tag = f"{case['name']}/{d}x{m}"
+            calls: list = []
+            undo = [(runtime_batch, "plan_round", _counting(
+                        runtime_batch, "plan_round", calls)),
+                    (BucketedServeFns, "combine", _counting(
+                        BucketedServeFns, "combine", calls))]
+            _counting(proto, "reduce", calls)     # undone by the del below
+            try:
+                system = BatchPIR(
+                    db, cfg, mesh=_mesh((d, m)), rounds=tuple(rounds),
+                    path=case.get("path"),
+                    client_rng=np.random.default_rng(case["key_seed"])
+                    if rank == 0 else None)
+                for step, idx in enumerate(case["queries"]):
+                    out[f"{tag}/q{step}"] = system.query_batch(idx)
+                rows = case["update_rows"]
+                system.update(rows, _update_vals(cfg, rows,
+                                                 case["update_seed"]))
+                out[f"{tag}/epoch"] = system.publish()
+                out[f"{tag}/q_after"] = system.query_batch(rows)
+                out[f"{tag}/dispatch_log"] = list(system.dispatch_log)
+                out[f"{tag}/rows"] = system.db.buckets[0].rows
+                for what in ("plan_round", "combine", "reduce"):
+                    out[f"{tag}/calls/{what}"] = calls.count(what)
+                try:
+                    system.submit(0)
+                    out[f"{tag}/refused/submit"] = None
+                except ValueError as e:
+                    out[f"{tag}/refused/submit"] = str(e)
+            finally:
+                for obj, name, orig in undo:
+                    setattr(obj, name, orig)
+                del proto.reduce
+        for (d, m), rounds in case.get("refusals", ()):
+            try:
+                BatchPIR(db, cfg, mesh=_mesh((d, m)), rounds=tuple(rounds))
+                out[f"{case['name']}/refused/{d}x{m}"] = ""
+            except ValueError as e:
+                out[f"{case['name']}/refused/{d}x{m}"] = f"ValueError: {e}"
+        if case.get("lanes"):
+            try:
+                BatchPIR(db, cfg, mesh=_mesh((1, 4)), n_clusters=2)
+                out[f"{case['name']}/refused/lanes"] = None
+            except ValueError as e:
+                out[f"{case['name']}/refused/lanes"] = str(e)
+    return out
+
+
+
 SCENARIOS = {"mesh": scenario_mesh, "serve": scenario_serve,
-             "db": scenario_db, "facade": scenario_facade}
+             "db": scenario_db, "facade": scenario_facade,
+             "lwe": lambda spec: {**scenario_hint(spec["hint"]),
+                                  **scenario_single(spec["single"])},
+             "batch": scenario_batch}
 
 
 def main(argv) -> int:

@@ -5,7 +5,8 @@ and a ``(2, 2)`` mesh and calls ``query``, ``update`` and ``publish`` with
 the same arguments; only rank 0's client rng is seeded, so the records
 come out right only because rank 0's keys are broadcast. Every rank gets
 the host rows, before and after an update whose rows span all four
-blocks, at the same epoch. What needs one controller is refused.
+blocks, at the same epoch. ``SingleServerPIR`` serves on a mesh too. What
+needs one controller is refused.
 """
 import numpy as np
 import pytest
@@ -68,9 +69,18 @@ def test_an_update_over_every_block_is_served(runs, rows, mesh, protocol):
 @pytest.mark.parametrize("what,name", [
     ("session", "a session"), ("submit", "submit"),
     ("lanes", "n_clusters lanes"), ("chaos", "chaos"),
-    ("single", "SingleServerPIR")])
+    # SingleServerPIR serves on a mesh; its streaming submit stays refused
+    ("single", "submit")])
 def test_one_controller_paths_are_refused_on_a_mesh(runs, what, name):
     for res in runs:
         msg = res[f"refused/{what}"]
         assert msg is not None and msg.startswith(name)
         assert "A6b-serve-2" in msg
+
+
+def test_single_server_serves_on_a_mesh(runs, rows):
+    # lwe-simple-1 on the (2, 2) mesh: rank 0 encrypts, every rank decodes
+    host, _ = rows
+    for res in runs:
+        assert np.array_equal(res["single/q0"],
+                              host[SPEC["indices"]].view(np.uint8))
