@@ -223,9 +223,22 @@ Then the single-server LWE scheme runs at PIR_128M_LWE (2^22 records x
               launches, the answer step's and the collective's CUDA-event
               ms, the block hint build, B5 at the block's shape, the delta
               and the hint's all-reduce, B1 on a bucket's block, each
-              part's seconds, the round's plan_s, max_memory_allocated
-              (time-sliced ranks: not a scaling figure); which gloo
-              collectives take a CUDA tensor
+              part's seconds, max_memory_allocated (time-sliced ranks:
+              not a scaling figure); which gloo collectives take a CUDA
+              tensor. Then sessions through the controller (rank 0: it
+              cuts the batches, the others follow its commands): xor at
+              PIR_1G on (1, 4) (64 queries from 4 client threads, a
+              publish of rows in every block between its batches of 32),
+              the same on (2, 2) with two lanes, a corrupt at
+              replica.serve_step (exactly one word of one record) and a
+              kill at scheduler.dispatch (every rank out of its loop
+              within SHARDED_KILL_BOUND_S) on (1, 4), an LWE session (one
+              hint build and one delta on every rank) and a BatchPIR round
+              of 256 in a session; records exact at their epochs, each
+              follower's dispatches the controller's batches, launches
+              exact; each part's seconds, the median batch latency,
+              records/s, the channel's host time a dispatch and the kill
+              to the last rank's exit
   private_lm  the dense LM, once the fleets are released: qwen3-4b at full
               width and depth (36 layers, d_model 2,560, vocab 151,936,
               bf16, 8.8 GB of weights drawn from a seeded generator on the
@@ -3827,6 +3840,17 @@ SHARDED_LWE_QUERIES = 8
 #: writes (their slots land in every block of the buckets)
 SHARDED_BATCH_MESH = (1, 4)
 SHARDED_BATCH_UPDATE_ROWS = 64
+#: streaming sessions through the controller (rank 0): PIR_1G batches of
+#: a whole bucket, cut only when full (``max_wait_s`` far off), from
+#: client threads; xor on (1, 4), two lanes on (2, 2), chaos on (1, 4)
+SHARDED_SESSION_Q = 32
+SHARDED_SESSION_THREADS = 4
+SHARDED_SESSION_WAIT_S = 60.0
+#: every rank's session ends within this of a chaos kill (s)
+SHARDED_KILL_BOUND_S = 5.0
+#: the collective timeout of the ranks' process group (s): a rank that
+#: never joins a collective fails the others' after it
+SHARDED_COLLECTIVE_TIMEOUT_S = 300.0
 
 
 def sharded_expected(server, n: int) -> dict:
@@ -3980,6 +4004,184 @@ def sharded_counted(fn) -> tuple:
             sum(v["plain_calls"] for v in counts.values()))
 
 
+def session_submit(system, idx) -> list:
+    """Submit ``idx`` from ``SHARDED_SESSION_THREADS`` client threads at
+    once; returns ``(index, future)`` pairs in the order of ``idx``."""
+    futs = [None] * len(idx)
+
+    def client(k):
+        for j in range(k, len(idx), SHARDED_SESSION_THREADS):
+            futs[j] = system.submit(int(idx[j]))
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(SHARDED_SESSION_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return list(zip((int(i) for i in idx), futs))
+
+
+def session_ends(system, batches0: int = 0) -> dict:
+    """What one rank's session left: its epoch, and the controller's
+    batches (past ``batches0``, those before the session) and command
+    channel, or the follower's loop."""
+    out = {"epoch": system.epoch, "t_close": time.monotonic()}
+    f = system.follower
+    if f is None:
+        ch = system.scheduler.channel
+        out.update(batches=system.scheduler.stats.batches - batches0,
+                   sent=ch.sent, channel_s=ch.seconds)
+    else:
+        out.update(dispatches=f.dispatches, publishes=f.publishes,
+                   ended_by=f.ended_by, t_end=f.t_end,
+                   exc=None if f.exc is None
+                   else f"{type(f.exc).__name__}: {f.exc}")
+    return out
+
+
+def session_launches(system, batches: int, counts: dict) -> dict:
+    """Each rank's counters over a session of ``batches`` full buckets:
+    its bucket plan's kernel once a party and batch, no plain call."""
+    want = {}
+    for server in system.servers:
+        for k, v in sharded_expected(server, SHARDED_SESSION_Q).items():
+            want[k] = want.get(k, 0) + v * batches
+    got = {k: v["launches"] for k, v in counts.items() if v["launches"]}
+    plain = sum(v["plain_calls"] for v in counts.values())
+    return {"launches": got, "want": want, "plain_calls": plain,
+            "launches_ok": got == want and plain == 0}
+
+
+def sharded_session(database, host, updated, mesh, idx_rng,
+                    n_clusters: int) -> dict:
+    """xor-dpf-2 at PIR_1G in a session through the controller: it submits
+    a bucket of queries from client threads, and once they resolve stages
+    and publishes rows in every block (``SHARDED_UPDATE_ROWS``), then a
+    bucket that reads some of them. Every record must be the host's at the
+    epoch its future is tagged with (``updated``: the rows an earlier
+    publish wrote), every rank must end at one epoch, each follower must
+    have dispatched the controller's batches, and each rank launched its
+    plan's kernel once a party and batch, with no plain call. Every rank
+    draws the same indices from ``idx_rng``."""
+    from repro_torch.configs.pir import PIR_1G
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.serve_loop import TwoServerPIR
+    client = mesh.is_controller
+    system = TwoServerPIR(
+        database, PIR_1G, mesh=mesh, n_queries=SHARDED_SESSION_Q,
+        n_clusters=n_clusters, max_wait_s=SHARDED_SESSION_WAIT_S,
+        client_rng=np.random.default_rng(SEED + 510) if client else None)
+    n, quarter = PIR_1G.n_items, PIR_1G.n_items // 4
+    first = idx_rng.integers(0, n, size=SHARDED_SESSION_Q)
+    blocks = np.arange(SHARDED_UPDATE_ROWS) % 4
+    rows = blocks * quarter + idx_rng.integers(0, quarter,
+                                               size=SHARDED_UPDATE_ROWS)
+    vals = idx_rng.integers(0, 2 ** 32, size=(len(rows), 8),
+                            dtype=np.uint64).astype(np.uint32)
+    second = np.concatenate([rows, idx_rng.integers(
+        0, n, size=SHARDED_SESSION_Q - len(rows))])
+    e0 = database.epoch
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    system.start()
+    out = {"n_clusters": n_clusters}
+    if client:
+        futs = session_submit(system, first)
+        recs = [(i, f.result(timeout=600), f.epoch) for i, f in futs]
+        system.update(rows, vals)
+        out["epoch_published"] = system.publish()
+        futs = session_submit(system, second)
+        recs += [(i, f.result(timeout=600), f.epoch) for i, f in futs]
+        fresh = dict(zip(rows.tolist(), vals))
+        out["records_exact"] = all(
+            np.array_equal(rec, fresh[i] if epoch > e0 and i in fresh
+                           else updated.get(i, host[i]))
+            for i, rec, epoch in recs)
+        out["epochs"] = sorted({epoch for _, _, epoch in recs})
+        out["epochs_ok"] = out["epochs"] == [e0, e0 + 1]
+    system.close()
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    updated.update(zip(rows.tolist(), vals))
+    ends = session_ends(system)
+    batches = (ends["batches"] if client else ends["dispatches"])
+    out.update(ends, **session_launches(system, batches, ops.counts()))
+    if client:
+        st = system.scheduler.stats
+        out.update(latency_median_s=float(np.median(st.latencies)),
+                   records_per_s=st.qps, bucket_counts=st.bucket_counts,
+                   lanes=sorted(system.scheduler.monitor.ewma),
+                   channel_s_per_dispatch=(out["channel_s"]["DISPATCH"]
+                                           / out["sent"]["DISPATCH"]))
+    return out
+
+
+def sharded_chaos(database, host, updated, mesh, idx_rng) -> dict:
+    """The chaos seams in a session on the controller, PIR_1G, whole
+    buckets (a bucket submitted before ``start()``, then one after the
+    first resolved, so that no pad slot exists): (a) a corrupt at
+    ``replica.serve_step``'s visit 1 without checksums must change exactly
+    one word of one record of the second batch; (b) a kill at
+    ``scheduler.dispatch``'s visit 1 must resolve the first batch, fail
+    every later future with ``InjectedFault`` and end every rank's loop.
+    Every rank builds the facade with the same plan; only the controller
+    visits it. The kill's instant is stamped where the seam raises."""
+    from repro_torch.chaos import ChaosInjector, FaultEvent, FaultPlan
+    from repro_torch.configs.pir import PIR_1G
+    from repro_torch.runtime.serve_loop import TwoServerPIR
+    client = mesh.is_controller
+    out = {}
+    for part, seam, action in (("corrupt", "replica.serve_step", "corrupt"),
+                               ("kill", "scheduler.dispatch", "kill")):
+        chaos = ChaosInjector(FaultPlan(SEED + 511, (
+            FaultEvent(seam, action, at=1),)))
+        stamp = {}
+        visit = chaos.visit
+
+        def stamped(*args, visit=visit, stamp=stamp):
+            try:
+                return visit(*args)
+            except Exception:
+                stamp["t_kill"] = time.monotonic()
+                raise
+        chaos.visit = stamped
+        system = TwoServerPIR(
+            database, PIR_1G, mesh=mesh, n_queries=SHARDED_SESSION_Q,
+            max_wait_s=SHARDED_SESSION_WAIT_S, chaos=chaos,
+            client_rng=np.random.default_rng(SEED + 512) if client else None)
+        idx = [idx_rng.integers(0, PIR_1G.n_items, size=SHARDED_SESSION_Q)
+               for _ in range(2)]
+        want = [np.stack([updated.get(int(i), host[i]) for i in ix])
+                for ix in idx]
+        t0 = time.perf_counter()
+        res = {}
+        futs = ([system.submit(int(i)) for i in idx[0]] if client else [])
+        system.start()
+        if client:
+            first = np.stack([f.result(timeout=600) for f in futs])
+            futs = [system.submit(int(i)) for i in idx[1]]
+            got, errors = [], set()
+            for f in futs:
+                try:
+                    got.append(f.result(timeout=600))
+                except Exception as e:   # noqa: BLE001 - the outcome
+                    errors.add(f"{type(e).__name__}: {e}")
+            res["first_exact"] = check_records(first, want[0])
+            res["errors"] = sorted(errors)
+            if part == "corrupt":
+                diff = np.stack(got) != want[1]
+                res["records_changed"] = int(diff.any(axis=1).sum())
+                res["words_changed"] = int(diff.sum())
+            res["fired"] = [[f.seam, f.target, f.action, f.visit]
+                            for f in chaos.fired]
+            res.update(stamp)
+        system.close()
+        res["seconds"] = time.perf_counter() - t0
+        res.update(session_ends(system))
+        out[part] = res
+    return out
+
+
 def sharded_lwe_single(db_lwe, whole, host_lwe, mesh, idx_rng,
                        device) -> dict:
     """SingleServerPIR(mesh=) at PIR_128M_LWE over this rank's block of
@@ -4070,6 +4272,64 @@ def sharded_lwe_single(db_lwe, whole, host_lwe, mesh, idx_rng,
     return out
 
 
+def sharded_lwe_session(host_lwe, mesh, idx_rng) -> dict:
+    """SingleServerPIR at PIR_128M_LWE in a session through the controller,
+    on a database placed for it: ``start()`` builds the hint on every rank,
+    the controller encrypts ``SHARDED_LWE_QUERIES`` submits with the whole
+    of A (one B5 launch each), then stages and publishes rows in every
+    block (the delta applied on every rank inside ``PUBLISH``), then as
+    many submits of them and others. Every record exact; one hint build and
+    one delta on every rank; B5 launched 2 (answers) + 1 (build) + 1
+    (delta) times on every rank, and 2 x SHARDED_LWE_QUERIES more
+    (encryptions) on the controller, with no plain call."""
+    from repro_torch.configs.pir import PIR_128M_LWE as cfg
+    from repro_torch.db import Database
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.serve_loop import SingleServerPIR
+    client = mesh.is_controller
+    db = Database(host_lwe, cfg, mesh=mesh)
+    system = SingleServerPIR(
+        db, cfg, mesh=mesh, n_queries=SHARDED_LWE_QUERIES,
+        max_wait_s=SHARDED_SESSION_WAIT_S,
+        client_rng=np.random.default_rng(SEED + 513) if client else None)
+    quarter = cfg.n_items // 4
+    first = idx_rng.integers(0, cfg.n_items, size=SHARDED_LWE_QUERIES)
+    blocks = np.arange(SHARDED_UPDATE_ROWS) % 4
+    rows = blocks * quarter + idx_rng.integers(0, quarter,
+                                               size=SHARDED_UPDATE_ROWS)
+    vals = idx_rng.integers(0, 2 ** 32, size=(len(rows), 8),
+                            dtype=np.uint64).astype(np.uint32)
+    second = rows[:SHARDED_LWE_QUERIES]
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    system.start()
+    out = {}
+    if client:
+        got = np.stack([f.result(timeout=600) for f in
+                        [system.submit(int(i)) for i in first]])
+        out["exact"] = check_records(got, host_lwe[first].view(np.uint8))
+        system.update(rows, vals)
+        out["epoch_published"] = system.publish()
+        got = np.stack([f.result(timeout=600) for f in
+                        [system.submit(int(i)) for i in second]])
+        out["exact_after"] = check_records(
+            got, vals[:SHARDED_LWE_QUERIES].view(np.uint8))
+    system.close()
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    counts = ops.counts()
+    out.update(session_ends(system),
+               n_hint_builds=db.stats.n_hint_builds,
+               n_hint_deltas=db.stats.n_hint_deltas,
+               launches=counts["lwe_gemm"]["launches"],
+               want=4 + (2 * SHARDED_LWE_QUERIES if client else 0),
+               plain_calls=sum(v["plain_calls"] for v in counts.values()))
+    if client:
+        out["latency_median_s"] = float(np.median(
+            system.scheduler.stats.latencies))
+    return out
+
+
 def sharded_batch(host, layout, mesh, idx_rng, device) -> dict:
     """BatchPIR(mesh=) at PIR_1G_BATCH (2^25 records, m = 256, B = 512
     buckets of 2^18 rows, xor-dpf-2): the parent's layout, each rank's
@@ -4109,16 +4369,19 @@ def sharded_batch(host, layout, mesh, idx_rng, device) -> dict:
     updated: dict = {}
 
     def serve_round(kind, idx, want_epoch):
+        # SPMD: every rank calls query_batch, the rounds planned on the
+        # controller and broadcast
         ops.reset_counts()
-        r0 = len(reduces)
+        r0, log0 = len(reduces), len(system.dispatch_log)
         t0 = time.perf_counter()
-        recs, epoch, log, plan_s = batch_round(system, idx)
+        recs = system.query_batch(idx)
         seconds = time.perf_counter() - t0
+        epoch, log = system.epoch, system.dispatch_log[log0:]
         counts = ops.counts()
         want = np.stack([updated.get(int(i), host[i]) for i in idx])
         rounds.append({
             "kind": kind, "n": len(idx), "seconds": seconds,
-            "plan_s": plan_s, "dispatch_log": log, "epoch": epoch,
+            "dispatch_log": log, "epoch": epoch,
             "want_epoch": want_epoch,
             "dpxor_launches": counts["dpxor"]["launches"],
             "want_launches": n_buckets * parties * len(log),
@@ -4151,6 +4414,32 @@ def sharded_batch(host, layout, mesh, idx_rng, device) -> dict:
         updated.update(zip(rows.tolist(), vals))
         serve_round("after_publish", np.concatenate(
             [rows, first[:m - len(rows)]]), 1)
+        # a session: the controller plans and submits one round of m
+        # distinct indices, and every rank dispatches it
+        idx = idx_rng.choice(cfg.n_items, size=m, replace=False)
+        ops.reset_counts()
+        log0 = len(system.dispatch_log)
+        batches0 = system.scheduler.stats.batches
+        t0 = time.perf_counter()
+        system.start()
+        session = {}
+        if client:
+            fut = submit_placed(system, idx)
+            session["plan_s"] = time.perf_counter() - t0
+            recs = fut.result(timeout=600)
+            session["exact"] = check_records(recs, np.stack(
+                [updated.get(int(i), host[i]) for i in idx]))
+            session["epoch"] = fut.epoch
+        system.close()
+        torch.cuda.synchronize()
+        counts = ops.counts()
+        session.update(
+            session_ends(system, batches0), seconds=time.perf_counter() - t0,
+            dispatch_log=system.dispatch_log[log0:],
+            dpxor_launches=counts["dpxor"]["launches"],
+            want_launches=n_buckets * parties,
+            plain_calls=sum(v["plain_calls"] for v in counts.values()))
+        out["session"] = session
     finally:
         del proto.reduce
     out["rounds"] = rounds
@@ -4204,7 +4493,8 @@ def sharded_rank_run(rank: int, tmp: str) -> dict:
         raise RuntimeError(f"rank {rank}: no built library for {missing}")
     for name in build.LIBRARIES:
         build.library(name)
-    backend = init_distributed(rank, SHARDED_RANKS, f"file://{tmp}/store")
+    backend = init_distributed(rank, SHARDED_RANKS, f"file://{tmp}/store",
+                               timeout=SHARDED_COLLECTIVE_TIMEOUT_S)
     host = np.load(os.path.join(tmp, "db.npy"), mmap_mode="c")
     host_lwe = np.load(os.path.join(tmp, "db_lwe.npy"), mmap_mode="c")
     ct = np.load(os.path.join(tmp, "ct.npy"), mmap_mode="c")
@@ -4273,6 +4563,17 @@ def sharded_rank_run(rank: int, tmp: str) -> dict:
             for k, v in ops.counts().items():
                 counts[k] = counts.get(k, 0) + v["launches"]
             del system, view
+            # sessions through the controller: xor and chaos on (1, 4),
+            # two lanes on (2, 2)
+            updated = dict(zip(rows.tolist(), vals))
+            if tag == "1x4":
+                row["session"] = sharded_session(database, host, updated,
+                                                 mesh, idx_rng, 1)
+                row["chaos"] = sharded_chaos(database, host, updated, mesh,
+                                             idx_rng)
+            else:
+                row["lanes"] = sharded_session(database, host, updated,
+                                               mesh, idx_rng, 2)
             # lwe-simple-1: B5 on each block of seeded ciphertexts, then
             # the int32 all-reduce; rank 0 holds it to one unsharded B5
             # answer over the whole database
@@ -4314,6 +4615,9 @@ def sharded_rank_run(rank: int, tmp: str) -> dict:
             row["lwe_single"] = sharded_lwe_single(
                 db_lwe, whole, host_lwe, mesh, idx_rng, device)
             row["lwe_single"]["seconds"] = time.perf_counter() - t0
+            if tag == "1x4":
+                row["lwe_session"] = sharded_lwe_session(host_lwe, mesh,
+                                                         idx_rng)
             del db_lwe, whole
             if rank != 0:   # rank 0 keeps the client's whole A for the next
                 lwe.clear_matrix_cache()
@@ -4363,6 +4667,86 @@ def load_layout(tmp: str):
         slot_of=load("slot_of"),
         bucket_rows=tuple(rows[e - n:e] for e, n in zip(ends,
                                                         meta["loads"])))
+
+
+def sharded_session_checks(ranks) -> tuple:
+    """The checks of the sessions' parts over every rank's results, and a
+    summary: each part's seconds, the controller's median batch latency
+    and records/s, the command channel's host time a dispatch, each
+    follower's dispatches, the seconds from the chaos kill to the last
+    rank leaving its session, each rank's peak device memory."""
+    ones = [r["meshes"]["1x4"] for r in ranks]
+    twos = [r["meshes"]["2x2"] for r in ranks]
+    parts = {"session": [m["session"] for m in ones],
+             "lanes": [m["lanes"] for m in twos],
+             "lwe_session": [m["lwe_session"] for m in ones],
+             "batch_session": [r["batch"]["session"] for r in ranks]}
+
+    def followed(part, publishes=None):
+        ctl = part[0]
+        return all(p["dispatches"] == ctl["batches"] and p["exc"] is None
+                   and p["ended_by"] == "STOP"
+                   and (publishes is None or p["publishes"] == publishes)
+                   for p in part[1:])
+    xor = [parts["session"], parts["lanes"]]
+    corrupt = [m["chaos"]["corrupt"] for m in ones]
+    kill = [m["chaos"]["kill"] for m in ones]
+    c0, k0 = corrupt[0], kill[0]
+    kill_to_exit = (max([k0["t_close"]] + [p["t_end"] for p in kill[1:]])
+                    - k0["t_kill"]) if "t_kill" in k0 else None
+    lwe, bat = parts["lwe_session"], parts["batch_session"]
+    checks = {
+        "session_records_exact": all(p[0]["records_exact"]
+                                     and p[0]["epochs_ok"] for p in xor),
+        "session_epochs_equal": all(len({r["epoch"] for r in p}) == 1
+                                    for p in xor),
+        "session_followers_dispatched": all(
+            p[0]["batches"] == 2 and followed(p, 1) for p in xor),
+        "session_launches_exact": all(r["launches_ok"] for p in xor
+                                      for r in p),
+        "session_lanes": parts["lanes"][0]["lanes"] == ["cluster0",
+                                                        "cluster1"],
+        "chaos_one_word": (c0["first_exact"] and c0["errors"] == []
+                           and c0["records_changed"] == 1
+                           and c0["words_changed"] == 1
+                           and c0["fired"] == [["replica.serve_step", None,
+                                                "corrupt", 1]]
+                           and followed(corrupt)),
+        "chaos_kill": (k0["first_exact"] and k0["errors"] == [
+            "InjectedFault: chaos kill at scheduler.dispatch"]
+            and k0["fired"] == [["scheduler.dispatch", None, "kill", 1]]
+            and all(p["ended_by"] == "ABORT" and p["dispatches"] == 1
+                    for p in kill[1:])),
+        "chaos_kill_bounded": (kill_to_exit is not None
+                               and kill_to_exit <= SHARDED_KILL_BOUND_S),
+        "lwe_session_exact": lwe[0]["exact"] and lwe[0]["exact_after"],
+        "lwe_session_hint": all(p["n_hint_builds"] == 1
+                                and p["n_hint_deltas"] == 1 for p in lwe),
+        "lwe_session_launches_exact": all(
+            p["launches"] == p["want"] and p["plain_calls"] == 0
+            for p in lwe),
+        "lwe_session_followed": lwe[0]["batches"] == 2 and followed(lwe, 1),
+        "batch_session_exact": bat[0]["exact"],
+        "batch_session_dispatch_log": all(p["dispatch_log"] == [[1, 512]]
+                                          for p in bat),
+        "batch_session_launches_exact": all(
+            p["dpxor_launches"] == p["want_launches"]
+            and p["plain_calls"] == 0 for p in bat),
+        "batch_session_followed": bat[0]["batches"] == 1 and followed(bat)}
+    summary = {
+        name: {"seconds": [p["seconds"] for p in part],
+               "latency_median_s": part[0].get("latency_median_s"),
+               "records_per_s": part[0].get("records_per_s"),
+               "bucket_counts": part[0].get("bucket_counts"),
+               "channel_s_per_dispatch": (part[0]["channel_s"]["DISPATCH"]
+                                          / part[0]["sent"]["DISPATCH"]),
+               "follower_dispatches": [p["dispatches"] for p in part[1:]]}
+        for name, part in parts.items()}
+    summary["chaos"] = {"seconds": [c0["seconds"], k0["seconds"]],
+                        "kill_to_last_exit_s": kill_to_exit,
+                        "kill_bound_s": SHARDED_KILL_BOUND_S}
+    summary["peak_device_bytes"] = [r["peak_device_bytes"] for r in ranks]
+    return checks, summary
 
 
 def phase_sharded(host_db, host_lwe, layout, card) -> dict:
@@ -4464,6 +4848,8 @@ def phase_sharded(host_db, host_lwe, layout, card) -> dict:
             "batch_publish_every_block": all(
                 r["batch"]["publish_blocks"]
                 == list(range(SHARDED_BATCH_MESH[1])) for r in ranks)})
+        sessions, summary = sharded_session_checks(ranks)
+        checks.update(sessions)
     devices = {r.get("device") for r in ranks}
     out = {"phase": "sharded", "card": card,
            "note": "four ranks time-sliced on one card: times are not a "
@@ -4472,6 +4858,7 @@ def phase_sharded(host_db, host_lwe, layout, card) -> dict:
            "transport": ranks[0].get("transport"),
            "ranks_per_card": SHARDED_RANKS // max(1, len(devices)),
            "gloo_cuda": ranks[0].get("gloo_cuda"), "checks": checks,
+           "sessions": summary if not failed else None,
            "ranks": [{k: r.get(k) for k in ("rank", "device", "ok", "error",
                                             "meshes", "batch",
                                             "peak_device_bytes")}

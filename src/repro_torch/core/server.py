@@ -214,9 +214,9 @@ class BucketedServeFns:
         answers its cluster's queries of every view against its block
         (``start_block`` = its shard), then the stacked ``[B, R/C, cols]``
         partials take **one** protocol reduce over the shard axis and one
-        gather over the clusters, whatever B is. The one-controller half
-        of ROADMAP's A6b-serve-2 (sessions, lanes, chaos) is refused by
-        the facades, not here.
+        gather over the clusters, whatever B is. In a session only the
+        controller cuts batches; every rank answers each one it is sent
+        (``runtime/serve_loop.py``).
         """
         n_views = len(views)
         q = self.protocol.n_queries(keys)

@@ -22,7 +22,10 @@ bucket is a ``Database(..., mesh=mesh)``: rank ``(c, d)`` holds rows
 ``[d·C/P, (d+1)·C/P)`` of every bucket's ``capacity`` C, and reads only
 those rows of the host store (a memory-mapped file is read once per block,
 never gathered whole). ``stage`` / ``publish`` are SPMD: every rank calls
-them with the same arguments and keeps the same outer epoch. A prebuilt
+them with the same arguments and keeps the same outer epoch; in a session
+the controller's logical log moves into the ``PUBLISH`` command
+(:meth:`take_staged`), which every rank stages and publishes, so the outer
+epoch advances at the same point of the dispatch order. A prebuilt
 ``layout`` saves each rank the host layout's build.
 """
 from __future__ import annotations
@@ -92,7 +95,8 @@ class BucketedDatabase:
         # once, so no logical write lands in some of its buckets only
         self._stage_lock = threading.RLock()
         self._epoch = 0
-        self._n_staged_logical = 0
+        #: the staged global writes as given, for ``take_staged``
+        self._staged_log: List[Tuple[np.ndarray, np.ndarray]] = []
         w = self.spec.item_words
         # this rank's slots of every bucket (all of them off a mesh); the
         # rest of a bucket's host rows stay unwritten zero pages
@@ -185,8 +189,22 @@ class BucketedDatabase:
         with self._stage_lock:
             for b, (slots, rows_v) in per_bucket.items():
                 self.buckets[b].stage(slots, np.stack(rows_v))
-            self._n_staged_logical += len(idx)
-            return self._n_staged_logical
+            self._staged_log.append((idx, np.array(vals, np.uint32)))
+            return sum(len(r) for r, _ in self._staged_log)
+
+    def take_staged(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Remove the staged global writes and return them, ``[R]`` int64
+        rows and ``[R, item_words]`` u32 logical rows in staging order (as
+        ``Database.take_staged``); every bucket's log goes with them."""
+        with self._stage_lock:
+            for b in self.buckets:
+                b.take_staged()
+            log, self._staged_log = self._staged_log, []
+        if not log:
+            return (np.zeros((0,), np.int64),
+                    np.zeros((0, self.spec.item_words), np.uint32))
+        return (np.concatenate([r for r, _ in log]),
+                np.concatenate([v for _, v in log]))
 
     def publish(self) -> int:
         """Publish every touched bucket and bump the outer epoch once (a
@@ -202,5 +220,5 @@ class BucketedDatabase:
                     b._commit_publish(p)
                 if prepared:
                     self._epoch += 1
-                    self._n_staged_logical = 0
+                    self._staged_log.clear()
                 return self._epoch

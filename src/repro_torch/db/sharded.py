@@ -50,7 +50,11 @@ device, ``B = spec.rows_per_shard(P)``, and every view is that block.
 Every rank constructs the database and calls ``stage`` / ``publish`` with
 the same arguments (SPMD): the staged log is the whole public delta, each
 rank scatters the rows its block owns, and every rank advances the epoch
-in lockstep, whether or not its block changed. A hint on a mesh of P > 1
+in lockstep, whether or not its block changed. In a session on a mesh
+(``runtime/serve_loop.py``) the controller's staged log moves into the
+``PUBLISH`` command (:meth:`take_staged`), and every rank stages and
+publishes that log on its command thread, so the epoch advances at the same
+point of the dispatch order on every rank. A hint on a mesh of P > 1
 blocks is built per block and summed: each rank builds its block's
 partial (the LWE hint's ``A_block^T.D_block``, from the rows of A its
 block owns) and a SUM all-reduce over the ``model`` group makes the whole
@@ -331,10 +335,9 @@ class Database:
         partials over the ``model`` process group (an int32 hint wraps mod
         2^32). Building a hint is then a collective, so every rank must
         ask for it at the same call, as SPMD callers do
-        (``SingleServerPIR``'s finalize); a mesh without that group
-        refuses the hint (``ValueError``). What a mesh still refuses is
-        the one-controller half of ROADMAP's A6b-serve-2 (sessions,
-        lanes, chaos), in the facades."""
+        (``SingleServerPIR``'s finalize outside a session, its ``start()``
+        before one); a mesh without that group refuses the hint
+        (``ValueError``)."""
         if self.n_shards > 1 and self.mesh.group(self.shard_axis) is None:
             raise ValueError(
                 f"a hint over a database sharded in {self.n_shards} blocks "
@@ -387,6 +390,20 @@ class Database:
             self._staged_rows.append(idx)
             self._staged_vals.append(np.array(vals, np.uint32, copy=True))
             return sum(len(r) for r in self._staged_rows)
+
+    def take_staged(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Remove the staged log and return it: ``[R]`` int64 rows and
+        ``[R, item_words]`` u32 logical rows, in staging order. A session
+        on a mesh moves the controller's log this way into the command
+        that every rank stages and publishes."""
+        with self._lock:
+            rows = (np.concatenate(self._staged_rows) if self._staged_rows
+                    else np.zeros((0,), np.int64))
+            vals = (np.concatenate(self._staged_vals) if self._staged_vals
+                    else np.zeros((0, self.spec.item_words), np.uint32))
+            self._staged_rows.clear()
+            self._staged_vals.clear()
+            return rows, vals
 
     def subscribe(self, fn: Callable[[PublishedDelta], None]
                   ) -> Callable[[], None]:

@@ -24,11 +24,30 @@ CUDA tensors, so under gloo a rank on the card moves a collective's
 operand to the host and back (``transport == "host"``); NCCL and gloo on
 the CPU run the collective where the tensor lies (``"device"``).
 
+The command channel. A streaming session on a mesh has one controller,
+``mesh.controller`` (the grid's first rank): it cuts every batch, and the
+other ranks, its followers, dispatch what it tells them
+(``runtime/serve_loop.py``). The commands go over ``mesh.control_group``,
+a gloo group of the grid's ranks kept for them, with host tensors whatever
+the backend: :func:`send_command` broadcasts a header of ``HEADER_LEN``
+int64 words (the command's code, then up to ``HEADER_LEN - 1`` integer
+fields), then each of its tensors as it is (never pickled). A follower
+reads the header with :func:`recv_command` and each tensor, whose shape
+the fields give, with :func:`recv_tensor`. A follower may wait for its
+next command as long as a session sits idle, so the control group's
+timeout is ``CONTROL_IDLE_S``; the controller waits for each send at most
+the collective timeout (:func:`collective_timeout`), so a follower that
+is gone fails the send instead of hanging it. A timeout given to
+:func:`init_distributed` bounds every collective of the process group and
+of the meshes' axis groups, so a rank that never joins one fails the
+others' after it instead of hanging them.
+
 ``split_devices`` and ``local_devices`` partition the cards of one
 process for the replica plane, as before.
 """
 from __future__ import annotations
 
+import datetime
 import os
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -111,15 +130,34 @@ def default_backend(world_size: int, device=None) -> str:
     return "gloo"
 
 
+#: the collective timeout :func:`init_distributed` was given (None: the
+#: backend's default), applied to every group a mesh makes
+_TIMEOUT: Optional[datetime.timedelta] = None
+
+
 def init_distributed(rank: int, world_size: int, init_method: str, *,
-                     device=None) -> str:
+                     device=None, timeout: Optional[float] = None) -> str:
     """Join the process group (``init_method`` e.g. ``"file:///tmp/x"`` or
     ``"tcp://localhost:29500"``) with :func:`default_backend` for
-    ``device``; returns the backend."""
+    ``device``; returns the backend. ``timeout`` (seconds) bounds the
+    rendezvous and every collective of this group and of the groups the
+    meshes make (PyTorch's default is 30 minutes)."""
+    global _TIMEOUT
     backend = default_backend(world_size, device)
+    _TIMEOUT = (None if timeout is None
+                else datetime.timedelta(seconds=timeout))
+    kwargs = {} if _TIMEOUT is None else {"timeout": _TIMEOUT}
     dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world_size)
+                            world_size=world_size, **kwargs)
     return backend
+
+
+def _bound_timeout(group) -> None:
+    """Give ``group`` the process group's timeout: a group made later
+    (``new_group``, ``DeviceMesh``) otherwise takes the backend's
+    default."""
+    if _TIMEOUT is not None and group is not None:
+        dist.distributed_c10d._set_pg_timeout(_TIMEOUT, group)
 
 
 def on_transport(fn, x: torch.Tensor, group) -> torch.Tensor:
@@ -150,6 +188,66 @@ def broadcast_from(x: torch.Tensor, src: int, group) -> torch.Tensor:
         dist.broadcast(t, src=src, group=group)
         return t
     return on_transport(bcast, x, group)
+
+
+#: the controller's commands, by code: a batch to stage and dispatch, a
+#: delta to stage and publish, the end of a drained session, and the end
+#: of a dead or killed one
+COMMANDS = ("DISPATCH", "PUBLISH", "STOP", "ABORT")
+#: int64 words of a command's header: its code and its fields
+HEADER_LEN = 8
+#: how long a follower waits for the controller's next command: the
+#: longest a session may sit idle (the control group's timeout)
+CONTROL_IDLE_S = 24 * 3600.0
+#: PyTorch's default collective timeout, where init_distributed set none
+DEFAULT_TIMEOUT_S = 1800.0
+
+
+def collective_timeout() -> datetime.timedelta:
+    """The bound of one collective: :func:`init_distributed`'s timeout, or
+    PyTorch's default."""
+    return _TIMEOUT or datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
+
+
+def send_command(mesh: "Mesh", command: str, fields: Sequence[int] = (),
+                 tensors: Sequence[torch.Tensor] = (), *,
+                 wait: bool = True) -> list:
+    """On the controller: broadcast ``command`` with its integer ``fields``
+    and then each of ``tensors`` (sent from the host) to every rank of
+    ``mesh.control_group``. The fields must tell the followers the
+    tensors' shapes and dtypes. Each send is waited for at most
+    :func:`collective_timeout` (``RuntimeError`` past it); with ``wait``
+    false none is waited for, and the pending works are returned."""
+    if len(fields) >= HEADER_LEN:
+        raise ValueError(f"a command carries at most {HEADER_LEN - 1} "
+                         f"fields, got {len(fields)}")
+    header = torch.zeros(HEADER_LEN, dtype=torch.int64)
+    header[0] = COMMANDS.index(command)
+    header[1:1 + len(fields)] = torch.tensor(list(fields), dtype=torch.int64)
+    works = []
+    for t in [header] + [t.cpu().contiguous() for t in tensors]:
+        work = dist.broadcast(t, src=mesh.controller,
+                              group=mesh.control_group, async_op=True)
+        if wait:
+            work.wait(timeout=collective_timeout())
+        works.append(work)
+    return works
+
+
+def recv_command(mesh: "Mesh") -> Tuple[str, Tuple[int, ...]]:
+    """On a follower: wait (up to ``CONTROL_IDLE_S``) for the controller's
+    next command; returns its name and its ``HEADER_LEN - 1`` fields
+    (unused ones are 0)."""
+    header = recv_tensor(mesh, (HEADER_LEN,), torch.int64).tolist()
+    return COMMANDS[header[0]], tuple(header[1:])
+
+
+def recv_tensor(mesh: "Mesh", shape: Sequence[int],
+                dtype: torch.dtype) -> torch.Tensor:
+    """On a follower: the command's next tensor, on the host."""
+    t = torch.empty(tuple(shape), dtype=dtype)
+    dist.broadcast(t, src=mesh.controller, group=mesh.control_group)
+    return t
 
 
 def transport_of(backend: Optional[str], device: torch.device) -> str:
@@ -185,6 +283,10 @@ class Mesh:
     #: a group over every rank of the grid (key broadcasts)
     all_group: Optional[object] = field(default=None, compare=False,
                                         repr=False)
+    #: a gloo group over every rank of the grid for a session's commands
+    #: (``send_command``), with the idle timeout ``CONTROL_IDLE_S``
+    control_group: Optional[object] = field(default=None, compare=False,
+                                            repr=False)
 
     @property
     def shape(self) -> "OrderedDict[str, int]":
@@ -203,6 +305,15 @@ class Mesh:
     @property
     def contains_rank(self) -> bool:
         return self.rank in self.ranks
+
+    @property
+    def controller(self) -> int:
+        """The global rank that cuts a session's batches: the first."""
+        return self.ranks[0]
+
+    @property
+    def is_controller(self) -> bool:
+        return self.rank == self.controller
 
     @property
     def coords(self) -> Dict[str, int]:
@@ -259,10 +370,16 @@ def _grid(axes: Tuple[str, ...], sizes: Tuple[int, ...], device) -> Mesh:
                              mesh_dim_names=tuple(axes))
     all_group = (dist.group.WORLD if n == _world()
                  else dist.new_group(list(range(n))))
+    if _rank() < n:                 # a rank outside the grid has no groups
+        for group in [all_group] + [device_mesh.get_group(a) for a in axes]:
+            _bound_timeout(group)
+    control_group = dist.new_group(
+        list(range(n)), backend="gloo",
+        timeout=datetime.timedelta(seconds=CONTROL_IDLE_S))
     return Mesh(axis_names=tuple(axes), sizes=tuple(sizes),
                 ranks=tuple(range(n)), rank=_rank(), device=dev,
                 backend=backend, device_mesh=device_mesh,
-                all_group=all_group)
+                all_group=all_group, control_group=control_group)
 
 
 def make_mesh(cfg: MeshConfig, *, device=None) -> Mesh:

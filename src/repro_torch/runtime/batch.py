@@ -20,14 +20,17 @@ reference answers bucket by bucket) and each bucket is scanned on its own,
 and the B answers are stacked on the device, so that finalize pays one
 device-to-host copy per party.
 
-On a mesh (``mesh=``, SPMD as ``MultiServerPIR``'s): the buckets are
-sharded over the ``model`` axis (``BucketedDatabase(mesh=)``), each rank
-answers its block of every bucket and each party's dispatch makes one
-cross-shard reduce for all B buckets. A round is planned on the mesh's
-first rank and broadcast, a ``CuckooFailure`` included, so every rank
-takes the same halving in ``query_batch``. Still refused there, as the
-one-controller half of ROADMAP's A6b-serve-2: a session (``start`` /
-``submit``) and ``n_clusters`` lanes.
+On a mesh (``mesh=``, with ``MultiServerPIR``'s contract,
+``runtime/serve_loop.py``): the buckets are sharded over the ``model``
+axis (``BucketedDatabase(mesh=)``), each rank answers its block of every
+bucket and each party's dispatch makes one cross-shard reduce for all B
+buckets. Outside a session a round is planned on the controller and
+broadcast, a ``CuckooFailure`` included, so every rank takes the same
+halving in ``query_batch``. In a session ``submit_batch`` plans its round
+on the controller alone (a ``CuckooFailure`` raises there before anything
+is enqueued) and each ``DISPATCH`` carries the rounds' per-bucket keys of
+every party as one int32 tensor, so ``dispatch_log`` reads the same on
+every rank; ``n_clusters`` lanes are the controller's.
 """
 from __future__ import annotations
 
@@ -48,9 +51,9 @@ from repro_torch.crypto.packing import records_to_host
 from repro_torch.db import BucketedDatabase
 from repro_torch.engine.backend import Device, backend_of
 from repro_torch.launch.mesh import Mesh
-from repro_torch.runtime.serve_loop import (DEFAULT_MAX_WAIT_S, MESH_REFUSED,
-                                            AnswerFuture, MultiServerPIR,
-                                            QueryScheduler)
+from repro_torch.runtime.serve_loop import (DEFAULT_MAX_WAIT_S, AnswerFuture,
+                                            MultiServerPIR, QueryScheduler,
+                                            _flat_keys, _unflat_keys)
 
 
 class BatchPIR(MultiServerPIR):
@@ -91,9 +94,6 @@ class BatchPIR(MultiServerPIR):
                 f"use MultiServerPIR for single-query serving")
         self.cfg = cfg
         self.mesh = mesh
-        self.spmd = mesh is not None and mesh.size > 1
-        if self.spmd and n_clusters != 1:
-            raise ValueError(MESH_REFUSED.format("n_clusters lanes"))
         self.protocol = (protocol if protocol is not None
                          else protocol_mod.for_config(cfg))
         if self.protocol.needs_hint:
@@ -127,6 +127,21 @@ class BatchPIR(MultiServerPIR):
         #: second is always ``db.n_buckets`` whatever the indices were
         self.dispatch_log: List[Tuple[int, int]] = []
         self.scheduler = self._make_scheduler(max_wait_s, n_clusters)
+        self._init_session(mesh)
+
+    def _wire(self, payload):
+        """A dispatch's rounds as a ``DISPATCH``: their count, and every
+        party's per-bucket keys as one int32 tensor (the plans stay with
+        the client)."""
+        plans, keys = payload
+        return (len(plans),), [_flat_keys(keys)]
+
+    def _unwire(self, fields, recv):
+        rounds = fields[0]
+        n = rounds * self.db.n_buckets
+        return [None] * rounds, _unflat_keys(recv, [
+            self.protocol.key_specs(self.inner_cfg, n, party=p)
+            for p in range(self.n_parties)])
 
     def _make_scheduler(self, max_wait_s: float, n_clusters: int
                         ) -> QueryScheduler:
@@ -188,7 +203,16 @@ class BatchPIR(MultiServerPIR):
         ``[len(indices), ...]`` records in request order (a duplicate
         shares one bucket query). Raises :class:`CuckooFailure` before
         anything is enqueued when the indices cannot be placed
-        (probability O(1/B)); :meth:`query_batch` splits and retries."""
+        (probability O(1/B)); :meth:`query_batch` splits and retries. On a
+        mesh it is the controller's, which plans the round alone."""
+        self._controller_only("submit_batch", always=True)
+        return self._submit_round(indices, deadline_s, spmd=False)
+
+    def _submit_round(self, indices, deadline_s, *, spmd: bool
+                      ) -> AnswerFuture:
+        """Plan one round and enqueue it: here, or with ``spmd`` through
+        ``_drawn`` (on a mesh outside a session, on the controller and
+        broadcast)."""
         request = [int(i) for i in indices]
         if not request:
             raise ValueError("submit_batch needs at least one index")
@@ -206,10 +230,10 @@ class BatchPIR(MultiServerPIR):
                 return plan_round(self.rng, request, self.layout,
                                   self.inner_cfg, self.protocol)
             except CuckooFailure as e:      # raised alike on every rank
-                return e
+                return e                    # (or on the controller alone)
 
         with self._lock:    # keygen and the cuckoo walk share one rng
-            plan = self._drawn(draw)
+            plan = self._drawn(draw) if spmd else draw()
         if isinstance(plan, CuckooFailure):
             raise plan
         return self.scheduler.submit(plan, future=fut)
@@ -218,6 +242,8 @@ class BatchPIR(MultiServerPIR):
         """``db[indices]`` for any number of indices: rounds of at most m
         unique indices, a batch that fails cuckoo placement halved and
         retried (one index always places), records in request order."""
+        self._controller_only("query")
+        self._spmd_pump_ready()
         request = [int(i) for i in indices]
         if not request:
             tail, dtype = self.protocol.record_struct(self.cfg)
@@ -229,7 +255,7 @@ class BatchPIR(MultiServerPIR):
         while groups:
             g = groups.pop(0)
             try:
-                futs.append((g, self.submit_batch(g)))
+                futs.append((g, self._submit_round(g, None, spmd=True)))
             except CuckooFailure:
                 groups.insert(0, g[len(g) // 2:])
                 groups.insert(0, g[:len(g) // 2])
@@ -249,8 +275,7 @@ class BatchPIR(MultiServerPIR):
                deadline_s: Optional[float] = None) -> AnswerFuture:
         """One index as a round of one real and B - 1 dummy queries (the
         servers see the same B-wide round as for a full batch)."""
-        if self.spmd:
-            raise ValueError(MESH_REFUSED.format("submit"))
+        self._controller_only("submit", always=True)
         inner = self.submit_batch([index], deadline_s=deadline_s)
         fut = AnswerFuture(deadline=inner.deadline)
 

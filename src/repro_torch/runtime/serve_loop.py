@@ -32,19 +32,66 @@ answer shares to ``corrupt_shares``; as upstream, the facades stage keys
 padded to their bucket, so that those shares are ``[bucket, cols]``.
 
 On a mesh of more than one rank (``mesh=``, ``launch/mesh.py``) the
-facades run SPMD: every rank builds the facade and calls ``query``,
-``update`` and ``publish`` with the same arguments. The database is
-sharded over the mesh and each party's ``PIRServer`` answers through the
-sharded step (``core/server.py``); the keys of a call are drawn on the
-mesh's first rank and broadcast, so a client rng that differs between
-ranks cannot split them, and every rank returns the records.
-``SingleServerPIR`` serves the same way: rank 0 encrypts (A.s needs the
-whole of A, which only that rank draws) and broadcasts the ciphertexts and
-the client's secrets, the hint is built per row block and summed over the
-shard axis (``db/sharded.py``), and every rank decodes. What needs one
-controller is refused with a ``ValueError``: a session (``start`` /
-``submit``), ``n_clusters`` lanes and ``chaos`` (the one-controller half of
-ROADMAP's A6b-serve-2).
+database is sharded over the mesh and each party's ``PIRServer`` answers
+through the sharded step (``core/server.py``). The facades keep this
+contract there:
+
+* SPMD construction and lifecycle: every rank builds the facade and calls
+  ``start()`` and ``close()``. Outside a session ``query``, ``update``
+  and ``publish`` are SPMD too: every rank calls them with the same
+  arguments, the keys of a call are drawn on the controller and broadcast
+  (a client rng that differs between ranks cannot split them), and every
+  rank returns the records. ``SingleServerPIR`` encrypts there (A.s needs
+  the whole of A, which only the controller draws) and broadcasts the
+  ciphertexts and the client's secrets; its hint is built per row block
+  and summed over the shard axis (``db/sharded.py``).
+* One controller, ``mesh.controller`` (the grid's first rank). Its
+  ``start()`` runs the scheduler's session thread, as on one card; every
+  other rank's runs a follower (:class:`FollowerLoop`), which takes
+  commands from the controller until ``STOP`` or ``ABORT``.
+* ``submit`` and ``submit_batch`` are the controller's at any time (what
+  it submits before ``start()`` waits for the session), and during a
+  session so are ``query``, ``update``, ``publish``, ``queue_depth``,
+  ``drain_handoff`` and ``kill``: a follower raises a ``ValueError`` that
+  names the controller's rank (:data:`FOLLOWER_REFUSED`). An SPMD
+  ``query`` refuses while the controller holds submitted queries (its
+  pump would dispatch them on that rank alone).
+* One thread per rank makes collectives: the controller's session thread
+  or a follower's loop, so every rank makes the same collectives in the
+  same order. A follower keeps at most ``depth`` dispatches in flight.
+* Commands (``launch/mesh.send_command``, over ``mesh.all_group``, each a
+  header of integers and then tensors as they are, never pickled):
+  ``DISPATCH`` carries a batch's collated payload, which every rank then
+  stages and dispatches itself (the parties' keys as one int32 tensor;
+  the whole ``[Q, N]`` LWE ciphertext, of which each rank's answer reads
+  its block's columns; a round's per-bucket keys); ``PUBLISH`` carries the
+  staged rows and values, which every rank stages and publishes between
+  the same two dispatches (a publish issued by a client thread runs on
+  the session thread); ``STOP`` follows the controller's drain, and
+  ``ABORT`` a kill, the chaos kill at ``scheduler.dispatch`` or a failed
+  finalize. The controller sends ``DISPATCH`` after the
+  ``scheduler.dispatch`` seam, so a kill there fails the batch before any
+  rank dispatched it.
+* Keys are drawn once, on the controller, from the client rng in the
+  reference's order (one ``query_gen`` per ``submit``, ``plan_round`` per
+  ``submit_batch``); only the controller finalizes, visits the chaos
+  seams, records the straggler monitor and sheds lanes. A follower
+  discards its answers once its reduce has returned.
+* ``SingleServerPIR.start()`` builds the epoch's hint on every rank (a
+  collective); a publish's delta is applied on every rank inside
+  ``PUBLISH``, so the controller's finalize never builds one.
+* Failures: a follower whose dispatch raises leaves its loop and sends
+  nothing; the controller's next collective then fails (the peer is gone,
+  or the group's timeout, ``init_distributed(timeout=)``, runs out), which
+  ends the session like a dispatch crash. A failure between a command's
+  send and the end of the controller's own part of it sends no ``ABORT``
+  (the followers are inside that command's collectives and leave by the
+  timeout); every other death does. Either way every outstanding future
+  fails and ``close()`` returns on every rank.
+
+Still refused on a mesh (ROADMAP's A6b-serve-2, what is left): replicas
+spanning cards (``replica/``), ``elastic`` returning meshes and
+``dryrun --mesh``.
 """
 from __future__ import annotations
 
@@ -67,15 +114,16 @@ from repro_torch.core.server import PIRServer, bucket_for
 from repro_torch.crypto.packing import records_to_host
 from repro_torch.db import Database
 from repro_torch.engine.backend import Device
-from repro_torch.launch.mesh import Mesh, broadcast_from
+from repro_torch.launch.mesh import (Mesh, broadcast_from, recv_command,
+                                     recv_tensor, send_command)
 from repro_torch.runtime.fault import StragglerMonitor
 
 #: dispatch depth: one batch running on the card, one being staged
 PIPELINE_DEPTH = 2
 
-#: what a facade on a mesh of more than one rank refuses
-MESH_REFUSED = ("{} on a mesh of more than one rank is not ported: it needs "
-                "one controller (ROADMAP A6b-serve-2)")
+#: what a follower rank raises for a client call during a session
+FOLLOWER_REFUSED = ("{} is the controller's on a mesh: call it on rank {} "
+                    "(mesh.controller)")
 
 #: how long a lone query may wait for companions before an under-full
 #: (padded) batch is cut
@@ -246,6 +294,15 @@ class QueryScheduler:
     ``"scheduler.dispatch"`` with ``chaos_target`` once per launch, before
     the batch is collated: a kill there fails the batch and, in a session,
     ends it like a dispatch crash.
+
+    On a mesh (module docstring) the facade sets :attr:`channel` on the
+    controller: its session thread then sends each batch's ``DISPATCH``
+    before dispatching it, ``STOP`` after its drain and ``ABORT`` when it
+    dies, and runs :meth:`call_in_session` callables (a publish) between
+    two dispatches. ``spmd`` marks a scheduler that :meth:`pump` drives on
+    every rank at once, which then keeps the lanes as cut (a shed follows
+    each rank's own timings). ``following`` holds the controller's rank
+    while this rank follows a session: the client calls raise then.
     """
 
     def __init__(self, *, collate: Callable[[List[Any]], Any],
@@ -285,6 +342,16 @@ class QueryScheduler:
         self._stopping = False
         self._closed = False                  # set by stop(), death, kill()
         self._abort_exc: Optional[BaseException] = None   # set by kill()
+        #: callables for the session thread, run between two dispatches
+        self._ops: deque = deque()            # (fn, future)
+        #: the controller's command channel on a mesh (``_Channel``)
+        self.channel: Optional["_Channel"] = None
+        self.spmd = False
+        self.following: Optional[int] = None
+
+    def _refuse_on_follower(self, what: str):
+        if self.following is not None:
+            raise ValueError(FOLLOWER_REFUSED.format(what, self.following))
 
     # -- intake ----------------------------------------------------------
 
@@ -294,6 +361,7 @@ class QueryScheduler:
         given: a caller's deadline, or a handed-off query moving with its
         future). Raises ``RuntimeError`` once a session was stopped, died
         or was killed."""
+        self._refuse_on_follower("submit")
         fut = future if future is not None else AnswerFuture()
         with self._cv:
             if self._closed:
@@ -313,6 +381,7 @@ class QueryScheduler:
     def queue_depth(self) -> int:
         """Real queries accepted and not yet resolved: pending, cut into
         lanes and dispatched (pad slots excluded)."""
+        self._refuse_on_follower("queue_depth")
         with self._cv:
             return (len(self._pending) + self._n_inflight
                     + sum(len(b.items) for lane in self.queues.values()
@@ -324,6 +393,7 @@ class QueryScheduler:
         elsewhere with ``submit(item, future=fut)``. Batches already
         dispatched complete here; a running session finishes them and
         exits."""
+        self._refuse_on_follower("drain_handoff")
         out: List[Tuple[Any, AnswerFuture]] = []
         with self._cv:
             self._closed = True
@@ -345,11 +415,13 @@ class QueryScheduler:
         session fails its in-flight batches the same way and exits.
         Futures resolve first-wins, so a batch that beats the kill keeps
         its answers."""
+        self._refuse_on_follower("kill")
         victims: List[AnswerFuture] = []
         with self._cv:
             self._closed = True
             self._stopping = True
             self._abort_exc = exc
+            victims.extend(self._take_ops_locked())
             for lane in self.queues.values():
                 for batch in lane:
                     victims.extend(batch.futures)
@@ -408,16 +480,23 @@ class QueryScheduler:
 
     # -- dispatch engine -------------------------------------------------
 
-    def _launch(self, batch: _Batch) -> Tuple[_Batch, Any, float]:
+    def _launch(self, batch: _Batch, channel: Optional["_Channel"] = None
+                ) -> Tuple[_Batch, Any, float]:
         """Collate + stage + dispatch one batch; the card runs it async. A
         failure fails the batch's futures before it propagates: the batch
-        has left the lanes already."""
+        has left the lanes already. With a ``channel`` the collated batch
+        goes to every follower before this rank stages it."""
         try:
             if self.chaos is not None:
                 self.chaos.visit("scheduler.dispatch", self.chaos_target)
-            staged = self._stage(self._collate(batch.items))
+            payload = self._collate(batch.items)
+            if channel is not None:
+                channel.dispatch(payload)
+            staged = self._stage(payload)
             t0 = self.clock()
             raw = self._dispatch(staged)
+            if channel is not None:
+                channel.done()
             if self._epoch_of is not None:
                 batch.epoch = self._epoch_of(raw)
         except BaseException as e:
@@ -428,7 +507,8 @@ class QueryScheduler:
             self._n_inflight += len(batch.items)
         return batch, raw, t0
 
-    def _complete(self, batch: _Batch, raw: Any, t0: float):
+    def _complete(self, batch: _Batch, raw: Any, t0: float, *,
+                  rebalance: bool = True):
         try:
             answers = self._finalize(raw, len(batch.items))
             dt = self.clock() - t0
@@ -450,7 +530,8 @@ class QueryScheduler:
         self.stats.padded += batch.bucket - len(batch.items)
         self.stats.bucket_counts[batch.bucket] = \
             self.stats.bucket_counts.get(batch.bucket, 0) + 1
-        self.rebalance()
+        if rebalance:
+            self.rebalance()
 
     def _fail_inflight(self, inflight: deque, exc: BaseException):
         """Fail the futures of batches launched and not completed."""
@@ -485,7 +566,8 @@ class QueryScheduler:
                     inflight.append(self._launch(batch))
                 while inflight and (len(inflight) >= self.depth
                                     or batch is None):
-                    self._complete(*inflight.popleft())
+                    self._complete(*inflight.popleft(),
+                                   rebalance=not self.spmd)
         except BaseException as e:
             self._fail_inflight(inflight, e)
             raise
@@ -524,38 +606,74 @@ class QueryScheduler:
             if self._thread is thread:
                 self._thread = None
 
+    def call_in_session(self, fn: Callable[[], Any]) -> Any:
+        """Run ``fn()`` on the session thread between two dispatches and
+        return its result: on a mesh a publish runs there, so that one
+        thread of the rank makes collectives. Raises ``RuntimeError`` when
+        no session runs; ``fn``'s failure is raised here and ends the
+        session."""
+        fut = AnswerFuture()
+        with self._cv:
+            if self._closed or not self.running:
+                raise RuntimeError("QueryScheduler has no running session "
+                                   "to run a call between its dispatches")
+            self._ops.append((fn, fut))
+            self._cv.notify()
+        return fut.result()
+
+    def _take_ops_locked(self) -> List[AnswerFuture]:
+        futs = [fut for _, fut in self._ops]
+        self._ops.clear()
+        return futs
+
     def _run(self):
         inflight: deque = deque()
+        channel = self.channel
         try:
             while True:
-                batch = None
+                batch = op = None
                 if self.heartbeat is not None:
                     self.heartbeat()
                 with self._cv:
                     if self._abort_exc is not None:   # kill(): no draining
                         raise self._abort_exc
-                    self._cut_ripe_locked()
-                    if self._stopping:
-                        while self._pending:
-                            self._cut_locked(
-                                min(len(self._pending), self.buckets[-1]))
-                    if len(inflight) < self.depth:
-                        batch = self._pop_batch_locked()
-                    if batch is None and not inflight:
+                    if self._ops:
+                        op = self._ops.popleft()
+                    else:
+                        self._cut_ripe_locked()
                         if self._stopping:
-                            return
-                        wait = None
-                        if self._pending:
-                            age = self.clock() - self._pending[0][2]
-                            wait = max(self.max_wait_s - age, 0.0)
-                        self._cv.wait(timeout=wait)
-                        continue
+                            while self._pending:
+                                self._cut_locked(min(len(self._pending),
+                                                     self.buckets[-1]))
+                        if len(inflight) < self.depth:
+                            batch = self._pop_batch_locked()
+                        if batch is None and not inflight:
+                            if self._stopping:
+                                break
+                            wait = None
+                            if self._pending:
+                                age = self.clock() - self._pending[0][2]
+                                wait = max(self.max_wait_s - age, 0.0)
+                            self._cv.wait(timeout=wait)
+                            continue
+                if op is not None:
+                    fn, fut = op
+                    try:
+                        fut.set_result(fn())
+                    except BaseException as e:
+                        fut.set_exception(e)
+                        raise
+                    continue
                 if batch is not None:
-                    inflight.append(self._launch(batch))
+                    inflight.append(self._launch(batch, channel))
                     continue          # keep the pipeline full before waiting
                 self._complete(*inflight.popleft())
+            if channel is not None:
+                channel.stop()
         except BaseException as e:
             self._fail_outstanding(inflight, e)
+            if channel is not None and not channel.busy:
+                channel.abort()
 
     def _fail_outstanding(self, inflight: deque, exc: BaseException):
         """A dead session resolves every outstanding future with ``exc``
@@ -563,6 +681,7 @@ class QueryScheduler:
         victims: List[AnswerFuture] = []
         with self._cv:
             self._closed = True
+            victims.extend(self._take_ops_locked())
             for lane in self.queues.values():
                 for batch in lane:
                     victims.extend(batch.futures)
@@ -578,17 +697,145 @@ class _Ready:
     """Marks the point in the device's stream where an answer is complete,
     so that waiting for it does not wait for batches launched after it
     (the port's ``block_until_ready``); on the CPU the tensor is already
-    complete."""
+    complete. ``where`` is the answer, or the device whose current stream
+    is marked."""
 
-    def __init__(self, t: torch.Tensor):
+    def __init__(self, where):
+        device = where.device if isinstance(where, torch.Tensor) \
+            else torch.device(where)
         self._event = None
-        if t.is_cuda:
+        if device.type == "cuda":
             self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(t.device))
+            self._event.record(torch.cuda.current_stream(device))
 
     def wait(self):
         if self._event is not None:
             self._event.synchronize()
+
+
+class _Channel:
+    """The controller's end of a session's command channel on a mesh.
+
+    ``wire(payload)`` turns a collated batch into a ``DISPATCH`` command's
+    fields and tensors. Each command's sends are waited for at most the
+    collective timeout; ``ABORT``'s are not waited for (the death path must
+    return whether or not a follower reads it). ``busy`` is set from a
+    command's send until the controller's own part of it returns
+    (``done``): a failure in between means the followers sit inside that
+    command's collectives, and they leave by the timeout, so that the
+    death path sends no ``ABORT`` then. ``sent`` counts the commands and
+    ``seconds`` is the host time spent sending them, by command."""
+
+    def __init__(self, mesh: Mesh, wire: Callable[[Any], Tuple[Sequence[int],
+                                                            Sequence[Any]]]):
+        self.mesh = mesh
+        self.wire = wire
+        self.busy = False
+        self.sent: Dict[str, int] = {}
+        self.seconds: Dict[str, float] = {}
+        self._pending: list = []      # the last ABORT's unwaited sends
+
+    def _send(self, command: str, fields: Sequence[int] = (),
+              tensors: Sequence[torch.Tensor] = (), wait: bool = True):
+        self.busy = True
+        t0 = time.perf_counter()
+        works = send_command(self.mesh, command, fields, tensors, wait=wait)
+        self.seconds[command] = (self.seconds.get(command, 0.0)
+                                 + time.perf_counter() - t0)
+        self.sent[command] = self.sent.get(command, 0) + 1
+        return works
+
+    def dispatch(self, payload):
+        self._send("DISPATCH", *self.wire(payload))
+
+    def publish(self, rows: np.ndarray, vals: np.ndarray):
+        """The staged log: ``[R]`` int64 rows, ``[R, W]`` u32 values (sent
+        as their int32 bits)."""
+        self._send("PUBLISH", (len(rows), vals.shape[1]), (
+            torch.from_numpy(np.ascontiguousarray(rows, np.int64)),
+            torch.from_numpy(np.ascontiguousarray(vals).view(np.int32))))
+
+    def done(self):
+        self.busy = False
+
+    def stop(self):
+        self._send("STOP")
+        self.busy = False
+
+    def abort(self):
+        self._pending = self._send("ABORT", wait=False)
+        self.busy = False
+
+
+class FollowerLoop:
+    """A follower rank's part of a session on a mesh (module docstring).
+
+    A thread takes the controller's commands until ``STOP`` or ``ABORT``:
+    ``DISPATCH`` is turned back into a batch payload by
+    ``unwire(fields, recv)`` (``recv(shape, dtype)`` reads the command's
+    next tensor), staged and dispatched with the facade's own closures,
+    keeping at most ``depth`` dispatches in flight, its answers dropped;
+    ``PUBLISH`` calls ``publish(rows, values)``. A failure ends the loop at
+    once and sends nothing: the controller's next collective then fails.
+    ``dispatches`` and ``publishes`` count what it ran, ``ended_by`` is the
+    command that ended it (None after a failure, which is ``exc``) and
+    ``t_end`` its ``time.monotonic()`` end."""
+
+    def __init__(self, mesh: Mesh, *, unwire: Callable, stage: Callable,
+                 dispatch: Callable, publish: Callable,
+                 depth: int = PIPELINE_DEPTH):
+        self.mesh = mesh
+        self._unwire = unwire
+        self._stage = stage
+        self._dispatch = dispatch
+        self._publish = publish
+        self.depth = max(depth, 1)
+        self.dispatches = 0
+        self.publishes = 0
+        self.ended_by: Optional[str] = None
+        self.exc: Optional[BaseException] = None
+        self.t_end: Optional[float] = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="pir-follower")
+
+    def start(self):
+        self._thread.start()
+
+    @property
+    def running(self) -> bool:
+        return self._thread.is_alive()
+
+    def join(self, timeout: Optional[float] = None):
+        self._thread.join(timeout)
+
+    def _recv(self, shape, dtype) -> torch.Tensor:
+        return recv_tensor(self.mesh, shape, dtype)
+
+    def _run(self):
+        inflight: deque = deque()
+        try:
+            while True:
+                command, fields = recv_command(self.mesh)
+                if command == "DISPATCH":
+                    staged = self._stage(self._unwire(fields, self._recv))
+                    while len(inflight) >= self.depth:
+                        inflight.popleft().wait()
+                    self._dispatch(staged)
+                    inflight.append(_Ready(self.mesh.device))
+                    self.dispatches += 1
+                elif command == "PUBLISH":
+                    n, w = fields[:2]
+                    rows = self._recv((n,), torch.int64).cpu().numpy()
+                    vals = self._recv((n, w), torch.int32).cpu().numpy()
+                    self._publish(rows, vals.view(np.uint32))
+                    self.publishes += 1
+                else:
+                    self.ended_by = command
+                    return
+        except BaseException as e:
+            self.exc = e
+        finally:
+            self.t_end = time.monotonic()
 
 
 class PIRServeLoop:
@@ -651,6 +898,34 @@ class PIRServeLoop:
             f"cluster{self.stats.batches % max(self.n_clusters, 1)}", dt)
 
 
+def _key_tensors(keys: dpf.DPFKey) -> List[torch.Tensor]:
+    return [t for t in (keys.root_seed, keys.cw_seed, keys.cw_t,
+                        keys.cw_final) if t is not None]
+
+
+def _flat_keys(keys: Sequence[dpf.DPFKey]) -> torch.Tensor:
+    """Every party's batched keys as one int32 tensor (a ``DISPATCH``)."""
+    return torch.cat([t.reshape(-1) for k in keys for t in _key_tensors(k)])
+
+
+def _unflat_keys(recv: Callable, specs: Sequence[dpf.DPFKey]
+                 ) -> Tuple[dpf.DPFKey, ...]:
+    """The keys :func:`_flat_keys` sent, read with ``recv(shape, dtype)``
+    into the shapes of ``specs`` (``PIRProtocol.key_specs``)."""
+    sizes = [t.numel() for k in specs for t in _key_tensors(k)]
+    parts = iter(torch.split(recv((sum(sizes),), torch.int32), sizes))
+    take = lambda spec: next(parts).view(spec.shape)
+    out = []
+    for spec in specs:          # the order of _key_tensors
+        root, seed, cw_t = (take(spec.root_seed), take(spec.cw_seed),
+                            take(spec.cw_t))
+        final = None if spec.cw_final is None else take(spec.cw_final)
+        out.append(dpf.DPFKey(party=spec.party, log_n=spec.log_n,
+                              root_seed=root, cw_seed=seed, cw_t=cw_t,
+                              cw_final=final, rounds=spec.rounds))
+    return tuple(out)
+
+
 def _padded(server: PIRServer, keys):
     """A scheduler batch's keys padded to its bucket, as upstream's stage
     pads them: the answer shares at the ``replica.serve_step`` seam are
@@ -690,8 +965,9 @@ class MultiServerPIR:
     visit, so setting them on a built facade takes effect.
 
     ``mesh`` (a ``launch.mesh.Mesh``) shards the database over its ranks
-    and makes the facade SPMD (module docstring); ``collective`` is the
-    XOR schemes' reduce over the shard axis.
+    and makes the facade SPMD, with one controller for a session (module
+    docstring); ``collective`` is the XOR schemes' reduce over the shard
+    axis. ``follower`` is a follower rank's last :class:`FollowerLoop`.
     """
 
     #: hint protocols (``PIRProtocol.needs_hint``) carry per-query client
@@ -715,11 +991,6 @@ class MultiServerPIR:
                  mesh: Optional[Mesh] = None, collective: str = "gather"):
         self.cfg = cfg
         self.mesh = mesh
-        self.spmd = mesh is not None and mesh.size > 1
-        if self.spmd and n_clusters != 1:
-            raise ValueError(MESH_REFUSED.format("n_clusters lanes"))
-        if self.spmd and chaos is not None:
-            raise ValueError(MESH_REFUSED.format("chaos"))
         self.protocol = (protocol if protocol is not None
                          else protocol_mod.for_config(cfg))
         if self.protocol.needs_hint and not self._supports_hint_protocols:
@@ -746,6 +1017,73 @@ class MultiServerPIR:
         self.scheduler = self._make_scheduler(max_wait_s, n_clusters)
         self.scheduler.chaos = chaos
         self.scheduler.chaos_target = chaos_scope
+        self._init_session(mesh)
+
+    def _init_session(self, mesh: Optional[Mesh]):
+        """The session's state on any rank, and the controller's channel."""
+        self.spmd = mesh is not None and mesh.size > 1
+        self._session = False              # between start() and close()
+        self._update_lock = threading.Lock()
+        self.follower: Optional[FollowerLoop] = None
+        self.scheduler.spmd = self.spmd
+        if self.spmd and mesh.is_controller:
+            self.scheduler.channel = _Channel(mesh, self._wire)
+
+    def _controller_only(self, what: str, *, always: bool = False):
+        """A follower refuses a client call during a session, or at any
+        time (``always``: the streaming submits)."""
+        if (self._session or always) and self.spmd \
+                and not self.mesh.is_controller:
+            raise ValueError(FOLLOWER_REFUSED.format(what,
+                                                     self.mesh.controller))
+
+    def _local(self) -> bool:
+        """Whether a client call runs on this rank alone: on one device, or
+        on the controller during a session (anywhere else it is SPMD)."""
+        return not self.spmd or self._session
+
+    def _spmd_pump_ready(self):
+        """An SPMD call pumps the scheduler on every rank: the controller's
+        queries submitted for a session must not ride along."""
+        if self.spmd and not self._session and self.scheduler.queue_depth:
+            raise ValueError(
+                f"queries submitted on this mesh wait for a session "
+                f"({self.scheduler.queue_depth}): start() one before an "
+                f"SPMD query")
+
+    def _wire(self, payload) -> Tuple[Tuple[int, ...], List[torch.Tensor]]:
+        """A collated batch as a ``DISPATCH``: its query count, and every
+        party's keys as one int32 tensor."""
+        return (dpf.n_queries_of(payload[0]),), [_flat_keys(payload)]
+
+    def _unwire(self, fields, recv):
+        """A follower's payload from a ``DISPATCH`` (:meth:`_wire`)."""
+        n = fields[0]
+        return _unflat_keys(recv, [
+            self.protocol.key_specs(self.cfg, n, party=p)
+            for p in range(self.n_parties)])
+
+    def _apply_publish(self, rows: np.ndarray, vals: np.ndarray) -> int:
+        """A ``PUBLISH`` on a follower: the command's log replaces its own
+        (what every rank staged before the session is the controller's
+        too), then the next epoch."""
+        self.db.take_staged()
+        self.db.stage(rows, vals)
+        return self.db.publish()
+
+    def _publish_in_session(self) -> int:
+        """The controller's publish, on its session thread: the staged log
+        goes to every follower, then is published here."""
+        with self._update_lock:
+            rows, vals = self.db.take_staged()
+            if not len(rows):
+                return self.db.epoch
+            channel = self.scheduler.channel
+            channel.publish(rows, vals)
+            self.db.stage(rows, vals)
+            epoch = self.db.publish()
+            channel.done()
+            return epoch
 
     def _scheduler(self, **kwargs) -> QueryScheduler:
         """The facade's scheduler over its closures, with its buckets."""
@@ -757,7 +1095,7 @@ class MultiServerPIR:
         on every dispatch, may flip bits in one of the batch's answer
         shares."""
         chaos = self.scheduler.chaos
-        if chaos is None:
+        if chaos is None or (self._session and self.follower is not None):
             return answers
         return chaos.corrupt_shares("replica.serve_step",
                                     self.scheduler.chaos_target, answers)
@@ -799,12 +1137,28 @@ class MultiServerPIR:
     # -- streaming session API ------------------------------------------
 
     def start(self):
-        if self.spmd:
-            raise ValueError(MESH_REFUSED.format("a session"))
-        self.scheduler.start()
+        """Open a session (reopen a dead one). On a mesh every rank calls
+        it: the controller runs the session thread, a follower its loop."""
+        self._session = True
+        if not self.spmd or self.mesh.is_controller:
+            self.scheduler.start()
+        elif self.follower is None or not self.follower.running:
+            self.scheduler.following = self.mesh.controller
+            self.follower = FollowerLoop(
+                self.mesh, unwire=self._unwire, stage=self.scheduler._stage,
+                dispatch=self.scheduler._dispatch,
+                publish=self._apply_publish, depth=self.scheduler.depth)
+            self.follower.start()
 
     def close(self):
-        self.scheduler.stop()
+        """Drain and end the session: on a mesh every rank calls it, and a
+        follower returns once its loop has ended."""
+        if not self.spmd or self.mesh.is_controller:
+            self.scheduler.stop()
+        elif self.follower is not None:
+            self.follower.join()
+            self.scheduler.following = None
+        self._session = False
 
     def __enter__(self):
         self.start()
@@ -824,8 +1178,7 @@ class MultiServerPIR:
         """Private retrieval of ``db[index]``; resolves to one record
         (``PIRProtocol.record_struct``: ``[W]`` uint32 words for XOR
         schemes, ``[L]`` uint8 bytes for the additive one)."""
-        if self.spmd:
-            raise ValueError(MESH_REFUSED.format("submit"))
+        self._controller_only("submit", always=True)
         fut = self._deadline_future(deadline_s)
         with self._lock:         # client-side keygen shares one rng
             keys = self.protocol.query_gen(self.rng, index, self.cfg)
@@ -842,12 +1195,19 @@ class MultiServerPIR:
         """Stage public row writes (``[R, item_words]`` u32 or ``[R,
         item_bytes]`` u8); nothing is served from them until
         :meth:`publish`. Returns the staged entry count."""
-        return self.db.stage(rows, values)
+        self._controller_only("update")
+        with self._update_lock:
+            return self.db.stage(rows, values)
 
     def publish(self) -> int:
         """Swap the staged writes in as the next epoch and return it.
         Batches already dispatched finish on the previous epoch and stay
-        tagged with it; later batches read the new one."""
+        tagged with it; later batches read the new one. On a mesh during a
+        session the session thread publishes, between two dispatches, on
+        every rank."""
+        self._controller_only("publish")
+        if self.spmd and self._session:
+            return self.scheduler.call_in_session(self._publish_in_session)
         return self.db.publish()
 
     # -- synchronous batch API ------------------------------------------
@@ -855,6 +1215,8 @@ class MultiServerPIR:
     def query(self, indices: Sequence[int]) -> np.ndarray:
         """Private retrieval of ``db[indices]``: ``[Q, W]`` uint32 records,
         or ``[Q, L]`` uint8 for the byte schemes."""
+        self._controller_only("query")
+        self._spmd_pump_ready()
         indices = list(indices)
         if not indices:
             tail, dtype = self.protocol.record_struct(self.cfg)
@@ -883,12 +1245,13 @@ class MultiServerPIR:
                 for i in range(len(indices))]
 
     def _drawn(self, draw: Callable[[], Any]) -> Any:
-        """``draw()`` once for the deployment: on a mesh, on its first rank,
-        then broadcast to every rank (as host tensors), so that every rank
-        answers the same keys whatever its own rng holds."""
-        if not self.spmd:
+        """``draw()`` once for the deployment: on a mesh outside a session,
+        on the controller, then broadcast to every rank (as host tensors),
+        so that every rank answers the same keys whatever its own rng
+        holds; in a session on the controller alone."""
+        if self._local():
             return draw()
-        src = self.mesh.ranks[0]
+        src = self.mesh.controller
         box = [draw() if self.mesh.rank == src else None]
         dist.broadcast_object_list(
             box, src=src, group=self.mesh.all_group,
@@ -917,13 +1280,17 @@ class SingleServerPIR(MultiServerPIR):
     The client encrypts on the database's device: ``A.s`` is one int32
     GEMM through ``ops.lwe_gemm``.
 
-    On a mesh (SPMD, module docstring) the client is the mesh's first
-    rank: it encrypts a call's queries there and broadcasts the whole
+    On a mesh (module docstring) the client is the controller: it
+    encrypts with the whole of A. Outside a session it broadcasts a call's
     ``[Q, N]`` ciphertexts (each rank's answer reads its block's columns)
     and the secrets; the hint, built per row block and summed, is the same
-    on every rank, so every rank decodes the records. The first query of
-    an epoch builds the hint in finalize, a collective every rank reaches
-    at the same batch.
+    on every rank, so every rank decodes the records, and the first query
+    of an epoch builds the hint in finalize, a collective every rank
+    reaches at the same batch. In a session each ``DISPATCH`` carries the
+    whole ciphertext (one broadcast) and the secrets stay on the
+    controller, which alone decodes; :meth:`start` builds the hint on
+    every rank, and each publish's delta is applied on every rank inside
+    its ``PUBLISH``.
     """
 
     _supports_hint_protocols = True
@@ -943,6 +1310,23 @@ class SingleServerPIR(MultiServerPIR):
         self._hint_cache: Dict[int, np.ndarray] = {}
         self.hint_fetches = 0
         super().__init__(db_words, cfg, protocol=proto, **kwargs)
+
+    def start(self):
+        """Open a session; on a mesh every rank first builds the current
+        epoch's hint (a collective), which the publishes' deltas then keep
+        up to date on every rank."""
+        if self.spmd:
+            self.db.hint(self.protocol.name)
+        super().start()
+
+    def _wire(self, payload):
+        ct, _ = payload           # the secrets stay with the client
+        return (ct.ct.shape[0],), [ct.ct]
+
+    def _unwire(self, fields, recv):
+        n = fields[0]
+        spec = self.protocol.key_specs(self.cfg, n)
+        return spec.map(lambda t: recv(t.shape, t.dtype)), [None] * n
 
     def _client_hint(self, epoch: int) -> np.ndarray:
         """The hint of one epoch (``[n, L]`` int32 on the host), through
@@ -995,8 +1379,7 @@ class SingleServerPIR(MultiServerPIR):
         """Private retrieval of ``db[index]``; resolves to one record
         (``[L]`` uint8). The secret stays with the client: only the
         ciphertext reaches the device path."""
-        if self.spmd:
-            raise ValueError(MESH_REFUSED.format("submit"))
+        self._controller_only("submit", always=True)
         fut = self._deadline_future(deadline_s)
         with self._lock:         # client-side keygen shares one rng
             keys, state = self.protocol.query_gen_full(
@@ -1005,20 +1388,20 @@ class SingleServerPIR(MultiServerPIR):
 
     def _query_items(self, indices: List[int]) -> List[Any]:
         """``((ct,), state)`` per query, the whole call encrypted in one
-        batch on the database's device (on a mesh, on its first rank, then
-        broadcast: the states as objects, the ciphertexts as one int32
-        tensor)."""
-        first = not self.spmd or self.mesh.rank == self.mesh.ranks[0]
+        batch on the database's device (on a mesh outside a session, on the
+        controller, then broadcast: the states as objects, the ciphertexts
+        as one int32 tensor)."""
+        first = self._local() or self.mesh.is_controller
         (ct,), states = (self.protocol.query_gen_batch_full(
             self.rng, indices, self.cfg, device=self.db.device)
             if first else ((None,), None))
-        if self.spmd:
+        if not self._local():
             states = self._drawn(lambda: states)
             spec = self.protocol.key_specs(self.cfg, len(indices))
             buf = ct.ct if first else torch.empty(
                 spec.ct.shape, dtype=spec.ct.dtype, device=self.db.device)
             ct = spec.map(lambda _: broadcast_from(
-                buf, self.mesh.ranks[0], self.mesh.all_group))
+                buf, self.mesh.controller, self.mesh.all_group))
         return [((ct.map(lambda x, i=i: x[i]),), states[i])
                 for i in range(len(indices))]
 

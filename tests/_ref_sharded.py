@@ -47,6 +47,16 @@ JAX initializes):
              a published update, the ``dispatch_log`` and the epoch; a
              ``refusals`` list of (mesh, rounds) whose construction raises
              (``{name}/refused/{d}x{m}``: the message)
+  session    a streaming session of ``TwoServerPIR`` / ``MultiServerPIR``
+             (``facade: "multi"``), ``SingleServerPIR`` (``"single"``) or
+             ``BatchPIR`` (``"batch"``) on each mesh shape, driven by the
+             script ``_torch_ranks.play_session`` plays on the port's
+             controller, with a seeded client rng, ``n_clusters`` lanes and
+             an optional fault plan (``chaos``: seed and events);
+             ``{name}/{d}x{m}`` holds the outcome as JSON (groups of records
+             or errors with their epochs, the published epochs, bucket
+             counts, lanes, the chaos log, and the hint counters or the
+             ``dispatch_log``)
 
 The port's tests read the file and compare with the same cases run over
 four ``gloo`` ranks.
@@ -302,11 +312,59 @@ def run_batch(case, out):
         out[f"{case['name']}/refused/{d}x{m}"] = np.asarray(msg)
 
 
+def session_config(case, PIRConfig):
+    """A session case's config, in either package (``PIRConfig``)."""
+    return PIRConfig(n_items=case["n_items"], item_bytes=case["item_bytes"],
+                     protocol=case["protocol"],
+                     n_servers=case.get("n_servers", 2),
+                     checksum=case.get("checksum", False),
+                     batch_m=case.get("batch_m", 0), batch_queries=1)
+
+
+def run_session(case, out):
+    from repro.chaos import ChaosInjector, FaultEvent, FaultPlan
+    from repro.config import PIRConfig
+    from repro.core import pir
+    from repro.runtime.batch import BatchPIR
+    from repro.runtime.serve_loop import MultiServerPIR, SingleServerPIR
+    from _torch_ranks import play_session
+    cfg = session_config(case, PIRConfig)
+    db = pir.make_database(np.random.default_rng(case["db_seed"]),
+                           cfg.n_items, cfg.item_bytes)
+    for i, (d, m) in enumerate(case["meshes"]):
+        rng = np.random.default_rng(case["key_seed"])
+        common = dict(client_rng=rng, max_wait_s=case["max_wait_s"],
+                      n_clusters=case.get("n_clusters", 1), path="baseline")
+        if case["facade"] == "batch":
+            system = BatchPIR(db, cfg, _mesh((d, m)),
+                              rounds=tuple(case["rounds"][i]), **common)
+        else:
+            chaos = None
+            if case.get("chaos"):
+                seed, events = case["chaos"]
+                chaos = ChaosInjector(FaultPlan(seed, tuple(
+                    FaultEvent(seam, action, at=at)
+                    for seam, action, at in events)))
+            cls = SingleServerPIR if case["facade"] == "single" \
+                else MultiServerPIR
+            system = cls(db, cfg, _mesh((d, m)),
+                         n_queries=case["n_queries"], chaos=chaos, **common)
+        res = play_session(system, case)
+        if case["facade"] == "single":
+            st = system.db.stats
+            res["hint_stats"] = [st.n_hint_builds, st.n_hint_deltas,
+                                 system.hint_fetches]
+        if case["facade"] == "batch":
+            res["dispatch_log"] = [list(r) for r in system.dispatch_log]
+        res["epoch"] = int(system.epoch)
+        out[f"{case['name']}/{d}x{m}"] = np.asarray(json.dumps(res))
+
+
 RUNNERS = {"serve": run_serve, "allreduce": run_allreduce,
            "mesh": run_mesh, "report": run_report,
            "placement": run_placement, "hint": run_hint,
            "single": run_single,
-           "batch": run_batch}
+           "batch": run_batch, "session": run_session}
 
 
 def main(argv):

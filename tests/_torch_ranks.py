@@ -20,6 +20,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -378,9 +379,11 @@ def scenario_db(spec) -> dict:
 
 def scenario_facade(spec) -> dict:
     """``TwoServerPIR`` / ``MultiServerPIR`` on each mesh, the client rng
-    seeded on rank 0 only; the refusals of what needs one controller."""
+    seeded on rank 0 only; what needs one controller served by rank 0 in a
+    session and refused by the others."""
     import torch.distributed as dist
     from dataclasses import replace
+    from repro_torch.chaos import ChaosInjector, FaultPlan
     from repro_torch.core import pir
     from repro_torch.runtime.serve_loop import (MultiServerPIR,
                                                 SingleServerPIR, TwoServerPIR)
@@ -413,19 +416,36 @@ def scenario_facade(spec) -> dict:
             out[f"{tag}/q2"] = system.query(rows)
             out[f"{tag}/q3"] = system.query(spec["indices"])
     mesh = _mesh((2, 2))
-    refusals = {
-        "session": lambda: TwoServerPIR(db, cfg, mesh=mesh).start(),
-        "submit": lambda: TwoServerPIR(db, cfg, mesh=mesh).submit(0),
-        "lanes": lambda: TwoServerPIR(db, cfg, mesh=mesh, n_clusters=2),
-        "chaos": lambda: TwoServerPIR(db, cfg, mesh=mesh, chaos=object()),
-        "single": lambda: SingleServerPIR(db, lwe_cfg, mesh=mesh).submit(0)}
     lwe_cfg = replace(cfg, protocol="lwe-simple-1", n_servers=1)
-    for what, fn in refusals.items():
-        try:
-            fn()
-            out[f"refused/{what}"] = None
-        except ValueError as e:
-            out[f"refused/{what}"] = str(e)
+    seeded = lambda: np.random.default_rng(spec["key_seed"]) \
+        if rank == 0 else None
+    two = lambda **kw: TwoServerPIR(db, cfg, mesh=mesh, client_rng=seeded(),
+                                    n_queries=4, **kw)
+    builds = {"session": two, "submit": two,
+              "lanes": lambda: two(n_clusters=2),
+              "chaos": lambda: two(chaos=ChaosInjector(FaultPlan(0))),
+              "single": lambda: SingleServerPIR(
+                  db, lwe_cfg, mesh=mesh, client_rng=seeded(), n_queries=4)}
+    idx = spec["indices"][:4]
+    for what, build in builds.items():
+        # what needs one controller: rank 0 serves it in a session, the
+        # others refuse the client call by name
+        system = build()
+        system.start()
+        call = "query" if what == "session" else "submit"
+        if rank == 0:
+            out[f"served/{what}"] = (
+                system.query(idx) if what == "session" else
+                np.stack([system.submit(i).result() for i in idx]))
+        else:
+            try:
+                getattr(system, call)(idx if call == "query" else idx[0])
+                out[f"refused/{what}"] = None
+            except ValueError as e:
+                out[f"refused/{what}"] = str(e)
+        system.close()
+        if what == "chaos":
+            out["chaos_visits"] = sum(system.scheduler.chaos._counts.values())
     single = SingleServerPIR(
         db, lwe_cfg, mesh=mesh, n_queries=8, client_rng=np.random.default_rng(
             spec["key_seed"]) if rank == 0 else None)
@@ -449,6 +469,84 @@ def _update_vals(cfg, rows, seed) -> np.ndarray:
     return np.random.default_rng(seed).integers(
         0, 2 ** 32, size=(len(rows), cfg.item_bytes // 4),
         dtype=np.uint64).astype(np.uint32)
+
+
+def session_vals(item_bytes: int, rows, seed) -> np.ndarray:
+    """The values a session script's publish writes (both packages)."""
+    return np.random.default_rng(seed).integers(
+        0, 2 ** 32, size=(len(rows), item_bytes // 4),
+        dtype=np.uint64).astype(np.uint32)
+
+
+def _outcome(fut, timeout: float) -> dict:
+    """One resolved future as plain data: its record, or its error's type,
+    message and ``bad_queries``; and its epoch."""
+    try:
+        rec = np.asarray(fut.result(timeout=timeout)).tolist()
+        err = bad = None
+    except Exception as e:   # noqa: BLE001 - the error is the outcome
+        rec, err = None, f"{type(e).__name__}: {e}"
+        bad = list(getattr(e, "bad_queries", ()))
+    return {"record": rec, "epoch": fut.epoch, "error": err, "bad": bad}
+
+
+def play_session(system, case: dict, *, controller: bool = True,
+                 timeout: float = 120.0, extra=None) -> dict:
+    """Run a session script (``case["steps"]``) on a facade of either
+    package, the same way on both: ``start`` / ``close`` on every rank, the
+    rest on the controller only (the reference has no other):
+
+      ["submit", [i, ...]]         one ``submit`` per index
+      ["submit_batch", [i, ...]]   one round (``BatchPIR``; a refused one
+                                   is kept in ``submit_errors``)
+      ["wait"]                     resolve every future submitted since the
+                                   last wait: one group of outcomes
+      ["publish", rows, seed]      ``update`` + ``publish``
+      ["kill"]                     ``scheduler.kill(RuntimeError("killed"))``
+
+    Any other step goes to ``extra(step, out)`` on every rank. Returns the groups, the published epochs, the scheduler's
+    ``bucket_counts``, batches and lanes, and the chaos log."""
+    out = {"groups": [], "epochs": []}
+    futs = []
+    for step in case["steps"]:
+        op = step[0]
+        if op == "start":
+            system.start()
+        elif op == "close":
+            system.close()
+        elif extra is not None and op in extra.ops:
+            extra(step, out)
+        elif not controller:
+            continue
+        elif op == "submit":
+            futs += [system.submit(int(i)) for i in step[1]]
+        elif op == "submit_batch":
+            try:
+                futs.append(system.submit_batch(step[1]))
+            except Exception as e:   # noqa: BLE001 - a refused round
+                out.setdefault("submit_errors", []).append(
+                    f"{type(e).__name__}: {e}")
+        elif op == "wait":
+            out["groups"].append([_outcome(f, timeout) for f in futs])
+            futs = []
+        elif op == "publish":
+            rows, seed = step[1], step[2]
+            system.update(rows, session_vals(case["item_bytes"], rows, seed))
+            out["epochs"].append(int(system.publish()))
+        elif op == "kill":
+            system.scheduler.kill(RuntimeError("killed"))
+        else:
+            raise ValueError(f"unknown step {step!r}")
+    stats = system.scheduler.stats
+    chaos = system.scheduler.chaos
+    out.update(
+        bucket_counts={str(k): v for k, v in sorted(
+            stats.bucket_counts.items())},
+        batches=stats.batches,
+        lanes=sorted(system.scheduler.monitor.ewma),
+        fired=[[f.seam, f.target, f.action, f.visit]
+               for f in (chaos.fired if chaos is not None else ())])
+    return out
 
 
 def scenario_hint(spec) -> dict:
@@ -485,8 +583,9 @@ def scenario_hint(spec) -> dict:
 def scenario_single(spec) -> dict:
     """``SingleServerPIR`` on each mesh with the client rng seeded on rank 0
     only: the records, the epochs, the hint after each publish, the hint
-    counters, the rows of A each rank drew; the refusals left on a mesh
-    and a hint on a mesh without a ``model`` group."""
+    counters, the rows of A each rank drew; a session's submit, served on
+    rank 0 and refused elsewhere; a hint on a mesh without a ``model``
+    group."""
     import torch
     import torch.distributed as dist
     from repro_torch.core import lwe, pir
@@ -520,13 +619,20 @@ def scenario_single(spec) -> dict:
         # the row ranges of A this rank holds: its block, or the whole
         # matrix where it encrypted (a block of it is then a view)
         out[f"{tag}/a_rows"] = sorted(k[3] for k in lwe._A_CACHE)
-        for what, fn in {"submit": lambda: system.submit(0),
-                         "session": system.start}.items():
+        # a session: rank 0 serves a submit, the others refuse it by name
+        system.start()
+        if rank == 0:
+            out[f"{tag}/served/submit"] = system.submit(
+                spec["indices"][0]).result()
+        else:
             try:
-                fn()
-                out[f"{tag}/refused/{what}"] = None
+                system.submit(0)
+                out[f"{tag}/refused/submit"] = None
             except ValueError as e:
-                out[f"{tag}/refused/{what}"] = str(e)
+                out[f"{tag}/refused/submit"] = str(e)
+        system.close()
+        out[f"{tag}/session"] = ("controller" if system.follower is None
+                                 else system.follower.ended_by)
     lwe.clear_matrix_cache()
     bare = Mesh(axis_names=("data", "model"), sizes=(1, 4),
                 ranks=(0, 1, 2, 3), rank=rank, device=torch.device("cpu"))
@@ -543,7 +649,9 @@ def scenario_batch(spec) -> dict:
     seeded on rank 0 only: the records of each batch (one of them halved
     after a failed cuckoo placement), an update over every block, the
     ``dispatch_log``, the epoch, and this rank's calls of ``plan_round``,
-    of the protocol's ``reduce`` and of ``combine``; the refusals."""
+    of the protocol's ``reduce`` and of ``combine``; the refusals of
+    buckets; a session's submit and two lanes, served on rank 0 and refused
+    elsewhere."""
     import torch.distributed as dist
     from repro_torch.config import PIRConfig
     from repro_torch.core import pir, protocol as protocol_mod
@@ -585,11 +693,16 @@ def scenario_batch(spec) -> dict:
                 out[f"{tag}/rows"] = system.db.buckets[0].rows
                 for what in ("plan_round", "combine", "reduce"):
                     out[f"{tag}/calls/{what}"] = calls.count(what)
-                try:
-                    system.submit(0)
-                    out[f"{tag}/refused/submit"] = None
-                except ValueError as e:
-                    out[f"{tag}/refused/submit"] = str(e)
+                system.start()
+                if rank == 0:
+                    out[f"{tag}/served/submit"] = system.submit(0).result()
+                else:
+                    try:
+                        system.submit(0)
+                        out[f"{tag}/refused/submit"] = None
+                    except ValueError as e:
+                        out[f"{tag}/refused/submit"] = str(e)
+                system.close()
             finally:
                 for obj, name, orig in undo:
                     setattr(obj, name, orig)
@@ -601,20 +714,202 @@ def scenario_batch(spec) -> dict:
             except ValueError as e:
                 out[f"{case['name']}/refused/{d}x{m}"] = f"ValueError: {e}"
         if case.get("lanes"):
-            try:
-                BatchPIR(db, cfg, mesh=_mesh((1, 4)), n_clusters=2)
-                out[f"{case['name']}/refused/lanes"] = None
-            except ValueError as e:
-                out[f"{case['name']}/refused/lanes"] = str(e)
+            # two lanes on (1, 4): rank 0 submits two rounds in a session
+            system = BatchPIR(db, cfg, mesh=_mesh((1, 4)), n_clusters=2,
+                              client_rng=np.random.default_rng(
+                                  case["key_seed"]) if rank == 0 else None)
+            system.start()
+            name = case["name"]
+            if rank == 0:
+                futs = [system.submit_batch(q) for q in case["queries"][::2]]
+                out[f"{name}/lanes/served"] = [f.result() for f in futs]
+            else:
+                try:
+                    system.submit_batch(case["queries"][0])
+                    out[f"{name}/refused/lanes"] = None
+                except ValueError as e:
+                    out[f"{name}/refused/lanes"] = str(e)
+            system.close()
+            out[f"{name}/lanes"] = sorted(system.scheduler.monitor.ewma)
     return out
 
+
+def session_facade(case, mesh, i: int, rank: int):
+    """The port's facade of one session case on ``mesh`` (its ``i``-th),
+    built on every rank with the client rng seeded on the controller only:
+    a follower draws nothing."""
+    from repro_torch.chaos import ChaosInjector, FaultEvent, FaultPlan
+    from repro_torch.config import PIRConfig
+    from repro_torch.core import pir
+    from repro_torch.runtime.batch import BatchPIR
+    from repro_torch.runtime.serve_loop import MultiServerPIR, SingleServerPIR
+    from _ref_sharded import session_config
+    cfg = session_config(case, PIRConfig)
+    db = pir.make_database(np.random.default_rng(case["db_seed"]),
+                           cfg.n_items, cfg.item_bytes)
+    common = dict(mesh=mesh, max_wait_s=case["max_wait_s"],
+                  n_clusters=case.get("n_clusters", 1),
+                  client_rng=np.random.default_rng(case["key_seed"])
+                  if rank == mesh.controller else None)
+    if case["facade"] == "batch":
+        return BatchPIR(db, cfg, rounds=tuple(case["rounds"][i]), **common)
+    chaos = None
+    if case.get("chaos"):
+        seed, events = case["chaos"]
+        chaos = ChaosInjector(FaultPlan(seed, tuple(
+            FaultEvent(seam, action, at=at) for seam, action, at in events)))
+    cls = SingleServerPIR if case["facade"] == "single" else MultiServerPIR
+    return cls(db, cfg, n_queries=case["n_queries"], chaos=chaos, **common)
+
+
+_REFUSED = {"submit": lambda s: s.submit(0),
+            "update": lambda s: s.update([0], np.zeros((1, 8), np.uint32)),
+            "publish": lambda s: s.publish(),
+            "query": lambda s: s.query([0]),
+            "queue_depth": lambda s: s.scheduler.queue_depth,
+            "drain_handoff": lambda s: s.scheduler.drain_handoff(),
+            "kill": lambda s: s.scheduler.kill(RuntimeError("x"))}
+
+
+def scenario_session(spec) -> dict:
+    """Each session case on each of its meshes: the controller plays the
+    script (``play_session``), every rank starts and closes; then every
+    rank's epoch, and on a follower the commands its loop ran, what ended
+    it, and what its client calls raised during the session."""
+    import torch.distributed as dist
+    from repro_torch.core import lwe
+    from repro_torch.kernels import ops
+    rank = dist.get_rank()
+    out = {}
+    for case in spec["cases"]:
+        for i, (d, m) in enumerate(case["meshes"]):
+            mesh = _mesh((d, m))
+            lwe.clear_matrix_cache()
+            system = session_facade(case, mesh, i, rank)
+            fail_at = case.get("follower_fails", {}).get(str(rank))
+            if fail_at is not None:        # this follower's dispatch raises
+                dispatch, calls = system.scheduler._dispatch, []
+
+                def failing(staged, dispatch=dispatch, calls=calls):
+                    calls.append(1)
+                    if len(calls) > fail_at:
+                        raise RuntimeError("follower dispatch failed")
+                    return dispatch(staged)
+                system.scheduler._dispatch = failing
+            ops.reset_counts()
+            t0 = time.monotonic()
+            res = play_session(system, case, controller=mesh.is_controller,
+                               extra=_PortSteps(system, case))
+            res["close_s"] = time.monotonic() - t0
+            if fail_at is not None:
+                # alive, so that the others' collectives fail by the
+                # group's timeout and not by a closed connection
+                time.sleep(case.get("linger_s", 0.0))
+            res["epoch"] = int(system.epoch)
+            res["plain_calls"] = sum(v["plain_calls"]
+                                     for v in ops.counts().values())
+            if case["facade"] == "single":
+                st = system.db.stats
+                res["hint_stats"] = [st.n_hint_builds, st.n_hint_deltas,
+                                     system.hint_fetches]
+            if case["facade"] == "batch":
+                res["dispatch_log"] = [list(r) for r in system.dispatch_log]
+            follower = system.follower
+            if follower is not None:
+                res["follower"] = {
+                    "dispatches": follower.dispatches,
+                    "publishes": follower.publishes,
+                    "ended_by": follower.ended_by,
+                    "exc": None if follower.exc is None
+                    else f"{type(follower.exc).__name__}: {follower.exc}",
+                    "t_end": follower.t_end}
+            channel = system.scheduler.channel
+            if channel is not None:
+                res["sent"] = dict(channel.sent)
+            out[f"{case['name']}/{d}x{m}"] = res
+    return out
+
+
+class _PortSteps:
+    """The port-only steps of a session script:
+
+      ["refusals"]              on each follower, every client call during
+                                the session (each must raise)
+      ["race", indices, rows, seed]
+                                on the controller, four client threads
+                                submit ``indices`` while a fifth publishes
+                                ``rows`` midway: each outcome with its index
+      ["beat"]                  on the controller, count the scheduler's
+                                heartbeats from here on
+      ["hooks"]                 on the controller, ``queue_depth`` and the
+                                queries ``drain_handoff`` returns, and the
+                                heartbeats counted
+    """
+    ops = ("refusals", "race", "beat", "hooks")
+
+    def __init__(self, system, case):
+        self.system, self.case = system, case
+
+    def __call__(self, step, out):
+        system = self.system
+        controller = not system.spmd or system.mesh.is_controller
+        if step[0] == "refusals" and not controller:
+            got = {}
+            for what, fn in _REFUSED.items():
+                try:
+                    fn(system)
+                    got[what] = None
+                except ValueError as e:
+                    got[what] = str(e)
+            out["refused"] = got
+        elif step[0] == "race" and controller:
+            out["race"] = self._race(*step[1:])
+        elif step[0] == "beat" and controller:
+            self.beats = []
+            system.scheduler.heartbeat = lambda: self.beats.append(1)
+        elif step[0] == "hooks" and controller:
+            depth = system.scheduler.queue_depth
+            out["hooks"] = {"queue_depth": depth,
+                            "handed_off": len(system.scheduler.drain_handoff()),
+                            "beats": len(self.beats)}
+
+    def _race(self, indices, rows, seed):
+        import threading
+        system, futs, lock = self.system, [], threading.Lock()
+        half = threading.Event()
+
+        def client(part):
+            for n, i in enumerate(part):
+                fut = system.submit(int(i))
+                with lock:
+                    futs.append((int(i), fut))
+                    if len(futs) >= len(indices) // 2:
+                        half.set()
+                time.sleep(0.002)
+
+        def publisher():
+            half.wait()
+            system.update(rows, session_vals(self.case["item_bytes"], rows,
+                                             seed))
+            published.append(system.publish())
+
+        published: list = []
+        threads = [threading.Thread(target=client, args=(indices[k::4],))
+                   for k in range(4)] + [threading.Thread(target=publisher)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return {"published": published,
+                "outcomes": [dict(_outcome(f, 120.0), index=i)
+                             for i, f in futs]}
 
 
 SCENARIOS = {"mesh": scenario_mesh, "serve": scenario_serve,
              "db": scenario_db, "facade": scenario_facade,
              "lwe": lambda spec: {**scenario_hint(spec["hint"]),
                                   **scenario_single(spec["single"])},
-             "batch": scenario_batch}
+             "batch": scenario_batch, "session": scenario_session}
 
 
 def main(argv) -> int:
@@ -623,10 +918,15 @@ def main(argv) -> int:
     torch.set_num_threads(1)
     from repro_torch.launch.mesh import init_distributed
     import torch.distributed as dist
-    init_distributed(int(rank), int(world), f"file://{tmp}/store",
-                     device="cpu")
     with open(spec_path) as f:
         spec = json.load(f)
+    init_distributed(int(rank), int(world), f"file://{tmp}/store",
+                     device="cpu", timeout=spec.get("timeout_s"))
+    if spec.get("broken"):
+        # a scenario that leaves the groups broken: no collective after it,
+        # and the process ends as soon as its result is saved
+        torch.save(SCENARIOS[scenario](spec), Path(tmp) / f"rank{rank}.pt")
+        os._exit(0)
     try:
         result = SCENARIOS[scenario](spec)
         dist.barrier()

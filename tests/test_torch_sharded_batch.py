@@ -13,7 +13,8 @@ a published update over every block, at the same epoch, with the
 reference's ``dispatch_log``; each party's dispatch makes one reduce over
 the shard axis for all B buckets. The reference's refusals of buckets
 that do not divide over the clusters are the port's, and an additive
-deployment serves on ``(1, 4)``.
+deployment serves on ``(1, 4)``. In a session rank 0 serves a submit and
+two lanes, and the other ranks refuse the streaming submits by name.
 """
 import numpy as np
 import pytest
@@ -134,9 +135,21 @@ def test_buckets_that_do_not_divide_are_refused_as_the_reference(runs,
 
 
 @pytest.mark.parametrize("name,mesh", CASES)
-def test_sessions_and_lanes_stay_refused(runs, name, mesh):
-    for res in runs[0]:
-        msg = res[f"{tag(name, mesh)}/refused/submit"]
-        assert msg.startswith("submit") and "A6b-serve-2" in msg
-        lanes = res["x2/refused/lanes"]
-        assert lanes.startswith("n_clusters lanes") and "A6b-serve-2" in lanes
+def test_sessions_and_lanes_stay_refused(runs, host, name, mesh):
+    # in a session rank 0, the controller, serves a submit (index 0, which
+    # no update wrote) and the others refuse it by name; two lanes on
+    # (1, 4), a fresh deployment, serve one round each
+    results, _ = runs
+    db = host[0]
+    assert np.array_equal(results[0][f"{tag(name, mesh)}/served/submit"],
+                          records(db[0], name))
+    for res in results[1:]:
+        assert res[f"{tag(name, mesh)}/refused/submit"] == (
+            "submit is the controller's on a mesh: call it on rank 0 "
+            "(mesh.controller)")
+        assert res["x2/refused/lanes"] == (
+            "submit_batch is the controller's on a mesh: call it on rank 0 "
+            "(mesh.controller)")
+    assert results[0]["x2/lanes"] == ["cluster0", "cluster1"]
+    for got, idx in zip(results[0]["x2/lanes/served"], QUERIES[::2]):
+        assert np.array_equal(got, db[idx])

@@ -6,7 +6,8 @@ the same arguments; only rank 0's client rng is seeded, so the records
 come out right only because rank 0's keys are broadcast. Every rank gets
 the host rows, before and after an update whose rows span all four
 blocks, at the same epoch. ``SingleServerPIR`` serves on a mesh too. What
-needs one controller is refused.
+needs one controller (a session, ``submit``, lanes, chaos) rank 0 serves
+in a session, and every other rank refuses by name.
 """
 import numpy as np
 import pytest
@@ -67,15 +68,22 @@ def test_an_update_over_every_block_is_served(runs, rows, mesh, protocol):
 
 
 @pytest.mark.parametrize("what,name", [
-    ("session", "a session"), ("submit", "submit"),
-    ("lanes", "n_clusters lanes"), ("chaos", "chaos"),
-    # SingleServerPIR serves on a mesh; its streaming submit stays refused
-    ("single", "submit")])
-def test_one_controller_paths_are_refused_on_a_mesh(runs, what, name):
-    for res in runs:
-        msg = res[f"refused/{what}"]
-        assert msg is not None and msg.startswith(name)
-        assert "A6b-serve-2" in msg
+    ("session", "query"), ("submit", "submit"),
+    ("lanes", "submit"), ("chaos", "submit"), ("single", "submit")])
+def test_one_controller_paths_are_refused_on_a_mesh(runs, rows, what, name):
+    # a session, submit, lanes, chaos and SingleServerPIR's submit on the
+    # (2, 2) mesh: rank 0, the controller, serves them; every other rank
+    # refuses the client call and names the controller
+    host, _ = rows
+    want = host[SPEC["indices"][:4]]
+    assert np.array_equal(runs[0][f"served/{what}"],
+                          want.view(np.uint8) if what == "single" else want)
+    for res in runs[1:]:
+        assert res[f"refused/{what}"] == (
+            f"{name} is the controller's on a mesh: call it on rank 0 "
+            f"(mesh.controller)")
+    # only the controller visits the chaos seams
+    assert [res["chaos_visits"] > 0 for res in runs] == [True] + [False] * 3
 
 
 def test_single_server_serves_on_a_mesh(runs, rows):

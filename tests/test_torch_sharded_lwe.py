@@ -14,7 +14,8 @@ devices (``tests/_ref_sharded.py``):
     misses most blocks), with the reference's counters;
   * ``SingleServerPIR(mesh=)`` with the client rng seeded on rank 0 only:
     rank 0 encrypts and broadcasts, every rank decodes the reference's
-    records at the reference's epochs, with its hint counters.
+    records at the reference's epochs, with its hint counters; in a
+    session rank 0 serves a submit and the others refuse it by name.
 
 All of it is integer math: equality is exact.
 """
@@ -150,10 +151,21 @@ def test_single_server_counters_equal_the_references(runs, mesh):
 @pytest.mark.parametrize("what,name", [("submit", "submit"),
                                        ("session", "a session")])
 @pytest.mark.parametrize("mesh", MESHES)
-def test_one_controller_paths_stay_refused(runs, mesh, what, name):
-    for res in runs[0]:
-        msg = res[f"lwe/{tag(mesh)}/refused/{what}"]
-        assert msg.startswith(name) and "A6b-serve-2" in msg
+def test_one_controller_paths_stay_refused(runs, states, mesh, what, name):
+    # a session on every rank: rank 0, the controller, serves a submit and
+    # the others refuse it by name; the session ends on every rank
+    results, _ = runs
+    for r, res in enumerate(results):
+        if what == "submit" and r == 0:
+            want = states[2][0][SINGLE["indices"][0]].view(np.uint8)
+            assert np.array_equal(res[f"lwe/{tag(mesh)}/served/submit"], want)
+        elif what == "submit":
+            assert res[f"lwe/{tag(mesh)}/refused/submit"] == (
+                "submit is the controller's on a mesh: call it on rank 0 "
+                "(mesh.controller)")
+        else:
+            assert res[f"lwe/{tag(mesh)}/session"] == (
+                "controller" if r == 0 else "STOP"), name
 
 
 def test_a_hint_needs_the_model_group(runs):
