@@ -168,8 +168,8 @@ Then the single-server LWE scheme runs at PIR_128M_LWE (2^22 records x
               call
   replicas    the replica plane at PIR_1G, last (its warm plan-cache entries
               reach no other phase), once the resident databases are freed:
-              two ServeReplicas on carve_submeshes(2, model_axis=1) (both
-              on cuda:0 on one card), each placing its own 1 GiB Database,
+              two ServeReplicas on carve_submeshes(2, model_axis=1) ((1, 1)
+              meshes, both on cuda:0), each placing its own 1 GiB Database,
               behind a seeded Router; join (build and attach seconds, the
               first exact answer), a 64-row publish fanned out to epoch 1,
               128 queries from 4 client threads through the fleet and
@@ -238,7 +238,23 @@ Then the single-server LWE scheme runs at PIR_128M_LWE (2^22 records x
               follower's dispatches the controller's batches, launches
               exact; each part's seconds, the median batch latency,
               records/s, the channel's host time a dispatch and the kill
-              to the last rank's exit
+              to the last rank's exit. Last, a fleet (sharded_fleet, its
+              own line): two PIR_1G replicas on the (1, 2) sub-meshes of
+              carve_submeshes(2, model_axis=2), each rank half of its
+              replica's database, rank 0 the fleet's controller (inside
+              r0's grid, outside r1's, whose first rank sends each answer
+              back) and the others following the fleet; a 64-row publish
+              through the router, 64 queries from 4 client threads, r0
+              killed under 32 pinned queries, a warm rejoin of r0 with a
+              whole bucket pinned to it, a graceful leave with 8 queued
+              (handed off to r1); then the chaos smoke's scenario B on
+              (1, 2) sub-meshes (one word of one record's answer flipped
+              and caught). Records exact at epoch 1, each rank's launches
+              those its replicas' dispatched batches call for, no plain
+              call, followers' dispatches the controller's; records/s,
+              the median batch latency, a reply's send-to-arrival time,
+              the kill to the last exit, the rejoin's seconds, each rank's
+              peak
   private_lm  the dense LM, once the fleets are released: qwen3-4b at full
               width and depth (36 layers, d_model 2,560, vocab 151,936,
               bf16, 8.8 GB of weights drawn from a seeded generator on the
@@ -3281,8 +3297,8 @@ def phase_serve_runtime(host_db, cfg, database, host_chk, cfg_chk,
     return launches
 
 
-#: the replicas phase: two PIR_1G replicas on carve_submeshes(2) (both on
-#: cuda:0 on one card), buckets 1 and 32; a replica cuts an under-full
+#: the replicas phase: two PIR_1G replicas on carve_submeshes(2) ((1, 1)
+#: meshes, both on cuda:0 on one card), buckets 1 and 32; a replica cuts an under-full
 #: batch after REPL_MAX_WAIT_S, so that the query submitted last before a
 #: kill or a leave is still queued when it comes
 REPL_BUCKETS = (1, 32)
@@ -3309,9 +3325,9 @@ REPL_LEAVE_QUERIES = 128
 REPL_HEARTBEAT_TIMEOUT_S = 900.0
 
 
-def repl_replica(rid, host, cfg, device, seed, buckets=REPL_BUCKETS, **kw):
+def repl_replica(rid, host, cfg, mesh, seed, buckets=REPL_BUCKETS, **kw):
     from repro_torch.replica import ServeReplica
-    return ServeReplica(rid, host, cfg, device, n_queries=buckets[-1],
+    return ServeReplica(rid, host, cfg, mesh, n_queries=buckets[-1],
                         buckets=buckets, max_wait_s=REPL_MAX_WAIT_S,
                         client_rng=np.random.default_rng(seed), **kw)
 
@@ -3397,15 +3413,15 @@ def check_routed(step: str, futs, want, epoch: int) -> dict:
     return dict(sorted(split.items()))
 
 
-def replicas_join(router, host_db, cfg, groups, rng, oracle, card) -> dict:
+def replicas_join(router, host_db, cfg, meshes, rng, oracle, card) -> dict:
     """Build and attach r0 and r1, each with its own 1 GiB Database; the
     seconds of each build and attach, and to the first exact answer."""
     t_start = time.perf_counter()
     out = {"phase": "replicas_join", "config": "pir-1g", "card": card,
-           "devices": [str(g[0]) for g in groups], "replicas": {}}
-    for i, group in enumerate(groups):
+           "devices": [str(m.device) for m in meshes], "replicas": {}}
+    for i, mesh in enumerate(meshes):
         t0 = time.perf_counter()
-        rep = repl_replica(f"r{i}", host_db, cfg, group[0], SEED + 310 + i)
+        rep = repl_replica(f"r{i}", host_db, cfg, mesh, SEED + 310 + i)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         router.attach(rep)
@@ -3591,7 +3607,7 @@ def replicas_kill(router, oracle, rng, cfg, card) -> dict:
     return out
 
 
-def replicas_corrupt(host_chk, cfg_chk, groups, rng, card) -> dict:
+def replicas_corrupt(host_chk, cfg_chk, meshes, rng, card) -> dict:
     """Two replicas on the checksum database (PIR_1G, checksum=True), and
     one ChaosInjector held by c0 and the router: a corrupt at c0's
     replica.serve_step seam, visit 0. c0 serves buckets of one, so that
@@ -3603,10 +3619,10 @@ def replicas_corrupt(host_chk, cfg_chk, groups, rng, card) -> dict:
     injector = ChaosInjector(FaultPlan(seed=SEED + 333, events=(
         FaultEvent("replica.serve_step", "corrupt", target="c0", at=0),)))
     router = repl_router(SEED + 330, chaos=injector)
-    c0 = router.attach(repl_replica("c0", host_chk, cfg_chk, groups[0][0],
+    c0 = router.attach(repl_replica("c0", host_chk, cfg_chk, meshes[0],
                                     SEED + 331, buckets=(1,),
                                     chaos=injector))
-    router.attach(repl_replica("c1", host_chk, cfg_chk, groups[1][0],
+    router.attach(repl_replica("c1", host_chk, cfg_chk, meshes[1],
                                SEED + 332))
     s = router.session("pinned")
     s.replica = "c0"
@@ -3633,7 +3649,7 @@ def replicas_corrupt(host_chk, cfg_chk, groups, rng, card) -> dict:
     return out
 
 
-def replicas_chaos_kill(host_db, cfg, groups, rng, card) -> dict:
+def replicas_chaos_kill(host_db, cfg, meshes, rng, card) -> dict:
     """Two fresh PIR_1G replicas, k0 and k1 (each its own 1 GiB Database),
     behind a router that holds one ChaosInjector, which k0 holds too: a
     kill at k0's scheduler.dispatch seam, visit 0. REPL_KILL_QUERIES
@@ -3646,9 +3662,9 @@ def replicas_chaos_kill(host_db, cfg, groups, rng, card) -> dict:
         FaultEvent("scheduler.dispatch", "kill", target="k0", at=0),)))
     router = repl_router(SEED + 360, chaos=injector)
     t0 = time.perf_counter()
-    k0 = router.attach(repl_replica("k0", host_db, cfg, groups[0][0],
+    k0 = router.attach(repl_replica("k0", host_db, cfg, meshes[0],
                                     SEED + 361, chaos=injector))
-    router.attach(repl_replica("k1", host_db, cfg, groups[1][0], SEED + 362))
+    router.attach(repl_replica("k1", host_db, cfg, meshes[1], SEED + 362))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     s = router.session("chaos-victim")
@@ -3681,7 +3697,7 @@ def replicas_chaos_kill(host_db, cfg, groups, rng, card) -> dict:
     return out
 
 
-def replicas_rejoin(router, host_db, cfg, groups, oracle, rng, card) -> dict:
+def replicas_rejoin(router, host_db, cfg, meshes, oracle, rng, card) -> dict:
     """detach("r0") (the killed replica; its database freed), then a fresh
     r0 built with r1's exported plans and attached: epoch 1 by the delta
     log's replay, no heuristic plan, the first query exact."""
@@ -3689,7 +3705,7 @@ def replicas_rejoin(router, host_db, cfg, groups, oracle, rng, card) -> dict:
     moved = router.detach("r0")
     release()
     peer = router.replicas["r1"]
-    r0b = repl_replica("r0", host_db, cfg, groups[0][0], SEED + 340,
+    r0b = repl_replica("r0", host_db, cfg, meshes[0], SEED + 340,
                        warm_plans=peer.export_plans())
     router.attach(r0b)
     torch.cuda.synchronize()
@@ -3772,11 +3788,11 @@ def phase_replicas(host_db, cfg, host_chk, cfg_chk, card) -> dict:
     torch.cuda.reset_peak_memory_stats()
     engine.plan_cache(reload=True)
     ops.reset_counts()
-    groups = carve_submeshes(2, model_axis=1)
+    meshes = carve_submeshes(2, model_axis=1)
     oracle = Oracle(host_db)
     router = repl_router(SEED + 301)
     try:
-        join = replicas_join(router, host_db, cfg, groups, rng, oracle, card)
+        join = replicas_join(router, host_db, cfg, meshes, rng, oracle, card)
 
         rows, vals = fresh_rows(rng, cfg.n_items, REPL_UPDATE_ROWS,
                                 cfg.item_bytes // 4)
@@ -3798,10 +3814,10 @@ def phase_replicas(host_db, cfg, host_chk, cfg_chk, card) -> dict:
         keygen = replicas_keygen(cfg, card)
 
         kill = replicas_kill(router, oracle, rng, cfg, card)
-        corrupt = replicas_corrupt(host_chk, cfg_chk, groups, rng, card)
+        corrupt = replicas_corrupt(host_chk, cfg_chk, meshes, rng, card)
         release()
-        chaos_kill = replicas_chaos_kill(host_db, cfg, groups, rng, card)
-        rejoin = replicas_rejoin(router, host_db, cfg, groups, oracle, rng,
+        chaos_kill = replicas_chaos_kill(host_db, cfg, meshes, rng, card)
+        rejoin = replicas_rejoin(router, host_db, cfg, meshes, oracle, rng,
                                  card)
         leave = replicas_leave(router, oracle, rng, cfg, card)
         release()
@@ -4458,6 +4474,218 @@ def sharded_batch(host, layout, mesh, idx_rng, device) -> dict:
     return out
 
 
+#: the fleet on sub-meshes (A6b-serve-2's replicas): two PIR_1G replicas on
+#: the (1, 2) sub-meshes of the four ranks (carve_submeshes(2,
+#: model_axis=2)), each rank holding half of its replica's database; rank 0
+#: is the fleet's controller (inside r0's grid, outside r1's) and the
+#: others follow the fleet. Buckets 1 and 32, batches cut after
+#: FLEET_MAX_WAIT_S; the rejoined replica waits SHARDED_SESSION_WAIT_S, so
+#: that a leave finds its queries queued
+FLEET_MODEL_AXIS = 2
+FLEET_KW = dict(n_queries=32, buckets=(1, 32), path=None)
+FLEET_MAX_WAIT_S = 0.05
+FLEET_CLIENTS = 4
+FLEET_LOAD = 64
+FLEET_UPDATE_ROWS = 64
+FLEET_KILL_QUERIES = 32
+FLEET_REJOIN_QUERIES = 32
+FLEET_LEAVE_QUERIES = 8
+#: the fleet's replicas in the order the controller builds them (their
+#: fleet serials 1, 2, 3), each one's mesh, and how its followers' loops end
+FLEET_REPLICAS = (("A", 0, "ABORT"), ("B", 1, "STOP"), ("C", 0, "STOP"))
+
+
+def fleet_controller(host, meshes) -> dict:
+    """Rank 0's part of the fleet: the Router over r0 and r1, a publish of
+    FLEET_UPDATE_ROWS rows, FLEET_LOAD queries through the router from
+    FLEET_CLIENTS threads, a kill of r0 under FLEET_KILL_QUERIES pinned
+    queries, a warm rejoin of r0 on meshes[0] from r1's plans with a whole
+    bucket pinned to it, a graceful leave of the rejoined r0 with
+    FLEET_LEAVE_QUERIES queued (handed off to r1). Every record exact at
+    epoch 1; returns the timings, each replica's dispatched batch sizes,
+    commands and replies, and each rank's launches its plans call for."""
+    from repro_torch.configs.pir import PIR_1G
+    from repro_torch.replica import ServeReplica, close_fleet
+    cfg = PIR_1G
+    rng = np.random.default_rng(SEED + 520)
+    oracle = Oracle(host)
+    router = repl_router(SEED + 521)
+
+    def replica(rid, mesh, seed, *, max_wait_s=FLEET_MAX_WAIT_S, **kw):
+        return ServeReplica(rid, host, cfg, mesh, max_wait_s=max_wait_s,
+                            client_rng=np.random.default_rng(seed),
+                            **FLEET_KW, **kw)
+    out = {}
+    t0 = time.perf_counter()
+    r0 = router.attach(replica("r0", meshes[0], SEED + 522))
+    r1 = router.attach(replica("r1", meshes[1], SEED + 523))
+    out["join_s"] = time.perf_counter() - t0
+    rows, vals = fresh_rows(rng, cfg.n_items, FLEET_UPDATE_ROWS,
+                            cfg.item_bytes // 4)
+    router.update(rows, vals)
+    t0 = time.perf_counter()
+    epoch = router.publish()
+    out["publish_s"] = time.perf_counter() - t0
+    oracle.update(rows, vals)
+    out["epochs"] = {rid: r.epoch for rid, r in router.replicas.items()}
+    if epoch != 1 or set(out["epochs"].values()) != {1}:
+        raise AssertionError(f"fleet publish: epochs {out['epochs']}")
+
+    seen = {r.id: len(r.stats.latencies) for r in (r0, r1)}
+    idx = rng.integers(0, cfg.n_items, size=FLEET_LOAD)
+    futs, load_s = routed(router, idx, clients=FLEET_CLIENTS)
+    lats = [x for r in (r0, r1) for x in r.stats.latencies[seen[r.id]:]]
+    out["load"] = {"queries": FLEET_LOAD, "seconds": load_s,
+                   "records_per_s": FLEET_LOAD / load_s,
+                   "latency_median_s": float(np.median(lats)),
+                   "batches": len(lats),
+                   "split": check_routed("fleet load", futs, oracle(idx), 1)}
+
+    s = router.session("victim")
+    s.replica = "r0"
+    idx = rng.integers(0, cfg.n_items, size=FLEET_KILL_QUERIES)
+    futs = [router.submit(int(i), session=s) for i in idx]
+    t_kill = time.monotonic()
+    r0.kill("chip_smoke: killed under load")
+    kill_call_s = time.monotonic() - t_kill     # the failovers it ran
+    split = check_routed("fleet kill", futs, oracle(idx), 1)
+    out["kill"] = {"queries": FLEET_KILL_QUERIES, "t_kill": t_kill,
+                   "kill_call_s": kill_call_s, "split": split,
+                   "failovers": router.failovers,
+                   "suspects": router.registry.suspects()}
+    if "r0" not in out["kill"]["suspects"] or router.failovers < 1:
+        raise AssertionError(f"fleet kill: {out['kill']}")
+
+    t0 = time.perf_counter()
+    router.detach("r0")
+    r0b = replica("r0", meshes[0], SEED + 524, warm_plans=r1.export_plans(),
+                  max_wait_s=SHARDED_SESSION_WAIT_S)
+    router.attach(r0b)
+    out["rejoin_s"] = time.perf_counter() - t0
+    s = router.session("rejoined")
+    s.replica = "r0"
+    idx = rng.integers(0, cfg.n_items, size=FLEET_REJOIN_QUERIES)
+    futs, first_s = routed(router, idx, sessions=[s])
+    out["rejoin"] = {
+        "epoch": r0b.epoch, "first_bucket_s": first_s,
+        "provenance": sorted({r["provenance"]
+                              for r in r0b.plan_report().values()}),
+        "split": check_routed("fleet rejoin", futs, oracle(idx), 1)}
+    if out["rejoin"]["provenance"] != ["warm"] or \
+            out["rejoin"]["split"] != {"r0": FLEET_REJOIN_QUERIES}:
+        raise AssertionError(f"fleet rejoin: {out['rejoin']}")
+
+    s = router.session("leaver")
+    s.replica = "r0"
+    idx = rng.integers(0, cfg.n_items, size=FLEET_LEAVE_QUERIES)
+    futs = [router.submit(int(i), session=s) for i in idx]
+    handed = router.detach("r0")
+    check_routed("fleet leave", futs, oracle(idx), 1)
+    out["leave"] = {"handed_off": handed,
+                    "rejoined_answered": r0b.stats.answered}
+    if handed != FLEET_LEAVE_QUERIES or \
+            r0b.stats.answered != FLEET_REJOIN_QUERIES:
+        raise AssertionError(f"fleet leave: {out['leave']}")
+    r1.close()
+    close_fleet(meshes)
+
+    want: dict = {str(r): {} for r in range(SHARDED_RANKS)}
+    out["replicas"] = {}
+    for (label, mesh, _), rep in zip(FLEET_REPLICAS, (r0, r1, r0b)):
+        ch = rep.scheduler.channel
+        sizes = [f[0] for f in ch.dispatched]
+        out["replicas"][label] = {
+            "id": rep.id, "dispatched": len(sizes), "sent": dict(ch.sent),
+            "batches": rep.stats.batches,
+            "reply_s": ch.reply_s["ANSWER"], "reply_wait_s": ch.wait_s}
+        for rank in meshes[mesh].ranks:
+            for n in sizes:
+                for server in rep.pir.servers:
+                    for k, v in sharded_expected(server, n).items():
+                        want[str(rank)][k] = want[str(rank)].get(k, 0) + v
+    out["want_launches"] = want
+    return out
+
+
+def fleet_chaos_corrupt(meshes) -> dict:
+    """Rank 0's part of the chaos smoke's scenario B on the sub-meshes, with
+    a minute's max_wait_s (r0's first batch a whole bucket of real
+    queries): what ``scenario_corrupt`` returns (it raises unless the
+    corrupt was detected and every record recovered from r1), and what
+    r0's ``replica.serve_step`` seam changed in each batch's answer shares
+    (the rows, one a query, and the words that differ)."""
+    from repro_torch import replica
+    from repro_torch.chaos import smoke
+    changed = []
+    serve_replica = replica.ServeReplica
+
+    class Watched(serve_replica):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            if self.id != "r0":
+                return
+            serve_step = self.pir._serve_step
+
+            def watched(answers):
+                out = serve_step(answers)
+                diff = [a != b for a, b in zip(answers, out)]
+                changed.append([sum(int(d.any(dim=-1).sum()) for d in diff),
+                                sum(int(d.sum()) for d in diff)])
+                return out
+            self.pir._serve_step = watched
+    replica.ServeReplica = Watched
+    try:
+        out = smoke.scenario_corrupt(meshes=meshes,
+                                     max_wait_s=SHARDED_SESSION_WAIT_S)
+    finally:
+        replica.ServeReplica = serve_replica
+    out["changed"] = changed
+    return out
+
+
+def sharded_fleet(host) -> dict:
+    """The fleet on (1, 2) sub-meshes, on every rank: the controller's part
+    (``fleet_controller``) on rank 0, ``follow_fleet`` elsewhere; each
+    rank's kernel counters and peak device memory over it. Then the chaos
+    smoke's scenario B on (1, 2) sub-meshes (``fleet_chaos_corrupt``; the
+    others ``smoke.follow``)."""
+    import torch.distributed as dist
+    from repro_torch import engine
+    from repro_torch.chaos import smoke
+    from repro_torch.configs.pir import PIR_1G
+    from repro_torch.kernels import ops
+    from repro_torch.replica import follow_fleet
+    from repro_torch.runtime.elastic import carve_submeshes
+    rank = dist.get_rank()
+    engine.plan_cache(reload=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    meshes = carve_submeshes(2, model_axis=FLEET_MODEL_AXIS)
+    ops.reset_counts()
+    out = (fleet_controller(host, meshes) if rank == 0 else
+           {"followed": follow_fleet(meshes, host, PIR_1G, **FLEET_KW)})
+    torch.cuda.synchronize()
+    counts = ops.counts()
+    out.update(
+        seconds=time.perf_counter() - t0,
+        meshes=[[list(m.sizes), list(m.ranks), m.controller]
+                for m in meshes],
+        launches={k: v["launches"] for k, v in counts.items()
+                  if v["launches"]},
+        plain_calls=sum(v["plain_calls"] for v in counts.values()),
+        peak_device_bytes=torch.cuda.max_memory_allocated())
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine.plan_cache(reload=True)
+    t0 = time.perf_counter()
+    meshes = carve_submeshes(2, model_axis=FLEET_MODEL_AXIS)
+    out["chaos"] = (fleet_chaos_corrupt(meshes) if rank == 0 else
+                    {"followed": smoke.follow("corrupt", meshes)})
+    out["chaos"]["seconds"] = time.perf_counter() - t0
+    engine.plan_cache(reload=True)
+    return out
+
+
 def sharded_rank(rank: int, tmp: str) -> None:
     """One rank of the sharded phase, in a process of its own: join the
     process group through a file under ``tmp``, load the kernels the
@@ -4635,6 +4863,9 @@ def sharded_rank_run(rank: int, tmp: str) -> dict:
                                      device)
         out["batch"]["seconds"] = time.perf_counter() - t0
         out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["fleet"] = sharded_fleet(host)
     finally:
         dist.destroy_process_group()
     return out
@@ -4749,6 +4980,80 @@ def sharded_session_checks(ranks) -> tuple:
     return checks, summary
 
 
+def sharded_fleet_checks(ranks, card) -> tuple:
+    """The fleet part's checks over every rank's results, and its line:
+    records exact (the controller raises otherwise), each rank's launches
+    those its replicas' dispatched batches call for with no plain call,
+    every follower's dispatches the controller's DISPATCH commands, the
+    killed replica's followers gone by ABORT and the others' by STOP;
+    scenario B's corrupt one word of one record's answer share, detected
+    (an IntegrityError for each query of the batch) and recovered. The
+    line: the load's records/s and median batch latency, a reply's time on
+    the channel (send to arrival, median over r1's answers), the seconds
+    from the kill to r0's followers leaving its session (and of the kill
+    call itself, which runs the failovers of its pending queries), the
+    rejoin's, and each rank's peak device memory."""
+    fleets = [r["fleet"] for r in ranks]
+    ctl = fleets[0]
+    reps = ctl["replicas"]
+    followed_ok, ends = True, {}
+    for rank, fleet in enumerate(fleets[1:], start=1):
+        for f in fleet["followed"]:
+            label, mesh, ended_by = FLEET_REPLICAS[f["serial"] - 1]
+            ends.setdefault(label, []).append(f["t_end"])
+            followed_ok &= (rank in ranks[0]["fleet"]["meshes"][mesh][1]
+                            and f["dispatches"] == reps[label]["dispatched"]
+                            and f["ended_by"] == ended_by
+                            and f["exc"] is None and f["epoch"] == 1)
+    held = sorted(len(f["followed"]) for f in fleets[1:])
+    # the killed session's last act is its ABORT: its followers leave last
+    kill_to_last_exit = max(ends["A"]) - ctl["kill"]["t_kill"]
+    chaos = ctl["chaos"]
+    chaos_followers = [f for fleet in fleets[1:]
+                       for f in fleet["chaos"]["followed"]]
+    checks = {
+        "fleet_meshes": ctl["meshes"] == [[[1, 2], [0, 1], 0],
+                                          [[1, 2], [2, 3], 0]],
+        "fleet_launches_exact": all(
+            fleet["launches"] == ctl["want_launches"][str(rank)]
+            and fleet["plain_calls"] == 0
+            for rank, fleet in enumerate(fleets)),
+        "fleet_followers_dispatched": followed_ok and held == [1, 1, 2],
+        "fleet_handed_off": ctl["leave"]["handed_off"] == FLEET_LEAVE_QUERIES,
+        "fleet_chaos_one_record": (
+            chaos["fired"] == ["corrupt"] and chaos["suspects"] == ["r0"]
+            and chaos["integrity_failures"] == 4
+            and chaos["changed"] == [[1, 1]]
+            and len(chaos_followers) == 3
+            and sorted(f["ended_by"] for f in chaos_followers)
+            == ["ABORT", "STOP", "STOP"])}
+    reply = reps["B"]["reply_s"]
+    line = {"phase": "sharded_fleet", "card": card,
+            "note": "four ranks time-sliced on one card: not a scaling "
+                    "figure",
+            "records_per_s": ctl["load"]["records_per_s"],
+            "latency_median_s": ctl["load"]["latency_median_s"],
+            "load_batches": ctl["load"]["batches"],
+            "reply_median_s": float(np.median(reply)) if reply else None,
+            "replies": len(reply),
+            "reply_wait_s": reps["B"]["reply_wait_s"],
+            "kill_to_last_exit_s": kill_to_last_exit,
+            "kill_call_s": ctl["kill"]["kill_call_s"],
+            "rejoin_s": ctl["rejoin_s"],
+            "rejoin_first_bucket_s": ctl["rejoin"]["first_bucket_s"],
+            "join_s": ctl["join_s"], "publish_s": ctl["publish_s"],
+            "failovers": ctl["kill"]["failovers"],
+            "handed_off": ctl["leave"]["handed_off"],
+            "dispatched": {k: v["dispatched"] for k, v in reps.items()},
+            "launches": [fleet["launches"] for fleet in fleets],
+            "peak_device_bytes": [fleet["peak_device_bytes"]
+                                  for fleet in fleets],
+            "seconds": [fleet["seconds"] for fleet in fleets],
+            "chaos_seconds": [fleet["chaos"]["seconds"] for fleet in fleets],
+            "checks": checks}
+    return checks, line
+
+
 def phase_sharded(host_db, host_lwe, layout, card) -> dict:
     """A6b's serving path on this card: four ranks (``SHARDED_RANKS``
     processes started with torch.multiprocessing, one FileStore under a
@@ -4850,6 +5155,9 @@ def phase_sharded(host_db, host_lwe, layout, card) -> dict:
                 == list(range(SHARDED_BATCH_MESH[1])) for r in ranks)})
         sessions, summary = sharded_session_checks(ranks)
         checks.update(sessions)
+        fleet_checks, fleet_line = sharded_fleet_checks(ranks, card)
+        checks.update(fleet_checks)
+        emit(fleet_line)
     devices = {r.get("device") for r in ranks}
     out = {"phase": "sharded", "card": card,
            "note": "four ranks time-sliced on one card: times are not a "

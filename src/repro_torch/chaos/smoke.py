@@ -4,9 +4,10 @@
 Run:  PYTHONPATH=src python -m repro_torch.chaos --smoke [--device cpu]
 
 Both scenarios drive a two-replica LWE fleet (``carve_submeshes(2,
-model_axis=1)``; on one card both replicas share it) through the router,
-with a :class:`~repro_torch.chaos.ChaosInjector` wired into r0 and the
-router, and assert the two halves of the robustness contract:
+model_axis=1)``; on one card both replicas share it, and ``meshes=`` may
+give sub-meshes of ranks, whose other ranks run :func:`follow`) through
+the router, with a :class:`~repro_torch.chaos.ChaosInjector` wired into
+r0 and the router, and assert the two halves of the robustness contract:
 
 * **detection**: the injected fault surfaces as the right signal
   (``InjectedFault`` for a kill, ``IntegrityError`` for a corrupted
@@ -29,7 +30,20 @@ import numpy as np
 from repro_torch.chaos import ChaosInjector, FaultEvent, FaultPlan
 
 
-def _fleet(cfg, injector, rng, device: Optional[str]):
+#: each scenario's config and the seed of its host database
+SCENARIOS = {"kill": ("PIR_SMOKE_REPL", 0), "corrupt": ("PIR_SMOKE_CHK", 2)}
+#: the replicas' keywords
+REPLICA_KW = dict(n_queries=4, buckets=(4,))
+
+
+def _config(name: str):
+    from repro_torch.configs import pir as configs
+    cfg_name, seed = SCENARIOS[name]
+    return getattr(configs, cfg_name), seed
+
+
+def _fleet(cfg, injector, rng, device: Optional[str], meshes=None,
+           max_wait_s: float = 0.002):
     """Two replicas behind a router; the injector is wired into r0 (and
     the router) only."""
     from repro_torch.core import pir
@@ -38,15 +52,28 @@ def _fleet(cfg, injector, rng, device: Optional[str]):
 
     db_host = pir.make_database(rng, cfg.n_items, cfg.item_bytes)
     oracle = pir.db_as_bytes(db_host).copy()
-    groups = carve_submeshes(2, model_axis=1, live_devices=(
-        None if device is None else [device]))
+    if meshes is None:
+        meshes = carve_submeshes(2, model_axis=1, live_devices=(
+            None if device is None else [device]))
     router = Router(rng=np.random.default_rng(1), base_delay=0.01,
                     max_delay=0.2, chaos=injector)
-    kw = dict(n_queries=4, buckets=(4,), max_wait_s=0.002)
-    router.attach(ServeReplica("r0", db_host, cfg, groups[0][0],
+    kw = dict(REPLICA_KW, max_wait_s=max_wait_s)
+    router.attach(ServeReplica("r0", db_host, cfg, meshes[0],
                                chaos=injector, **kw))
-    router.attach(ServeReplica("r1", db_host, cfg, groups[1][0], **kw))
+    router.attach(ServeReplica("r1", db_host, cfg, meshes[1], **kw))
     return router, oracle
+
+
+def follow(name: str, meshes) -> list:
+    """A rank other than the fleet's controller in scenario ``name``
+    (``"kill"`` or ``"corrupt"``) on ``meshes``: the same host database,
+    then ``follow_fleet`` until the controller closes the fleet."""
+    from repro_torch.core import pir
+    from repro_torch.replica import follow_fleet
+    cfg, seed = _config(name)
+    db_host = pir.make_database(np.random.default_rng(seed), cfg.n_items,
+                                cfg.item_bytes)
+    return follow_fleet(meshes, db_host, cfg, **REPLICA_KW)
 
 
 def _drive_pinned(router, oracle, indices, deadline_s=240.0):
@@ -64,10 +91,13 @@ def _drive_pinned(router, oracle, indices, deadline_s=240.0):
     return futs
 
 
-def _teardown(router):
+def _teardown(router, meshes=None):
+    from repro_torch.replica import close_fleet
     for r in list(router.replicas.values()):
         if not r.lost:
             r.close()
+    if meshes is not None:
+        close_fleet(meshes)
 
 
 def _check(cond: bool, what: str):
@@ -75,18 +105,21 @@ def _check(cond: bool, what: str):
         raise AssertionError(what)
 
 
-def scenario_kill(device: Optional[str] = None) -> dict:
-    """A: a seeded kill of r0's dispatch; failover must lose nothing."""
-    from repro_torch.configs.pir import PIR_SMOKE_REPL
-
+def scenario_kill(device: Optional[str] = None, meshes=None,
+                  max_wait_s: float = 0.002) -> dict:
+    """A: a seeded kill of r0's dispatch; failover must lose nothing.
+    ``meshes`` default to ``carve_submeshes(2, model_axis=1)`` on
+    ``device``; ``max_wait_s`` is the replicas' (upstream's 2 ms cuts
+    batches by timing, a long one only when a bucket is full)."""
+    cfg, seed = _config("kill")
     plan = FaultPlan(seed=7, events=(
         FaultEvent(seam="scheduler.dispatch", action="kill",
                    target="r0", at=0),))
     injector = ChaosInjector(plan)
-    router, oracle = _fleet(PIR_SMOKE_REPL, injector,
-                            np.random.default_rng(0), device)
+    router, oracle = _fleet(cfg, injector, np.random.default_rng(seed),
+                            device, meshes, max_wait_s)
     try:
-        indices = [3, 999, 42, PIR_SMOKE_REPL.n_items - 1, 17, 2048, 0, 7]
+        indices = [3, 999, 42, cfg.n_items - 1, 17, 2048, 0, 7]
         _drive_pinned(router, oracle, indices)
         _check("kill" in injector.fired_actions("scheduler.dispatch"),
                "the planned kill never fired")
@@ -95,23 +128,24 @@ def scenario_kill(device: Optional[str] = None) -> dict:
                 "failovers": router.failovers,
                 "answers": len(indices)}
     finally:
-        _teardown(router)
+        _teardown(router, meshes)
 
 
-def scenario_corrupt(device: Optional[str] = None) -> dict:
+def scenario_corrupt(device: Optional[str] = None, meshes=None,
+                     max_wait_s: float = 0.002) -> dict:
     """B: one answer share corrupted on the checksummed config; verified
     reconstruction must raise IntegrityError (detection), the router must
-    quarantine r0 and serve the queries from r1 (recovery)."""
-    from repro_torch.configs.pir import PIR_SMOKE_CHK
-
+    quarantine r0 and serve the queries from r1 (recovery). ``meshes`` and
+    ``max_wait_s`` as :func:`scenario_kill`'s."""
+    cfg, seed = _config("corrupt")
     plan = FaultPlan(seed=11, events=(
         FaultEvent(seam="replica.serve_step", action="corrupt",
                    target="r0", at=0),))
     injector = ChaosInjector(plan)
-    router, oracle = _fleet(PIR_SMOKE_CHK, injector,
-                            np.random.default_rng(2), device)
+    router, oracle = _fleet(cfg, injector, np.random.default_rng(seed),
+                            device, meshes, max_wait_s)
     try:
-        indices = [5, 1234, PIR_SMOKE_CHK.n_items - 1, 64]
+        indices = [5, 1234, cfg.n_items - 1, 64]
         _drive_pinned(router, oracle, indices)
         _check("corrupt" in injector.fired_actions("replica.serve_step"),
                "the planned corruption never fired")
@@ -125,7 +159,7 @@ def scenario_corrupt(device: Optional[str] = None) -> dict:
                 "suspects": router.registry.suspects(),
                 "answers": len(indices)}
     finally:
-        _teardown(router)
+        _teardown(router, meshes)
 
 
 def run(device: Optional[str] = None, verbose: bool = True) -> dict:

@@ -130,9 +130,11 @@ class BucketedServeFns:
             if b % self.n_clusters:
                 raise ValueError(
                     f"bucket {b} not divisible by {self.n_clusters} clusters")
-        #: this rank's DB shard (its leaf block) and cluster (its queries)
-        self.shard_index = mesh.coord(self.shard_axis) if mesh else 0
-        self.cluster = cluster_index(mesh) if mesh else 0
+        #: this rank's DB shard (its leaf block) and cluster (its queries);
+        #: a controller outside the grid resolves plans and answers nothing
+        inside = mesh is not None and mesh.contains_rank
+        self.shard_index = mesh.coord(self.shard_axis) if inside else 0
+        self.cluster = cluster_index(mesh) if inside else 0
         self.log_local = int(math.log2(
             DatabaseSpec.from_config(cfg).rows_per_shard(self.n_shards)))
         self.buckets = tuple(sorted(set(buckets)))
@@ -297,6 +299,47 @@ class BucketedServeFns:
         return self.combine(*self.local_answer(db, keys))[:q]
 
 
+def party_buckets(mesh: Mesh, n_queries: int,
+                  buckets: Optional[Sequence[int]]) -> Tuple[int, ...]:
+    """A party's buckets: ``buckets`` (the doubling ladder from the mesh's
+    cluster count by default) with ``n_queries`` among them."""
+    if buckets is None:
+        buckets = default_buckets(n_clusters(mesh),
+                                  max_bucket=max(n_queries, 1))
+    return tuple(sorted(set(buckets) | {n_queries}))
+
+
+class PartyPlans:
+    """One party's per-bucket plans on a session controller outside the
+    grid of ranks that serves it (a fleet's replica, ``replica/``): what a
+    :class:`PIRServer` resolves, without its database, which the grid's
+    ranks hold and answer from."""
+
+    def __init__(self, party: int, cfg: PIRConfig, mesh: Mesh, *,
+                 n_queries: int = 32, path: Optional[str] = None,
+                 buckets: Optional[Sequence[int]] = None,
+                 protocol: Optional[PIRProtocol] = None,
+                 collective: str = "gather"):
+        self.party = party
+        self.cfg = cfg
+        self.mesh = mesh
+        self.device = mesh.device
+        self.bucketed = BucketedServeFns(
+            cfg, buckets=party_buckets(mesh, n_queries, buckets),
+            backend=backend_of(self.device), path=path, protocol=protocol,
+            device=self.device, mesh=mesh, collective=collective)
+        self.protocol = self.bucketed.protocol
+        self.bucketed.plan_for_bucket(n_queries)
+
+    @property
+    def buckets(self) -> Tuple[int, ...]:
+        return self.bucketed.buckets
+
+    def plan_report(self) -> Dict[int, dict]:
+        """``BucketedServeFns.plan_report`` of this party's buckets."""
+        return self.bucketed.plan_report()
+
+
 class PIRServer:
     """One logical PIR server (one of the non-colluding parties).
 
@@ -339,15 +382,10 @@ class PIRServer:
         self.db = database
         self.mesh = database.mesh
         self.device = database.device
-        if buckets is None:
-            buckets = default_buckets(n_clusters(self.mesh),
-                                      max_bucket=max(n_queries, 1))
-        if n_queries not in buckets:
-            buckets = tuple(sorted(set(buckets) | {n_queries}))
         self.bucketed = BucketedServeFns(
-            cfg, buckets=buckets, backend=backend_of(self.device), path=path,
-            protocol=protocol, device=self.device, mesh=self.mesh,
-            collective=collective)
+            cfg, buckets=party_buckets(self.mesh, n_queries, buckets),
+            backend=backend_of(self.device), path=path, protocol=protocol,
+            device=self.device, mesh=self.mesh, collective=collective)
         self.protocol = self.bucketed.protocol
         self.bucketed.step_for(n_queries)
 

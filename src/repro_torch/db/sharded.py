@@ -147,6 +147,28 @@ class _Pending:
     delta: PublishedDelta
 
 
+def staged_rows(spec: DatabaseSpec, rows, values
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """One staged write checked against ``spec``: ``[R]`` int64 row indices
+    in range and a copy of the values as ``[R, item_words]`` u32 logical
+    rows (``values`` as words or bytes)."""
+    idx = np.atleast_1d(np.asarray(rows, np.int64))
+    vals = spec.coerce_rows_to_words(values)
+    if idx.ndim != 1 or len(idx) != len(vals):
+        raise ValueError(
+            f"rows/values length mismatch: {idx.shape} vs {vals.shape}")
+    if len(idx) and (idx.min() < 0 or idx.max() >= spec.n_items):
+        raise ValueError(f"row indices out of range [0, {spec.n_items})")
+    return idx, np.array(vals, np.uint32, copy=True)
+
+
+def last_writes(rows: np.ndarray) -> np.ndarray:
+    """The positions in ``rows`` of the last write to each row, in staging
+    order."""
+    _, first_of_rev = np.unique(rows[::-1], return_index=True)
+    return np.sort(len(rows) - 1 - first_of_rev)
+
+
 class Database:
     """The PIR database on one device (``device=None`` means CUDA, or the
     mesh's device), or this rank's block of it on a ``mesh``.
@@ -378,17 +400,10 @@ class Database:
         ``[R, item_bytes]`` u8. Nothing touches the device until
         :meth:`publish`. Returns the total staged entry count.
         """
-        idx = np.atleast_1d(np.asarray(rows, np.int64))
-        vals = self.spec.coerce_rows_to_words(values)
-        if idx.ndim != 1 or len(idx) != len(vals):
-            raise ValueError(
-                f"rows/values length mismatch: {idx.shape} vs {vals.shape}")
-        if len(idx) and (idx.min() < 0 or idx.max() >= self.spec.n_items):
-            raise ValueError(
-                f"row indices out of range [0, {self.spec.n_items})")
+        idx, vals = staged_rows(self.spec, rows, values)
         with self._lock:
             self._staged_rows.append(idx)
-            self._staged_vals.append(np.array(vals, np.uint32, copy=True))
+            self._staged_vals.append(vals)
             return sum(len(r) for r in self._staged_rows)
 
     def take_staged(self) -> Tuple[np.ndarray, np.ndarray]:
@@ -463,8 +478,7 @@ class Database:
         n_staged = len(rows)
         # last write wins: a scatter's order for repeated indices is not
         # defined, so collisions are resolved here
-        _, first_of_rev = np.unique(rows[::-1], return_index=True)
-        keep = np.sort(len(rows) - 1 - first_of_rev)
+        keep = last_writes(rows)
         rows, vals = rows[keep], vals[keep]
         # this rank's block keeps its own rows (all of them off a mesh);
         # a block the delta misses carries its views into the new epoch

@@ -25,30 +25,43 @@ operand to the host and back (``transport == "host"``); NCCL and gloo on
 the CPU run the collective where the tensor lies (``"device"``).
 
 The command channel. A streaming session on a mesh has one controller,
-``mesh.controller`` (the grid's first rank): it cuts every batch, and the
-other ranks, its followers, dispatch what it tells them
-(``runtime/serve_loop.py``). The commands go over ``mesh.control_group``,
-a gloo group of the grid's ranks kept for them, with host tensors whatever
-the backend: :func:`send_command` broadcasts a header of ``HEADER_LEN``
-int64 words (the command's code, then up to ``HEADER_LEN - 1`` integer
-fields), then each of its tensors as it is (never pickled). A follower
-reads the header with :func:`recv_command` and each tensor, whose shape
-the fields give, with :func:`recv_tensor`. A follower may wait for its
-next command as long as a session sits idle, so the control group's
-timeout is ``CONTROL_IDLE_S``; the controller waits for each send at most
-the collective timeout (:func:`collective_timeout`), so a follower that
-is gone fails the send instead of hanging it. A timeout given to
-:func:`init_distributed` bounds every collective of the process group and
-of the meshes' axis groups, so a rank that never joins one fails the
-others' after it instead of hanging them.
+``mesh.controller``: it cuts every batch, and the other ranks, its
+followers, dispatch what it tells them (``runtime/serve_loop.py``). The
+controller is the grid's first rank unless the mesh was built with
+another (:func:`mesh_over`): a fleet's replicas all have the fleet's
+controller, rank 0, which lies outside the grid of every replica but the
+one it serves in. The commands go over ``mesh.control_group``, a gloo
+group of the controller and the grid's ranks kept for them, with host
+tensors whatever the backend: :func:`send_command` broadcasts a header of
+``HEADER_LEN`` int64 words (the command's code, then up to
+``HEADER_LEN - 1`` integer fields), then each of its tensors as it is
+(never pickled). A follower reads the header with :func:`recv_command`
+and each tensor, whose shape the fields give, with :func:`recv_tensor`.
+A follower may wait for its next command as long as a session sits idle,
+so the control group's timeout is ``CONTROL_IDLE_S``; the controller waits
+for each send at most the collective timeout (:func:`collective_timeout`),
+so a follower that is gone fails the send instead of hanging it. A
+controller outside the grid takes no part in the grid's collectives: the
+grid's first rank sends what the controller needs (a batch's reduced
+answer, a hint) back over the control group, point to point, as a reply
+(:func:`send_reply` / :func:`recv_reply`: a header with the reply's kind,
+an integer field, the tensor's dtype and shape, then the tensor as it
+is). A timeout given to :func:`init_distributed` bounds every collective
+of the process group and of the meshes' axis groups, so a rank that never
+joins one fails the others' after it instead of hanging them.
 
-``split_devices`` and ``local_devices`` partition the cards of one
-process for the replica plane, as before.
+``split_devices`` partitions a list of devices, or of ranks, for the
+replica plane (``runtime/elastic.carve_submeshes``), and a
+:class:`Fleet` is the channel over which a fleet's controller announces
+each replica to every other rank of the process group
+(``replica/replica.follow_fleet``).
 """
 from __future__ import annotations
 
 import datetime
 import os
+import threading
+import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -73,7 +86,8 @@ def local_devices() -> List[torch.device]:
 
 def split_devices(n_groups: int, devices: Optional[Sequence] = None, *,
                   min_per_group: int = 1) -> list:
-    """Partition the device list into ``n_groups`` disjoint groups.
+    """Partition the device list, or a list of ranks, into ``n_groups``
+    disjoint groups.
 
     The replica plane carves one serve replica per group
     (``runtime/elastic.carve_submeshes``). Groups are equal-sized; leftover
@@ -104,12 +118,15 @@ def _world() -> int:
 
 
 def rank_device(device=None) -> torch.device:
-    """This rank's device: ``device`` when given, else
+    """This rank's device: ``device`` when given, else the device
+    :func:`init_distributed` was given, else
     ``cuda:{local_rank % device_count}`` (``LOCAL_RANK``, else the global
     rank), so that on one card every rank gets ``cuda:0``. Raises
     ``RuntimeError`` without a card, as ``resolve_device`` does."""
     if device is not None:
         return torch.device(device)
+    if _DEVICE is not None:
+        return _DEVICE
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n == 0:
         raise RuntimeError(
@@ -133,17 +150,22 @@ def default_backend(world_size: int, device=None) -> str:
 #: the collective timeout :func:`init_distributed` was given (None: the
 #: backend's default), applied to every group a mesh makes
 _TIMEOUT: Optional[datetime.timedelta] = None
+#: the device :func:`init_distributed` was given: every mesh's default
+_DEVICE: Optional[torch.device] = None
 
 
 def init_distributed(rank: int, world_size: int, init_method: str, *,
                      device=None, timeout: Optional[float] = None) -> str:
     """Join the process group (``init_method`` e.g. ``"file:///tmp/x"`` or
     ``"tcp://localhost:29500"``) with :func:`default_backend` for
-    ``device``; returns the backend. ``timeout`` (seconds) bounds the
-    rendezvous and every collective of this group and of the groups the
-    meshes make (PyTorch's default is 30 minutes)."""
-    global _TIMEOUT
+    ``device``; returns the backend. ``device`` is then this rank's
+    device wherever a mesh is built without one (:func:`rank_device`).
+    ``timeout`` (seconds) bounds the rendezvous and every collective of
+    this group and of the groups the meshes make (PyTorch's default is 30
+    minutes)."""
+    global _TIMEOUT, _DEVICE
     backend = default_backend(world_size, device)
+    _DEVICE = None if device is None else torch.device(device)
     _TIMEOUT = (None if timeout is None
                 else datetime.timedelta(seconds=timeout))
     kwargs = {} if _TIMEOUT is None else {"timeout": _TIMEOUT}
@@ -191,9 +213,20 @@ def broadcast_from(x: torch.Tensor, src: int, group) -> torch.Tensor:
 
 
 #: the controller's commands, by code: a batch to stage and dispatch, a
-#: delta to stage and publish, the end of a drained session, and the end
-#: of a dead or killed one
-COMMANDS = ("DISPATCH", "PUBLISH", "STOP", "ABORT")
+#: delta to stage and publish, the end of a drained session, the end of a
+#: dead or killed one, the opening of a session whose followers were
+#: already in their loops (a fleet's replica), and a hint the grid's first
+#: rank sends back to a controller outside the grid; then a fleet's: a
+#: replica joins, a replica left, the fleet is closed
+COMMANDS = ("DISPATCH", "PUBLISH", "STOP", "ABORT", "START", "HINT",
+            "JOIN", "LEAVE", "CLOSE")
+#: what the grid's first rank sends back to a controller outside the grid:
+#: a batch's reduced answer shares, and a hint
+REPLIES = ("ANSWER", "HINT")
+#: the dtypes a reply's tensor may have, by code
+REPLY_DTYPES = (torch.int32, torch.int64, torch.uint8)
+#: the point-to-point tag of replies on a control group
+REPLY_TAG = 7
 #: int64 words of a command's header: its code and its fields
 HEADER_LEN = 8
 #: how long a follower waits for the controller's next command: the
@@ -209,15 +242,16 @@ def collective_timeout() -> datetime.timedelta:
     return _TIMEOUT or datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
 
 
-def send_command(mesh: "Mesh", command: str, fields: Sequence[int] = (),
+def send_command(mesh, command: str, fields: Sequence[int] = (),
                  tensors: Sequence[torch.Tensor] = (), *,
                  wait: bool = True) -> list:
     """On the controller: broadcast ``command`` with its integer ``fields``
     and then each of ``tensors`` (sent from the host) to every rank of
-    ``mesh.control_group``. The fields must tell the followers the
-    tensors' shapes and dtypes. Each send is waited for at most
-    :func:`collective_timeout` (``RuntimeError`` past it); with ``wait``
-    false none is waited for, and the pending works are returned."""
+    ``mesh.control_group`` (a :class:`Mesh`'s, or a :class:`Fleet`'s). The
+    fields must tell the followers the tensors' shapes and dtypes. Each
+    send is waited for at most :func:`collective_timeout`
+    (``RuntimeError`` past it); with ``wait`` false none is waited for, and
+    the pending works are returned."""
     if len(fields) >= HEADER_LEN:
         raise ValueError(f"a command carries at most {HEADER_LEN - 1} "
                          f"fields, got {len(fields)}")
@@ -234,7 +268,7 @@ def send_command(mesh: "Mesh", command: str, fields: Sequence[int] = (),
     return works
 
 
-def recv_command(mesh: "Mesh") -> Tuple[str, Tuple[int, ...]]:
+def recv_command(mesh) -> Tuple[str, Tuple[int, ...]]:
     """On a follower: wait (up to ``CONTROL_IDLE_S``) for the controller's
     next command; returns its name and its ``HEADER_LEN - 1`` fields
     (unused ones are 0)."""
@@ -242,12 +276,50 @@ def recv_command(mesh: "Mesh") -> Tuple[str, Tuple[int, ...]]:
     return COMMANDS[header[0]], tuple(header[1:])
 
 
-def recv_tensor(mesh: "Mesh", shape: Sequence[int],
+def recv_tensor(mesh, shape: Sequence[int],
                 dtype: torch.dtype) -> torch.Tensor:
     """On a follower: the command's next tensor, on the host."""
     t = torch.empty(tuple(shape), dtype=dtype)
     dist.broadcast(t, src=mesh.controller, group=mesh.control_group)
     return t
+
+
+def send_reply(mesh: "Mesh", kind: str, field_value: int,
+               tensor: torch.Tensor) -> list:
+    """On the grid's first rank: send ``tensor`` (at most three dims) to a
+    controller outside the grid, point to point over the control group,
+    with a header of its kind (``REPLIES``), one integer field, its dtype,
+    its shape and the send's ``time.monotonic_ns()``. Nothing is waited
+    for: the pending works are returned, holding the sent tensors, for
+    the caller to wait on before the session ends (the controller reads
+    a reply only after it sent the next command)."""
+    t = tensor.detach().cpu().contiguous()
+    if t.dim() > 3:
+        raise ValueError(f"a reply carries at most 3 dims, got {t.dim()}")
+    shape = list(t.shape) + [0] * (3 - t.dim())
+    header = torch.tensor([REPLIES.index(kind), field_value,
+                           REPLY_DTYPES.index(t.dtype), t.dim(), *shape,
+                           time.monotonic_ns()], dtype=torch.int64)
+    return [(dist.isend(x, dst=mesh.controller, group=mesh.control_group,
+                        tag=REPLY_TAG), x) for x in (header, t)]
+
+
+def recv_reply(mesh: "Mesh") -> Tuple[str, int, torch.Tensor, float]:
+    """On a controller outside the grid: the grid's next reply
+    (:func:`send_reply`), waited for at most :func:`collective_timeout`;
+    returns its kind, its field, its tensor and the seconds from its send
+    to its arrival (both ``time.monotonic`` instants of one host)."""
+    src = mesh.ranks[0]
+
+    def recv(t):
+        dist.irecv(t, src=src, group=mesh.control_group,
+                   tag=REPLY_TAG).wait(timeout=collective_timeout())
+        return t
+    header = recv(torch.empty(HEADER_LEN, dtype=torch.int64)).tolist()
+    kind, value, dtype, ndim = header[:4]
+    t = recv(torch.empty(tuple(header[4:4 + ndim]),
+                         dtype=REPLY_DTYPES[dtype]))
+    return REPLIES[kind], value, t, (time.monotonic_ns() - header[7]) / 1e9
 
 
 def transport_of(backend: Optional[str], device: torch.device) -> str:
@@ -271,6 +343,9 @@ class Mesh:
     ``ranks`` are the global ranks of the grid, row-major over ``axes``;
     ``rank`` is this process's. Equality is the grid's (axes, sizes and
     ranks), as two ``jax.sharding.Mesh`` over the same devices are equal.
+    ``control_rank`` is the session controller when it is not the grid's
+    first rank (it may lie outside the grid); ``fleet`` is the
+    :class:`Fleet` a replica carved on this mesh joins.
     """
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
@@ -283,10 +358,15 @@ class Mesh:
     #: a group over every rank of the grid (key broadcasts)
     all_group: Optional[object] = field(default=None, compare=False,
                                         repr=False)
-    #: a gloo group over every rank of the grid for a session's commands
-    #: (``send_command``), with the idle timeout ``CONTROL_IDLE_S``
+    #: a gloo group over the controller and every rank of the grid for a
+    #: session's commands (``send_command``) and the grid's replies to a
+    #: controller outside it (``send_reply``), with the idle timeout
+    #: ``CONTROL_IDLE_S``
     control_group: Optional[object] = field(default=None, compare=False,
                                             repr=False)
+    control_rank: Optional[int] = field(default=None, compare=False)
+    fleet: Optional["Fleet"] = field(default=None, compare=False,
+                                     repr=False)
 
     @property
     def shape(self) -> "OrderedDict[str, int]":
@@ -308,12 +388,20 @@ class Mesh:
 
     @property
     def controller(self) -> int:
-        """The global rank that cuts a session's batches: the first."""
-        return self.ranks[0]
+        """The global rank that cuts a session's batches: ``control_rank``
+        where one was given, else the grid's first."""
+        return self.ranks[0] if self.control_rank is None \
+            else self.control_rank
 
     @property
     def is_controller(self) -> bool:
         return self.rank == self.controller
+
+    @property
+    def multi_process(self) -> bool:
+        """Whether serving on this mesh takes more than one process: a
+        grid of several ranks, or a controller outside the grid."""
+        return self.size > 1 or self.controller not in self.ranks
 
     @property
     def coords(self) -> Dict[str, int]:
@@ -347,6 +435,63 @@ def single_mesh(device=None, axes: Tuple[str, ...] = ("data", "model")
                 ranks=(_rank(),), rank=_rank(), device=rank_device(device))
 
 
+def _control_group(ranks: Sequence[int]):
+    return dist.new_group(sorted(ranks), backend="gloo",
+                          timeout=datetime.timedelta(seconds=CONTROL_IDLE_S))
+
+
+def mesh_over(ranks: Sequence[int], axes: Sequence[str],
+              sizes: Sequence[int], *, device=None,
+              controller: Optional[int] = None) -> Mesh:
+    """A mesh over the global ``ranks``, row-major over ``axes`` of
+    ``sizes``, whose session controller is ``controller`` (default: the
+    first rank; it may lie outside the grid). Building its groups is
+    collective: every rank of the process group calls this with the same
+    arguments, in the same order, ranks outside the grid included (they
+    get a mesh with ``contains_rank`` false and no coordinates). A grid of
+    one rank controlled by itself needs no process group."""
+    ranks, axes, sizes = (tuple(int(r) for r in ranks), tuple(axes),
+                          tuple(int(s) for s in sizes))
+    n = 1
+    for s in sizes:
+        n *= s
+    if len(ranks) != n or len(set(ranks)) != n:
+        raise ValueError(f"a {dict(zip(axes, sizes))} mesh needs {n} "
+                         f"distinct ranks, got {list(ranks)}")
+    ctl = ranks[0] if controller is None else int(controller)
+    dev = rank_device(device)
+    if n == 1 and ctl == ranks[0]:
+        return Mesh(axis_names=axes, sizes=sizes, ranks=ranks, rank=_rank(),
+                    device=dev)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"a {dict(zip(axes, sizes))} mesh over ranks {list(ranks)} "
+            f"needs an initialized process group (init_distributed)")
+    if max(ranks + (ctl,)) >= _world() or min(ranks + (ctl,)) < 0:
+        raise ValueError(f"a mesh over ranks {list(ranks)} controlled by "
+                         f"{ctl} needs those ranks; the process group has "
+                         f"{_world()}")
+    backend = dist.get_backend()
+    device_mesh = all_group = None
+    if n > 1:
+        from torch.distributed.device_mesh import DeviceMesh
+        device_mesh = DeviceMesh(
+            "cuda" if backend == "nccl" else "cpu",
+            torch.tensor(ranks, dtype=torch.int).reshape(sizes),
+            mesh_dim_names=axes)
+        all_group = (dist.group.WORLD if sorted(ranks) == list(range(
+            _world())) else dist.new_group(sorted(ranks)))
+        if _rank() in ranks:          # a rank outside the grid has no groups
+            for group in [all_group] + [device_mesh.get_group(a)
+                                        for a in axes]:
+                _bound_timeout(group)
+    control_group = _control_group(set(ranks) | {ctl})
+    return Mesh(axis_names=axes, sizes=sizes, ranks=ranks, rank=_rank(),
+                device=dev, backend=backend, device_mesh=device_mesh,
+                all_group=all_group, control_group=control_group,
+                control_rank=None if ctl == ranks[0] else ctl)
+
+
 def _grid(axes: Tuple[str, ...], sizes: Tuple[int, ...], device) -> Mesh:
     """A mesh over global ranks ``0 .. prod(sizes)-1``. Every rank of the
     process group calls this (building groups is collective)."""
@@ -362,24 +507,49 @@ def _grid(axes: Tuple[str, ...], sizes: Tuple[int, ...], device) -> Mesh:
     if n > _world():
         raise ValueError(f"a mesh of {n} ranks needs {n} processes, the "
                          f"process group has {_world()}")
-    from torch.distributed.device_mesh import DeviceMesh
-    dev = rank_device(device)
-    backend = dist.get_backend()
-    grid = torch.arange(n, dtype=torch.int).reshape(sizes)
-    device_mesh = DeviceMesh("cuda" if backend == "nccl" else "cpu", grid,
-                             mesh_dim_names=tuple(axes))
-    all_group = (dist.group.WORLD if n == _world()
-                 else dist.new_group(list(range(n))))
-    if _rank() < n:                 # a rank outside the grid has no groups
-        for group in [all_group] + [device_mesh.get_group(a) for a in axes]:
-            _bound_timeout(group)
-    control_group = dist.new_group(
-        list(range(n)), backend="gloo",
-        timeout=datetime.timedelta(seconds=CONTROL_IDLE_S))
-    return Mesh(axis_names=tuple(axes), sizes=tuple(sizes),
-                ranks=tuple(range(n)), rank=_rank(), device=dev,
-                backend=backend, device_mesh=device_mesh,
-                all_group=all_group, control_group=control_group)
+    return mesh_over(range(n), axes, sizes, device=device)
+
+
+class Fleet:
+    """The channel of a fleet of replicas carved from one process group
+    (``runtime/elastic.carve_submeshes``): its controller (rank 0) runs the
+    router and every replica's host half, and announces each replica it
+    builds (``JOIN``), retires (``LEAVE``) and the fleet's end (``CLOSE``)
+    to every other rank, each of which follows the fleet
+    (``replica.follow_fleet``). The commands go over ``control_group``, a
+    gloo group of every rank of the process group with the idle timeout,
+    from one thread of the controller at a time; ``meshes`` are the
+    fleet's meshes, in carving order, and ``members`` the controller's
+    replicas announced and not retired, by serial."""
+
+    def __init__(self, controller: int = 0):
+        self.controller = controller
+        self.control_group = _control_group(range(_world()))
+        self.meshes: List[Mesh] = []
+        self.members: Dict[int, object] = {}
+        self._lock = threading.Lock()
+        self._serial = 0
+
+    @property
+    def is_controller(self) -> bool:
+        return _rank() == self.controller
+
+    def index(self, mesh: Mesh) -> int:
+        """The position of ``mesh`` among the fleet's meshes."""
+        for i, m in enumerate(self.meshes):
+            if m is mesh:
+                return i
+        return self.meshes.index(mesh)
+
+    def send(self, command: str, fields: Sequence[int] = (),
+             tensors: Sequence[torch.Tensor] = ()) -> None:
+        with self._lock:
+            send_command(self, command, fields, tensors)
+
+    def next_serial(self) -> int:
+        with self._lock:
+            self._serial += 1
+            return self._serial
 
 
 def make_mesh(cfg: MeshConfig, *, device=None) -> Mesh:

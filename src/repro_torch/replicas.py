@@ -3,8 +3,8 @@ epochs, as ``examples/replicas.py`` runs it on the JAX package.
 
 IM-PIR scales PIR throughput with many independent clusters, each
 scanning its own full database replica (Take-away 5). This twin runs that
-topology one tier up: two :class:`ServeReplica` deployments (own device
-group, own LWE plans, own ``Database``) behind a :class:`Router` doing
+topology one tier up: two :class:`ServeReplica` deployments (own
+sub-mesh, own LWE plans, own ``Database``) behind a :class:`Router` doing
 power-of-two-choices balancing — then
 
   1. publishes an update through the front tier and shows both replicas
@@ -53,19 +53,19 @@ def run(device: Optional[str] = None, seed: int = 0,
     db_host = pir.make_database(rng, cfg.n_items, cfg.item_bytes)
     oracle = pir.db_as_bytes(db_host).copy()
 
-    groups = carve_submeshes(2, model_axis=1, live_devices=(
+    meshes = carve_submeshes(2, model_axis=1, live_devices=(
         None if device is None else [device]))
     router = Router(rng=np.random.default_rng(seed + 1), base_delay=0.01,
                     max_delay=0.5)
     kw = dict(n_queries=4, buckets=(4,), max_wait_s=0.002)
     r0 = router.attach(ServeReplica(
-        "r0", db_host, cfg, groups[0][0],
+        "r0", db_host, cfg, meshes[0],
         client_rng=np.random.default_rng(seed + 2), **kw))
     r1 = router.attach(ServeReplica(
-        "r1", db_host, cfg, groups[1][0],
+        "r1", db_host, cfg, meshes[1],
         client_rng=np.random.default_rng(seed + 3), **kw))
     say(f"fleet: 2 replicas x ({cfg.n_items} records x {cfg.item_bytes} B,"
-        f" protocol={cfg.protocol}) on {[str(g[0]) for g in groups]}, "
+        f" protocol={cfg.protocol}) on {[str(m.device) for m in meshes]}, "
         f"P2C routing")
 
     # --- 1. epoch propagation: one publish, both replicas converge ------
@@ -96,7 +96,7 @@ def run(device: Optional[str] = None, seed: int = 0,
 
     # --- 3. rejoin warm: catch up the epoch, skip re-tuning --------------
     router.detach("r0")
-    r0b = ServeReplica("r0", db_host, cfg, groups[0][0],
+    r0b = ServeReplica("r0", db_host, cfg, meshes[0],
                        warm_plans=r1.export_plans(),
                        client_rng=np.random.default_rng(seed + 4), **kw)
     router.attach(r0b)

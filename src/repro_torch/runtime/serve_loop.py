@@ -31,10 +31,10 @@ launch, and ``replica.serve_step``, where the facades hand each batch's
 answer shares to ``corrupt_shares``; as upstream, the facades stage keys
 padded to their bucket, so that those shares are ``[bucket, cols]``.
 
-On a mesh of more than one rank (``mesh=``, ``launch/mesh.py``) the
-database is sharded over the mesh and each party's ``PIRServer`` answers
-through the sharded step (``core/server.py``). The facades keep this
-contract there:
+On a mesh of more than one rank, or one whose controller lies outside
+it (``mesh=``, ``launch/mesh.py``), the database is sharded over the mesh
+and each party's ``PIRServer`` answers through the sharded step
+(``core/server.py``). The facades keep this contract there:
 
 * SPMD construction and lifecycle: every rank builds the facade and calls
   ``start()`` and ``close()``. Outside a session ``query``, ``update``
@@ -45,7 +45,8 @@ contract there:
   the whole of A, which only the controller draws) and broadcasts the
   ciphertexts and the client's secrets; its hint is built per row block
   and summed over the shard axis (``db/sharded.py``).
-* One controller, ``mesh.controller`` (the grid's first rank). Its
+* One controller, ``mesh.controller`` (the grid's first rank unless the
+  mesh names another). Its
   ``start()`` runs the scheduler's session thread, as on one card; every
   other rank's runs a follower (:class:`FollowerLoop`), which takes
   commands from the controller until ``STOP`` or ``ABORT``.
@@ -59,8 +60,8 @@ contract there:
 * One thread per rank makes collectives: the controller's session thread
   or a follower's loop, so every rank makes the same collectives in the
   same order. A follower keeps at most ``depth`` dispatches in flight.
-* Commands (``launch/mesh.send_command``, over ``mesh.all_group``, each a
-  header of integers and then tensors as they are, never pickled):
+* Commands (``launch/mesh.send_command``, over ``mesh.control_group``,
+  each a header of integers and then tensors as they are, never pickled):
   ``DISPATCH`` carries a batch's collated payload, which every rank then
   stages and dispatches itself (the parties' keys as one int32 tensor;
   the whole ``[Q, N]`` LWE ciphertext, of which each rank's answer reads
@@ -89,8 +90,31 @@ contract there:
   timeout); every other death does. Either way every outstanding future
   fails and ``close()`` returns on every rank.
 
-Still refused on a mesh (ROADMAP's A6b-serve-2, what is left): replicas
-spanning cards (``replica/``), ``elastic`` returning meshes and
+A fleet's replica (``replica/replica.py``, on a mesh of
+``runtime/elastic.carve_submeshes``) changes three things:
+
+* Its followers run their loops from construction (:meth:`follow`, when
+  the fleet's controller announces the replica) to the session's end, so
+  a publish before ``start()`` (the router's catch-up) goes over the
+  channel, and the controller's ``start()`` sends ``START``, on which
+  every rank opens the session (``SingleServerPIR``: the hint).
+* The controller may lie outside the grid (``mesh.controller`` not in
+  ``mesh.ranks``; the facade's ``remote``). It then holds the host half
+  only: the client rng and keygen (``SingleServerPIR``: the whole of A),
+  the scheduler and its futures, the chaos seams and finalize; its
+  database is a :class:`ControllerDatabase` (epoch, staged log,
+  subscribers, no rows) and its parties :class:`PartyPlans`. It takes no
+  part in the grid's collectives: after each ``DISPATCH`` the grid's first
+  rank sends the reduced ``[k, bucket, cols]`` answer shares back as a
+  reply (``launch/mesh.send_reply``), which finalize reads in dispatch
+  order (the ``replica.serve_step`` seam is visited there), and a hint
+  the client's cache misses is asked for with ``HINT`` and comes back the
+  same way. Its traffic stays on the grid's control group.
+* SPMD calls outside a session (``query``) are refused: the grid answers
+  only what the controller sends in a session.
+
+Still refused on a mesh (ROADMAP's A6b, what is left): replicas on
+overlapping sub-meshes of several ranks (``carve_submeshes`` raises) and
 ``dryrun --mesh``.
 """
 from __future__ import annotations
@@ -110,12 +134,16 @@ from repro_torch.config import PIRConfig
 from repro_torch.core import dpf, lwe
 from repro_torch.core import protocol as protocol_mod
 from repro_torch.core.protocol import PIRProtocol
-from repro_torch.core.server import PIRServer, bucket_for
+from repro_torch.core.server import PartyPlans, PIRServer, bucket_for
 from repro_torch.crypto.packing import records_to_host
 from repro_torch.db import Database
+from repro_torch.db.sharded import PublishedDelta, last_writes, staged_rows
+from repro_torch.db.spec import DatabaseSpec
 from repro_torch.engine.backend import Device
-from repro_torch.launch.mesh import (Mesh, broadcast_from, recv_command,
-                                     recv_tensor, send_command)
+from repro_torch.launch.mesh import (REPLIES, Mesh, broadcast_from,
+                                     collective_timeout, recv_command,
+                                     recv_reply, recv_tensor, send_command,
+                                     send_reply)
 from repro_torch.runtime.fault import StragglerMonitor
 
 #: dispatch depth: one batch running on the card, one being staged
@@ -671,9 +699,13 @@ class QueryScheduler:
             if channel is not None:
                 channel.stop()
         except BaseException as e:
-            self._fail_outstanding(inflight, e)
-            if channel is not None and not channel.busy:
-                channel.abort()
+            try:
+                # the followers leave first: failing the futures runs their
+                # callbacks here (a router's failovers, keygen included)
+                if channel is not None and not channel.busy:
+                    channel.abort()
+            finally:
+                self._fail_outstanding(inflight, e)
 
     def _fail_outstanding(self, inflight: deque, exc: BaseException):
         """A dead session resolves every outstanding future with ``exc``
@@ -723,8 +755,19 @@ class _Channel:
     command's send until the controller's own part of it returns
     (``done``): a failure in between means the followers sit inside that
     command's collectives, and they leave by the timeout, so that the
-    death path sends no ``ABORT`` then. ``sent`` counts the commands and
-    ``seconds`` is the host time spent sending them, by command."""
+    death path sends no ``ABORT`` then. ``sent`` counts the commands,
+    ``seconds`` is the host time spent sending them, by command, and
+    ``dispatched`` holds each ``DISPATCH``'s fields (its query count
+    first).
+
+    On a controller outside the grid (``remote``) the grid's first rank
+    replies: :meth:`answer` reads each dispatched batch's answer shares, in
+    dispatch order, and :meth:`hint` asks for an epoch's hint (``HINT``)
+    and reads it, keeping the answers that arrive before it. Before
+    ``ABORT`` the answers of batches still in flight are read and dropped,
+    so that no reply outlives the session. ``reply_s`` holds each reply's
+    seconds from its send to its arrival, and ``wait_s`` the host time
+    spent waiting for replies, by kind."""
 
     def __init__(self, mesh: Mesh, wire: Callable[[Any], Tuple[Sequence[int],
                                                             Sequence[Any]]]):
@@ -733,7 +776,13 @@ class _Channel:
         self.busy = False
         self.sent: Dict[str, int] = {}
         self.seconds: Dict[str, float] = {}
+        self.dispatched: List[Tuple[int, ...]] = []
         self._pending: list = []      # the last ABORT's unwaited sends
+        self.remote = not mesh.contains_rank
+        self.owed = 0                 # answers dispatched and not read
+        self._replies: Dict[str, deque] = {k: deque() for k in REPLIES}
+        self.reply_s: Dict[str, List[float]] = {k: [] for k in REPLIES}
+        self.wait_s: Dict[str, float] = {k: 0.0 for k in REPLIES}
 
     def _send(self, command: str, fields: Sequence[int] = (),
               tensors: Sequence[torch.Tensor] = (), wait: bool = True):
@@ -746,7 +795,11 @@ class _Channel:
         return works
 
     def dispatch(self, payload):
-        self._send("DISPATCH", *self.wire(payload))
+        fields, tensors = self.wire(payload)
+        self._send("DISPATCH", fields, tensors)
+        self.dispatched.append(tuple(fields))
+        if self.remote:
+            self.owed += 1
 
     def publish(self, rows: np.ndarray, vals: np.ndarray):
         """The staged log: ``[R]`` int64 rows, ``[R, W]`` u32 values (sent
@@ -754,6 +807,10 @@ class _Channel:
         self._send("PUBLISH", (len(rows), vals.shape[1]), (
             torch.from_numpy(np.ascontiguousarray(rows, np.int64)),
             torch.from_numpy(np.ascontiguousarray(vals).view(np.int32))))
+
+    def start(self):
+        self._send("START")
+        self.busy = False
 
     def done(self):
         self.busy = False
@@ -763,8 +820,45 @@ class _Channel:
         self.busy = False
 
     def abort(self):
+        try:
+            while self.owed:
+                self._reply("ANSWER")
+                self.owed -= 1
+        except RuntimeError:    # the grid's first rank is gone: no reply
+            self.owed = 0
         self._pending = self._send("ABORT", wait=False)
         self.busy = False
+
+    def _reply(self, kind: str) -> Tuple[int, torch.Tensor]:
+        """The grid's next reply of ``kind`` (field, tensor), reading and
+        keeping the replies of the other kind that come first."""
+        t0 = time.perf_counter()
+        while not self._replies[kind]:
+            got, value, t, seconds = recv_reply(self.mesh)
+            self._replies[got].append((value, t))
+            self.reply_s[got].append(seconds)
+        self.wait_s[kind] += time.perf_counter() - t0
+        return self._replies[kind].popleft()
+
+    def answer(self, epoch: int) -> torch.Tensor:
+        """The next dispatched batch's ``[k, bucket, cols]`` answer shares,
+        which the grid must have read at ``epoch``."""
+        got, t = self._reply("ANSWER")
+        self.owed -= 1
+        if got != epoch:
+            raise RuntimeError(f"the grid answered a batch at epoch {got}, "
+                               f"the controller dispatched it at {epoch}")
+        return t
+
+    def hint(self, epoch: int) -> torch.Tensor:
+        """The grid's hint of ``epoch`` (``HINT``)."""
+        self._send("HINT", (epoch,))
+        self.busy = False
+        got, t = self._reply("HINT")
+        if got != epoch:
+            raise RuntimeError(f"the grid sent the hint of epoch {got} for "
+                               f"{epoch}")
+        return t
 
 
 class FollowerLoop:
@@ -774,27 +868,41 @@ class FollowerLoop:
     ``DISPATCH`` is turned back into a batch payload by
     ``unwire(fields, recv)`` (``recv(shape, dtype)`` reads the command's
     next tensor), staged and dispatched with the facade's own closures,
-    keeping at most ``depth`` dispatches in flight, its answers dropped;
-    ``PUBLISH`` calls ``publish(rows, values)``. A failure ends the loop at
-    once and sends nothing: the controller's next collective then fails.
-    ``dispatches`` and ``publishes`` count what it ran, ``ended_by`` is the
-    command that ended it (None after a failure, which is ``exc``) and
-    ``t_end`` its ``time.monotonic()`` end."""
+    keeping at most ``depth`` dispatches in flight, its answers dropped
+    unless ``reply(raw)`` sends them to a controller outside the grid (it
+    returns the pending sends); ``PUBLISH`` calls ``publish(rows,
+    values)``, ``START`` calls ``start()`` and ``HINT`` calls
+    ``hint(epoch)`` (which returns its pending sends too). A failure ends
+    the loop at once and sends nothing: the controller's next collective
+    then fails. ``dispatches``, ``publishes``, ``starts`` and ``hints``
+    count what it ran, ``ended_by`` is the command that ended it (None
+    after a failure, which is ``exc``) and ``t_end`` its
+    ``time.monotonic()`` end. Its replies' sends are waited for before it
+    ends, at most the collective timeout each."""
 
     def __init__(self, mesh: Mesh, *, unwire: Callable, stage: Callable,
                  dispatch: Callable, publish: Callable,
+                 start: Optional[Callable] = None,
+                 hint: Optional[Callable] = None,
+                 reply: Optional[Callable] = None,
                  depth: int = PIPELINE_DEPTH):
         self.mesh = mesh
         self._unwire = unwire
         self._stage = stage
         self._dispatch = dispatch
         self._publish = publish
+        self._start = start
+        self._hint = hint
+        self._reply = reply
         self.depth = max(depth, 1)
         self.dispatches = 0
         self.publishes = 0
+        self.starts = 0
+        self.hints = 0
         self.ended_by: Optional[str] = None
         self.exc: Optional[BaseException] = None
         self.t_end: Optional[float] = None
+        self._sends: deque = deque()     # replies' pending (work, tensor)
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="pir-follower")
 
@@ -811,6 +919,14 @@ class FollowerLoop:
     def _recv(self, shape, dtype) -> torch.Tensor:
         return recv_tensor(self.mesh, shape, dtype)
 
+    def _sent(self, works: list, *, all_: bool = False):
+        """Keep a reply's pending sends; forget those done (all of them,
+        waited for, with ``all_``)."""
+        self._sends.extend(works)
+        while self._sends and (all_ or self._sends[0][0].is_completed()):
+            work, _ = self._sends.popleft()
+            work.wait(timeout=collective_timeout())
+
     def _run(self):
         inflight: deque = deque()
         try:
@@ -820,8 +936,10 @@ class FollowerLoop:
                     staged = self._stage(self._unwire(fields, self._recv))
                     while len(inflight) >= self.depth:
                         inflight.popleft().wait()
-                    self._dispatch(staged)
+                    raw = self._dispatch(staged)
                     inflight.append(_Ready(self.mesh.device))
+                    if self._reply is not None:
+                        self._sent(self._reply(raw))
                     self.dispatches += 1
                 elif command == "PUBLISH":
                     n, w = fields[:2]
@@ -829,7 +947,15 @@ class FollowerLoop:
                     vals = self._recv((n, w), torch.int32).cpu().numpy()
                     self._publish(rows, vals.view(np.uint32))
                     self.publishes += 1
+                elif command == "START":
+                    if self._start is not None:
+                        self._start()
+                    self.starts += 1
+                elif command == "HINT":
+                    self._sent(self._hint(fields[0]))
+                    self.hints += 1
                 else:
+                    self._sent([], all_=True)
                     self.ended_by = command
                     return
         except BaseException as e:
@@ -935,6 +1061,94 @@ def _padded(server: PIRServer, keys):
     return proto.pad(keys, server.bucketed.bucket_for(proto.n_queries(keys)))
 
 
+class ControllerDatabase:
+    """A database sharded over a grid, as its controller sees it from
+    outside the grid: the spec, the epoch, the staged log and the
+    subscribers, and no rows. The facade publishes through its command
+    channel (``PUBLISH``, which every rank of the grid stages and
+    publishes) and then here, so that the epoch moves in step with the
+    grid's; :meth:`hint` reads an epoch's hint back from the grid's first
+    rank. ``register_hint`` is the grid's: nothing is built here."""
+
+    def __init__(self, cfg: PIRConfig, mesh: Mesh):
+        self.spec = DatabaseSpec.from_config(cfg)
+        self.mesh = mesh
+        self.device = mesh.device
+        self._lock = threading.Lock()
+        self._epoch = 0
+        self._staged: List[Tuple[np.ndarray, np.ndarray]] = []
+        self._subscribers: List[Callable[[PublishedDelta], None]] = []
+        #: every published delta, in epoch order
+        self.published: List[PublishedDelta] = []
+        #: the facade's command channel (its ``hint``)
+        self.channel: Optional[_Channel] = None
+        #: optional ChaosInjector consulted at the "db.publish" seam
+        self.chaos = None
+
+    @property
+    def epoch(self) -> int:
+        with self._lock:
+            return self._epoch
+
+    def stage(self, rows, values) -> int:
+        """Append row writes to the log (``Database.stage``'s checks)."""
+        staged = staged_rows(self.spec, rows, values)
+        with self._lock:
+            self._staged.append(staged)
+            return sum(len(r) for r, _ in self._staged)
+
+    def take_staged(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Remove the staged log and return it (``Database.take_staged``)."""
+        with self._lock:
+            staged, self._staged = self._staged, []
+        if not staged:
+            return (np.zeros((0,), np.int64),
+                    np.zeros((0, self.spec.item_words), np.uint32))
+        return (np.concatenate([r for r, _ in staged]),
+                np.concatenate([v for _, v in staged]))
+
+    def subscribe(self, fn: Callable[[PublishedDelta], None]
+                  ) -> Callable[[], None]:
+        """``Database.subscribe``."""
+        self._subscribers.append(fn)
+
+        def _unsubscribe(fn=fn):
+            if fn in self._subscribers:
+                self._subscribers.remove(fn)
+        return _unsubscribe
+
+    def publish(self) -> int:
+        """The next epoch from the staged log (what the grid has just
+        published), and the subscribers told, as ``Database.publish``;
+        nothing staged is a no-op."""
+        rows, vals = self.take_staged()
+        if not len(rows):
+            return self.epoch
+        n_staged, keep = len(rows), last_writes(rows)
+        with self._lock:
+            self._epoch += 1
+            delta = PublishedDelta(epoch=self._epoch, rows=rows[keep],
+                                   n_staged=n_staged, vals=vals[keep])
+            self.published.append(delta)
+        chaos = self.chaos
+        if chaos is not None and chaos.should_drop("db.publish"):
+            return delta.epoch
+        for fn in tuple(self._subscribers):
+            fn(delta)
+        return delta.epoch
+
+    def register_hint(self, name: str, build: Callable,
+                      delta: Optional[Callable] = None) -> None:
+        """The grid's ranks register and build the hint: nothing here."""
+
+    def hint(self, name: str, *, epoch: Optional[int] = None
+             ) -> torch.Tensor:
+        """The grid's hint of ``epoch`` (current by default), read over the
+        channel from the grid's first rank: on the session thread, the
+        one that reads replies."""
+        return self.channel.hint(self.epoch if epoch is None else epoch)
+
+
 class MultiServerPIR:
     """End-to-end k-party deployment: client + k non-colluding servers.
 
@@ -999,13 +1213,28 @@ class MultiServerPIR:
                 f"(per-query client state + epoch hints) — use "
                 f"SingleServerPIR, not {type(self).__name__}")
         self.n_parties = self.protocol.n_parties(cfg)
-        self.db = (db_words if isinstance(db_words, Database)
-                   else Database(db_words, cfg, device, mesh=mesh))
-        self.servers = [
-            PIRServer(party=b, database=self.db, cfg=cfg, mesh=mesh,
-                      n_queries=n_queries, path=path, buckets=buckets,
-                      protocol=self.protocol, collective=collective)
-            for b in range(self.n_parties)]
+        #: this rank drives a grid it is not part of (a fleet's controller)
+        self.remote = mesh is not None and not mesh.contains_rank
+        if self.remote:
+            if not mesh.is_controller:
+                raise ValueError(
+                    f"rank {mesh.rank} is neither in the mesh over ranks "
+                    f"{list(mesh.ranks)} nor its controller "
+                    f"({mesh.controller})")
+            self.db = ControllerDatabase(cfg, mesh)
+            self.servers = [
+                PartyPlans(b, cfg, mesh, n_queries=n_queries, path=path,
+                           buckets=buckets, protocol=self.protocol,
+                           collective=collective)
+                for b in range(self.n_parties)]
+        else:
+            self.db = (db_words if isinstance(db_words, Database)
+                       else Database(db_words, cfg, device, mesh=mesh))
+            self.servers = [
+                PIRServer(party=b, database=self.db, cfg=cfg, mesh=mesh,
+                          n_queries=n_queries, path=path, buckets=buckets,
+                          protocol=self.protocol, collective=collective)
+                for b in range(self.n_parties)]
         # key material must not be replayable: OS entropy unless a seeded
         # generator is injected (tests, benchmarks)
         self.rng = (client_rng if client_rng is not None
@@ -1021,13 +1250,70 @@ class MultiServerPIR:
 
     def _init_session(self, mesh: Optional[Mesh]):
         """The session's state on any rank, and the controller's channel."""
-        self.spmd = mesh is not None and mesh.size > 1
+        self.spmd = mesh is not None and mesh.multi_process
+        self.remote = getattr(self, "remote", False)
         self._session = False              # between start() and close()
+        #: the followers run their loops from construction (a fleet's
+        #: replica, ``follow`` / ``announced``): every call that reaches
+        #: the grid goes over the channel, before a session too
+        self.followed = False
+        self._opened = False
         self._update_lock = threading.Lock()
         self.follower: Optional[FollowerLoop] = None
         self.scheduler.spmd = self.spmd
         if self.spmd and mesh.is_controller:
             self.scheduler.channel = _Channel(mesh, self._wire)
+            if self.remote:
+                self.db.channel = self.scheduler.channel
+
+    def announced(self):
+        """On the controller of a fleet's replica: the followers were told
+        of it (``JOIN``) and run their loops from now on, so a publish
+        before ``start()`` goes over the channel and ``start()`` sends
+        ``START``."""
+        self.followed = True
+
+    def follow(self):
+        """On a follower of a fleet's replica: run the command loop from
+        now on, the session's and the catch-up publishes before it. The
+        grid's first rank sends the answers and hints to a controller
+        outside the grid."""
+        mesh = self.mesh
+        replier = (mesh.controller not in mesh.ranks
+                   and mesh.rank == mesh.ranks[0])
+        self.followed = self._session = True
+        self.scheduler.following = mesh.controller
+        self.follower = FollowerLoop(
+            mesh, unwire=self._unwire, stage=self.scheduler._stage,
+            dispatch=self.scheduler._dispatch, publish=self._apply_publish,
+            start=self._open, hint=self._send_hint,
+            reply=self._send_answer if replier else None,
+            depth=self.scheduler.depth)
+        self.follower.start()
+
+    def _open(self):
+        """What every rank of the grid does as a session opens (the hint,
+        for ``SingleServerPIR``)."""
+
+    def _raw_answers(self, raw) -> Tuple[torch.Tensor, int]:
+        """A dispatch's answer shares as one ``[k, bucket, cols]`` tensor,
+        and the epoch it read."""
+        answers, epoch = raw
+        return torch.stack(answers), epoch
+
+    def _send_answer(self, raw) -> list:
+        """On the grid's first rank: a dispatch's answers to the controller
+        outside the grid."""
+        answers, epoch = self._raw_answers(raw)
+        return send_reply(self.mesh, "ANSWER", epoch, answers)
+
+    def _send_hint(self, epoch: int) -> list:
+        """A ``HINT``: every rank of the grid reads the epoch's hint (a
+        collective, where it is not built yet); the first sends it."""
+        h = self.db.hint(self.protocol.name, epoch=epoch)
+        if self.mesh.rank == self.mesh.ranks[0]:
+            return send_reply(self.mesh, "HINT", epoch, h)
+        return []
 
     def _controller_only(self, what: str, *, always: bool = False):
         """A follower refuses a client call during a session, or at any
@@ -1044,7 +1330,14 @@ class MultiServerPIR:
 
     def _spmd_pump_ready(self):
         """An SPMD call pumps the scheduler on every rank: the controller's
-        queries submitted for a session must not ride along."""
+        queries submitted for a session must not ride along, and a grid
+        that follows the controller from construction, or that the
+        controller is not part of, answers in a session only."""
+        if self.spmd and not self._session and (self.followed
+                                                or self.remote):
+            raise ValueError(
+                "this deployment's grid answers what its controller sends "
+                "in a session: start() one before a query")
         if self.spmd and not self._session and self.scheduler.queue_depth:
             raise ValueError(
                 f"queries submitted on this mesh wait for a session "
@@ -1072,7 +1365,8 @@ class MultiServerPIR:
         return self.db.publish()
 
     def _publish_in_session(self) -> int:
-        """The controller's publish, on its session thread: the staged log
+        """The controller's publish, on its session thread (or, before a
+        session of a grid that follows it, on the caller's): the staged log
         goes to every follower, then is published here."""
         with self._update_lock:
             rows, vals = self.db.take_staged()
@@ -1110,10 +1404,14 @@ class MultiServerPIR:
                          for p in parties)
 
         def stage(payload):
+            if self.remote:                 # the grid stages it
+                return payload
             return tuple(servers[p].stage_keys(_padded(servers[p], payload[p]))
                          for p in parties)
 
         def dispatch(staged):
+            if self.remote:                 # the grid answers: finalize reads
+                return None, db.epoch
             epoch, views = db.snapshot((proto.db_view,))
             view = views[proto.db_view]
             return self._serve_step(tuple(
@@ -1123,7 +1421,10 @@ class MultiServerPIR:
         cfg = self.cfg
 
         def finalize(raw, n):
-            answers, _ = raw
+            answers, epoch = raw
+            if answers is None:
+                answers = self._serve_step(tuple(
+                    self.scheduler.channel.answer(epoch)))
             # with cfg.checksum the records are verified and stripped to the
             # logical width; a corrupted share raises IntegrityError here
             rec = proto.reconstruct_with([a[:n] for a in answers], [None] * n,
@@ -1138,11 +1439,25 @@ class MultiServerPIR:
 
     def start(self):
         """Open a session (reopen a dead one). On a mesh every rank calls
-        it: the controller runs the session thread, a follower its loop."""
-        self._session = True
+        it: the controller runs the session thread, a follower its loop.
+        On a grid that follows the controller from construction only the
+        controller calls it, once: it sends ``START`` to the followers'
+        loops (a session there ends with their loops)."""
         if not self.spmd or self.mesh.is_controller:
+            if self.spmd and not self.scheduler.running:
+                if self.followed:
+                    if self._opened:
+                        raise RuntimeError(
+                            "this grid's followers left their loops with "
+                            "its session: serve on a fresh deployment")
+                    self.scheduler.channel.start()
+                if not self.remote:
+                    self._open()
+            self._opened = self._session = True
             self.scheduler.start()
         elif self.follower is None or not self.follower.running:
+            self._session = True
+            self._open()
             self.scheduler.following = self.mesh.controller
             self.follower = FollowerLoop(
                 self.mesh, unwire=self._unwire, stage=self.scheduler._stage,
@@ -1208,6 +1523,8 @@ class MultiServerPIR:
         self._controller_only("publish")
         if self.spmd and self._session:
             return self.scheduler.call_in_session(self._publish_in_session)
+        if self.spmd and self.followed:     # before the session: no thread
+            return self._publish_in_session()   # makes collectives yet
         return self.db.publish()
 
     # -- synchronous batch API ------------------------------------------
@@ -1311,13 +1628,16 @@ class SingleServerPIR(MultiServerPIR):
         self.hint_fetches = 0
         super().__init__(db_words, cfg, protocol=proto, **kwargs)
 
-    def start(self):
-        """Open a session; on a mesh every rank first builds the current
-        epoch's hint (a collective), which the publishes' deltas then keep
-        up to date on every rank."""
-        if self.spmd:
+    def _open(self):
+        """As a session opens on a mesh every rank of the grid builds the
+        current epoch's hint (a collective), which the publishes' deltas
+        then keep up to date on every rank."""
+        if self.spmd and not self.remote:
             self.db.hint(self.protocol.name)
-        super().start()
+
+    def _raw_answers(self, raw) -> Tuple[torch.Tensor, int]:
+        ans, epoch, _ = raw
+        return ans[None], epoch
 
     def _wire(self, payload):
         ct, _ = payload           # the secrets stay with the client
@@ -1354,11 +1674,15 @@ class SingleServerPIR(MultiServerPIR):
                     [it[1] for it in items])
 
         def stage(payload):
+            if self.remote:                 # the grid stages it
+                return payload
             keys, states = payload
             return server.stage_keys(_padded(server, keys)), states
 
         def dispatch(staged):
             keys, states = staged
+            if self.remote:                 # the grid answers: finalize reads
+                return None, db.epoch, states
             epoch, views = db.snapshot((proto.db_view,))
             (ans,) = self._serve_step(
                 (server.bucketed.answer(views[proto.db_view], keys),))
@@ -1366,6 +1690,9 @@ class SingleServerPIR(MultiServerPIR):
 
         def finalize(raw, n):
             ans, epoch, states = raw
+            if ans is None:
+                (ans,) = self._serve_step(
+                    (self.scheduler.channel.answer(epoch)[0],))
             rec = proto.reconstruct_with([ans[:n]], states[:n], cfg=cfg,
                                          hint=self._client_hint(epoch))
             return list(rec)

@@ -58,6 +58,16 @@ JAX initializes):
              counts, lanes, the chaos log, and the hint counters or the
              ``dispatch_log``)
 
+  fleet      a ``Router`` over two ``ServeReplica``s on
+             ``carve_submeshes(2, model_axis=)`` for each of the case's
+             model axes, driven by the script ``_torch_ranks.play_fleet``
+             plays on the port's controller (``{name}/m{model_axis}``, JSON)
+  fleet_chaos  the chaos smoke's scenarios on such sub-meshes with the
+             case's ``max_wait_s`` (``{name}/{scenario}``, JSON: what the
+             scenario returned and its pinned queries' records)
+  elastic    ``carve_submeshes`` / ``rebuild_mesh`` grids on the four
+             devices (``{name}``, JSON)
+
 The port's tests read the file and compare with the same cases run over
 four ``gloo`` ranks.
 """
@@ -360,11 +370,100 @@ def run_session(case, out):
         out[f"{case['name']}/{d}x{m}"] = np.asarray(json.dumps(res))
 
 
+def ref_fleet_api():
+    import types
+    from repro.config import PIRConfig
+    from repro.core import pir
+    from repro.replica import Router, ServeReplica
+    return types.SimpleNamespace(
+        Router=Router, ServeReplica=ServeReplica, PIRConfig=PIRConfig,
+        make_database=lambda rng, n, b: np.asarray(
+            pir.make_database(rng, n, b)),
+        close_fleet=lambda meshes: None)
+
+
+def run_fleet(case, out):
+    from repro import engine
+    from repro.runtime.elastic import carve_submeshes
+    from _torch_ranks import play_fleet
+    for model_axis in case["model_axes"]:
+        engine.plan_cache(reload=True)
+        meshes = carve_submeshes(2, model_axis=model_axis)
+        res = play_fleet(ref_fleet_api(), dict(case, _model_axis=model_axis),
+                         meshes)
+        res["meshes"] = [[list(m.devices.shape),
+                          [d.id for d in m.devices.flat]] for m in meshes]
+        out[f"{case['name']}/m{model_axis}"] = np.asarray(json.dumps(res))
+
+
+def run_fleet_chaos(case, out):
+    """The chaos smoke's scenarios on ``carve_submeshes(2, model_axis=)``
+    meshes, with the replicas' ``max_wait_s``: what each returns, and the
+    records its pinned queries resolved to."""
+    from repro import engine, replica
+    from repro.chaos import smoke
+    from repro.runtime import elastic
+    carve, serve_replica = elastic.carve_submeshes, replica.ServeReplica
+    drive = smoke._drive_pinned
+    records: list = []
+
+    def driven(*args, **kwargs):
+        futs = drive(*args, **kwargs)
+        records.append([np.asarray(f.result()).tolist() for f in futs])
+        return futs
+    elastic.carve_submeshes = lambda n, model_axis: carve(
+        n, model_axis=case["model_axis"])
+    replica.ServeReplica = lambda *a, **kw: serve_replica(
+        *a, **{**kw, "max_wait_s": case["max_wait_s"]})
+    smoke._drive_pinned = driven
+    try:
+        for name in case["scenarios"]:
+            engine.plan_cache(reload=True)
+            records.clear()
+            res = getattr(smoke, f"scenario_{name}")()
+            res["records"] = records[0]
+            out[f"{case['name']}/{name}"] = np.asarray(json.dumps(res))
+    finally:
+        elastic.carve_submeshes, replica.ServeReplica = carve, serve_replica
+        smoke._drive_pinned = drive
+
+
+def run_elastic(case, out):
+    """``carve_submeshes`` and ``rebuild_mesh`` on the four devices: each
+    mesh's shape, axes and device ids in grid order, or the error."""
+    import jax
+    from repro.runtime.elastic import carve_submeshes, rebuild_mesh
+    devs = jax.devices()
+
+    def row(mesh):
+        return {"shape": dict(mesh.shape), "axes": list(mesh.axis_names),
+                "ids": [d.id for d in mesh.devices.flat]}
+    rows = {}
+    for n, model_axis, pods in case["carves"]:
+        try:
+            rows[f"carve/{n}/{model_axis}/{pods}"] = [
+                row(m) for m in carve_submeshes(
+                    n, model_axis=model_axis, prefer_pods=pods)]
+        except ValueError as e:
+            rows[f"carve/{n}/{model_axis}/{pods}"] = f"ValueError: {e}"
+    for live, model_axis, pods in case["rebuilds"]:
+        key = f"rebuild/{','.join(map(str, live))}/{model_axis}/{pods}"
+        try:
+            rows[key] = row(rebuild_mesh([devs[i] for i in live],
+                                         model_axis=model_axis,
+                                         prefer_pods=pods))
+        except ValueError as e:
+            rows[key] = f"ValueError: {e}"
+    out[case["name"]] = np.asarray(json.dumps(rows))
+
+
 RUNNERS = {"serve": run_serve, "allreduce": run_allreduce,
            "mesh": run_mesh, "report": run_report,
            "placement": run_placement, "hint": run_hint,
            "single": run_single,
-           "batch": run_batch, "session": run_session}
+           "batch": run_batch, "session": run_session,
+           "fleet": run_fleet, "fleet_chaos": run_fleet_chaos,
+           "elastic": run_elastic}
 
 
 def main(argv):

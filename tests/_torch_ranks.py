@@ -549,6 +549,264 @@ def play_session(system, case: dict, *, controller: bool = True,
     return out
 
 
+def fleet_config(case, PIRConfig):
+    """A fleet case's config, in either package (``PIRConfig``)."""
+    return PIRConfig(n_items=case["n_items"], item_bytes=case["item_bytes"],
+                     protocol=case["protocol"],
+                     n_servers=case.get("n_servers", 2),
+                     checksum=case.get("checksum", False))
+
+
+def fleet_kw(case) -> dict:
+    """The keywords of a fleet case's replicas that their device halves
+    share (the followers' ``follow_fleet`` takes these)."""
+    return dict(n_queries=case["n_queries"], buckets=tuple(case["buckets"]),
+                n_clusters=case["n_clusters"][str(case["_model_axis"])],
+                path=None)
+
+
+def _fleet_stats(replica) -> dict:
+    """What a replica's session left on the controller: its scheduler's
+    batches, buckets, lanes and sheds, and the hint counters it holds (the
+    database's where the controller holds one)."""
+    sched = replica.scheduler
+    channel = getattr(sched, "channel", None)
+    out = {"batches": sched.stats.batches,
+           "sent": None if channel is None else dict(channel.sent),
+           "bucket_counts": {str(k): v for k, v in sorted(
+               sched.stats.bucket_counts.items())},
+           "lanes": sorted(sched.monitor.ewma),
+           "reassignments": sched.stats.reassignments}
+    pir = replica.pir
+    if hasattr(pir, "hint_fetches"):
+        st = getattr(pir.db, "stats", None)
+        out["hint_stats"] = [None if st is None else st.n_hint_builds,
+                             None if st is None else st.n_hint_deltas,
+                             pir.hint_fetches]
+    return out
+
+
+def play_fleet(api, case: dict, meshes, *, timeout: float = 120.0) -> dict:
+    """Run a fleet script (``case["steps"]``) on the fleet's controller, the
+    same way in both packages: ``api`` has the package's ``Router``,
+    ``ServeReplica``, ``PIRConfig``, ``make_database`` and ``close_fleet``
+    (a no-op for the reference). Steps:
+
+      ["attach", label, rid, mesh, key_seed, warm_from]
+                                a replica on ``meshes[mesh]`` with its own
+                                seeded client rng (warm plans from the
+                                replica labelled ``warm_from``), attached
+      ["publish", rows, seed]   ``update`` + ``publish`` through the router
+      ["submit", rid, [i, ...]] queries in a session pinned to ``rid``
+      ["wait"]                  resolve every future since the last wait
+      ["kill", rid]             ``kill`` the replica
+      ["detach", rid]           graceful leave (handed-off count kept)
+      ["close"]                 close every replica, then the fleet
+
+    Returns the groups of outcomes (record, epoch, error, the replica that
+    answered), the published epochs and the replicas' epochs after each,
+    each replica's plan provenance at attach and session stats as it
+    leaves, the suspects after each step that changes membership, and the
+    router's failovers and resubmits."""
+    cfg = fleet_config(case, api.PIRConfig)
+    db = api.make_database(np.random.default_rng(case["db_seed"]),
+                           cfg.n_items, cfg.item_bytes)
+    router = api.Router(rng=np.random.default_rng(case["router_seed"]),
+                        base_delay=0.001, max_delay=0.01)
+    kw = dict(fleet_kw(case), max_wait_s=case["max_wait_s"])
+    out = {"groups": [], "epochs": [], "provenance": {}, "stats": {},
+           "suspects": [], "handed_off": []}
+    labels, futs = {}, []
+
+    def leaving(rid):
+        for label, rep in labels.items():
+            if rep is router.replicas.get(rid):
+                out["stats"][label] = _fleet_stats(rep)
+    for step in case["steps"]:
+        op = step[0]
+        if op == "attach":
+            label, rid, mesh, seed, warm = step[1:]
+            rep = api.ServeReplica(
+                rid, db, cfg, meshes[mesh],
+                warm_plans=None if warm is None
+                else labels[warm].export_plans(),
+                client_rng=np.random.default_rng(seed), **kw)
+            labels[label] = router.attach(rep)
+            out["provenance"][label] = sorted(
+                {r["provenance"] for r in rep.plan_report().values()})
+        elif op == "publish":
+            rows, seed = step[1], step[2]
+            router.update(rows, session_vals(case["item_bytes"], rows, seed))
+            out["epochs"].append([int(router.publish()), {
+                rid: int(r.epoch) for rid, r in sorted(
+                    router.replicas.items())}])
+        elif op == "submit":
+            session = router.session(f"pin-{step[1]}")
+            session.replica = step[1]
+            futs += [router.submit(int(i), session=session) for i in step[2]]
+        elif op == "wait":
+            out["groups"].append([dict(_outcome(f, timeout),
+                                       rid=f.context.get("rid"))
+                                  for f in futs])
+            futs = []
+        elif op == "kill":
+            router.replicas[step[1]].kill("killed under load")
+            out["suspects"].append(router.registry.suspects())
+        elif op == "detach":
+            leaving(step[1])
+            out["handed_off"].append(router.detach(step[1]))
+            out["suspects"].append(router.registry.suspects())
+        elif op == "close":
+            out["final_epochs"] = {rid: int(r.epoch) for rid, r in sorted(
+                router.replicas.items())}
+            for rid in sorted(router.replicas):
+                leaving(rid)
+                router.replicas[rid].close()
+            for label, rep in labels.items():
+                if label not in out["stats"]:
+                    out["stats"][label] = _fleet_stats(rep)
+            api.close_fleet(meshes)
+        else:
+            raise ValueError(f"unknown step {step!r}")
+    out.update(failovers=router.failovers, resubmitted=router.resubmitted,
+               integrity_failures=router.integrity_failures)
+    return out
+
+
+def port_fleet_api():
+    import types
+    from repro_torch.config import PIRConfig
+    from repro_torch.core import pir
+    from repro_torch.replica import Router, ServeReplica, close_fleet
+    return types.SimpleNamespace(
+        Router=Router, ServeReplica=ServeReplica, PIRConfig=PIRConfig,
+        make_database=pir.make_database, close_fleet=close_fleet)
+
+
+def scenario_fleet(spec) -> dict:
+    """Each fleet case on two sub-meshes of the four ranks for each of its
+    model axes (``carve_submeshes(2, model_axis=)``, every rank): rank 0,
+    the fleet's controller, plays the script (``play_fleet``), every other
+    rank follows the fleet; each rank's kernel counters' plain calls and
+    the time it took to return after the controller closed the fleet."""
+    import torch.distributed as dist
+    from repro_torch import engine
+    from repro_torch.config import PIRConfig
+    from repro_torch.core import lwe, pir
+    from repro_torch.kernels import ops
+    from repro_torch.replica import follow_fleet
+    from repro_torch.runtime.elastic import carve_submeshes
+    rank = dist.get_rank()
+    out = {}
+    for case in spec["cases"]:
+        for model_axis in case["model_axes"]:
+            case = dict(case, _model_axis=model_axis)
+            engine.plan_cache(reload=True)
+            lwe.clear_matrix_cache()
+            meshes = carve_submeshes(2, model_axis=model_axis)
+            ops.reset_counts()
+            tag = f"{case['name']}/m{model_axis}"
+            if rank == 0:
+                res = play_fleet(port_fleet_api(), case, meshes)
+                res["remote"] = {str(i): m.controller not in m.ranks
+                                 for i, m in enumerate(meshes)}
+            else:
+                cfg = fleet_config(case, PIRConfig)
+                db = pir.make_database(np.random.default_rng(case["db_seed"]),
+                                       cfg.n_items, cfg.item_bytes)
+                res = {"followed": follow_fleet(meshes, db, cfg,
+                                                **fleet_kw(case))}
+            res["t_done"] = time.monotonic()
+            res["meshes"] = [[list(m.sizes), list(m.ranks), m.controller]
+                             for m in meshes]
+            res["plain_calls"] = sum(v["plain_calls"]
+                                     for v in ops.counts().values())
+            out[tag] = res
+    return out
+
+
+def scenario_fleet_chaos(spec) -> dict:
+    """The chaos smoke's scenarios (``repro_torch.chaos.smoke``) on two
+    sub-meshes of the four ranks (``carve_submeshes(2, model_axis=)``):
+    rank 0 runs each scenario with the spec's ``max_wait_s``, keeping the
+    records its pinned queries resolved to and each replica's commands
+    sent; every other rank follows the fleet (``smoke.follow``)."""
+    import torch.distributed as dist
+    from repro_torch import engine, replica
+    from repro_torch.chaos import smoke
+    from repro_torch.core import lwe
+    from repro_torch.runtime.elastic import carve_submeshes
+    rank = dist.get_rank()
+    out = {}
+    for name in spec["scenarios"]:
+        engine.plan_cache(reload=True)
+        lwe.clear_matrix_cache()
+        meshes = carve_submeshes(2, model_axis=spec["model_axis"])
+        if rank != 0:
+            res = {"followed": smoke.follow(name, meshes)}
+        else:
+            built, records = [], []
+            serve_replica, drive = replica.ServeReplica, smoke._drive_pinned
+
+            class Recorded(serve_replica):
+                def __init__(self, *args, **kwargs):
+                    super().__init__(*args, **kwargs)
+                    built.append(self)
+
+            def driven(*args, **kwargs):
+                futs = drive(*args, **kwargs)
+                records.append([np.asarray(f.result()).tolist()
+                                for f in futs])
+                return futs
+            replica.ServeReplica, smoke._drive_pinned = Recorded, driven
+            try:
+                res = getattr(smoke, f"scenario_{name}")(
+                    meshes=meshes, max_wait_s=spec["max_wait_s"])
+            finally:
+                replica.ServeReplica, smoke._drive_pinned = (serve_replica,
+                                                             drive)
+            res["records"] = records[0]
+            res["sent"] = {r.id: dict(r.scheduler.channel.sent)
+                           for r in built}
+        res["t_done"] = time.monotonic()
+        out[f"{spec['name']}/{name}"] = res
+    return out
+
+
+def _grid_row(mesh) -> dict:
+    """A mesh as the reference's ``run_elastic`` reports it (ranks in place
+    of device ids), and this rank's view of it."""
+    return {"shape": dict(mesh.shape), "axes": list(mesh.axis_names),
+            "ids": list(mesh.ranks), "controller": mesh.controller,
+            "contains_rank": mesh.contains_rank,
+            "coords": mesh.coords if mesh.contains_rank else None,
+            "fleet": None if mesh.fleet is None
+            else [mesh.fleet.controller, mesh.fleet.index(mesh)]}
+
+
+def scenario_elastic(spec) -> dict:
+    """``carve_submeshes`` and ``rebuild_mesh`` over the four ranks, every
+    rank alike (building the groups is collective): each mesh as
+    ``_grid_row``, or the error."""
+    from repro_torch.runtime.elastic import carve_submeshes, rebuild_mesh
+    rows = {}
+    for n, model_axis, pods in spec["carves"]:
+        key = f"carve/{n}/{model_axis}/{pods}"
+        try:
+            rows[key] = [_grid_row(m) for m in carve_submeshes(
+                n, model_axis=model_axis, prefer_pods=pods)]
+        except ValueError as e:
+            rows[key] = f"ValueError: {e}"
+    for live, model_axis, pods in spec["rebuilds"]:
+        key = f"rebuild/{','.join(map(str, live))}/{model_axis}/{pods}"
+        try:
+            rows[key] = _grid_row(rebuild_mesh(live, model_axis=model_axis,
+                                               prefer_pods=pods))
+        except ValueError as e:
+            rows[key] = f"ValueError: {e}"
+    return rows
+
+
 def scenario_hint(spec) -> dict:
     """A ``Database`` on each mesh with the LWE hint registered with its
     delta and without: both at each epoch, summed over the blocks, and the
@@ -909,7 +1167,9 @@ SCENARIOS = {"mesh": scenario_mesh, "serve": scenario_serve,
              "db": scenario_db, "facade": scenario_facade,
              "lwe": lambda spec: {**scenario_hint(spec["hint"]),
                                   **scenario_single(spec["single"])},
-             "batch": scenario_batch, "session": scenario_session}
+             "batch": scenario_batch, "session": scenario_session,
+             "fleet": scenario_fleet, "fleet_chaos": scenario_fleet_chaos,
+             "elastic": scenario_elastic}
 
 
 def main(argv) -> int:

@@ -377,6 +377,51 @@ def test_a6b_entries_left_are_the_training_half():
         q.startswith(("repro.models.", "repro.optim.")) for q in left), left
 
 
+#: the replica plane on meshes (ROADMAP §A, A6b-serve-2): each takes the
+#: reference's parameters, by name and kind, in order
+MESH_SIGNATURES = (
+    "repro.runtime.elastic.rebuild_mesh",
+    "repro.runtime.elastic.carve_submeshes",
+    "repro.replica.replica.make_pir",
+    "repro.replica.replica.ServeReplica.__init__",
+)
+
+
+def _reference_parameters(name: str) -> list:
+    """``[(name, kind), ...]`` of a reference function, read by AST."""
+    mod, attrs = name[len("repro."):].split("."), []
+    path = REF_ROOT
+    while not (path / f"{mod[0]}.py").exists():
+        path, mod = path / mod[0], mod[1:]
+    path, attrs = path / f"{mod[0]}.py", mod[1:]
+    body = ast.parse(path.read_text()).body
+    for a in attrs:
+        (node,) = [n for n in body if getattr(n, "name", None) == a]
+        body = getattr(node, "body", [])
+    args = node.args
+    out = [(a.arg, "positional") for a in args.posonlyargs + args.args]
+    if args.vararg:
+        out.append((args.vararg.arg, "var_positional"))
+    out += [(a.arg, "keyword_only") for a in args.kwonlyargs]
+    if args.kwarg:
+        out.append((args.kwarg.arg, "var_keyword"))
+    return out
+
+
+@pytest.mark.parametrize("name", MESH_SIGNATURES)
+def test_mesh_replica_plane_takes_the_references_parameters(name):
+    import inspect
+    kinds = {inspect.Parameter.POSITIONAL_ONLY: "positional",
+             inspect.Parameter.POSITIONAL_OR_KEYWORD: "positional",
+             inspect.Parameter.VAR_POSITIONAL: "var_positional",
+             inspect.Parameter.KEYWORD_ONLY: "keyword_only",
+             inspect.Parameter.VAR_KEYWORD: "var_keyword"}
+    port = _resolve_dotted("repro_torch" + name[len("repro"):])
+    got = [(p.name, kinds[p.kind])
+           for p in inspect.signature(port).parameters.values()]
+    assert got == _reference_parameters(name)
+
+
 def test_database_sharding_is_ported_under_its_class():
     assert NOT_PORTED["repro.db.sharded.ShardedDatabase.sharding"] == (
         "renamed", "repro_torch.db.sharded.Database.sharding")

@@ -1,6 +1,6 @@
 """Port parity: the replica plane — ``Router``, ``ReplicaRegistry``,
-``ServeReplica``, fleet metrics, ``split_devices`` and the elastic device
-groups — repro_torch vs repro.
+``ServeReplica``, fleet metrics, ``split_devices`` and the elastic
+sub-meshes of one process — repro_torch vs repro.
 
 The control plane runs over a fake replica (the ``ServeReplica`` surface,
 no data plane), built for each package from its own ``AnswerFuture``,
@@ -638,23 +638,38 @@ def test_plan_mesh_matches_the_reference(model_axis):
 
 @pytest.mark.parametrize("n_cards", [1, 2, 4, 8])
 def test_carve_submeshes_groups_devices_as_the_reference_splits(n_cards):
+    # one process: each sub-mesh is this rank's (1, 1) mesh on the first
+    # card of the reference's group, in the reference's axes
     cards = [f"cuda:{i}" for i in range(n_cards)]
     for n_replicas in (1, 2, 4):
         for model_axis in (1, 2):
-            if n_cards < model_axis:     # the reference's plan_mesh raises
-                with pytest.raises(ValueError):
-                    elastic.carve_submeshes(n_replicas, model_axis=model_axis,
-                                            live_devices=cards)
-                continue
-            got = elastic.carve_submeshes(n_replicas, model_axis=model_axis,
-                                          live_devices=cards)
-            groups = ref_mesh.split_devices(n_replicas, cards,
-                                            min_per_group=model_axis)
-            want = [[torch.device(d) for d in g[:ref_elastic.plan_mesh(
-                len(g), model_axis=model_axis).n_devices]] for g in groups]
-            assert got == want
-    assert elastic.carve_submeshes(2, model_axis=1, live_devices=["cpu"]) \
-        == [[torch.device("cpu")], [torch.device("cpu")]]
+            for pods in (1, 2):
+                if n_cards < model_axis:   # the reference's plan_mesh raises
+                    with pytest.raises(ValueError):
+                        elastic.carve_submeshes(
+                            n_replicas, model_axis=model_axis,
+                            live_devices=cards, prefer_pods=pods)
+                    continue
+                got = elastic.carve_submeshes(
+                    n_replicas, model_axis=model_axis, live_devices=cards,
+                    prefer_pods=pods)
+                groups = ref_mesh.split_devices(n_replicas, cards,
+                                                min_per_group=model_axis)
+                assert len(got) == len(groups)
+                for m, g in zip(got, groups):
+                    plan = ref_elastic.plan_mesh(len(g), model_axis=model_axis,
+                                                 prefer_pods=pods)
+                    assert isinstance(m, mesh.Mesh)
+                    assert m.device == torch.device(g[0])
+                    assert m.axis_names == tuple(plan.axes)
+                    assert m.sizes == (1,) * len(plan.axes)
+                    assert (m.ranks, m.fleet, m.multi_process) == ((0,), None,
+                                                                   False)
+    got = elastic.carve_submeshes(2, model_axis=1, live_devices=["cpu"])
+    assert got == [mesh.single_mesh("cpu")] * 2
+    assert [m.device for m in got] == [torch.device("cpu")] * 2
+    assert elastic.rebuild_mesh(["cpu"], model_axis=1) == \
+        mesh.single_mesh("cpu")
 
 
 def test_device_groups_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -690,7 +705,8 @@ def test_plan_report_rows_have_the_reference_keys(protocol, n_servers,
                     n_servers=n_servers, batch_queries=4)
     ref_cfg = RefPIRConfig(**cfg.to_dict())
     db = pir.make_database(np.random.default_rng(0), cfg.n_items, 32)
-    system = replica.make_pir(db, cfg, "cpu", n_queries=4, buckets=(1, 4))
+    system = replica.make_pir(db, cfg, _cpu_meshes()[0], n_queries=4,
+                              buckets=(1, 4))
     report = system.servers[0].plan_report()
     assert sorted(report) == [1, 4]
     ref_row = ref_plan_report(ref_cfg, ref_protocol.plan_for(ref_cfg, 4), 4)
@@ -715,12 +731,13 @@ def test_serve_replica_surface_on_the_cpu(no_plan_cache):
     cfg = PIRConfig(n_items=1 << 10, item_bytes=32, protocol="lwe-simple-1",
                     n_servers=1, batch_queries=4)
     host = pir.make_database(np.random.default_rng(0), cfg.n_items, 32)
-    rep = replica.ServeReplica("x", host, cfg, "cpu", n_queries=4,
+    meshes = _cpu_meshes()
+    rep = replica.ServeReplica("x", host, cfg, meshes[0], n_queries=4,
                                buckets=(4,), max_wait_s=0.002,
                                client_rng=np.random.default_rng(1))
     assert isinstance(rep.pir, serve_loop.SingleServerPIR)
-    assert isinstance(replica.make_pir(host, PIRConfig(n_items=1 << 10), "cpu",
-                                       n_queries=4, buckets=(4,)),
+    assert isinstance(replica.make_pir(host, PIRConfig(n_items=1 << 10),
+                                       meshes[1], n_queries=4, buckets=(4,)),
                       serve_loop.MultiServerPIR)
     seen, beats = [], []
     unsub = rep.subscribe_epochs(seen.append)
@@ -744,7 +761,7 @@ def test_serve_replica_surface_on_the_cpu(no_plan_cache):
     finally:
         rep.close()
     assert not rep.running
-    other = replica.ServeReplica("y", host, cfg, "cpu", n_queries=4,
+    other = replica.ServeReplica("y", host, cfg, meshes[1], n_queries=4,
                                  buckets=(4,), max_wait_s=60.0,
                                  client_rng=np.random.default_rng(2))
     other.apply_delta([3], vals)
@@ -782,6 +799,12 @@ def no_plan_cache(monkeypatch):
     engine.plan_cache(reload=True)
 
 
+def _cpu_meshes():
+    """Two replicas' meshes on the CPU: without a process group, the
+    ``(1, 1)`` mesh of this process on ``cpu``."""
+    return elastic.carve_submeshes(2, model_axis=1, live_devices=["cpu"])
+
+
 def _close_all(router, *extra):
     for r in list(router.replicas.values()) + list(extra):
         r.close()
@@ -811,15 +834,17 @@ def test_xor_fleet_publish_kill_rejoin_detach_is_byte_exact(no_plan_cache):
             assert f.epoch == epoch
 
     kw = dict(n_queries=4, buckets=(1, 4))
+    meshes = _cpu_meshes()
     router = replica.Router(rng=np.random.default_rng(2), base_delay=0.001,
                             max_delay=0.01)
     # r0 waits 0.5 s before cutting an under-full batch, so that the queries
     # after its last full batch are still queued when it is killed
     r0 = router.attach(replica.ServeReplica(
-        "r0", host, cfg, "cpu", max_wait_s=0.5,
+        "r0", host, cfg, meshes[0], max_wait_s=0.5,
         client_rng=np.random.default_rng(3), **kw))
     r1 = router.attach(replica.ServeReplica(
-        "r1", host, cfg, "cpu", client_rng=np.random.default_rng(4), **kw))
+        "r1", host, cfg, meshes[1], client_rng=np.random.default_rng(4),
+        **kw))
     try:
         assert {r["provenance"] for r in r0.plan_report().values()} == \
             {"heuristic"}
@@ -839,7 +864,7 @@ def test_xor_fleet_publish_kill_rejoin_detach_is_byte_exact(no_plan_cache):
         # warm rejoin: the delta log replays, the plans come from r1
         router.detach("r0")
         r0b = router.attach(replica.ServeReplica(
-            "r0", host, cfg, "cpu", warm_plans=r1.export_plans(),
+            "r0", host, cfg, meshes[0], warm_plans=r1.export_plans(),
             client_rng=np.random.default_rng(5), **kw))
         assert r0b.epoch == 1
         assert {r["provenance"] for r in r0b.plan_report().values()} == \
@@ -853,7 +878,7 @@ def test_xor_fleet_publish_kill_rejoin_detach_is_byte_exact(no_plan_cache):
         # graceful leave: r2 holds every query pending (one bucket of 8,
         # a minute's wait), so detach hands all six off to the others
         r2 = router.attach(replica.ServeReplica(
-            "r2", host, cfg, "cpu", n_queries=8, buckets=(8,),
+            "r2", host, cfg, meshes[0], n_queries=8, buckets=(8,),
             max_wait_s=60.0, client_rng=np.random.default_rng(6)))
         assert r2.epoch == 1
         s3 = router.session("leaver")
@@ -884,13 +909,13 @@ def test_lwe_fleet_failover_then_rejoin_hot(no_plan_cache):
     np.testing.assert_array_equal(db, ref_db)
     cfg = PIRConfig(n_items=n, item_bytes=32, protocol="lwe-simple-1",
                     n_servers=1, batch_queries=4)
-    groups = elastic.carve_submeshes(2, model_axis=1, live_devices=["cpu"])
+    meshes = _cpu_meshes()
     router = replica.Router(rng=np.random.default_rng(0), base_delay=0.01,
                             max_delay=0.1)
     kw = dict(n_queries=4, buckets=(4,), max_wait_s=0.002,
               client_rng=np.random.default_rng(7))
     r0, r1 = [router.attach(replica.ServeReplica(f"r{i}", db, cfg,
-                                                 groups[i][0], **kw))
+                                                 meshes[i], **kw))
               for i in range(2)]
     try:
         new_val = np.arange(8, dtype=np.uint32).reshape(1, 8)
@@ -915,7 +940,7 @@ def test_lwe_fleet_failover_then_rejoin_hot(no_plan_cache):
 
         router.detach("r0")
         r0b = replica.ServeReplica(
-            "r0", db, cfg, groups[0][0], warm_plans=r1.export_plans(),
+            "r0", db, cfg, meshes[0], warm_plans=r1.export_plans(),
             n_queries=4, buckets=(4,), max_wait_s=0.002,
             client_rng=np.random.default_rng(8))
         router.attach(r0b)
@@ -999,11 +1024,11 @@ def card():
 def test_xor_fleet_kill_and_rejoin_on_the_card(card, no_plan_cache):
     cfg = PIRConfig(n_items=1 << 12, item_bytes=32)
     host = pir.make_database(np.random.default_rng(61), cfg.n_items, 32)
-    groups = elastic.carve_submeshes(2, model_axis=1)
+    meshes = elastic.carve_submeshes(2, model_axis=1)
     router = replica.Router(rng=np.random.default_rng(62), base_delay=0.001)
     kw = dict(n_queries=4, buckets=(1, 4), max_wait_s=0.5)
     r0, r1 = [router.attach(replica.ServeReplica(
-        f"r{i}", host, cfg, groups[i][0],
+        f"r{i}", host, cfg, meshes[i],
         client_rng=np.random.default_rng(63 + i), **kw)) for i in range(2)]
     try:
         s = router.session("victim")
@@ -1016,7 +1041,7 @@ def test_xor_fleet_kill_and_rejoin_on_the_card(card, no_plan_cache):
         assert router.failovers >= 2
         router.detach("r0")
         r0b = router.attach(replica.ServeReplica(
-            "r0", host, cfg, groups[0][0], warm_plans=r1.export_plans(),
+            "r0", host, cfg, meshes[0], warm_plans=r1.export_plans(),
             client_rng=np.random.default_rng(65), **kw))
         assert {r["provenance"] for r in r0b.plan_report().values()} == \
             {"warm"}

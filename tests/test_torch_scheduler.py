@@ -59,9 +59,11 @@ class Fake:
     lane of every completed batch and the ``queue_depth`` then."""
 
     def __init__(self, pkg, *, buckets=(2, 4), n_clusters=1, seed=(),
-                 factor=2.0, fail_first=False, **kw):
+                 factor=2.0, fail_first=False, hold=None, **kw):
         serve, flt = PACKAGES[pkg]
         self.now = 0.0
+        #: a threading.Event every dispatch waits for, when given
+        self.hold = hold
         self.done = []              # (lane, items, queue_depth) per batch
         self.beats = 0
         self._finalized = []
@@ -96,6 +98,8 @@ class Fake:
         return payload + [payload[-1]] * (b - len(payload))
 
     def dispatch(self, staged):
+        if self.hold is not None:
+            self.hold.wait()
         return [x * 2 for x in staged]
 
     def finalize(self, raw, n):
@@ -245,15 +249,20 @@ def scenario_kill_first_wins(pkg):
 
 def scenario_kill_running_session(pkg):
     """``tests/test_serving.py:299``: a kill aborts a running session and
-    every future resolves with the kill's exception."""
-    f = Fake(pkg, buckets=(2,), max_wait_s=60.0)
+    every future resolves with the kill's exception. The first bucket's
+    dispatch waits until the kill has returned, so that it cannot resolve
+    before it, however the threads are scheduled."""
+    hold = threading.Event()
+    f = Fake(pkg, buckets=(2,), max_wait_s=60.0, hold=hold)
     f.sched.start()
     try:
         futs = [f.sched.submit(i) for i in range(3)]
         f.sched.kill(RuntimeError("injected fault"))
+        hold.set()
         outcomes = [outcome(x, timeout=30.0) for x in futs]
         stopped = wait_stopped(f.sched)
     finally:
+        hold.set()
         f.sched.stop()
     return dict(outcomes=outcomes, stopped=stopped,
                 depth=f.sched.queue_depth)
